@@ -5,23 +5,36 @@
 
 Phases, each printed as it runs; any failure exits non-zero:
   1. card: name, count, power limit (nvidia-smi)
-  2. build: nvcc builds csrc/cfconv.cu for sm_90a; the -Xptxas -v report
+  2. build: nvcc builds csrc/cfconv.cu and csrc/triplet_slot.cu for sm_90a,
+     both at once; the -Xptxas -v reports
   3. kernel vs plain: cfconv forward and all six gradients against the plain
      PyTorch version on the card, at the SchNetDense bucket shapes, in f32
      and bf16, need_dist_grad on and off; repeated backwards bitwise equal
-  4. main path: SchNetDense (4 x 128, bf16, fused cfconv) takes Adam steps
+  4. main path 1: SchNetDense (4 x 128, bf16, fused cfconv) takes Adam steps
      on size-bucketed dense batches through make_dense_step_fns; the launch
      counters must show every cfconv call went through the kernels; the
      first step's loss and gradients are held against the plain branch;
      one eval pass through ThreeDEvaluator
   5. times: step ms and edges/s; per-bucket kernel ms beside the bound and
      the plain version's ms
-The line before the last lists the kernels as JSON; the last line is
+  6. kernel vs plain: fused_triplet_slot forward and its four gradients
+     against the plain version at the flagship SphereNet shapes (pt from a
+     real batch), has_t on and off, f32 and bf16, dpt asked for and not;
+     repeated backwards bitwise equal
+  7. main path 2: SphereNet (bench.py bench_spherenet: 4 x 128, n=3, k=6,
+     K=16, slots of 29 atoms, bf16, slot kernel) takes Adam steps on
+     MoleculeLoader batches through make_step_fns; 4 + 4 triplet_slot
+     launches per step; the first step's loss and gradients are held
+     against the unfused branch of the same weights; radius_blocked_dropped
+     must be 0; one eval pass through ThreeDEvaluator
+  8. times: step ms, edges/s; per-layer triplet_slot kernel ms beside the
+     bound and the plain version's ms
+The card's name and power limit (nvidia-smi), then the kernels as JSON,
+are the two lines before the last; the last line is
 {"ok": true, "device": {...}}.
 """
 import json
 import math
-import os
 import subprocess
 import sys
 import time
@@ -46,6 +59,27 @@ STEP_TOL = {"f32": (1e-4, 1e-3), "bf16": (5e-2, 2.5e-1)}
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 PEAK_BYTES = 3.35e12
 SFU_PER_SM_CLK = 16
+
+# SphereNet energy training on the slot layout: bench.py:101-184
+# (bench_spherenet), batches of 96 molecules in slots of 29 atoms
+SN_KW = dict(cutoff=5.0, num_layers=4, hidden_channels=128, num_spherical=3,
+             num_radial=6, nk_degree=16, block_size=29)
+SN_SLOT = dict(pallas_triplet=True, pallas_fuse_basis=True, pallas_slot=True)
+SN_G, SN_STEPS, SN_WARMUP = 96, 10, 3
+SN_C = 64                                  # int_emb_size: the kernel's C
+# kernel vs plain, largest error over the largest reference value per
+# tensor. f32: sums in another order. bf16: both round the same operands
+# (sbf, tbf, the gathered x) to bf16 and sum in f32, then round the output
+# and the gradients to bf16 once, so a sum in another order may land one
+# bf16 step (2^-8 of the value) away.
+SN_TOL = {"f32": 1e-4, "bf16": 1e-2}
+# first SphereNet step, slot kernel vs the unfused branch of the same
+# weights: loss relative error, gradients ||a-b|| / ||b|| per parameter.
+# f32: sums in another order. bf16: the unfused branch rounds the [T, C]
+# basis projections, the per-triplet products and the sum over triplets to
+# bf16 where the kernel keeps f32, and that drifts through 4 layers (the
+# bounds are PR 1's for the same kind of comparison).
+SN_STEP_TOL = {"f32": (1e-4, 1e-3), "bf16": (5e-2, 2.5e-1)}
 
 
 def log(*a):
@@ -175,7 +209,7 @@ def first_step_check(torch, make_model, batches):
             m.use_kernel = use_kernel
             loss = dense_loss(m, batches)
             loss.backward()
-            res[use_kernel] = (float(loss),
+            res[use_kernel] = (float(loss.detach()),
                                [p.grad.float() for p in m.parameters()])
             del m, loss
         (lk, gk), (lp, gp) = res[True], res[False]
@@ -218,7 +252,9 @@ def phase_main_path(torch, cf, dev, batches_list):
     opt = torch.optim.Adam(model.parameters(), lr=5e-4)
     train_step, eval_step = make_dense_step_fns(model, opt, loss="l1")
 
+    from dig_tpu_torch.ops import triplet_slot as ts
     cf.reset_launch_counts()
+    ts.reset_launch_counts()
     losses, t_start = [], None
     for s, bs in enumerate(batches_list):
         if s == WARMUP:
@@ -340,6 +376,331 @@ def phase_times(torch, cf, inputs, sfu_rate):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# SphereNet on the slot layout: fused_triplet_slot
+# ---------------------------------------------------------------------------
+
+def sn_batches(torch, dev, n):
+    """bench_spherenet's batches; the target is the first column of y, as
+    its loss (``energy``)."""
+    from dig_tpu_torch.datasets import MoleculeLoader, synthetic_molecules
+    mols = synthetic_molecules(SN_G * (n + 1), seed=0, min_atoms=12,
+                               max_atoms=29, box=6.0)
+    it = iter(MoleculeLoader(mols, SN_G, slot_size=SN_KW["block_size"],
+                             shuffle=True, seed=0, device=dev))
+    return [b.replace_globals(energy=b.globals["y"][:, :1])
+            for b in (next(it) for _ in range(n))]
+
+
+def sn_pair_counts(torch, b, geo):
+    """(uncapped in-cutoff directed pairs as bench.py:164-172 counts them,
+    their largest in-degree, NK edges kept, radius_blocked_dropped)."""
+    from dig_tpu_torch.ops.radius import radius_blocked_dropped
+    pos, nm, ng = b.nodes["pos"], b.node_mask, b.node_graph
+    d = (pos[:, None] - pos[None, :]).norm(dim=-1)
+    eye = torch.eye(pos.shape[0], dtype=torch.bool, device=pos.device)
+    adj = ((d < SN_KW["cutoff"]) & ~eye & nm[:, None] & nm[None, :]
+           & (ng[:, None] == ng[None, :]))
+    dropped = radius_blocked_dropped(pos, ng, nm, SN_KW["cutoff"],
+                                     SN_KW["block_size"])
+    return (int(adj.sum()), int(adj.sum(1).max()),
+            int(geo.nkg.edge_mask.sum()), int(dropped))
+
+
+def sn_model(torch, dev, cd, slot):
+    from dig_tpu_torch.models import SphereNet
+    return SphereNet(**SN_KW, **(SN_SLOT if slot else {}), compute_dtype=cd,
+                     generator=torch.Generator().manual_seed(0), device=dev)
+
+
+def sn_kernel_inputs(torch, dev, batch):
+    """pt, m2T, lj of a real batch (float32, the model's own operands) and
+    seeded random x, ws, wt and output cotangent at the flagship widths."""
+    model = sn_model(torch, dev, torch.float32, True)
+    with torch.no_grad():
+        geo = model.geometry(batch.nodes["pos"], batch)
+        pt, m2t, lj = model.slot_operands(geo)
+    n, k = SN_KW["num_spherical"], SN_KW["num_radial"]
+    A, K = SN_KW["block_size"], SN_KW["nk_degree"]
+    E = m2t.shape[1]
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    r = lambda *s: torch.randn(*s, generator=gen).to(dev)
+    # the work this batch needs: real triplets (m2T != 0), the distinct x
+    # rows (slot*A + lj)*K + s they gather, the edges that own one
+    real = m2t != 0
+    e = torch.arange(E, device=dev)
+    x_rows = ((e // (A * K)) * A + lj[0].long()) * K \
+        + torch.arange(K, device=dev)[:, None]
+    work = {"triplets": int(real.sum()),
+            "x_rows": int(torch.unique(x_rows[real]).numel()),
+            "edges": int(real.any(0).sum())}
+    return {"pt": pt, "m2t": m2t, "lj": lj, "x": r(E, SN_C),
+            "ws": r(n * k, SN_C) * (n * k) ** -0.5,
+            "wt": r(n * n * k, SN_C) * (n * n * k) ** -0.5,
+            "ct": r(E, SN_C), "work": work}
+
+
+def sn_args(torch, inp, has_t, dt):
+    """Operands of fused_triplet_slot for one setting; (args, cfg)."""
+    n, k = SN_KW["num_spherical"], SN_KW["num_radial"]
+    R = n * k + n + (n * n if has_t else 0)
+    wt = inp["wt"] if has_t else torch.zeros_like(inp["wt"][:1])
+    args = [inp["x"].to(dt), inp["pt"][:, :R].to(dt).contiguous(),
+            inp["ws"].to(dt), wt.to(dt), inp["m2t"].to(dt), inp["lj"]]
+    return args, (n, k, has_t)
+
+
+def slot_grads(torch, fn, args, ct, need_pt):
+    """fn's output and the gradients of x, pt (None unless need_pt), ws
+    and wt; wt's is 0 where fn does not use it (no torsion)."""
+    xs = [a.clone().requires_grad_(i != 1 or need_pt)
+          for i, a in enumerate(args[:4])]
+    out = fn(xs + list(args[4:]))
+    want = [x for x in xs if x.requires_grad]
+    gs = torch.autograd.grad(out, want, ct, allow_unused=True)
+    gs = [torch.zeros_like(x) if g is None else g for g, x in zip(gs, want)]
+    if not need_pt:
+        gs.insert(1, None)
+    return out, gs
+
+
+def phase_sn_kernel_vs_plain(torch, ts, inp):
+    A, K = SN_KW["block_size"], SN_KW["nk_degree"]
+    names = ["dx", "dpt", "dws", "dwt"]
+    errs = {}
+    for has_t in (True, False):
+        for prec, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            args, cfg = sn_args(torch, inp, has_t, dt)
+            ct = inp["ct"].to(dt)
+            plain = lambda xs: ts.fused_triplet_slot_reference(*xs, A, K, cfg)
+            kern = lambda xs: ts.fused_triplet_slot(*xs, A, K, cfg)
+            out_p, g_p = slot_grads(torch, plain, args, ct, True)
+            out_k, g_k = slot_grads(torch, kern, args, ct, True)
+            torch.cuda.synchronize()
+            e = rel_err(out_k, out_p)
+            line = [f"fwd {e:.3e}"]
+            if out_k.dtype != dt or e >= SN_TOL[prec]:
+                fail(f"triplet_slot forward has_t={has_t} {prec}: rel err "
+                     f"{e} (dtype {out_k.dtype})")
+            for nm, a, b in zip(names, g_k, g_p):
+                e = rel_err(a, b)
+                line.append(f"{nm} {e:.3e}")
+                if a.dtype != b.dtype or e >= SN_TOL[prec]:
+                    fail(f"triplet_slot {nm} has_t={has_t} {prec}: rel err "
+                         f"{e}")
+            _, g_n = slot_grads(torch, kern, args, ct, False)
+            for nm, a, b in zip(names, g_n, g_k):
+                if nm != "dpt" and not torch.equal(a, b):
+                    fail(f"triplet_slot {nm} changed when dpt was not asked "
+                         f"for (has_t={has_t}, {prec})")
+            _, again = slot_grads(torch, kern, args, ct, False)
+            if not all(a is None or torch.equal(a, b)
+                       for a, b in zip(again, g_n)):
+                fail(f"triplet_slot backward not bitwise repeatable "
+                     f"(has_t={has_t}, {prec})")
+            log(f"  has_t={has_t} {prec}: rel err " + ", ".join(line)
+                + "; without dpt the same bits; repeated backward the same "
+                "bits")
+            if has_t and prec == "bf16":      # the main path's setting
+                errs["fwd"] = float((out_k - out_p).detach().float().abs().max())
+                errs["bwd"] = max(float((a.float() - b.float()).abs().max())
+                                  for a, b in zip(g_n, g_p) if a is not None)
+    log(f"  max abs err (bf16, has_t, no dpt as on the main path): fwd "
+        f"{errs['fwd']:.3e} bwd {errs['bwd']:.3e}")
+    return errs
+
+
+def sn_first_step(torch, dev, batch):
+    """Loss and gradients of the first step through make_step_fns (lr 0,
+    so the weights stay), slot kernel vs unfused branch, f32 and bf16."""
+    from dig_tpu_torch.train import make_step_fns
+    errs = {}
+    for prec, cd in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        res = {}
+        for slot in (True, False):
+            m = sn_model(torch, dev, cd, slot)
+            step, _ = make_step_fns(m, torch.optim.SGD(m.parameters(), lr=0.0),
+                                    loss="l1", target_key="energy")
+            loss = float(step(batch)["loss"])
+            res[slot] = (loss, [p.grad.float() for p in m.parameters()])
+            del m, step
+        (lk, gk), (lp, gp) = res[True], res[False]
+        loss_err = abs(lk - lp) / abs(lp)
+        grad_err = max(float((a - b).norm() / b.norm().clamp_min(1e-12))
+                       for a, b in zip(gk, gp))
+        log(f"  first step {prec}: loss slot kernel {lk:.6f} unfused {lp:.6f} "
+            f"(rel {loss_err:.3e}); worst grad rel-norm err {grad_err:.3e}")
+        tol_loss, tol_grad = SN_STEP_TOL[prec]
+        if not math.isfinite(lk) or loss_err >= tol_loss:
+            fail(f"SphereNet first-step loss {prec}: {lk} vs {lp}")
+        if grad_err >= tol_grad:
+            fail(f"SphereNet first-step gradients {prec} differ: {grad_err}")
+        errs[prec] = {"loss_rel_err": loss_err, "grad_rel_err": grad_err}
+    return errs
+
+
+def phase_sn_main_path(torch, cf, ts, dev, batches):
+    from dig_tpu_torch.threed import ThreeDEvaluator
+    from dig_tpu_torch.train import make_step_fns
+    step_errs = sn_first_step(torch, dev, batches[0])
+    model = sn_model(torch, dev, torch.bfloat16, True)
+    counts = []
+    with torch.no_grad():
+        for b in batches:
+            counts.append(sn_pair_counts(
+                torch, b, model.geometry(b.nodes["pos"], b)))
+    if any(c[3] for c in counts):
+        fail(f"radius_blocked_dropped {[c[3] for c in counts]}: the batches "
+             f"are not slot-aligned")
+    opt = torch.optim.Adam(model.parameters(), lr=5e-4)
+    train_step, eval_step = make_step_fns(model, opt, loss="l1",
+                                          target_key="energy")
+    cf.reset_launch_counts()
+    ts.reset_launch_counts()
+    losses, t_start = [], None
+    for s, b in enumerate(batches):
+        if s == SN_WARMUP:
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+        losses.append(train_step(b)["loss"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t_start
+    launches = (ts.launches_fwd, ts.launches_bwd)
+    losses = [float(x) for x in losses]
+    want = SN_KW["num_layers"] * len(batches)
+    log(f"  {len(batches)} Adam steps, losses {[round(x, 5) for x in losses]}")
+    log(f"  triplet_slot launches fwd {launches[0]} bwd {launches[1]} "
+        f"(layers x steps = {want}); cfconv {cf.launches_fwd} "
+        f"{cf.launches_bwd}")
+    if not all(math.isfinite(x) for x in losses):
+        fail("non-finite SphereNet loss")
+    if launches != (want, want):
+        fail(f"triplet_slot launch counts {launches} != ({want}, {want})")
+    timed = len(batches) - SN_WARMUP
+    pairs = sum(c[0] for c in counts[SN_WARMUP:])
+    kept = sum(c[2] for c in counts[SN_WARMUP:])
+    step_ms = dt / timed * 1e3
+    out = eval_step(batches[0])
+    m = out["graph_mask"]
+    mae = ThreeDEvaluator().eval({"y_pred": out["y_pred"][m],
+                                  "y_true": batches[0].globals["energy"][m]}
+                                 )["mae"]
+    if not math.isfinite(mae):
+        fail("non-finite SphereNet eval MAE")
+    log(f"  radius_blocked_dropped 0 in all {len(batches)} batches; largest "
+        f"uncapped in-degree {max(c[1] for c in counts)}")
+    log(f"  eval MAE {mae:.5f} over {int(m.sum())} molecules")
+    log(f"  step {step_ms:.3f} ms (mean of {timed} steps); "
+        f"{pairs / dt:.6g} edges/s counting the uncapped in-cutoff pairs "
+        f"({pairs / timed:.0f} per step, as bench.py counts), "
+        f"{kept / dt:.6g} edges/s counting the {kept / timed:.0f} NK edges "
+        f"kept per step ({1 - kept / pairs:.3f} of the pairs dropped by the "
+        f"K={SN_KW['nk_degree']} table)")
+    return {"launches_fwd": launches[0], "launches_bwd": launches[1],
+            "steps": len(batches), "losses": losses, "step_ms": step_ms,
+            "edges_per_s": pairs / dt, "kept_edges_per_s": kept / dt,
+            "pairs_per_step": pairs / timed, "kept_per_step": kept / timed,
+            "first_step": step_errs, "eval_mae": mae}
+
+
+def sn_bounds(args, work, prec, kind, need_dpt):
+    """Least time for one call's work at this data: real triplets only
+    (m2T = 0 contributes exactly zero). Bytes: each input read once where
+    a real triplet needs it (pt's column and the gathered x row of each
+    real triplet, the cotangent row of each edge that owns one), m2T, lj
+    and the weights in full, each output written in full. Operations: per
+    triplet the forward forms the NB = nk + ntk basis products, the two
+    projections (2 C NB) and the triple product (3 C); the backward
+    recomputes the projections, forms three cotangents (6 C), the weight
+    gradients (2 C NB) and the dx sum (C), and with dpt the basis
+    cotangents (2 C NB + 2 NB)."""
+    x, pt, ws, wt, m2t, lj = args
+    C, R = x.shape[1], pt.shape[1]
+    NB = ws.shape[0] + (wt.shape[0] if wt.shape[0] > 1 else 0)
+    T = work["triplets"]
+    el = lambda t: t.numel() * t.element_size()
+    w32 = (ws.numel() + wt.numel()) * 4        # the kernel takes them f32
+    inputs = (work["x_rows"] * C * x.element_size() + T * R * pt.element_size()
+              + el(m2t) + el(lj) + w32)
+    if kind == "fwd":
+        flops = T * (2 * C * NB + 3 * C + NB)
+        nbytes = inputs + el(x)
+    else:
+        flops = T * (4 * C * NB + 7 * C + NB)
+        nbytes = inputs + work["edges"] * C * 4 + x.numel() * 4 + w32
+        if need_dpt:
+            flops += T * (2 * C * NB + 2 * NB)
+            nbytes += pt.numel() * 4
+    t_ops = flops / PEAK_FLOPS[prec]
+    t_bytes = nbytes / PEAK_BYTES
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    return max(t_ops, t_bytes) * 1e3, by, flops, nbytes
+
+
+def phase_sn_times(torch, ts, inp):
+    A, K = SN_KW["block_size"], SN_KW["nk_degree"]
+    rows = []
+    for prec, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        args, cfg = sn_args(torch, inp, True, dt)
+        k_args = ts._kernel_inputs(*args, A, K, cfg)
+        ct32 = inp["ct"].float().contiguous()
+        fwd_ms = cuda_ms(torch, lambda: ts.triplet_slot_forward_kernel(
+            *k_args, A, K, cfg))
+        plain_fwd = cuda_ms(torch, lambda: ts.fused_triplet_slot_reference(
+            *args, A, K, cfg), iters=5, warmup=1)
+        xs = [a.clone().requires_grad_(i != 1)        # pt: no grad, as on
+              for i, a in enumerate(args[:4])]        # the main path
+        want = [x for x in xs if x.requires_grad]
+        out = ts.fused_triplet_slot_reference(*xs, *args[4:], A, K, cfg)
+        ct = inp["ct"].to(dt)
+        plain_bwd = cuda_ms(torch, lambda: torch.autograd.grad(
+            out, want, ct, retain_graph=True), iters=5, warmup=1)
+        del out, xs, want
+        b = sn_bounds(args, inp["work"], prec, "fwd", False)
+        rows.append({"kernel": "triplet_slot_fwd", "precision": prec,
+                     "need_dpt": None, "ms": fwd_ms, "plain_ms": plain_fwd,
+                     "bound_ms": b[0], "bound_by": b[1], "flops": b[2],
+                     "bytes": b[3]})
+        for need_dpt in (False, True):
+            bwd_ms = cuda_ms(torch, lambda: ts.triplet_slot_backward_kernel(
+                *k_args, ct32, A, K, cfg, need_dpt))
+            b = sn_bounds(args, inp["work"], prec, "bwd", need_dpt)
+            rows.append({"kernel": "triplet_slot_bwd", "precision": prec,
+                         "need_dpt": need_dpt, "ms": bwd_ms,
+                         "plain_ms": plain_bwd if not need_dpt else None,
+                         "bound_ms": b[0], "bound_by": b[1], "flops": b[2],
+                         "bytes": b[3]})
+    E = inp["x"].shape[0]
+    w = inp["work"]
+    log(f"  one layer's call at E={E}, K={K}, C={SN_C}: {w['triplets']} "
+        f"real triplets of {E * K}, gathering {w['x_rows']} distinct x rows, "
+        f"owned by {w['edges']} edges:")
+    for r in rows:
+        plain = ("" if r["plain_ms"] is None
+                 else f"; plain {r['plain_ms']:.3f} ms")
+        log(f"  {r['kernel']} {r['precision']} need_dpt={r['need_dpt']}: "
+            f"{r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']}, {r['bound_ms'] / r['ms']:.3f} of it; "
+            f"{r['flops'] / 1e9:.3f} GFLOP, {r['bytes'] / 1e6:.2f} MB"
+            f"{plain})")
+    return rows
+
+
+def build_all(_build, names):
+    """Build every CUDA source at once (one nvcc each); the seconds each
+    took and the whole."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(name):
+        t = time.perf_counter()
+        _build.build(name)
+        return time.perf_counter() - t
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(names)) as pool:
+        secs = dict(zip(names, pool.map(one, names)))
+    return secs, time.perf_counter() - t0
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -348,6 +709,7 @@ def main():
                                         synthetic_molecules)
     from dig_tpu_torch.ops import _build
     from dig_tpu_torch.ops import cfconv as cf
+    from dig_tpu_torch.ops import triplet_slot as ts
 
     torch.backends.cuda.matmul.allow_tf32 = False   # plain version = oracle
     torch.backends.cudnn.allow_tf32 = False
@@ -365,12 +727,16 @@ def main():
         f"{torch.version.cuda}")
 
     log("== 2. build")
-    tb = time.perf_counter()
-    _build.build("cfconv")
-    log(f"  nvcc sm_90a build {time.perf_counter() - tb:.1f} s")
-    for line in _build.build_report("cfconv").splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log("  " + line.strip())
+    sources = ["cfconv", "triplet_slot"]
+    secs, whole = build_all(_build, sources)
+    log(f"  nvcc sm_90a builds, one process per source, all at once: "
+        + ", ".join(f"{n} {secs[n]:.1f} s" for n in sources)
+        + f"; {whole:.1f} s in all")
+    for src in sources:
+        log(f"  {src}.cu:")
+        for line in _build.build_report(src).splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                log("    " + line.strip())
 
     per_batch = sum(SLOT_COUNTS.values())
     mols = synthetic_molecules(per_batch * (STEPS + 4), seed=0, min_atoms=12,
@@ -380,22 +746,35 @@ def main():
     it = iter(loader)
     batches = [next(it) for _ in range(STEPS + 1)]
 
-    log("== 3. kernel vs plain (bench shapes)")
+    log("== 3. kernel vs plain: cfconv (bench shapes)")
     inputs = bucket_inputs(torch, batches[-1], dev)
     errs = phase_kernel_vs_plain(torch, cf, inputs)
 
-    log("== 4. main path: SchNetDense 4x128 bf16, fused cfconv, Adam(5e-4)")
+    log("== 4. main path 1: SchNetDense 4x128 bf16, fused cfconv, "
+        "Adam(5e-4)")
     main_res = phase_main_path(torch, cf, dev, batches[:STEPS])
 
-    log("== 5. times")
+    log("== 5. times: cfconv")
     rows = phase_times(torch, cf, inputs, sfu_rate)
+    del inputs, batches, loader, it, mols
+
+    sn_b = sn_batches(torch, dev, SN_STEPS + 1)
+    log("== 6. kernel vs plain: triplet_slot (flagship shapes, pt of a "
+        "real batch)")
+    sn_inp = sn_kernel_inputs(torch, dev, sn_b[-1])
+    sn_errs = phase_sn_kernel_vs_plain(torch, ts, sn_inp)
+
+    log("== 7. main path 2: SphereNet 4x128 bf16, slot kernel, Adam(5e-4)")
+    sn_res = phase_sn_main_path(torch, cf, ts, dev, sn_b[:SN_STEPS])
+
+    log("== 8. times: triplet_slot")
+    sn_rows = phase_sn_times(torch, ts, sn_inp)
 
     def total(kernel, key):
         return sum(r[key] for r in rows if r["kernel"] == kernel
                    and r["precision"] == "bf16"
                    and r["need_dist_grad"] in (None, False))
 
-    src = "dig_tpu_torch/csrc/cfconv.cu"
     kernels = []
     for kname, launches, replaces, err in (
             ("cfconv_fwd", main_res["launches_fwd"],
@@ -406,18 +785,35 @@ def main():
                   and r["precision"] == "bf16"
                   and r["need_dist_grad"] in (None, False)]
         kernels.append({
-            "name": kname, "route": "cuda", "source": src,
+            "name": kname, "route": "cuda",
+            "source": "dig_tpu_torch/csrc/cfconv.cu",
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": total(kname, "ms"), "plain_ms": total(kname, "plain_ms"),
             "bound_ms": total(kname, "bound_ms"),
             "bound_by": max(b_rows, key=lambda r: r["bound_ms"])["bound_by"],
             "library_ms": None})
-    log("  (kernel ms, plain_ms and bound_ms: one call per bucket, summed "
-        "over the 3 buckets = one layer of one step; bf16, "
-        "need_dist_grad=False as on the main path)")
+    for kname, launches, replaces, err in (
+            ("triplet_slot_fwd", sn_res["launches_fwd"],
+             "dig_tpu/ops/pallas_triplet_slot.py:429", sn_errs["fwd"]),
+            ("triplet_slot_bwd", sn_res["launches_bwd"],
+             "dig_tpu/ops/pallas_triplet_slot.py:458", sn_errs["bwd"])):
+        r = next(r for r in sn_rows if r["kernel"] == kname
+                 and r["precision"] == "bf16" and not r["need_dpt"])
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": "dig_tpu_torch/csrc/triplet_slot.cu",
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None})
+    log("  (cfconv ms, plain_ms and bound_ms: one call per bucket, summed "
+        "over the 3 buckets = one layer of one step; triplet_slot: one "
+        "call = one layer of one step; bf16 and no geometry gradient, as on "
+        "the main paths; no PyTorch call computes either function, so "
+        "library_ms is null)")
     log(f"  total {time.perf_counter() - t0:.1f} s")
+    print(card)
     print(json.dumps({"kernels": kernels}))
-    print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)
 

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from .models.schnet_dense import SchNetDense
+from .models.spherenet import _SphericalMPNN
 
 
 @torch.no_grad()
@@ -61,4 +62,51 @@ def schnet_dense_from_flax(params: Dict[str, np.ndarray],
     dense(model.out2, 3 * L + 1)
     if todo:
         raise KeyError(f"unused flax entries: {sorted(todo)}")
+    return model
+
+
+@torch.no_grad()
+def spherenet_from_flax(params: Dict[str, np.ndarray],
+                        model: _SphericalMPNN) -> _SphericalMPNN:
+    """Copy a flax ``SphereNet`` / ``DimeNetPP`` tree into ``model``.
+
+    The fused (slot) and unfused branches share parameter names in flax,
+    so one tree loads into either branch. Dense kernels are transposed,
+    ``DistEmb_0/freq`` and the ``Embed`` table copied. Every entry must be
+    used and every parameter of ``model`` set."""
+    todo = dict(params)
+    done = set()
+
+    def take(name):
+        if name not in todo:
+            raise KeyError(f"flax tree lacks {name!r}")
+        return torch.tensor(np.asarray(todo.pop(name), np.float32))
+
+    def put(dst: torch.Tensor, src: torch.Tensor):
+        if dst.shape != src.shape:
+            raise ValueError(f"shape {tuple(src.shape)} does not fit "
+                             f"{tuple(dst.shape)}")
+        dst.copy_(src)
+        done.add(id(dst))
+
+    def denses(prefix, lins):
+        for i, lin in enumerate(lins):
+            put(lin.weight, take(f"{prefix}Dense_{i}/kernel").T)
+            if lin.bias is not None:
+                put(lin.bias, take(f"{prefix}Dense_{i}/bias"))
+
+    put(model.dist_emb.freq, take("DistEmb_0/freq"))
+    put(model.init_block.embed.weight, take("InitBlock_0/Embed_0/embedding"))
+    denses("InitBlock_0/", model.init_block.flax_denses())
+    for i, uv in enumerate(model.update_vs):
+        denses(f"UpdateV_{i}/", uv.flax_denses())
+    for l, ue in enumerate(model.update_es):
+        denses(f"UpdateE_{l}/", ue.flax_denses())
+        for r, res in enumerate([*ue.before, *ue.after]):
+            denses(f"UpdateE_{l}/ResidualLayer_{r}/", res.flax_denses())
+    if todo:
+        raise KeyError(f"unused flax entries: {sorted(todo)}")
+    unset = [n for n, p in model.named_parameters() if id(p) not in done]
+    if unset:
+        raise KeyError(f"parameters not set from the flax tree: {unset}")
     return model

@@ -34,10 +34,9 @@
 //    rounds (vj, W1, W2, rbf, h, d_pre2, d_pre1) are rounded to bf16 before
 //    each product; bf16 x bf16 is exact in f32 and sums are f32, as on a
 //    tensor core. Moving the products to wgmma is later work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
 #include <stdint.h>
+
+#include "common.cuh"
 
 namespace {
 
@@ -61,15 +60,6 @@ struct Params {
   int G, n, R, Rp;
   float cutoff, coeff, delta_mu, pi_c;
 };
-
-template <bool BF16>
-__device__ __forceinline__ float rnd(float x) {
-  if constexpr (BF16) {
-    return __bfloat162float(__float2bfloat16_rn(x));
-  } else {
-    return x;
-  }
-}
 
 __device__ __forceinline__ float softplus(float x) {
   return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
@@ -508,40 +498,6 @@ __global__ void __launch_bounds__(F / 4 * JQ, 1) cfconv_bwd_kernel(Params p) {
   }
 }
 
-__global__ void sum_partials_kernel(const float* part, int blocks, int size,
-                                    float* out) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  if (x < size) {
-    float s = 0.f;
-    for (int b = 0; b < blocks; ++b) s += part[(size_t)b * size + x];
-    out[x] = s;
-  }
-}
-
-constexpr int ERR_SHAPE = -2;  // F or R outside the compiled set
-constexpr int ERR_SMEM = -3;   // slot too large for shared memory
-
-int check_smem(size_t bytes) {
-  int dev = 0, optin = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e != cudaSuccess) return e;
-  return bytes > (size_t)optin ? ERR_SMEM : 0;
-}
-
-template <typename K>
-int launch(K kernel, int grid, int threads, size_t smem, cudaStream_t s,
-           const Params& p) {
-  int rc = check_smem(smem);
-  if (rc != 0) return rc;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  kernel<<<grid, threads, smem, s>>>(p);
-  return cudaGetLastError();
-}
-
 template <int F>
 int fwd_f(const Params& p, int bf16, int grid, cudaStream_t s) {
   const size_t smem = fwd_smem_floats(p.n, F, p.Rp) * sizeof(float);
@@ -616,8 +572,7 @@ int cfconv_bwd(const float* dist, const float* vj, const float* w1,
   }
   if (rc != 0) return rc;
   const int size = R * F + F + F * F + F;
-  sum_partials_kernel<<<(size + 255) / 256, 256, 0, s>>>(partial, grid, size, d_params);
-  return cudaGetLastError();
+  return sum_partials(partial, grid, size, d_params, s);
 }
 
 }  // extern "C"

@@ -1,0 +1,406 @@
+// Slot-resident fused triplet interaction (SphereNet / DimeNet++), forward
+// and backward, for NVIDIA Hopper (sm_90a). Plain C interface, loaded
+// through ctypes by dig_tpu_torch/ops/triplet_slot.py.
+//
+// Replaces the Pallas TPU kernels of dig_tpu/ops/pallas_triplet_slot.py:
+// _run_fwd (pl.pallas_call at :429) and _run_bwd (:458).
+//
+//   out[e] = sum_s m2T[s,e] * x[(slot(e)*A + lj[e])*K + s] * sv * tv
+//   sv = sbf[e,s] @ ws,  sbf[l*k+m] = bt[l*k+m] * y0[l]
+//   tv = tbf[e,s] @ wt,  tbf[i]     = yt[i/k] * bt[i % nk]     (has_t only)
+//   slot(e) = e / (A*K); bt, y0, yt = rows [0,nk), [nk,nk+n), [nk+n,R) of
+//   pt[s, :, e]; nk = n*k, ntk = n*n*k, R = nk + n (+ n*n with has_t).
+//
+// What bounds it on this card. Per real triplet (m2T != 0) the forward
+// costs 2 C (nk + ntk) flops for the two basis products plus a few C for
+// the triple product. The bytes it must move are pt's column and the
+// gathered x row of each real triplet, m2T and lj in full, and out. At the
+// flagship shape (E = 44,544, K = 16, C = 64, n = 3, k = 6, bf16; 276,892
+// real triplets gathering 23,217 distinct x rows in chip_smoke.py's batch)
+// that is 2.62 GFLOP and 26.9 MB per layer, so the bytes bound it (0.0080
+// ms at 3.35 TB/s against 0.0027 ms of bf16 tensor-core work;
+// chip_smoke.py recounts both from its inputs). The backward recomputes sv
+// and tv and adds the weight-gradient products: 5.25 GFLOP and 38.6 MB
+// (the f32 cotangent rows of the edges that own a real triplet in, the
+// f32 dx out), 0.0115 ms, still bound by the bytes; pt's gradient, when
+// asked for, adds 2.6 GFLOP and writes all of dpt (85.5 MB): 0.0370 ms.
+//
+// What the design does about it:
+//  - The expand gather x[sender, s] happens in the kernel: nothing of size
+//    [T, C] (T = E*K triplets) exists in device memory, only E-sized x and
+//    out and the [K, R, E] basis table, each read once per pass.
+//  - Triplets with m2T = 0 (padding, k == i, slots beyond the degree)
+//    contribute exactly zero to every output and are skipped (warp-uniform
+//    branch: a warp shares one edge).
+//  - Forward: a block owns 32 consecutive edges and walks s in a loop; the
+//    basis rows of the 32 edges for one s are staged in shared memory
+//    (coalesced over e), sbf and tbf are formed there once, and each thread
+//    keeps out[e, c] for its edges in float32 registers across all s.
+//  - Backward: a block owns one (slot, s). The dx rows (j, s) of the slot
+//    receive only from the slot's edges, so the block sums them in shared
+//    memory in edge order (each thread owns a set of rows): no atomics.
+//    dws/dwt are per-block shared-memory sums (each entry owned by one
+//    thread), written to a [blocks, ...] scratch and summed by a second
+//    kernel in a fixed tree order: two backwards give the same bits.
+//    dpt is row-local and only computed when asked for.
+//  - Products run on the FP32 pipes. In bf16 the operands the TPU kernel
+//    rounds (sbf, tbf, the gathered x) are bf16 values; bf16 x bf16 is exact
+//    in f32 and sums are f32 (the TPU kernel sums over s in bf16; here out
+//    is rounded once). wgmma for the two basis products is later work.
+#include <stdint.h>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int NT = 256;  // threads per block
+constexpr int ET = 32;   // edges per chunk
+
+template <typename T>
+constexpr bool IS_BF16 = sizeof(T) == 2;
+
+template <typename T>
+struct Params {
+  const T* x;       // [E, C]
+  const T* pt;      // [K, R, E]
+  const T* m2T;     // [K, E]
+  const float* ws;  // [nk, C]
+  const float* wt;  // [ntk, C]
+  const int* lj;    // [E]
+  const float* ct;  // [E, C] (backward)
+  T* out;           // [E, C] (forward)
+  float* dx;        // [E, C]
+  float* dpt;       // [K, R, E] or null
+  float* partial;   // [blocks, (nk + ntk) * C]
+  int E, A, K, n, k, has_t;
+  int nk, ntk, NB, R;
+};
+
+// ws / wt rows in shared memory with a row stride of C+1 floats: reads with
+// c across lanes (the products) and with the row across lanes (the basis
+// gradient) are both free of bank conflicts.
+template <int C, typename T>
+__device__ void load_weights(const Params<T>& p, float* ws_s, float* wt_s) {
+  for (int x = threadIdx.x; x < p.nk * C; x += NT) ws_s[(x / C) * (C + 1) + x % C] = p.ws[x];
+  for (int x = threadIdx.x; x < p.ntk * C; x += NT) wt_s[(x / C) * (C + 1) + x % C] = p.wt[x];
+}
+
+// pt[s, :, e0:e0+cnt] -> ptc [R][ET] (zero past cnt), m2T and lj likewise.
+template <typename T>
+__device__ void load_chunk(const Params<T>& p, int s, int e0, int cnt, float* ptc,
+                           float* m2c, int* ljc) {
+  for (int x = threadIdx.x; x < p.R * ET; x += NT) {
+    const int r = x / ET, ec = x % ET;
+    ptc[x] = ec < cnt ? ld(p.pt + ((size_t)s * p.R + r) * p.E + e0 + ec) : 0.f;
+  }
+  for (int ec = threadIdx.x; ec < ET; ec += NT) {
+    float m = 0.f;
+    int j = 0;
+    if (ec < cnt) {
+      j = p.lj[e0 + ec];
+      m = (j >= 0 && j < p.A) ? ld(p.m2T + (size_t)s * p.E + e0 + ec) : 0.f;
+    }
+    m2c[ec] = m;
+    ljc[ec] = m != 0.f ? j : 0;
+  }
+}
+
+// bas [ET][NB]: sbf (rows < nk) then tbf, rounded to T.
+template <typename T>
+__device__ void form_basis(const Params<T>& p, const float* ptc, float* bas) {
+  const int nk = p.nk, k = p.k;
+  for (int x = threadIdx.x; x < ET * p.NB; x += NT) {
+    const int ec = x / p.NB, r = x % p.NB;
+    float v;
+    if (r < nk) {
+      v = ptc[r * ET + ec] * ptc[(nk + r / k) * ET + ec];
+    } else {
+      const int i = r - nk;
+      v = ptc[(nk + p.n + i / k) * ET + ec] * ptc[(i % nk) * ET + ec];
+    }
+    bas[x] = rnd<IS_BF16<T>>(v);
+  }
+}
+
+// sv = sbf @ ws[:, c], tv = tbf @ wt[:, c] (tv = 1 without torsion).
+template <int C>
+__device__ __forceinline__ void basis_products(const float* b, const float* ws_s,
+                                               const float* wt_s, int nk, int ntk, int c,
+                                               float& sv, float& tv) {
+  sv = 0.f;
+  for (int r = 0; r < nk; ++r) sv = fmaf(b[r], ws_s[r * (C + 1) + c], sv);
+  tv = 1.f;
+  if (ntk > 0) {
+    tv = 0.f;
+    for (int i = 0; i < ntk; ++i) tv = fmaf(b[nk + i], wt_s[i * (C + 1) + c], tv);
+  }
+}
+
+template <typename T, int C>
+__global__ void __launch_bounds__(NT) triplet_slot_fwd_kernel(Params<T> p) {
+  constexpr int EG = NT / C;    // edge groups
+  constexpr int EPT = ET / EG;  // edges per thread
+  extern __shared__ __align__(16) float smem[];
+  float* ws_s = smem;                           // [nk][C+1]
+  float* wt_s = ws_s + p.nk * (C + 1);          // [ntk][C+1]
+  float* ptc = wt_s + p.ntk * (C + 1);          // [R][ET]
+  float* bas = ptc + p.R * ET;                  // [ET][NB]
+  float* m2c = bas + ET * p.NB;                 // [ET]
+  int* ljc = reinterpret_cast<int*>(m2c + ET);  // [ET]
+
+  const int tid = threadIdx.x, c = tid % C, eg = tid / C;
+  const int e0 = blockIdx.x * ET;
+  const int cnt = min(ET, p.E - e0);
+  const int SE = p.A * p.K;
+  load_weights<C>(p, ws_s, wt_s);
+
+  float acc[EPT];
+#pragma unroll
+  for (int q = 0; q < EPT; ++q) acc[q] = 0.f;
+
+  for (int s = 0; s < p.K; ++s) {
+    __syncthreads();
+    load_chunk(p, s, e0, cnt, ptc, m2c, ljc);
+    __syncthreads();
+    form_basis(p, ptc, bas);
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < EPT; ++q) {
+      const int ec = eg + EG * q;
+      const float m = m2c[ec];
+      if (m != 0.f) {
+        const int e = e0 + ec;
+        const size_t row = ((size_t)(e / SE) * p.A + ljc[ec]) * p.K + s;
+        float sv, tv;
+        basis_products<C>(bas + ec * p.NB, ws_s, wt_s, p.nk, p.ntk, c, sv, tv);
+        const float xv = m * rnd<IS_BF16<T>>(ld(p.x + row * C + c));
+        acc[q] += (xv * sv) * tv;
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < EPT; ++q) {
+    const int ec = eg + EG * q;
+    if (ec < cnt) st(p.out + (size_t)(e0 + ec) * C + c, acc[q]);
+  }
+}
+
+template <typename T, int C, bool DPT>
+__global__ void __launch_bounds__(NT) triplet_slot_bwd_kernel(Params<T> p) {
+  constexpr int EG = NT / C;
+  constexpr int EPT = ET / EG;
+  extern __shared__ __align__(16) float smem[];
+  const int nk = p.nk, ntk = p.ntk, NB = p.NB, A = p.A, K = p.K;
+  float* ws_s = smem;                           // [nk][C+1]
+  float* wt_s = ws_s + nk * (C + 1);            // [ntk][C+1]
+  float* dW_s = wt_s + ntk * (C + 1);           // [NB][C] weight-gradient sums
+  float* dx_s = dW_s + NB * C;                  // [A][C]
+  float* ptc = dx_s + A * C;                    // [R][ET]
+  float* bas = ptc + p.R * ET;                  // [ET][NB]
+  float* dsv = bas + ET * NB;                   // [ET][C]
+  float* dtv = dsv + ET * C;                    // [ET][C]
+  float* dxg = dtv + ET * C;                    // [ET][C]
+  float* dbas = dxg + ET * C;                   // [ET][NB] (DPT only)
+  float* m2c = dbas + (DPT ? ET * NB : 0);      // [ET]
+  int* ljc = reinterpret_cast<int*>(m2c + ET);  // [ET]
+
+  const int tid = threadIdx.x, c = tid % C, eg = tid / C;
+  const int g = blockIdx.x / K, s = blockIdx.x % K;
+  const int SE = A * K, base = g * SE;
+  load_weights<C>(p, ws_s, wt_s);
+  for (int x = tid; x < NB * C; x += NT) dW_s[x] = 0.f;
+  for (int x = tid; x < A * C; x += NT) dx_s[x] = 0.f;
+
+  for (int c0 = 0; c0 < SE; c0 += ET) {
+    const int cnt = min(ET, SE - c0);
+    const int e0 = base + c0;
+    __syncthreads();
+    load_chunk(p, s, e0, cnt, ptc, m2c, ljc);
+    __syncthreads();
+    form_basis(p, ptc, bas);
+    __syncthreads();
+    // per-triplet cotangents: dxg = m g sv tv, dsv = g tv xv, dtv = g xv sv
+#pragma unroll
+    for (int q = 0; q < EPT; ++q) {
+      const int ec = eg + EG * q;
+      const float m = m2c[ec];
+      float a = 0.f, b = 0.f, d = 0.f;
+      if (m != 0.f) {
+        const size_t row = ((size_t)g * A + ljc[ec]) * K + s;
+        float sv, tv;
+        basis_products<C>(bas + ec * NB, ws_s, wt_s, nk, ntk, c, sv, tv);
+        const float xv = m * rnd<IS_BF16<T>>(ld(p.x + row * C + c));
+        const float go = p.ct[(size_t)(e0 + ec) * C + c];
+        const float gt = go * tv;
+        a = (gt * sv) * m;
+        b = gt * xv;
+        d = go * (xv * sv);
+      }
+      dxg[ec * C + c] = a;
+      dsv[ec * C + c] = b;
+      dtv[ec * C + c] = d;
+    }
+    __syncthreads();
+    // weight gradients: each (row, c) entry owned by one thread, edge order
+    for (int x = tid; x < NB * C; x += NT) {
+      const int r = x / C, cc = x % C;
+      const float* src = r < nk ? dsv : dtv;
+      float acc = dW_s[x];
+      for (int ec = 0; ec < cnt; ++ec) {
+        if (m2c[ec] != 0.f) acc = fmaf(bas[ec * NB + r], src[ec * C + cc], acc);
+      }
+      dW_s[x] = acc;
+    }
+    // dx rows (j, s): thread (c, jg) owns the rows j with j % EG == jg
+    for (int ec = 0; ec < cnt; ++ec) {
+      const int j = ljc[ec];
+      if (m2c[ec] != 0.f && j % EG == eg) dx_s[j * C + c] += dxg[ec * C + c];
+    }
+    if constexpr (DPT) {
+      // d sbf = dsv @ ws^T, d tbf = dtv @ wt^T
+      for (int x = tid; x < ET * NB; x += NT) {
+        const int ec = x / NB, r = x % NB;
+        float acc = 0.f;
+        if (m2c[ec] != 0.f) {
+          const float* src = r < nk ? dsv + ec * C : dtv + ec * C;
+          const float* w = r < nk ? ws_s + r * (C + 1) : wt_s + (r - nk) * (C + 1);
+          for (int cc = 0; cc < C; ++cc) acc = fmaf(src[cc], w[cc], acc);
+        }
+        dbas[x] = acc;
+      }
+      __syncthreads();
+      // back through the products: d bt, d y0, d yt
+      const int n = p.n, k = p.k;
+      for (int x = tid; x < p.R * ET; x += NT) {
+        const int r = x / ET, ec = x % ET;
+        if (ec >= cnt) continue;
+        const float* db = dbas + ec * NB;
+        float v = 0.f;
+        if (r < nk) {
+          const int l = r / k;
+          v = db[r] * ptc[(nk + l) * ET + ec];
+          for (int a = 0; a < (ntk > 0 ? n : 0); ++a)
+            v = fmaf(db[nk + a * nk + r], ptc[(nk + n + a * n + l) * ET + ec], v);
+        } else if (r < nk + n) {
+          const int l = r - nk;
+          for (int mm = 0; mm < k; ++mm)
+            v = fmaf(db[l * k + mm], ptc[(l * k + mm) * ET + ec], v);
+        } else {
+          const int q = r - nk - n;
+          for (int mm = 0; mm < k; ++mm)
+            v = fmaf(db[nk + q * k + mm], ptc[((q * k + mm) % nk) * ET + ec], v);
+        }
+        p.dpt[((size_t)s * p.R + r) * p.E + e0 + ec] = v;
+      }
+    }
+  }
+  __syncthreads();
+  for (int x = tid; x < A * C; x += NT) {
+    const int j = x / C, cc = x % C;
+    p.dx[(((size_t)g * A + j) * K + s) * C + cc] = dx_s[x];
+  }
+  float* part = p.partial + (size_t)blockIdx.x * NB * C;
+  for (int x = tid; x < NB * C; x += NT) part[x] = dW_s[x];
+}
+
+template <typename T>
+Params<T> make_params(const void* x, const void* pt, const void* m2T, const float* ws,
+                      const float* wt, const int* lj, int E, int A, int K, int n, int k,
+                      int has_t) {
+  Params<T> p{};
+  p.x = static_cast<const T*>(x);
+  p.pt = static_cast<const T*>(pt);
+  p.m2T = static_cast<const T*>(m2T);
+  p.ws = ws;
+  p.wt = wt;
+  p.lj = lj;
+  p.E = E; p.A = A; p.K = K; p.n = n; p.k = k; p.has_t = has_t;
+  p.nk = n * k;
+  p.ntk = has_t ? n * n * k : 0;
+  p.NB = p.nk + p.ntk;
+  p.R = p.nk + n + (has_t ? n * n : 0);
+  return p;
+}
+
+template <typename T, int C>
+int fwd_t(Params<T> p, cudaStream_t strm) {
+  const size_t smem = ((size_t)(p.nk + p.ntk) * (C + 1) + p.R * ET + ET * p.NB + 2 * ET) *
+                      sizeof(float);
+  const int grid = (p.E + ET - 1) / ET;
+  return launch(triplet_slot_fwd_kernel<T, C>, grid, NT, smem, strm, p);
+}
+
+template <typename T, int C>
+int bwd_t(Params<T> p, int need_dpt, int blocks, cudaStream_t strm) {
+  const size_t floats = (size_t)(p.nk + p.ntk) * (C + 1) + (size_t)p.NB * C +
+                        (size_t)p.A * C + p.R * ET + ET * p.NB + 3 * ET * C +
+                        (need_dpt ? ET * p.NB : 0) + 2 * ET;
+  const size_t smem = floats * sizeof(float);
+  if (need_dpt) return launch(triplet_slot_bwd_kernel<T, C, true>, blocks, NT, smem, strm, p);
+  return launch(triplet_slot_bwd_kernel<T, C, false>, blocks, NT, smem, strm, p);
+}
+
+template <typename T>
+int fwd_c(Params<T> p, int C, cudaStream_t strm) {
+  switch (C) {
+    case 32: return fwd_t<T, 32>(p, strm);
+    case 64: return fwd_t<T, 64>(p, strm);
+    case 128: return fwd_t<T, 128>(p, strm);
+    default: return ERR_SHAPE;
+  }
+}
+
+template <typename T>
+int bwd_c(Params<T> p, int C, int need_dpt, int blocks, cudaStream_t strm) {
+  switch (C) {
+    case 32: return bwd_t<T, 32>(p, need_dpt, blocks, strm);
+    case 64: return bwd_t<T, 64>(p, need_dpt, blocks, strm);
+    case 128: return bwd_t<T, 128>(p, need_dpt, blocks, strm);
+    default: return ERR_SHAPE;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// 0 on success, a cudaError_t, or ERR_SHAPE / ERR_SMEM. x, pt, m2T and out
+// are bf16 when bf16 != 0, float32 otherwise.
+int triplet_slot_fwd(const void* x, const void* pt, const void* m2T, const float* ws,
+                     const float* wt, const int* lj, void* out, int E, int A, int K, int n,
+                     int k, int has_t, int C, int bf16, void* stream) {
+  cudaStream_t strm = static_cast<cudaStream_t>(stream);
+  if (bf16) {
+    auto p = make_params<__nv_bfloat16>(x, pt, m2T, ws, wt, lj, E, A, K, n, k, has_t);
+    p.out = static_cast<__nv_bfloat16*>(out);
+    return fwd_c(p, C, strm);
+  }
+  auto p = make_params<float>(x, pt, m2T, ws, wt, lj, E, A, K, n, k, has_t);
+  p.out = static_cast<float*>(out);
+  return fwd_c(p, C, strm);
+}
+
+// ct, dx, dpt float32; dpt may be null when need_dpt == 0. partial:
+// [blocks, (nk+ntk)*C] scratch, blocks = (E / (A*K)) * K; dw: [(nk+ntk)*C]
+// receives dws | dwt.
+int triplet_slot_bwd(const void* x, const void* pt, const void* m2T, const float* ws,
+                     const float* wt, const int* lj, const float* ct, float* dx, float* dpt,
+                     float* partial, float* dw, int E, int A, int K, int n, int k, int has_t,
+                     int C, int bf16, int need_dpt, int blocks, void* stream) {
+  cudaStream_t strm = static_cast<cudaStream_t>(stream);
+  int rc;
+  if (bf16) {
+    auto p = make_params<__nv_bfloat16>(x, pt, m2T, ws, wt, lj, E, A, K, n, k, has_t);
+    p.ct = ct; p.dx = dx; p.dpt = dpt; p.partial = partial;
+    rc = bwd_c(p, C, need_dpt, blocks, strm);
+  } else {
+    auto p = make_params<float>(x, pt, m2T, ws, wt, lj, E, A, K, n, k, has_t);
+    p.ct = ct; p.dx = dx; p.dpt = dpt; p.partial = partial;
+    rc = bwd_c(p, C, need_dpt, blocks, strm);
+  }
+  if (rc != 0) return rc;
+  const int size = (n * k + (has_t ? n * n * k : 0)) * C;
+  return sum_partials(partial, blocks, size, dw, strm);
+}
+
+}  // extern "C"

@@ -1,8 +1,8 @@
 from .synthetic import (morse_energy, synthetic_molecules,
                         synthetic_morse_molecules)
 from .loader import (BucketedDenseMoleculeLoader, DenseMoleculeLoader,
-                     PackedDenseMoleculeLoader)
+                     MoleculeLoader, PackedDenseMoleculeLoader)
 
 __all__ = ["synthetic_molecules", "synthetic_morse_molecules",
-           "morse_energy", "DenseMoleculeLoader",
+           "morse_energy", "MoleculeLoader", "DenseMoleculeLoader",
            "PackedDenseMoleculeLoader", "BucketedDenseMoleculeLoader"]

@@ -1,19 +1,21 @@
-"""Host-side dense minibatch loaders: molecule dicts -> DenseGraphBatch.
+"""Host-side minibatch loaders: molecule dicts -> GraphBatch /
+DenseGraphBatch.
 
-Port of the dense loaders of ``dig_tpu/datasets/loader.py:89-300``. The
-numpy RNG use is the same, so a seed gives bit-identical batches to the
-JAX package's loaders. Batches are built on the host and moved to
-``device`` (default: the CUDA card). The flat loaders wait for the flat
-``GraphBatch``.
+Port of ``MoleculeLoader`` (``dig_tpu/datasets/loader.py:18-86``) and the
+dense loaders (``:89-300``). The numpy RNG use is the same, so a seed
+gives bit-identical batches to the JAX package's loaders. Batches are
+built on the host and moved to ``device`` (default: the CUDA card).
+``BucketedMoleculeLoader`` waits for the force-training slice.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..graph import GraphBatch, batch_np
 from ..graph_dense import dense_batch_np, packed_dense_batch_np
 
 
@@ -24,6 +26,67 @@ def _epoch_order(loader) -> np.ndarray:
         rng.shuffle(order)
         loader.epoch += 1
     return order
+
+
+class MoleculeLoader:
+    """Flat padded GraphBatches over molecule dicts ({z, pos, y[, force]}).
+
+    ``batch_size`` graphs per batch (static); ``n_node_pad`` defaults to
+    ``batch_size`` x the largest molecule; ``shuffle`` reshuffles each
+    epoch from ``seed + epoch``; ``drop_last`` (default: ``shuffle``)
+    drops the ragged tail, otherwise it is padded with empty graphs.
+    ``slot_size``: slot-aligned layout (graph gi at rows
+    ``gi * slot_size``), ``n_node_pad = batch_size * slot_size``.
+    """
+
+    def __init__(self, data, batch_size: int,
+                 n_node_pad: Optional[int] = None, shuffle: bool = False,
+                 seed: int = 0, drop_last: Optional[bool] = None,
+                 slot_size: Optional[int] = None,
+                 device: DeviceLike = None):
+        self.device = resolve_device(device)
+        self.data = list(data)
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.epoch = 0
+        self.drop_last = shuffle if drop_last is None else drop_last
+        self.slot_size = slot_size
+        if slot_size is not None:
+            if (n_node_pad is not None
+                    and n_node_pad != batch_size * slot_size):
+                raise ValueError(
+                    f"n_node_pad={n_node_pad} conflicts with slot_size="
+                    f"{slot_size} (slot layout requires n_node_pad = "
+                    f"batch_size * slot_size = {batch_size * slot_size})")
+            n_node_pad = batch_size * slot_size
+        elif n_node_pad is None:
+            n_node_pad = batch_size * max(len(m["z"]) for m in self.data)
+        self.n_node_pad = n_node_pad
+
+    def __len__(self) -> int:
+        n = len(self.data)
+        return (n // self.batch_size if self.drop_last
+                else -(-n // self.batch_size))
+
+    def __iter__(self) -> Iterator[GraphBatch]:
+        order = _epoch_order(self)
+        for b in range(len(self)):
+            idx = order[b * self.batch_size:(b + 1) * self.batch_size]
+            graphs = []
+            for m in (self.data[i] for i in idx):
+                nodes = {"z": m["z"], "pos": m["pos"]}
+                if "force" in m:
+                    nodes["force"] = m["force"]
+                glb = {"y": np.atleast_1d(m["y"])}
+                if "cell" in m:
+                    glb["cell"] = m["cell"]
+                graphs.append({"nodes": nodes, "globals": glb,
+                               "senders": np.zeros(0, np.int32),
+                               "receivers": np.zeros(0, np.int32)})
+            yield batch_np(graphs, self.n_node_pad, n_edge_pad=1,
+                           num_graphs=self.batch_size,
+                           slot_size=self.slot_size, device=self.device)
 
 
 class DenseMoleculeLoader:

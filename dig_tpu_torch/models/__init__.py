@@ -1,3 +1,4 @@
 from .schnet_dense import SchNetDense
+from .spherenet import DimeNetPP, SphereNet
 
-__all__ = ["SchNetDense"]
+__all__ = ["SchNetDense", "SphereNet", "DimeNetPP"]

@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` is compiled for ``sm_90a`` into a shared library
 with a plain C interface and loaded with ctypes. Libraries go to
 ``dig_tpu_torch/_build/`` (ignored by git), named by the hash of the
-source, so an edited source is rebuilt and a built one is reused. The
-``-Xptxas -v`` report is kept beside each library (``build_report``).
+source and of the shared headers (``csrc/*.cuh``), so an edited source is
+rebuilt and a built one is reused. The ``-Xptxas -v`` report is kept
+beside each library (``build_report``). ``check``, ``ptr`` and ``stream``
+are the ctypes helpers the ops share for calling a library.
 """
 from __future__ import annotations
 
@@ -14,6 +16,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -35,7 +39,10 @@ def _nvcc() -> str:
 
 def _paths(name: str):
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     lib = BUILD_DIR / f"{name}-{digest}.so"
     return src, lib, lib.with_suffix(".log")
 
@@ -70,3 +77,28 @@ def load(name: str) -> ctypes.CDLL:
     if name not in _LOADED:
         _LOADED[name] = ctypes.CDLL(str(build(name)))
     return _LOADED[name]
+
+
+# return codes of the libraries besides a cudaError_t (csrc/common.cuh)
+ERR_SHAPE, ERR_SMEM = -2, -3
+
+
+def check(rc: int, what: str, shape_msg: str) -> None:
+    """Raise unless a library call returned 0; ``shape_msg`` says which
+    widths the kernel was compiled for."""
+    if rc == 0:
+        return
+    reason = {ERR_SHAPE: shape_msg,
+              ERR_SMEM: "too large for shared memory"}.get(rc,
+                                                          f"CUDA error {rc}")
+    raise RuntimeError(f"{what}: {reason}")
+
+
+def ptr(t) -> ctypes.c_void_p:
+    """Device pointer of a tensor (null for None)."""
+    return ctypes.c_void_p(0 if t is None else t.data_ptr())
+
+
+def stream(dev) -> ctypes.c_void_p:
+    """The current CUDA stream of ``dev``."""
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)

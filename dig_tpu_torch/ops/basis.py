@@ -1,10 +1,219 @@
-"""Radial basis and cutoff of SchNet. Port of ``dig_tpu/ops/basis.py:227-237``;
-the Bessel and spherical tables wait for SphereNet."""
+"""Radial and angular bases. Port of ``dig_tpu/ops/basis.py``.
+
+SchNet's Gaussian smearing and cosine cutoff, and the DimeNet/SphereNet
+bases: spherical Bessel functions normalised over their zeros and real
+spherical harmonics Y_l^m, built symbolically with sympy once per
+(num_spherical, num_radial) and lambdified to torch callables. The sympy
+construction is a copy of the JAX package's (the port imports nothing of
+it); only the module map differs (``_TORCH_MODULES``).
+"""
 from __future__ import annotations
 
+import functools
 import math
+from typing import Callable, List, Tuple
 
+import numpy as np
+import sympy as sym
 import torch
+from scipy import special as sp
+from scipy.optimize import brentq
+
+
+def _Jn(r: float, n: int) -> float:
+    """Spherical Bessel j_n evaluated via the half-integer Bessel J."""
+    return np.sqrt(np.pi / (2 * r)) * sp.jv(n + 0.5, r)
+
+
+@functools.lru_cache(maxsize=None)
+def _Jn_zeros(n: int, k: int) -> Tuple[Tuple[float, ...], ...]:
+    """First k positive zeros of j_0..j_{n-1} by interlacing bracketing."""
+    zeros = np.zeros((n, k))
+    zeros[0] = np.arange(1, k + 1) * np.pi
+    points = np.arange(1, k + n) * np.pi
+    roots = np.zeros(k + n - 1)
+    for order in range(1, n):
+        for j in range(k + n - 1 - order):
+            roots[j] = brentq(_Jn, points[j], points[j + 1], (order,))
+        points = roots.copy()
+        zeros[order][:k] = roots[:k]
+    return tuple(tuple(row) for row in zeros)
+
+
+@functools.lru_cache(maxsize=None)
+def _spherical_bessel_exprs(n: int) -> Tuple[sym.Expr, ...]:
+    """Closed forms of j_0..j_{n-1} via the Rayleigh recursion."""
+    x = sym.symbols("x")
+    exprs = [sym.sin(x) / x]
+    a = sym.sin(x) / x
+    for i in range(1, n):
+        b = sym.diff(a, x) / x
+        exprs.append(sym.simplify(b * (-x) ** i))
+        a = sym.simplify(b)
+    return tuple(exprs)
+
+
+@functools.lru_cache(maxsize=None)
+def bessel_basis_exprs(n: int, k: int) -> Tuple[Tuple[sym.Expr, ...], ...]:
+    """Normalized spherical-Bessel basis b_{l,m}(x) on x in (0, 1]."""
+    zeros = np.array(_Jn_zeros(n, k))
+    x = sym.symbols("x")
+    forms = _spherical_bessel_exprs(n)
+    out = []
+    for order in range(n):
+        row = []
+        for i in range(k):
+            norm = 1.0 / math.sqrt(0.5 * _Jn(zeros[order, i], order + 1) ** 2)
+            row.append(sym.simplify(norm * forms[order].subs(x, zeros[order, i] * x)))
+        out.append(tuple(row))
+    return tuple(out)
+
+
+def _sph_harm_prefactor(l: int, m: int) -> float:
+    return math.sqrt(
+        (2 * l + 1) * math.factorial(l - abs(m))
+        / (4 * np.pi * math.factorial(l + abs(m)))
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def _assoc_legendre_exprs(L: int, zero_m_only: bool):
+    z = sym.symbols("z")
+    P: List[List[sym.Expr]] = [[sym.Integer(0)] * (j + 1) for j in range(L)]
+    P[0][0] = sym.Integer(1)
+    if L > 1:
+        P[1][0] = z
+        for j in range(2, L):
+            P[j][0] = sym.simplify(
+                ((2 * j - 1) * z * P[j - 1][0] - (j - 1) * P[j - 2][0]) / j)
+        if not zero_m_only:
+            for i in range(1, L):
+                P[i][i] = sym.simplify((1 - 2 * i) * P[i - 1][i - 1])
+                if i + 1 < L:
+                    P[i + 1][i] = sym.simplify((2 * i + 1) * z * P[i][i])
+                for j in range(i + 2, L):
+                    P[j][i] = sym.simplify(
+                        ((2 * j - 1) * z * P[j - 1][i]
+                         - (i + j - 1) * P[j - 2][i]) / (j - i))
+    return P
+
+
+@functools.lru_cache(maxsize=None)
+def real_sph_harm_exprs(L: int, zero_m_only: bool = True):
+    """Real spherical harmonics Y_l^m(theta, phi) as sympy expressions.
+
+    Returns list-of-lists: Y[l] has 2l+1 entries (m = 0, 1..l, -l..-1 layout
+    matching the reference's indexing Y[l][m+l] after reordering; here we
+    return m-major order [m=0, m=1.., m=-1..] consistent with reference
+    ``real_sph_harm`` output Y[i][j] / Y[i][-j]).
+    """
+    theta, phi = sym.symbols("theta phi")
+    z = sym.symbols("z")
+    P = _assoc_legendre_exprs(L, zero_m_only)
+    P = [[e.subs(z, sym.cos(theta)) if not isinstance(e, int) else e
+          for e in row] for row in P]
+
+    Y = [[sym.Integer(0)] * (2 * j + 1) for j in range(L)]
+    for i in range(L):
+        Y[i][0] = sym.simplify(_sph_harm_prefactor(i, 0) * P[i][0])
+    if not zero_m_only:
+        # cos(m phi) / sin(m phi) expansions
+        S = [sym.Integer(0)]
+        C = [sym.Integer(1)]
+        xs, ys = sym.symbols("xs ys")
+        for i in range(1, L):
+            S.append(xs * S[i - 1] + ys * C[i - 1])
+            C.append(xs * C[i - 1] - ys * S[i - 1])
+        sub = {xs: sym.sin(theta) * sym.cos(phi), ys: sym.sin(theta) * sym.sin(phi)}
+        S = [s.subs(sub) for s in S]
+        C = [c.subs(sub) for c in C]
+        for i in range(1, L):
+            for j in range(1, i + 1):
+                Y[i][j] = sym.simplify(
+                    math.sqrt(2) * _sph_harm_prefactor(i, j) * C[j] * P[i][j])
+                Y[i][-j] = sym.simplify(
+                    math.sqrt(2) * _sph_harm_prefactor(i, -j) * S[j] * P[i][j])
+    return Y
+
+
+_TORCH_MODULES = [{"sin": torch.sin, "cos": torch.cos, "sqrt": torch.sqrt,
+                   "pi": math.pi}, "math"]
+
+
+def _lambdify(args, expr) -> Callable:
+    if isinstance(expr, (int, float)) or expr.is_number:
+        const = float(expr)
+        return lambda *a: torch.full_like(a[0], const)
+    return sym.lambdify(args, expr, modules=_TORCH_MODULES)
+
+
+@functools.lru_cache(maxsize=None)
+def make_bessel_funcs(num_spherical: int, num_radial: int):
+    """b_{l, m}(x) callables, x = dist / cutoff in (0, 1]."""
+    x = sym.symbols("x")
+    exprs = bessel_basis_exprs(num_spherical, num_radial)
+    return [[_lambdify([x], e) for e in row] for row in exprs]
+
+
+@functools.lru_cache(maxsize=None)
+def make_sph_funcs_m0(num_spherical: int):
+    """Y_l^0(theta) callables (angle basis)."""
+    theta = sym.symbols("theta")
+    Y = real_sph_harm_exprs(num_spherical, zero_m_only=True)
+    return [_lambdify([theta], Y[l][0]) for l in range(num_spherical)]
+
+
+@functools.lru_cache(maxsize=None)
+def make_sph_funcs_full(num_spherical: int):
+    """Y_l^m(theta, phi) callables, l-major, each row in the storage order
+    of ``real_sph_harm_exprs`` ([m=0, +1..+l, -l..-1]), the order the
+    torsion basis consumes. l=0 is the constant 1/sqrt(4 pi)."""
+    theta, phi = sym.symbols("theta phi")
+    Y = real_sph_harm_exprs(num_spherical, zero_m_only=False)
+    c0 = float(sym.simplify(Y[0][0]))
+    funcs = [lambda t, p, c=c0: torch.full_like(t, c)]
+    for l in range(1, num_spherical):
+        for pos in range(2 * l + 1):
+            funcs.append(_lambdify([theta, phi], Y[l][pos]))
+    return funcs
+
+
+def bessel_table(num_spherical: int, num_radial: int, x: torch.Tensor):
+    """All (l, m) Bessel basis functions: ``[..., n_s, n_r]``."""
+    fs = make_bessel_funcs(num_spherical, num_radial)
+    rows = [torch.stack([f(x) for f in row], dim=-1) for row in fs]
+    return torch.stack(rows, dim=-2)
+
+
+def sph_m0_table(num_spherical: int, theta: torch.Tensor):
+    """Y_l^0 for all l: ``[..., n_s]``."""
+    return torch.stack([f(theta) for f in make_sph_funcs_m0(num_spherical)],
+                       dim=-1)
+
+
+def sph_full_table(num_spherical: int, theta: torch.Tensor,
+                   phi: torch.Tensor):
+    """All Y_l^m: ``[..., n_s**2]`` (l-major, reference order)."""
+    return torch.stack([f(theta, phi)
+                        for f in make_sph_funcs_full(num_spherical)], dim=-1)
+
+
+class Envelope:
+    """Polynomial cutoff envelope u(x) = 1/x + a x^(p-1) + b x^p +
+    c x^(p+1) (DimeNet eq. 8)."""
+
+    def __init__(self, exponent: int):
+        self.p = exponent + 1
+        self.a = -(self.p + 1) * (self.p + 2) / 2
+        self.b = self.p * (self.p + 2)
+        self.c = -self.p * (self.p + 1) / 2
+
+    def __call__(self, x):
+        p, a, b, c = self.p, self.a, self.b, self.c
+        x_p0 = x ** (p - 1)
+        x_p1 = x_p0 * x
+        x_p2 = x_p1 * x
+        return 1.0 / x + a * x_p0 + b * x_p1 + c * x_p2
 
 
 def gaussian_rbf(dist: torch.Tensor, start: float, stop: float,

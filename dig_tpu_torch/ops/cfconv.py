@@ -35,8 +35,7 @@ KERNEL_MAX_GAUSSIANS = 64
 launches_fwd = 0
 launches_bwd = 0
 
-_ERRORS = {-2: "F must be one of 32/64/128 and R at most 64",
-           -3: "slot too large for shared memory"}
+_SHAPES = "F must be one of 32/64/128 and R at most 64"
 
 
 def reset_launch_counts() -> None:
@@ -80,11 +79,6 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _check(rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{what}: " + _ERRORS.get(rc, f"CUDA error {rc}"))
-
-
 def _kernel_inputs(dist, vj, w1, b1, w2, b2):
     """Validate shapes/devices and return contiguous float32 tensors."""
     dev = dist.device
@@ -109,14 +103,6 @@ def _kernel_inputs(dist, vj, w1, b1, w2, b2):
     return [t.float().contiguous() for t in (dist, vj, w1, b1, w2, b2)]
 
 
-def _ptr(t: torch.Tensor):
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _stream(dev):
-    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-
-
 def cfconv_forward_kernel(dist, vj, w1, b1, w2, b2, cutoff, num_gaussians,
                           precision):
     """Launch the forward kernel on float32 contiguous CUDA inputs."""
@@ -125,10 +111,10 @@ def cfconv_forward_kernel(dist, vj, w1, b1, w2, b2, cutoff, num_gaussians,
     F, R = vj.shape[-1], w1.shape[0]
     out = torch.empty((G, n, F), dtype=torch.float32, device=dist.device)
     rc = _library().cfconv_fwd(
-        *map(_ptr, (dist, vj, w1, b1, w2, b2, out)), G, n, F, R,
+        *map(_build.ptr, (dist, vj, w1, b1, w2, b2, out)), G, n, F, R,
         float(cutoff), int(num_gaussians), int(precision == "bf16"),
-        _stream(dist.device))
-    _check(rc, "cfconv forward kernel")
+        _build.stream(dist.device))
+    _build.check(rc, "cfconv forward kernel", _SHAPES)
     launches_fwd += 1
     return out
 
@@ -150,11 +136,12 @@ def cfconv_backward_kernel(dist, vj, w1, b1, w2, b2, g, cutoff,
     grid = min(G, torch.cuda.get_device_properties(dev).multi_processor_count)
     partial = torch.empty((grid, size), dtype=torch.float32, device=dev)
     rc = _library().cfconv_bwd(
-        *map(_ptr, (dist, vj, w1, b1, w2, b2, g, d_dist, d_vj, partial,
-                    d_params)), G, n, F, R, float(cutoff), int(num_gaussians),
+        *map(_build.ptr, (dist, vj, w1, b1, w2, b2, g, d_dist, d_vj,
+                          partial, d_params)),
+        G, n, F, R, float(cutoff), int(num_gaussians),
         int(precision == "bf16"), int(bool(need_dist_grad)), grid,
-        _stream(dev))
-    _check(rc, "cfconv backward kernel")
+        _build.stream(dev))
+    _build.check(rc, "cfconv backward kernel", _SHAPES)
     launches_bwd += 1
     dw1, db1, dw2, db2 = torch.split(d_params, [R * F, F, F * F, F])
     return (d_dist, d_vj, dw1.view(R, F), db1, dw2.view(F, F), db2)

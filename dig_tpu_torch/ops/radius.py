@@ -1,0 +1,137 @@
+"""Radius graph in the [N, K] neighbour-table layout for slot-aligned
+batches. Port of ``NKGraph``, ``radius_blocked_dropped`` and
+``radius_graph_nk_blocked`` of ``dig_tpu/ops/radius.py:94-272``.
+
+Squared distances use the JAX package's expansion ``|p|^2 + |q|^2 -
+2 p.q`` with the products taken elementwise in float32 (no matmul: a TF32
+matmul on the card would move pairs across the cutoff and reorder
+neighbours). ``torch.topk(sorted=True)`` keeps ``jax.lax.top_k``'s order,
+so the tables equal the JAX tables exactly on the CPU.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+
+class NKGraph(NamedTuple):
+    """Radius graph in the [N, K] neighbour-table layout.
+
+    Edge e = i*K + d is the d-th in-edge of receiver i (sender
+    ``nbr_idx[i, d]``). ``rev_edge[i, d]`` is the id of the reverse edge
+    (the graph is symmetrised).
+    """
+    nbr_idx: torch.Tensor    # [N, K] int32 sender node of each slot
+    nbr_mask: torch.Tensor   # [N, K] bool
+    rev_edge: torch.Tensor   # [N, K] int32 edge id of the reverse edge
+    senders: torch.Tensor    # [N*K]
+    receivers: torch.Tensor  # [N*K]
+    edge_mask: torch.Tensor  # [N*K]
+
+
+def _block_d2(p: torch.Tensor) -> torch.Tensor:
+    """[nb, B, 3] -> [nb, B, B] squared distances, float32, clamped at 0."""
+    p = p.float()
+    sq = torch.sum(p * p, dim=-1)
+    dot = torch.sum(p[:, :, None, :] * p[:, None, :, :], dim=-1)
+    return torch.clamp(sq[:, :, None] + sq[:, None, :] - 2.0 * dot, min=0.0)
+
+
+def _pairwise_same_graph(pos, node_graph, node_mask):
+    d2 = _block_d2(pos[None])[0]
+    n = pos.shape[0]
+    valid = (node_mask[:, None] & node_mask[None, :]
+             & (node_graph[:, None] == node_graph[None, :]))
+    valid = valid & ~torch.eye(n, dtype=torch.bool, device=pos.device)
+    return d2, valid
+
+
+def radius_blocked_dropped(pos, node_graph, node_mask, cutoff: float,
+                           block: int) -> torch.Tensor:
+    """Number of real radius-graph pairs that :func:`radius_graph_nk_blocked`
+    drops because they cross a block boundary (same graph, in cutoff,
+    different ``block`` slots). Nonzero means the batch is not
+    slot-aligned. O(N^2): an audit, not a step op."""
+    N = pos.shape[0]
+    d2, valid = _pairwise_same_graph(pos, node_graph, node_mask)
+    blk = torch.arange(N, device=pos.device) // block
+    cross = blk[:, None] != blk[None, :]
+    return torch.sum(valid & cross & (d2 < cutoff * cutoff))
+
+
+def radius_graph_nk_blocked(pos, node_mask, cutoff: float, k: int,
+                            block: int,
+                            node_graph: Optional[torch.Tensor] = None
+                            ) -> NKGraph:
+    """Radius graph for slot-aligned batches, O(G * B^2): every candidate
+    pair lives inside one ``block`` of node rows. Per receiver the K
+    nearest in-cutoff neighbours are kept (``top_k``), then only mutual
+    edges survive (symmetrisation), then each edge learns its reverse.
+    Global node and edge indices, as ``radius_graph_nk``."""
+    N = pos.shape[0]
+    if N % block:
+        raise ValueError(f"{N} nodes is not a multiple of block={block}")
+    dev = pos.device
+    nb = N // block
+    d2 = _block_d2(pos.reshape(nb, block, 3))
+    m = node_mask.reshape(nb, block)
+    eye = torch.eye(block, dtype=torch.bool, device=dev)
+    valid = m[:, :, None] & m[:, None, :] & ~eye[None]
+    if node_graph is not None:
+        # only prevents wrong cross-molecule edges in a non-aligned batch
+        gb = node_graph.reshape(nb, block)
+        valid = valid & (gb[:, :, None] == gb[:, None, :])
+    adj = valid & (d2 < cutoff * cutoff)
+    score = torch.where(adj, -d2, -torch.inf)
+    kk = min(k, block)
+    vals, lidx = torch.topk(score, kk, dim=-1, sorted=True)
+    if kk < k:          # pad the K axis so edge ids stay e = i*k + d
+        pad = k - kk
+        vals = torch.cat([vals, torch.full((nb, block, pad), -torch.inf,
+                                           device=dev)], dim=-1)
+        lidx = torch.cat([lidx, torch.zeros((nb, block, pad),
+                                            dtype=lidx.dtype, device=dev)],
+                         dim=-1)
+    nbr_mask = vals > -torch.inf
+    lidx = torch.where(nbr_mask, lidx, 0)
+
+    # symmetrise: kept[b, i, m] = m survived i's top-k; keep (i, m) only if
+    # i survived m's top-k too
+    bi = torch.arange(nb, device=dev)[:, None, None]
+    kept = torch.zeros((nb, block, block), dtype=torch.bool, device=dev)
+    ii = torch.arange(block, device=dev)[None, :, None].expand_as(lidx)
+    kept[bi.expand_as(lidx)[nbr_mask], ii[nbr_mask], lidx[nbr_mask]] = True
+    mutual = kept[bi, lidx, torch.arange(block, device=dev)[None, :, None]]
+    nbr_mask = nbr_mask & mutual
+
+    # rev_slot[b, i, d]: first position of i among the valid slots of row
+    # lidx[b, i, d] (argmax of the hit table, first maximum on ties)
+    nbr_of_m = lidx[bi, lidx]                                # [nb, B, K, K]
+    nm_of = nbr_mask[bi, lidx]
+    hit = (nbr_of_m == torch.arange(block, device=dev)[None, :, None, None]) \
+        & nm_of
+    rev_slot = _first_true(hit)
+
+    off = (torch.arange(nb, device=dev) * block)[:, None, None]
+    gidx = (lidx + off).reshape(N, k)
+    nbr_mask = nbr_mask.reshape(N, k)
+    rev_slot = rev_slot.reshape(N, k)
+    nbr_idx = torch.where(nbr_mask, gidx, 0).to(torch.int32)
+    rev_edge = torch.where(nbr_mask, nbr_idx * k + rev_slot, 0).to(
+        torch.int32)
+    receivers = torch.repeat_interleave(
+        torch.arange(N, dtype=torch.int32, device=dev), k)
+    flat_mask = nbr_mask.reshape(-1)
+    return NKGraph(nbr_idx=nbr_idx, nbr_mask=nbr_mask, rev_edge=rev_edge,
+                   senders=nbr_idx.reshape(-1),
+                   receivers=torch.where(flat_mask, receivers, 0),
+                   edge_mask=flat_mask)
+
+
+def _first_true(hit: torch.Tensor) -> torch.Tensor:
+    """Index of the first True along the last axis, 0 where none (as
+    ``jnp.argmax`` of a boolean table)."""
+    K = hit.shape[-1]
+    ar = torch.arange(K, device=hit.device)
+    return torch.where(hit, ar, K).amin(dim=-1).remainder(K)

@@ -1,0 +1,135 @@
+"""Where the time of one of the port's train steps goes, on one card.
+
+    python scripts/profile_torch_step.py [schnet_dense|spherenet]
+
+``schnet_dense`` (the default) runs main path 1 of chip_smoke.py
+(SchNetDense 4 x 128, bf16, fused cfconv, buckets {16: 252, 24: 380,
+32: 236}, Adam); ``spherenet`` runs main path 2 (SphereNet 4 x 128, n=3,
+k=6, K=16, slots of 29 atoms, 96 molecules a batch, bf16, slot kernel,
+Adam). Traces a few steady steps with torch.profiler and prints the
+step's host time, the device's busy and idle share, device time by
+kernel, and the host operators that took the most time.
+"""
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import torch  # noqa: E402
+
+SLOT_COUNTS = {16: 252, 24: 380, 32: 236}
+WARMUP, TRACED = 3, 5
+
+
+def _busy_us(events):
+    """Union of the device kernels' [start, end) intervals, in us."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    return busy + (cur_e - cur_s if cur_e is not None else 0.0)
+
+
+def schnet_dense(dev, steps):
+    from dig_tpu_torch.datasets import (BucketedDenseMoleculeLoader,
+                                        synthetic_molecules)
+    from dig_tpu_torch.models import SchNetDense
+    from dig_tpu_torch.train import make_dense_step_fns
+
+    mols = synthetic_molecules(sum(SLOT_COUNTS.values()) * (steps + 3),
+                               seed=0, min_atoms=12, max_atoms=29, box=6.0)
+    it = iter(BucketedDenseMoleculeLoader(mols, SLOT_COUNTS, max_per_slot=2,
+                                          shuffle=True, seed=0, device=dev))
+    model = SchNetDense(cutoff=5.0, num_layers=4, hidden_channels=128,
+                        num_filters=128, num_gaussians=50,
+                        compute_dtype=torch.bfloat16, use_kernel=True,
+                        pos_grads=False, device=dev)
+    opt = torch.optim.Adam(model.parameters(), lr=5e-4)
+    return make_dense_step_fns(model, opt)[0], [next(it) for _ in range(steps)]
+
+
+def spherenet(dev, steps):
+    from dig_tpu_torch.datasets import MoleculeLoader, synthetic_molecules
+    from dig_tpu_torch.models import SphereNet
+    from dig_tpu_torch.train import make_step_fns
+
+    mols = synthetic_molecules(96 * (steps + 1), seed=0, min_atoms=12,
+                               max_atoms=29, box=6.0)
+    it = iter(MoleculeLoader(mols, 96, slot_size=29, shuffle=True, seed=0,
+                             device=dev))
+    batches = [b.replace_globals(energy=b.globals["y"][:, :1])
+               for b in (next(it) for _ in range(steps))]
+    model = SphereNet(cutoff=5.0, num_layers=4, hidden_channels=128,
+                      num_spherical=3, num_radial=6, nk_degree=16,
+                      block_size=29, compute_dtype=torch.bfloat16,
+                      pallas_triplet=True, pallas_fuse_basis=True,
+                      pallas_slot=True, device=dev)
+    opt = torch.optim.Adam(model.parameters(), lr=5e-4)
+    step, _ = make_step_fns(model, opt, loss="l1", target_key="energy")
+    return step, batches
+
+
+def main():
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    which = sys.argv[1] if len(sys.argv) > 1 else "schnet_dense"
+    paths = {"schnet_dense": schnet_dense, "spherenet": spherenet}
+    if which not in paths:
+        sys.exit(f"unknown path {which!r}; one of {sorted(paths)}")
+    if not torch.cuda.is_available():
+        sys.exit("needs a CUDA card")
+    dev = torch.device("cuda")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    train_step, batches = paths[which](dev, WARMUP + TRACED)
+    for b in batches[:WARMUP]:
+        train_step(b)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches[WARMUP:]:
+            train_step(b)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device events without the user annotations (Optimizer.step spans
+    # the optimizer's kernels and the gaps between them)
+    kernels = [e for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    busy_ms = _busy_us(kernels) / 1e3
+    by_name = {}
+    for e in kernels:
+        t, c = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, c + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    total_kernel_ms = sum(t for t, _ in by_name.values())
+    print(f"card: {card}")
+    print(f"{which}: {TRACED} traced steps: host {wall_ms / TRACED:.3f} "
+          f"ms/step (profiler on), device busy {busy_ms / TRACED:.3f} "
+          f"ms/step = {busy_ms / wall_ms:.3f} of the window, idle "
+          f"{1 - busy_ms / wall_ms:.3f}; {len(kernels) / TRACED:.0f} kernel "
+          f"launches/step")
+    print("device time by kernel:")
+    for name, (t, c) in top[:25]:
+        print(f"  {t / TRACED:8.3f} ms/step {t / total_kernel_ms:6.3f} "
+              f"{c // TRACED:5d}x  {name[:90]}")
+    print("host operators by self CPU time:")
+    ops = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
+    for a in ops[:20]:
+        print(f"  {a.self_cpu_time_total / 1e3 / TRACED:8.3f} ms/step "
+              f"{a.count // TRACED:5d}x  {a.key[:90]}")
+
+
+if __name__ == "__main__":
+    main()
