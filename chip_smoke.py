@@ -29,6 +29,24 @@ Phases, each printed as it runs; any failure exits non-zero:
      must be 0; one eval pass through ThreeDEvaluator
   8. times: step ms, edges/s; per-layer triplet_slot kernel ms beside the
      bound and the plain version's ms
+  9. kernel vs plain: the second-order triplet_slot kernel (xb, ptb, wsb,
+     wtb, ctb) against the plain double backward at the three bucket shapes
+     of the force bench (pt of a real batch), has_t on and off, f32 and
+     bf16, u4 = u5 absent as in force training and once all present;
+     repeated calls bitwise equal
+ 10. main path 3: SphereNet energy+force training (bench.py
+     bench_spherenet_force: 4 x 128, n=3, k=6, K=16, bf16, slot kernel,
+     BucketedMoleculeLoader slots {16: 27, 24: 43, 29: 26}, loss
+     |E-y| + 100 |F_pred-F| per real graph, Adam) through
+     make_bucketed_step_fns; per step 12 forward, 24 backward and 12
+     second-order triplet_slot launches; the first step's loss and
+     gradients held against the unfused branch (f32), and the bf16
+     gradient against the f32 one by cosine and per-parameter norm;
+     finite forces;
+     radius_blocked_dropped must be 0; then one short
+     Run3D(energy_and_force=True, slot_size=29) epoch
+ 11. times: force step ms, edges/s; per-layer, per-bucket second-order
+     kernel ms beside its bound and the plain version's ms
 The card's name and power limit (nvidia-smi), then the kernels as JSON,
 are the two lines before the last; the last line is
 {"ok": true, "device": {...}}.
@@ -80,6 +98,43 @@ SN_TOL = {"f32": 1e-4, "bf16": 1e-2}
 # bf16 where the kernel keeps f32, and that drifts through 4 layers (the
 # bounds are PR 1's for the same kind of comparison).
 SN_STEP_TOL = {"f32": (1e-4, 1e-3), "bf16": (5e-2, 2.5e-1)}
+
+# SphereNet energy+force training on slot-bucketed batches: bench.py:187-290
+# (bench_spherenet_force), the model of SN_KW applied per bucket at the
+# bucket's slot size; forces drawn from default_rng(0) as bench.py does
+SF_SLOTS = {16: 27, 24: 43, 29: 26}
+SF_STEPS, SF_WARMUP, SF_P = 8, 3, 100.0
+SF_BENCH_STEPS = 10          # bench.py's molecule count: G * (10 + 4)
+# second-order kernel vs plain, largest error over the largest reference
+# value per output. Its outputs are float32 in both types and both sides
+# use the same (bf16) operands, so only the order of the f32 sums differs.
+BWD2_TOL = 1e-4
+# first force step, slot kernel vs the unfused branch of the same weights:
+# loss relative error, and gradients as ||a-b|| / ||b|| over all parameters
+# at once (the worst single parameter is printed). f32: sums in another
+# order through two derivative levels; the whole gradient and each
+# parameter are held to 1e-3, the loss to 1e-4. bf16: each branch rounds
+# at other places (the unfused one the [T, C] basis projections, the
+# per-triplet products and their sums, the slot kernels only their
+# operands) at the forward and at both backward levels, and the force
+# loss (p = 100) sums the second derivatives of the energy over every
+# atom, where that rounding does not cancel: at the random initial
+# weights each bf16 branch's whole gradient lies 0.7-1.1 (relative norm)
+# from the f32 gradient, and the JAX package's bf16 branches drift as far
+# on the same inputs (tests/test_torch_force.py holds the port's drift to
+# the JAX package's), so the two bf16 branches are not held to each other
+# by distance. The bf16 loss is held to 5e-2 of the unfused branch's, and
+# the slot branch's gradient to the f32 gradient by direction and size:
+# its whole cosine at least 0.5 and its median per-parameter cosine at
+# least 0.7 (SF_BF16_COS), and every parameter's gradient norm 0.5-5
+# times the f32 one's (SF_BF16_NORM). A zero gradient (cosine 0) or a
+# parameter whose gradient is dropped (norm ratio 0) fails. The limits sit
+# below and above the card's readings (cosines 0.65 and 0.86 for the slot
+# branch, 0.80 and 0.94 for the unfused one; per-parameter norm ratios
+# 0.82-3.58 and 0.88-1.52).
+SF_STEP_TOL = {"f32": (1e-4, 1e-3), "bf16": (5e-2, None)}
+SF_BF16_COS = (0.5, 0.7)
+SF_BF16_NORM = (0.5, 5.0)
 
 
 def log(*a):
@@ -392,7 +447,7 @@ def sn_batches(torch, dev, n):
             for b in (next(it) for _ in range(n))]
 
 
-def sn_pair_counts(torch, b, geo):
+def sn_pair_counts(torch, b, geo, block=SN_KW["block_size"]):
     """(uncapped in-cutoff directed pairs as bench.py:164-172 counts them,
     their largest in-degree, NK edges kept, radius_blocked_dropped)."""
     from dig_tpu_torch.ops.radius import radius_blocked_dropped
@@ -401,8 +456,7 @@ def sn_pair_counts(torch, b, geo):
     eye = torch.eye(pos.shape[0], dtype=torch.bool, device=pos.device)
     adj = ((d < SN_KW["cutoff"]) & ~eye & nm[:, None] & nm[None, :]
            & (ng[:, None] == ng[None, :]))
-    dropped = radius_blocked_dropped(pos, ng, nm, SN_KW["cutoff"],
-                                     SN_KW["block_size"])
+    dropped = radius_blocked_dropped(pos, ng, nm, SN_KW["cutoff"], block)
     return (int(adj.sum()), int(adj.sum(1).max()),
             int(geo.nkg.edge_mask.sum()), int(dropped))
 
@@ -413,15 +467,17 @@ def sn_model(torch, dev, cd, slot):
                      generator=torch.Generator().manual_seed(0), device=dev)
 
 
-def sn_kernel_inputs(torch, dev, batch):
-    """pt, m2T, lj of a real batch (float32, the model's own operands) and
-    seeded random x, ws, wt and output cotangent at the flagship widths."""
+def sn_kernel_inputs(torch, dev, batch, A=SN_KW["block_size"]):
+    """pt, m2T, lj of a real batch with slots of A atoms (float32, the
+    model's own operands) and seeded random x, ws, wt, output cotangent and
+    second-order cotangents u1 (of dx), u2 (of dpt) at the flagship
+    widths."""
     model = sn_model(torch, dev, torch.float32, True)
     with torch.no_grad():
-        geo = model.geometry(batch.nodes["pos"], batch)
-        pt, m2t, lj = model.slot_operands(geo)
+        geo = model.geometry(batch.nodes["pos"], batch, A)
+        pt, m2t, lj = model.slot_operands(geo, A)
     n, k = SN_KW["num_spherical"], SN_KW["num_radial"]
-    A, K = SN_KW["block_size"], SN_KW["nk_degree"]
+    K = SN_KW["nk_degree"]
     E = m2t.shape[1]
     gen = torch.Generator(device="cpu").manual_seed(1)
     r = lambda *s: torch.randn(*s, generator=gen).to(dev)
@@ -437,7 +493,8 @@ def sn_kernel_inputs(torch, dev, batch):
     return {"pt": pt, "m2t": m2t, "lj": lj, "x": r(E, SN_C),
             "ws": r(n * k, SN_C) * (n * k) ** -0.5,
             "wt": r(n * n * k, SN_C) * (n * n * k) ** -0.5,
-            "ct": r(E, SN_C), "work": work}
+            "ct": r(E, SN_C), "u1": r(E, SN_C), "u2": r(*pt.shape),
+            "u4": r(n * k, SN_C), "u5": r(n * n * k, SN_C), "work": work}
 
 
 def sn_args(torch, inp, has_t, dt):
@@ -608,29 +665,31 @@ def sn_bounds(args, work, prec, kind, need_dpt):
     (m2T = 0 contributes exactly zero). Bytes: each input read once where
     a real triplet needs it (pt's column and the gathered x row of each
     real triplet, the cotangent row of each edge that owns one), m2T, lj
-    and the weights in full, each output written in full. Operations: per
-    triplet the forward forms the NB = nk + ntk basis products, the two
-    projections (2 C NB) and the triple product (3 C); the backward
-    recomputes the projections, forms three cotangents (6 C), the weight
-    gradients (2 C NB) and the dx sum (C), and with dpt the basis
-    cotangents (2 C NB + 2 NB)."""
+    and the weights in full, each output written in full, all in the
+    types the function takes and returns (the output and its cotangent in
+    x's type, dx in x's, dpt in pt's, dws and dwt in the weights'), not in
+    the kernel's float32 staging. Operations: per triplet the forward forms
+    the NB = nk + ntk basis products, the two projections (2 C NB) and the
+    triple product (3 C); the backward recomputes the projections, forms
+    three cotangents (6 C), the weight gradients (2 C NB) and the dx sum
+    (C), and with dpt the basis cotangents (2 C NB + 2 NB)."""
     x, pt, ws, wt, m2t, lj = args
     C, R = x.shape[1], pt.shape[1]
     NB = ws.shape[0] + (wt.shape[0] if wt.shape[0] > 1 else 0)
     T = work["triplets"]
     el = lambda t: t.numel() * t.element_size()
-    w32 = (ws.numel() + wt.numel()) * 4        # the kernel takes them f32
+    w = el(ws) + el(wt)
     inputs = (work["x_rows"] * C * x.element_size() + T * R * pt.element_size()
-              + el(m2t) + el(lj) + w32)
+              + el(m2t) + el(lj) + w)
     if kind == "fwd":
         flops = T * (2 * C * NB + 3 * C + NB)
         nbytes = inputs + el(x)
     else:
         flops = T * (4 * C * NB + 7 * C + NB)
-        nbytes = inputs + work["edges"] * C * 4 + x.numel() * 4 + w32
+        nbytes = inputs + work["edges"] * C * x.element_size() + el(x) + w
         if need_dpt:
             flops += T * (2 * C * NB + 2 * NB)
-            nbytes += pt.numel() * 4
+            nbytes += el(pt)
     t_ops = flops / PEAK_FLOPS[prec]
     t_bytes = nbytes / PEAK_BYTES
     by = "operations" if t_ops >= t_bytes else "bytes"
@@ -683,6 +742,329 @@ def phase_sn_times(torch, ts, inp):
             f"{r['bound_by']}, {r['bound_ms'] / r['ms']:.3f} of it; "
             f"{r['flops'] / 1e9:.3f} GFLOP, {r['bytes'] / 1e6:.2f} MB"
             f"{plain})")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# SphereNet energy+force on slot-bucketed batches: the second-order kernel
+# ---------------------------------------------------------------------------
+
+def sf_batches(torch, dev, n):
+    """bench_spherenet_force's batches: its molecules, forces and bucketed
+    loader (shuffled, seed 0); the first n batches."""
+    import numpy as np
+    from dig_tpu_torch.datasets import (BucketedMoleculeLoader,
+                                        synthetic_molecules)
+    G = sum(SF_SLOTS.values())
+    mols = synthetic_molecules(G * (SF_BENCH_STEPS + 4), seed=0, min_atoms=12,
+                               max_atoms=29, box=6.0)
+    rng = np.random.default_rng(0)
+    for m in mols:
+        m["force"] = rng.normal(size=m["pos"].shape).astype(np.float32)
+    it = iter(BucketedMoleculeLoader(mols, SF_SLOTS, shuffle=True, seed=0,
+                                     device=dev))
+    return [next(it) for _ in range(n)]
+
+
+def bwd2_args(torch, inp, has_t, dt, all_u):
+    """Operands of the second-order kernel for one setting: (args, ct,
+    cotangents u1, u2, u4, u5, cfg); u4 = u5 = None unless all_u."""
+    args, cfg = sn_args(torch, inp, has_t, dt)
+    R = args[1].shape[1]
+    us = [inp["u1"].to(dt), inp["u2"][:, :R].to(dt).contiguous(),
+          inp["u4"] if all_u else None,
+          (inp["u5"] if has_t else inp["u5"][:1]) if all_u else None]
+    return args, inp["ct"].to(dt), us, cfg
+
+
+def phase_sf_kernel_vs_plain(torch, ts, dev, batch):
+    """The second-order kernel against the plain double backward at each
+    bucket of a real batch; returns the per-bucket inputs and the largest
+    absolute error in the main path's setting."""
+    K = SN_KW["nk_degree"]
+    names = ["xb", "ptb", "wsb", "wtb", "ctb"]
+    inputs, err = {}, 0.0
+    for A, b in batch.items():
+        inp = sn_kernel_inputs(torch, dev, b, A)
+        inputs[A] = inp
+        settings = [(t, p, False) for t in (True, False)
+                    for p in ("f32", "bf16")] + [(True, "f32", True)]
+        for has_t, prec, all_u in settings:
+            dt = torch.float32 if prec == "f32" else torch.bfloat16
+            args, ct, us, cfg = bwd2_args(torch, inp, has_t, dt, all_u)
+            k_args = ts._kernel_inputs(*args, A, K, cfg)
+            ct32 = ct.float().contiguous()
+            got = ts.triplet_slot_bwd2_kernel(*k_args, ct32, *us, A, K, cfg)
+            torch.cuda.synchronize()
+            want = ts.fused_triplet_slot_bwd2_reference(*args, ct, *us, A, K,
+                                                        cfg)
+            line = []
+            for nm, a, w in zip(names, got, want):
+                if not bool(torch.isfinite(a).all()):
+                    fail(f"bwd2 {nm} not finite (A={A}, has_t={has_t}, "
+                         f"{prec})")
+                if nm == "wtb" and not has_t:
+                    continue
+                e = rel_err(a, w)
+                line.append(f"{nm} {e:.2e}")
+                if e >= BWD2_TOL:
+                    fail(f"bwd2 {nm} A={A} has_t={has_t} {prec} all_u="
+                         f"{all_u}: rel err {e} >= {BWD2_TOL}")
+                if has_t and prec == "bf16" and not all_u:
+                    err = max(err, float((a - w).abs().max()))
+            again = ts.triplet_slot_bwd2_kernel(*k_args, ct32, *us, A, K, cfg)
+            if not all(torch.equal(a, c) for a, c in zip(again, got)):
+                fail(f"bwd2 not bitwise repeatable (A={A}, has_t={has_t}, "
+                     f"{prec})")
+            log(f"  A={A} E={args[0].shape[0]} has_t={has_t} {prec} "
+                f"u4,u5={'present' if all_u else 'absent'}: rel err "
+                + ", ".join(line) + "; repeated call the same bits")
+    log(f"  max abs err (bf16, has_t, u4 = u5 absent as on the main path): "
+        f"{err:.3e}")
+    return inputs, err
+
+
+def sf_first_step(torch, dev, batch):
+    """Loss and gradients of the first force step through
+    make_bucketed_step_fns (lr 0), slot kernel vs unfused branch, f32 and
+    bf16."""
+    from dig_tpu_torch.train import make_bucketed_step_fns
+    errs, truth = {}, None
+
+    def rel_norm(g, ref):
+        return float(torch.cat([(a - b).reshape(-1) for a, b in zip(g, ref)])
+                     .norm() / torch.cat([b.reshape(-1) for b in ref]).norm())
+    for prec, cd in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        res = {}
+        for slot in (True, False):
+            m = sn_model(torch, dev, cd, slot)
+            step, _ = make_bucketed_step_fns(
+                m, torch.optim.SGD(m.parameters(), lr=0.0), p=SF_P)
+            loss = float(step(batch)["loss"])
+            res[slot] = (loss, [p.grad.float() for p in m.parameters()])
+            names = [n for n, _ in m.named_parameters()]
+            del m, step
+            torch.cuda.empty_cache()
+        (lk, gk), (lp, gp) = res[True], res[False]
+        loss_err = abs(lk - lp) / abs(lp)
+        per = sorted(((float((a - b).norm() / b.norm().clamp_min(1e-12)), n)
+                      for a, b, n in zip(gk, gp, names)), reverse=True)
+        whole = rel_norm(gk, gp)
+        log(f"  first force step {prec}: loss slot kernel {lk:.6f} unfused "
+            f"{lp:.6f} (rel {loss_err:.3e}); gradient rel-norm err "
+            f"{whole:.3e} over all parameters, median parameter "
+            f"{per[len(per) // 2][0]:.3e}, worst "
+            + ", ".join(f"{n} {e:.3e}" for e, n in per[:3]))
+        tol_loss, tol_grad = SF_STEP_TOL[prec]
+        if not math.isfinite(lk) or loss_err >= tol_loss:
+            fail(f"force first-step loss {prec}: {lk} vs {lp}")
+        errs[prec] = {"loss_rel_err": loss_err, "grad_rel_err": whole,
+                      "worst_param": per[0]}
+        if truth is None:                       # f32
+            truth = (lp, gp)
+            if whole >= tol_grad or per[0][0] >= tol_grad:
+                fail(f"force first-step gradients f32 differ: {whole} over "
+                     f"all, worst {per[0]}")
+            continue
+        to_k, to_p = rel_norm(gk, truth[1]), rel_norm(gp, truth[1])
+        log(f"    against the f32 unfused step: slot kernel loss "
+            f"{abs(lk - truth[0]) / abs(truth[0]):.3e}, gradient "
+            f"{to_k:.3e}; unfused loss "
+            f"{abs(lp - truth[0]) / abs(truth[0]):.3e}, gradient {to_p:.3e}")
+        errs[prec].update(slot_to_f32=to_k, unfused_to_f32=to_p)
+        agree = {label: agreement(torch, g, truth[1], names)
+                 for label, g in (("slot kernel", gk), ("unfused", gp))}
+        for label, a in agree.items():
+            log(f"    {label} bf16 against the f32 gradient: cosine "
+                f"{a['cos']:.4f} over all parameters, median parameter "
+                f"{a['median_cos']:.4f}; norm {a['norm']:.4f} x the f32 one "
+                f"over all parameters, per parameter {a['least'][0]:.4f} "
+                f"({a['least'][1]}) to {a['largest'][0]:.4f} "
+                f"({a['largest'][1]})")
+        a = errs[prec]["agreement"] = agree["slot kernel"]
+        if (not a["cos"] >= SF_BF16_COS[0]
+                or not a["median_cos"] >= SF_BF16_COS[1]
+                or not SF_BF16_NORM[0] <= a["least"][0]
+                or not a["largest"][0] <= SF_BF16_NORM[1]):
+            fail(f"bf16 force gradient of the slot branch against the f32 "
+                 f"one: {a}; cosines must reach {SF_BF16_COS}, each "
+                 f"parameter's norm ratio lie within {SF_BF16_NORM}")
+    return errs
+
+
+def agreement(torch, g, ref, names):
+    """How a gradient (one tensor per parameter) agrees with a reference:
+    the cosine of the whole gradient and the median of the per-parameter
+    cosines, the whole norm ratio, and the least and largest per-parameter
+    norm ratio with the parameter's name. A zero or dropped gradient reads
+    cosine 0 and norm ratio 0."""
+    def cos(a, b):
+        return float((a * b).sum() / (a.norm() * b.norm()).clamp_min(1e-30))
+    flat = lambda t: torch.cat([x.reshape(-1) for x in t])
+    per = sorted(cos(a, b) for a, b in zip(g, ref))
+    ratios = sorted((float(a.norm() / b.norm().clamp_min(1e-30)), n)
+                    for a, b, n in zip(g, ref, names))
+    return {"cos": cos(flat(g), flat(ref)), "median_cos": per[len(per) // 2],
+            "norm": float(flat(g).norm() / flat(ref).norm()),
+            "least": ratios[0], "largest": ratios[-1]}
+
+
+def phase_sf_main_path(torch, cf, ts, dev, batches):
+    from dig_tpu_torch.threed import ThreeDEvaluator
+    from dig_tpu_torch.train import make_bucketed_step_fns
+    step_errs = sf_first_step(torch, dev, batches[0])
+    model = sn_model(torch, dev, torch.bfloat16, True)
+    counts = []                        # per batch: summed over the buckets
+    with torch.no_grad():
+        for bs in batches:
+            per = [sn_pair_counts(torch, b, model.geometry(b.nodes["pos"], b,
+                                                            A), A)
+                   for A, b in bs.items()]
+            counts.append((sum(c[0] for c in per), max(c[1] for c in per),
+                           sum(c[2] for c in per), sum(c[3] for c in per)))
+    if any(c[3] for c in counts):
+        fail(f"radius_blocked_dropped {[c[3] for c in counts]}: the buckets "
+             f"are not slot-aligned")
+    opt = torch.optim.Adam(model.parameters(), lr=5e-4)
+    train_step, eval_step = make_bucketed_step_fns(model, opt, p=SF_P)
+    cf.reset_launch_counts()
+    ts.reset_launch_counts()
+    losses, t_start = [], None
+    for s, bs in enumerate(batches):
+        if s == SF_WARMUP:
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+        losses.append(train_step(bs)["loss"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t_start
+    launches = (ts.launches_fwd, ts.launches_bwd, ts.launches_bwd2)
+    losses = [float(x) for x in losses]
+    calls = SN_KW["num_layers"] * len(SF_SLOTS) * len(batches)
+    want = (calls, 2 * calls, calls)
+    log(f"  {len(batches)} Adam steps, losses {[round(x, 4) for x in losses]}")
+    log(f"  triplet_slot launches fwd {launches[0]} bwd {launches[1]} bwd2 "
+        f"{launches[2]} (layers x buckets x steps = {calls}: the backward "
+        f"once with dpt under create_graph and once in the outer pass); "
+        f"cfconv {cf.launches_fwd} {cf.launches_bwd}")
+    if not all(math.isfinite(x) for x in losses):
+        fail("non-finite force-training loss")
+    if launches != want:
+        fail(f"triplet_slot launch counts {launches} != {want}")
+    out = eval_step(batches[0])
+    preds, trues = [], []
+    for A, o in out.items():
+        if not bool(torch.isfinite(o["force_pred"]).all()):
+            fail(f"non-finite forces in bucket {A}")
+        m = o["graph_mask"]
+        preds.append(o["y_pred"][m])
+        trues.append(batches[0][A].globals["y"][:, :1][m])
+    mae = ThreeDEvaluator().eval({"y_pred": torch.cat(preds),
+                                  "y_true": torch.cat(trues)})["mae"]
+    fmax = max(float(o["force_pred"].abs().max()) for o in out.values())
+    if not math.isfinite(mae):
+        fail("non-finite force-path eval MAE")
+    timed = len(batches) - SF_WARMUP
+    pairs = sum(c[0] for c in counts[SF_WARMUP:])
+    kept = sum(c[2] for c in counts[SF_WARMUP:])
+    step_ms = dt / timed * 1e3
+    log(f"  radius_blocked_dropped 0 in all {len(batches)} batches; largest "
+        f"uncapped in-degree {max(c[1] for c in counts)}")
+    log(f"  eval: forces finite (largest |F| {fmax:.4g}), energy MAE "
+        f"{mae:.5f} over {int(sum(len(p) for p in preds))} molecules")
+    log(f"  force step {step_ms:.3f} ms (mean of {timed} steps); "
+        f"{pairs / dt:.6g} edges/s counting the uncapped in-cutoff pairs "
+        f"({pairs / timed:.0f} per step, as bench.py:268-278 counts), "
+        f"{kept / dt:.6g} edges/s counting the {kept / timed:.0f} NK edges "
+        f"kept per step")
+    return {"launches_fwd": launches[0], "launches_bwd": launches[1],
+            "launches_bwd2": launches[2], "steps": len(batches),
+            "losses": losses, "step_ms": step_ms, "edges_per_s": pairs / dt,
+            "kept_edges_per_s": kept / dt, "pairs_per_step": pairs / timed,
+            "kept_per_step": kept / timed, "first_step": step_errs,
+            "eval_mae": mae}
+
+
+def phase_sf_run3d(torch, ts, dev):
+    """One short Run3D epoch with energy_and_force at slots of 29 atoms:
+    two training batches of 96, one validation and one test batch."""
+    from dig_tpu_torch.datasets import synthetic_molecules
+    from dig_tpu_torch.threed import Run3D, ThreeDEvaluator
+    mols = synthetic_molecules(96 * 4, seed=1, min_atoms=12, max_atoms=29,
+                               box=6.0, with_forces=True)
+    mols = [dict(m, y=m["y"][:1]) for m in mols]
+    model = sn_model(torch, dev, torch.bfloat16, True)
+    before = ts.launches_bwd2
+    t = time.perf_counter()
+    res = Run3D().run(mols[:192], mols[192:288], mols[288:], model,
+                      ThreeDEvaluator(), epochs=1, batch_size=96,
+                      vt_batch_size=96, energy_and_force=True,
+                      slot_size=SN_KW["block_size"], device=dev)
+    torch.cuda.synchronize()
+    n = ts.launches_bwd2 - before
+    log(f"  Run3D epoch: best valid MAE {res['best_valid']:.5f}, test "
+        f"{res['best_test']:.5f}; {n} second-order launches; "
+        f"{time.perf_counter() - t:.1f} s")
+    if not (math.isfinite(res["best_valid"])
+            and math.isfinite(res["best_test"])):
+        fail("Run3D energy_and_force: non-finite MAE")
+    if n != 2 * SN_KW["num_layers"]:
+        fail(f"Run3D: {n} second-order launches, expected "
+             f"{2 * SN_KW['num_layers']}")
+
+
+def sf_bwd2_bounds(args, ct, work, prec):
+    """Least time for one second-order call's work at this data: real
+    triplets only. Bytes, in the types the function takes and returns (as
+    the JAX _run_bwd2 declares them, not the kernel's float32 staging): the
+    x and u1 rows and the pt and u2 columns real triplets gather, the
+    cotangent rows of the edges that own one, m2T, lj and the weights in
+    full in; xb (x's type), ctb (ct's type), all of ptb (pt's type) and
+    wsb, wtb (the weights' type) out. Operations per real triplet: the
+    four basis products sv, tv, dsv, dtv (4 C NB), the weight gradients
+    (4 C NB) and the basis cotangents (4 C NB), about 18 C for the
+    per-channel products and 8 NB for the product rules of sbf and tbf."""
+    x, pt, ws, wt, m2t, lj = args
+    C, R = x.shape[1], pt.shape[1]
+    NB = ws.shape[0] + (wt.shape[0] if wt.shape[0] > 1 else 0)
+    T = work["triplets"]
+    el = lambda t: t.numel() * t.element_size()
+    w = el(ws) + el(wt)
+    nbytes = (2 * work["x_rows"] * C * x.element_size()
+              + 2 * T * R * pt.element_size()
+              + work["edges"] * C * ct.element_size()
+              + el(m2t) + el(lj) + w
+              + el(x) + el(ct) + el(pt) + w)
+    flops = T * (12 * C * NB + 18 * C + 8 * NB)
+    t_ops = flops / PEAK_FLOPS[prec]
+    t_bytes = nbytes / PEAK_BYTES
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    return max(t_ops, t_bytes) * 1e3, by, flops, nbytes
+
+
+def phase_sf_times(torch, ts, inputs):
+    K = SN_KW["nk_degree"]
+    rows = []
+    for A, inp in inputs.items():
+        for prec, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            args, ct, us, cfg = bwd2_args(torch, inp, True, dt, False)
+            k_args = ts._kernel_inputs(*args, A, K, cfg)
+            ct32 = ct.float().contiguous()
+            ms = cuda_ms(torch, lambda: ts.triplet_slot_bwd2_kernel(
+                *k_args, ct32, *us, A, K, cfg))
+            plain = cuda_ms(torch, lambda: ts.fused_triplet_slot_bwd2_reference(
+                *args, ct, *us, A, K, cfg), iters=3, warmup=1)
+            b = sf_bwd2_bounds(args, ct, inp["work"], prec)
+            rows.append({"kernel": "triplet_slot_bwd2", "A": A,
+                         "E": args[0].shape[0], "precision": prec, "ms": ms,
+                         "plain_ms": plain, "bound_ms": b[0],
+                         "bound_by": b[1], "flops": b[2], "bytes": b[3],
+                         "triplets": inp["work"]["triplets"]})
+    for r in rows:
+        log(f"  triplet_slot_bwd2 A={r['A']} E={r['E']} {r['precision']} "
+            f"({r['triplets']} real triplets): {r['ms']:.4f} ms (bound "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']}, "
+            f"{r['bound_ms'] / r['ms']:.4f} of it; {r['flops'] / 1e9:.3f} "
+            f"GFLOP, {r['bytes'] / 1e6:.2f} MB; plain {r['plain_ms']:.3f} ms)")
     return rows
 
 
@@ -769,6 +1151,21 @@ def main():
 
     log("== 8. times: triplet_slot")
     sn_rows = phase_sn_times(torch, ts, sn_inp)
+    del sn_b, sn_inp
+    torch.cuda.empty_cache()
+
+    sf_b = sf_batches(torch, dev, SF_STEPS + 1)
+    log("== 9. kernel vs plain: triplet_slot second order (force bench "
+        "buckets, pt of a real batch)")
+    sf_inp, bwd2_err = phase_sf_kernel_vs_plain(torch, ts, dev, sf_b[-1])
+
+    log("== 10. main path 3: SphereNet energy+force 4x128 bf16, slot "
+        "kernel, buckets {16: 27, 24: 43, 29: 26}, Adam(5e-4)")
+    sf_res = phase_sf_main_path(torch, cf, ts, dev, sf_b[:SF_STEPS])
+    phase_sf_run3d(torch, ts, dev)
+
+    log("== 11. times: triplet_slot second order")
+    sf_rows = phase_sf_times(torch, ts, sf_inp)
 
     def total(kernel, key):
         return sum(r[key] for r in rows if r["kernel"] == kernel
@@ -806,11 +1203,27 @@ def main():
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None})
+    b_rows = [r for r in sf_rows if r["precision"] == "bf16"]
+    kernels.append({
+        "name": "triplet_slot_bwd2", "route": "cuda",
+        "source": "dig_tpu_torch/csrc/triplet_slot.cu",
+        "replaces": "dig_tpu/ops/pallas_triplet_slot.py:501",
+        "launches": sf_res["launches_bwd2"], "max_abs_err": bwd2_err,
+        "ms": sum(r["ms"] for r in b_rows),
+        "plain_ms": sum(r["plain_ms"] for r in b_rows),
+        "bound_ms": sum(r["bound_ms"] for r in b_rows),
+        "bound_by": max(b_rows, key=lambda r: r["bound_ms"])["bound_by"],
+        "library_ms": None})
     log("  (cfconv ms, plain_ms and bound_ms: one call per bucket, summed "
-        "over the 3 buckets = one layer of one step; triplet_slot: one "
-        "call = one layer of one step; bf16 and no geometry gradient, as on "
-        "the main paths; no PyTorch call computes either function, so "
-        "library_ms is null)")
+        "over the 3 buckets = one layer of one step; triplet_slot fwd/bwd: "
+        "one call = one layer of one energy step (main path 2), no "
+        "geometry gradient; triplet_slot_bwd2: one call per bucket, summed "
+        "over the 3 buckets = one layer of one force step (main path 3), "
+        "u4 = u5 absent; all bf16 as on the main paths; no PyTorch call "
+        "computes any of these functions, so library_ms is null)")
+    log(f"  force path: step {sf_res['step_ms']:.3f} ms, "
+        f"{sf_res['edges_per_s']:.6g} edges/s (uncapped pairs), "
+        f"{sf_res['kept_edges_per_s']:.6g} (kept NK edges)")
     log(f"  total {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

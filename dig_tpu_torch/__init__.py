@@ -8,12 +8,15 @@ PyTorch; each Pallas TPU kernel becomes a CUDA kernel written for Hopper
 Layering (mirrors ``dig_tpu``):
   device        ``resolve_device``: entry points default to the CUDA card
   graph_dense   dense per-graph molecular batches
-  ops           basis functions, the fused cfconv kernel
+  graph         flat padded graph batches (slot-aligned layout)
+  ops           bases, radius graph and triplet tables, the fused cfconv
+                kernel, the slot triplet kernel (to second order)
   nn            shared blocks and initializers
-  models        SchNetDense
-  train         bucketed dense train step, metrics
-  threed        evaluator
-  datasets      synthetic molecules and the dense loaders
+  models        SchNetDense, SphereNet, DimeNetPP
+  train         train steps (energy, energy+force, bucketed), Run3D,
+                checkpoints, metrics
+  threed        evaluator, Run3D / run
+  datasets      synthetic molecules, the flat, bucketed and dense loaders
   convert       flax parameter trees -> torch modules
 """
 

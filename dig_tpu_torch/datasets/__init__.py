@@ -1,8 +1,10 @@
 from .synthetic import (morse_energy, synthetic_molecules,
                         synthetic_morse_molecules)
-from .loader import (BucketedDenseMoleculeLoader, DenseMoleculeLoader,
-                     MoleculeLoader, PackedDenseMoleculeLoader)
+from .loader import (BucketedDenseMoleculeLoader, BucketedMoleculeLoader,
+                     DenseMoleculeLoader, MoleculeLoader,
+                     PackedDenseMoleculeLoader)
 
 __all__ = ["synthetic_molecules", "synthetic_morse_molecules",
            "morse_energy", "MoleculeLoader", "DenseMoleculeLoader",
-           "PackedDenseMoleculeLoader", "BucketedDenseMoleculeLoader"]
+           "PackedDenseMoleculeLoader", "BucketedDenseMoleculeLoader",
+           "BucketedMoleculeLoader"]

@@ -1,11 +1,11 @@
 """Host-side minibatch loaders: molecule dicts -> GraphBatch /
 DenseGraphBatch.
 
-Port of ``MoleculeLoader`` (``dig_tpu/datasets/loader.py:18-86``) and the
-dense loaders (``:89-300``). The numpy RNG use is the same, so a seed
-gives bit-identical batches to the JAX package's loaders. Batches are
-built on the host and moved to ``device`` (default: the CUDA card).
-``BucketedMoleculeLoader`` waits for the force-training slice.
+Port of ``MoleculeLoader`` (``dig_tpu/datasets/loader.py:18-86``), the
+dense loaders (``:89-300``) and ``BucketedMoleculeLoader`` (``:303-388``).
+The numpy RNG use is the same, so a seed gives bit-identical batches to
+the JAX package's loaders. Batches are built on the host and moved to
+``device`` (default: the CUDA card).
 """
 from __future__ import annotations
 
@@ -73,17 +73,7 @@ class MoleculeLoader:
         order = _epoch_order(self)
         for b in range(len(self)):
             idx = order[b * self.batch_size:(b + 1) * self.batch_size]
-            graphs = []
-            for m in (self.data[i] for i in idx):
-                nodes = {"z": m["z"], "pos": m["pos"]}
-                if "force" in m:
-                    nodes["force"] = m["force"]
-                glb = {"y": np.atleast_1d(m["y"])}
-                if "cell" in m:
-                    glb["cell"] = m["cell"]
-                graphs.append({"nodes": nodes, "globals": glb,
-                               "senders": np.zeros(0, np.int32),
-                               "receivers": np.zeros(0, np.int32)})
+            graphs = [_molecule_graph(self.data[i]) for i in idx]
             yield batch_np(graphs, self.n_node_pad, n_edge_pad=1,
                            num_graphs=self.batch_size,
                            slot_size=self.slot_size, device=self.device)
@@ -266,3 +256,83 @@ class BucketedDenseMoleculeLoader:
                 pending = rest
             if any(state[s][2] for s in self.sizes):
                 yield self._emit(state)
+
+
+def _molecule_graph(m):
+    nodes = {"z": m["z"], "pos": m["pos"]}
+    if "force" in m:
+        nodes["force"] = m["force"]
+    glb = {"y": np.atleast_1d(m["y"])}
+    if "cell" in m:
+        glb["cell"] = m["cell"]
+    return {"nodes": nodes, "globals": glb,
+            "senders": np.zeros(0, np.int32),
+            "receivers": np.zeros(0, np.int32)}
+
+
+class BucketedMoleculeLoader:
+    """Slot-bucketed batches for the slot / NK models: each batch is a dict
+    ``{slot_size: GraphBatch}`` with a fixed graph count per bucket.
+
+    Each molecule goes to the smallest bucket that fits it; a batch is
+    emitted once every bucket holds its count, the surplus waiting for the
+    next batch. The consumer applies the model once per bucket at that
+    slot size (``make_bucketed_step_fns``). ``slot_counts`` maps slot size
+    to graphs per batch. With ``shuffle`` (reshuffled each epoch from
+    ``seed + epoch``) the ragged tail is dropped; otherwise it is emitted,
+    an under-filled bucket padded with empty graphs and an empty one
+    holding one masked template molecule, so every batch has every
+    bucket.
+    """
+
+    def __init__(self, data, slot_counts: Dict[int, int],
+                 shuffle: bool = False, seed: int = 0,
+                 device: DeviceLike = None):
+        self.device = resolve_device(device)
+        self.data = list(data)
+        self.slot_counts = dict(sorted(slot_counts.items()))
+        self.sizes = list(self.slot_counts)
+        big = max(len(m["z"]) for m in self.data)
+        if big > self.sizes[-1]:
+            raise ValueError(f"molecule with {big} atoms exceeds largest "
+                             f"bucket {self.sizes[-1]}")
+        self.shuffle = shuffle
+        self.seed = seed
+        self.epoch = 0
+
+    def _batch(self, graphs, s, G):
+        return batch_np(graphs, G * s, n_edge_pad=1, num_graphs=G,
+                        slot_size=s, device=self.device)
+
+    def _emit(self, state):
+        out = {}
+        for s, G in self.slot_counts.items():
+            chunk = state[s][:G]
+            if not chunk:
+                # keep every bucket in every batch: one truncated template
+                # molecule, masked out
+                t = dict(self.data[0])
+                n = min(len(t["z"]), s)
+                for k, v in list(t.items()):
+                    if (k != "y" and np.ndim(v) >= 1
+                            and np.shape(v)[0] == len(self.data[0]["z"])):
+                        t[k] = np.asarray(v)[:n]
+                b = self._batch([_molecule_graph(t)], s, G)
+                out[s] = b.replace(node_mask=torch.zeros_like(b.node_mask),
+                                   graph_mask=torch.zeros_like(b.graph_mask))
+            else:
+                out[s] = self._batch([_molecule_graph(m) for m in chunk], s,
+                                     G)
+            state[s] = state[s][G:]
+        return out
+
+    def __iter__(self) -> Iterator[Dict[int, GraphBatch]]:
+        state = {s: [] for s in self.sizes}
+        for i in _epoch_order(self):
+            m = self.data[i]
+            s = next(t for t in self.sizes if len(m["z"]) <= t)
+            state[s].append(m)
+            if all(len(state[t]) >= self.slot_counts[t] for t in self.sizes):
+                yield self._emit(state)
+        while not self.shuffle and any(len(v) for v in state.values()):
+            yield self._emit(state)

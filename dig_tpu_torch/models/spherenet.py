@@ -14,6 +14,14 @@ batches from ``MoleculeLoader(slot_size=block_size)``):
   ``wt = wt1 @ wt2`` from the same Linear weights, so one parameter set
   serves both branches.
 
+Both branches differentiate twice: force training takes ``-dE/dpos``
+with ``create_graph`` inside the loss. The geometry keeps its graph back
+to ``pos`` (closed gather pairs, the argmin-recompute torsion, the basis
+closed forms), and the slot kernel's basis gradient ``dpt`` is asked for
+whenever ``pos`` requires a gradient. ``forward(g, block_size=s)``
+overrides the slot size per call, so one module (one parameter set)
+serves every bucket of a ``BucketedMoleculeLoader`` batch.
+
 Every other layout raises ``NotImplementedError`` naming its ROADMAP item:
 the flat edge list (``nk_degree=0``), the unblocked NK builder,
 ``fused_triplet_product`` (``pallas_triplet`` without ``pallas_fuse_basis``,
@@ -360,10 +368,13 @@ class _SphericalMPNN(nn.Module):
     def slot_fused(self) -> bool:
         return self.pallas_triplet
 
-    def geometry(self, pos: torch.Tensor, g: GraphBatch) -> Geometry:
-        """Radius graph, triplets and per-edge / per-triplet geometry."""
+    def geometry(self, pos: torch.Tensor, g: GraphBatch,
+                 block_size: Optional[int] = None) -> Geometry:
+        """Radius graph, triplets and per-edge / per-triplet geometry
+        (``block_size``: the batch's slot size, default the model's)."""
         nkg = radius_graph_nk_blocked(pos, g.node_mask, self.cutoff,
-                                      self.nk_degree, self.block_size,
+                                      self.nk_degree,
+                                      block_size or self.block_size,
                                       node_graph=g.node_graph)
         trip = build_triplets_nk(nkg)
         return Geometry(
@@ -371,13 +382,14 @@ class _SphericalMPNN(nn.Module):
             triplet_geometry(pos, trip), triplet_kj_distances(pos, trip),
             torsion_angles(pos, trip) if self.use_torsion else None)
 
-    def slot_operands(self, geo: Geometry):
+    def slot_operands(self, geo: Geometry,
+                      block_size: Optional[int] = None):
         """``(pt [K, R, E], m2T [K, E], lj [1, E])`` of
-        ``fused_triplet_slot``: the packed basis built s-leading, the
-        triplet mask and the slot-local sender ids, in the compute type
-        (``lj`` int32)."""
+        ``fused_triplet_slot``: the packed basis built s-leading (keeping
+        its graph back to the positions), the triplet mask and the
+        slot-local sender ids, in the compute type (``lj`` int32)."""
         ns, nr = self.num_spherical, self.num_radial
-        A, K = self.block_size, self.nk_degree
+        A, K = block_size or self.block_size, self.nk_degree
         E = geo.nkg.senders.shape[0]
         smaj = lambda v: v.reshape(E, K).t()          # [T] e-major -> [K, E]
         pt_s = basis_pt_k(ns, nr, smaj(geo.angle),
@@ -390,16 +402,20 @@ class _SphericalMPNN(nn.Module):
         lj = (geo.nkg.senders - slot * A).to(torch.int32)[None]
         return pt_s.to(cdt), m2t, lj
 
-    def forward(self, g: GraphBatch) -> torch.Tensor:
+    def forward(self, g: GraphBatch,
+                block_size: Optional[int] = None) -> torch.Tensor:
+        """Energies ``[G, out]`` of a slot-aligned batch whose slot size
+        is ``block_size`` (default: the model's)."""
+        A = block_size or self.block_size
         pos = g.nodes["pos"]
         N, G = g.num_nodes, g.num_graphs
         ns, nr, dt = self.num_spherical, self.num_radial, self.dtype
-        geo = self.geometry(pos, g)
+        geo = self.geometry(pos, g, A)
         nkg, trip = geo.nkg, geo.trip
         rbf0 = self.dist_emb(geo.dist)
         geom = sbf = tbf = None
         if self.slot_fused:
-            geom = self.slot_operands(geo)
+            geom = self.slot_operands(geo, A)
         else:
             rbf_kj = bessel_table(ns, nr, geo.dist_kj / self.cutoff)
             sbf = AngleEmb(ns, nr, self.cutoff)(rbf_kj, geo.angle)
@@ -414,7 +430,7 @@ class _SphericalMPNN(nn.Module):
         e1, e2 = self.init_block(g.nodes["z"], rbf0, trip)
         v = self.update_vs[0](e2, nkg.edge_mask, N)
         u = segment_sum(v, g.node_graph, G, mask=g.node_mask)
-        slot_atoms = self.block_size if self.slot_fused else 0
+        slot_atoms = A if self.slot_fused else 0
         for ue, uv in zip(self.update_es, self.update_vs[1:]):
             e1, e2 = ue(e1, rbf0, sbf, tbf, trip, geom=geom,
                         slot_atoms=slot_atoms)

@@ -15,21 +15,27 @@ Precision: ``sbf``, ``tbf`` and the gathered ``x`` are rounded to
 ``x.dtype`` (the operands the TPU kernel rounds); products and sums are
 float32 and the output is rounded to ``x.dtype`` once. (The TPU kernel
 sums over s in ``x.dtype``; in bf16 that rounds 16 times instead of
-once.) Gradients are float32, cast to each input's dtype at the end. A
-triplet whose ``lj`` lies outside ``[0, A)`` contributes zero.
+once.) Derivatives of the roundings are the identity; gradients are
+float32, cast to each input's dtype at the end. A triplet whose ``lj``
+lies outside ``[0, A)`` contributes zero.
 
-On a CUDA tensor ``fused_triplet_slot`` launches the hand-written kernels
-of ``csrc/triplet_slot.cu``; on a CPU tensor it runs
-``fused_triplet_slot_reference`` and takes its gradients by autograd.
-First order only: the second-order kernel (``_run_bwd2``) comes with
-force training (ROADMAP queue 2 item 3). ``launches_fwd`` /
-``launches_bwd`` count kernel launches.
+Differentiable to second order, as the JAX op's custom_vjp tower
+(``fused_triplet_slot`` -> ``_B`` -> ``_run_bwd2``): the backward of
+:class:`_TripletSlot` is the Function :class:`_TripletSlotBwd`, whose own
+backward is the second-order VJP. Force training (force = -dE/dpos inside
+the loss) runs all three levels. On a CUDA tensor every level launches a
+hand-written kernel of ``csrc/triplet_slot.cu`` or raises; on a CPU tensor
+each level runs its plain version (``fused_triplet_slot_reference``, its
+autograd backward ``fused_triplet_slot_bwd_reference`` and the autograd
+double backward ``fused_triplet_slot_bwd2_reference``). ``launches_fwd``,
+``launches_bwd`` and ``launches_bwd2`` count kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from . import _build
 from .basis import make_bessel_funcs, make_sph_funcs_full, make_sph_funcs_m0
@@ -38,17 +44,16 @@ KERNEL_CHANNELS = (32, 64, 128)   # C the kernels are compiled for
 
 launches_fwd = 0
 launches_bwd = 0
+launches_bwd2 = 0
 
 _SHAPES = "C must be one of 32/64/128"
-_SECOND_ORDER = ("fused_triplet_slot is first order only: the second-order "
-                 "kernel (pallas_triplet_slot.py:501 _run_bwd2) comes with "
-                 "the SphereNet force-training slice (ROADMAP queue 2 item 3)")
 
 
 def reset_launch_counts() -> None:
-    global launches_fwd, launches_bwd
+    global launches_fwd, launches_bwd, launches_bwd2
     launches_fwd = 0
     launches_bwd = 0
+    launches_bwd2 = 0
 
 
 def basis_pt_k(num_spherical: int, num_radial: int, theta, phi, dk,
@@ -72,9 +77,10 @@ def _round_to(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return t + (t.to(dtype).float() - t).detach()
 
 
-def fused_triplet_slot_reference(x, pt, ws, wt, m2T, lj, A: int, K: int,
-                                 cfg) -> torch.Tensor:
-    """Plain version of the slot contraction (differentiable by autograd).
+def _contract(x, pt, ws, wt, m2T, lj, A: int, K: int, cfg,
+              md: torch.dtype) -> torch.Tensor:
+    """The slot contraction in float32, rounding the operands the kernels
+    round to ``md``; differentiable by autograd to any order.
 
     The JAX oracle (``fused_triplet_slot_ref``) gathers x with an [N, E]
     one-hot; here the gather is ``x.view(N, K, C)[slot*A + lj, s]``, the
@@ -83,7 +89,6 @@ def fused_triplet_slot_reference(x, pt, ws, wt, m2T, lj, A: int, K: int,
     n, k, has_t = cfg
     E, C = x.shape
     nk = n * k
-    md = x.dtype
     slot = torch.arange(E, device=x.device) // (A * K)
     ljl = lj[0].long()
     valid = (ljl >= 0) & (ljl < A)
@@ -103,7 +108,59 @@ def fused_triplet_slot_reference(x, pt, ws, wt, m2T, lj, A: int, K: int,
                             md)
             prod = prod * (tbf @ wtf)
         out = out + prod
-    return out.to(md)
+    return out
+
+
+def fused_triplet_slot_reference(x, pt, ws, wt, m2T, lj, A: int, K: int,
+                                 cfg) -> torch.Tensor:
+    """Plain version of the slot contraction (differentiable by autograd
+    to any order); ``[E, C]`` in ``x.dtype``."""
+    return _contract(x, pt, ws, wt, m2T, lj, A, K, cfg, x.dtype).to(x.dtype)
+
+
+def _leaves(*ts):
+    return [t.detach().float().requires_grad_() for t in ts]
+
+
+def _zeros_for_unused(grads, like):
+    return [torch.zeros_like(t) if g is None else g
+            for g, t in zip(grads, like)]
+
+
+def fused_triplet_slot_bwd_reference(x, pt, ws, wt, m2T, lj, ct, A: int,
+                                     K: int, cfg):
+    """Plain first-order VJP: float32 ``(dx, dpt, dws, dwt)`` of the
+    contraction against the output cotangent ``ct [E, C]`` (autograd of
+    the plain version; ``dwt`` is 0 without torsion)."""
+    with torch.enable_grad():
+        xs = _leaves(x, pt, ws, wt)
+        out = _contract(*xs, m2T, lj, A, K, cfg, x.dtype)
+        grads = torch.autograd.grad(out, xs, ct.detach().float(),
+                                    allow_unused=True)
+    return _zeros_for_unused(grads, xs)
+
+
+def fused_triplet_slot_bwd2_reference(x, pt, ws, wt, m2T, lj, ct, u1, u2,
+                                      u4, u5, A: int, K: int, cfg):
+    """Plain second-order VJP: the cotangents ``(u1, u2, u4, u5)`` of
+    ``(dx, dpt, dws, dwt)`` pulled back to float32 ``(xb, ptb, wsb, wtb,
+    ctb)``, the gradients with respect to ``(x, pt, ws, wt, ct)``. Any
+    ``u`` may be None (its terms vanish). Autograd of the first-order VJP,
+    itself taken with ``create_graph``."""
+    with torch.enable_grad():
+        xs = _leaves(x, pt, ws, wt, ct)
+        out = _contract(*xs[:4], m2T, lj, A, K, cfg, x.dtype)
+        first = torch.autograd.grad(out, xs[:4], xs[4], create_graph=True,
+                                    allow_unused=True)
+        pairs = [(g, u.detach().float()) for g, u in zip(first,
+                                                         (u1, u2, u4, u5))
+                 if g is not None and u is not None]
+        grads = [None] * 5
+        if pairs:
+            grads = torch.autograd.grad([g for g, _ in pairs], xs,
+                                        [u for _, u in pairs],
+                                        allow_unused=True)
+    return _zeros_for_unused(grads, xs)
 
 
 # ---------------------------------------------------------------------------
@@ -118,8 +175,19 @@ def _library() -> ctypes.CDLL:
         lib.triplet_slot_fwd.restype = I
         lib.triplet_slot_bwd.argtypes = [P] * 11 + [I] * 10 + [P]
         lib.triplet_slot_bwd.restype = I
+        lib.triplet_slot_bwd2.argtypes = [P] * 16 + [I] * 9 + [P]
+        lib.triplet_slot_bwd2.restype = I
         lib._argtypes_set = True
     return lib
+
+
+def _check_shape(name, t, shape, dev):
+    if t.device != dev:
+        raise ValueError(f"fused_triplet_slot: {name} on {t.device}, x on "
+                         f"{dev}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"fused_triplet_slot: {name} has shape "
+                         f"{tuple(t.shape)}, expected {shape}")
 
 
 def _kernel_inputs(x, pt, ws, wt, m2T, lj, A, K, cfg):
@@ -133,12 +201,7 @@ def _kernel_inputs(x, pt, ws, wt, m2T, lj, A, K, cfg):
             "wt": (wt, ((n * n * k if has_t else 1), C)),
             "m2T": (m2T, (K, E)), "lj": (lj, (1, E))}
     for name, (t, shape) in want.items():
-        if t.device != x.device:
-            raise ValueError(f"fused_triplet_slot: {name} on {t.device}, x "
-                             f"on {x.device}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"fused_triplet_slot: {name} has shape "
-                             f"{tuple(t.shape)}, expected {shape}")
+        _check_shape(name, t, shape, x.device)
     if E % (A * K):
         raise ValueError(f"fused_triplet_slot: E={E} is not a multiple of "
                          f"A*K={A * K}")
@@ -171,6 +234,14 @@ def triplet_slot_forward_kernel(x, pt, ws, wt, m2T, lj, A, K, cfg):
     return out
 
 
+def _weight_grads(dw, n, k, has_t, C, dev):
+    nk, ntk = n * k, (n * n * k if has_t else 0)
+    dws = dw[:nk * C].view(nk, C)
+    dwt = (dw[nk * C:].view(ntk, C) if has_t
+           else torch.zeros((1, C), dtype=torch.float32, device=dev))
+    return dws, dwt
+
+
 def triplet_slot_backward_kernel(x, pt, ws, wt, m2T, lj, ct, A, K, cfg,
                                  need_dpt):
     """Launch the backward kernel; returns float32 ``(dx, dpt, dws, dwt)``,
@@ -193,53 +264,124 @@ def triplet_slot_backward_kernel(x, pt, ws, wt, m2T, lj, ct, A, K, cfg,
         int(bool(need_dpt)), blocks, _build.stream(dev))
     _build.check(rc, "triplet_slot backward kernel", _SHAPES)
     launches_bwd += 1
-    dws = dw[:nk * C].view(nk, C)
-    dwt = (dw[nk * C:].view(ntk, C) if has_t
-           else torch.zeros((1, C), dtype=torch.float32, device=dev))
-    return dx, dpt, dws, dwt
+    return (dx, dpt, *_weight_grads(dw, n, k, has_t, C, dev))
 
 
-def _reference_backward(saved, ct, A, K, cfg):
-    with torch.enable_grad():
-        xs = [t.detach().requires_grad_() for t in saved[:4]]
-        out = fused_triplet_slot_reference(*xs, *saved[4:], A, K, cfg)
-        grads = torch.autograd.grad(out, xs, ct.to(out.dtype),
-                                    allow_unused=True)   # wt without torsion
-    return [torch.zeros_like(x) if g is None else g
-            for g, x in zip(grads, xs)]
+def triplet_slot_bwd2_kernel(x, pt, ws, wt, m2T, lj, ct, u1, u2, u4, u5, A,
+                             K, cfg):
+    """Launch the second-order kernels on validated operands (``ct``
+    float32 ``[E, C]``); returns float32 ``(xb, ptb, wsb, wtb, ctb)``.
+    ``u1 [E, C]``, ``u2 [K, R, E]``, ``u4 [nk, C]`` and ``u5 [ntk, C]``
+    are the cotangents of ``(dx, dpt, dws, dwt)``; a None one is skipped
+    by the kernels."""
+    global launches_bwd2
+    n, k, has_t = cfg
+    E, C = x.shape
+    dev = x.device
+    nk, ntk = n * k, (n * n * k if has_t else 0)
+    if not has_t:
+        u5 = None                        # wt is unused without torsion
+    for name, u, shape in (("ct", ct, (E, C)), ("u1", u1, (E, C)),
+                           ("u2", u2, tuple(pt.shape)), ("u4", u4, (nk, C)),
+                           ("u5", u5, (ntk, C))):
+        if u is not None:
+            _check_shape(name, u, shape, dev)
+    u1 = None if u1 is None else u1.to(x.dtype).contiguous()
+    u2 = None if u2 is None else u2.to(x.dtype).contiguous()
+    u4 = None if u4 is None else u4.float().contiguous()
+    u5 = None if u5 is None else u5.float().contiguous()
+    xb = torch.empty((E, C), dtype=torch.float32, device=dev)
+    ptb = torch.empty(pt.shape, dtype=torch.float32, device=dev)
+    ctb = torch.empty((E, C), dtype=torch.float32, device=dev)
+    blocks = (E // (A * K)) * K          # one block per (slot, s)
+    size = (nk + ntk) * C
+    partial = torch.empty((blocks, size), dtype=torch.float32, device=dev)
+    dw = torch.empty(size, dtype=torch.float32, device=dev)
+    rc = _library().triplet_slot_bwd2(
+        *map(_build.ptr, (x, pt, m2T, ws, wt, lj, ct, u1, u2, u4, u5, xb,
+                          ptb, partial, dw, ctb)),
+        E, A, K, n, k, int(bool(has_t)), C, int(x.dtype == torch.bfloat16),
+        blocks, _build.stream(dev))
+    _build.check(rc, "triplet_slot second-order kernel", _SHAPES)
+    launches_bwd2 += 1
+    return (xb, ptb, *_weight_grads(dw, n, k, has_t, C, dev), ctb)
+
+
+# ---------------------------------------------------------------------------
+# the autograd tower: _TripletSlot -> _TripletSlotBwd -> second order
+# ---------------------------------------------------------------------------
+
+def _cast(g, t, need):
+    return g.to(t.dtype) if need and g is not None else None
 
 
 class _TripletSlot(torch.autograd.Function):
-    """CUDA tensors: the kernels. CPU tensors: the plain version. First
-    order only."""
+    """The contraction. CUDA tensors: the forward kernel; CPU tensors: the
+    plain version. Its backward is :class:`_TripletSlotBwd`, so a backward
+    taken with ``create_graph`` is differentiable again."""
 
     @staticmethod
     def forward(ctx, x, pt, ws, wt, m2T, lj, A, K, cfg):
-        ctx.meta = (A, K, cfg, [t.dtype for t in (x, pt, ws, wt)])
+        ctx.meta = (A, K, cfg)
+        # the inputs themselves, so a second-order pass reaches ws and wt
+        ctx.save_for_backward(x, pt, ws, wt, m2T, lj)
         if x.is_cuda:
-            args = _kernel_inputs(x, pt, ws, wt, m2T, lj, A, K, cfg)
-            out = triplet_slot_forward_kernel(*args, A, K, cfg)
-        else:
-            args = (x, pt, ws, wt, m2T, lj)
-            out = fused_triplet_slot_reference(*args, A, K, cfg)
-        ctx.save_for_backward(*args)
-        return out
+            return triplet_slot_forward_kernel(
+                *_kernel_inputs(x, pt, ws, wt, m2T, lj, A, K, cfg), A, K, cfg)
+        return fused_triplet_slot_reference(x, pt, ws, wt, m2T, lj, A, K, cfg)
 
     @staticmethod
     def backward(ctx, ct):
-        if torch.is_grad_enabled():
-            raise NotImplementedError(_SECOND_ORDER)
-        A, K, cfg, dtypes = ctx.meta
-        saved = ctx.saved_tensors
-        if ct.is_cuda:
-            grads = triplet_slot_backward_kernel(
-                *saved, ct.float().contiguous(), A, K, cfg,
-                ctx.needs_input_grad[1])
+        A, K, cfg = ctx.meta
+        x, pt, ws, wt, m2T, lj = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        dx, dpt, dws, dwt = _TripletSlotBwd.apply(x, pt, ws, wt, m2T, lj, ct,
+                                                  A, K, cfg, need[1])
+        return (dx if need[0] else None, dpt, dws if need[2] else None,
+                dwt if need[3] else None, None, None, None, None, None)
+
+
+class _TripletSlotBwd(torch.autograd.Function):
+    """First-order VJP ``(x, pt, ws, wt, ct) -> (dx, dpt, dws, dwt)``
+    (``dpt`` None unless asked for). CUDA tensors: the backward kernel;
+    CPU tensors: ``fused_triplet_slot_bwd_reference``. Its backward is the
+    second-order VJP (the ``_B`` rule of the JAX op); absent cotangents
+    arrive as None and their terms are skipped."""
+
+    @staticmethod
+    def forward(ctx, x, pt, ws, wt, m2T, lj, ct, A, K, cfg, need_dpt):
+        ctx.set_materialize_grads(False)
+        ctx.meta = (A, K, cfg)
+        ctx.save_for_backward(x, pt, ws, wt, m2T, lj, ct)
+        if x.is_cuda:
+            dx, dpt, dws, dwt = triplet_slot_backward_kernel(
+                *_kernel_inputs(x, pt, ws, wt, m2T, lj, A, K, cfg),
+                ct.float().contiguous(), A, K, cfg, need_dpt)
         else:
-            grads = _reference_backward(saved, ct, A, K, cfg)
-        out = [None if g is None or not need else g.to(dt)
-               for g, dt, need in zip(grads, dtypes, ctx.needs_input_grad)]
-        return (*out, None, None, None, None, None)
+            dx, dpt, dws, dwt = fused_triplet_slot_bwd_reference(
+                x, pt, ws, wt, m2T, lj, ct, A, K, cfg)
+        return (dx.to(x.dtype), _cast(dpt, pt, need_dpt), dws.to(ws.dtype),
+                dwt.to(wt.dtype))
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, u1, u2, u4, u5):
+        A, K, cfg = ctx.meta
+        x, pt, ws, wt, m2T, lj, ct = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        if all(u is None for u in (u1, u2, u4, u5)):
+            return (None,) * 11
+        if x.is_cuda:
+            grads = triplet_slot_bwd2_kernel(
+                *_kernel_inputs(x, pt, ws, wt, m2T, lj, A, K, cfg),
+                ct.float().contiguous(), u1, u2, u4, u5, A, K, cfg)
+        else:
+            grads = fused_triplet_slot_bwd2_reference(
+                x, pt, ws, wt, m2T, lj, ct, u1, u2, u4, u5, A, K, cfg)
+        xb, ptb, wsb, wtb, ctb = grads
+        return (_cast(xb, x, need[0]), _cast(ptb, pt, need[1]),
+                _cast(wsb, ws, need[2]), _cast(wtb, wt, need[3]), None, None,
+                _cast(ctb, ct, need[6]), None, None, None, None)
 
 
 def fused_triplet_slot(x, pt, ws, wt, m2T, lj, A: int, K: int, cfg):
@@ -249,8 +391,9 @@ def fused_triplet_slot(x, pt, ws, wt, m2T, lj, A: int, K: int, cfg):
     (E = G*A*K), ``pt [K, R, E]`` packed basis (:func:`basis_pt_k`),
     ``ws [n*k, C]``, ``wt [n*n*k | 1, C]``, ``m2T [K, E]`` triplet mask,
     ``lj [1, E]`` slot-local sender ids (int32); ``cfg = (num_spherical,
-    num_radial, has_t)``. Returns ``[E, C]`` in ``x.dtype``. First order
-    only: a double backward raises.
+    num_radial, has_t)``. Returns ``[E, C]`` in ``x.dtype``.
+    Differentiable to second order (force training); a third order
+    raises.
     """
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"fused_triplet_slot runs on CUDA or the CPU, not "

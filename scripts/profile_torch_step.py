@@ -1,12 +1,15 @@
 """Where the time of one of the port's train steps goes, on one card.
 
-    python scripts/profile_torch_step.py [schnet_dense|spherenet]
+    python scripts/profile_torch_step.py [schnet_dense|spherenet|spherenet_force]
 
 ``schnet_dense`` (the default) runs main path 1 of chip_smoke.py
 (SchNetDense 4 x 128, bf16, fused cfconv, buckets {16: 252, 24: 380,
 32: 236}, Adam); ``spherenet`` runs main path 2 (SphereNet 4 x 128, n=3,
 k=6, K=16, slots of 29 atoms, 96 molecules a batch, bf16, slot kernel,
-Adam). Traces a few steady steps with torch.profiler and prints the
+Adam); ``spherenet_force`` runs main path 3 (the same model trained on
+energies and forces through make_bucketed_step_fns, buckets {16: 27,
+24: 43, 29: 26}, bench.py bench_spherenet_force). Traces a few steady
+steps with torch.profiler and prints the
 step's host time, the device's busy and idle share, device time by
 kernel, and the host operators that took the most time.
 """
@@ -78,11 +81,38 @@ def spherenet(dev, steps):
     return step, batches
 
 
+def spherenet_force(dev, steps):
+    import numpy as np
+
+    from dig_tpu_torch.datasets import (BucketedMoleculeLoader,
+                                        synthetic_molecules)
+    from dig_tpu_torch.models import SphereNet
+    from dig_tpu_torch.train import make_bucketed_step_fns
+
+    slots = {16: 27, 24: 43, 29: 26}
+    mols = synthetic_molecules(96 * (steps + 4), seed=0, min_atoms=12,
+                               max_atoms=29, box=6.0)
+    rng = np.random.default_rng(0)
+    for m in mols:
+        m["force"] = rng.normal(size=m["pos"].shape).astype(np.float32)
+    it = iter(BucketedMoleculeLoader(mols, slots, shuffle=True, seed=0,
+                                     device=dev))
+    model = SphereNet(cutoff=5.0, num_layers=4, hidden_channels=128,
+                      num_spherical=3, num_radial=6, nk_degree=16,
+                      block_size=29, compute_dtype=torch.bfloat16,
+                      pallas_triplet=True, pallas_fuse_basis=True,
+                      pallas_slot=True, device=dev)
+    opt = torch.optim.Adam(model.parameters(), lr=5e-4)
+    step, _ = make_bucketed_step_fns(model, opt, p=100.0)
+    return step, [next(it) for _ in range(steps)]
+
+
 def main():
     from torch.profiler import DeviceType, ProfilerActivity, profile
 
     which = sys.argv[1] if len(sys.argv) > 1 else "schnet_dense"
-    paths = {"schnet_dense": schnet_dense, "spherenet": spherenet}
+    paths = {"schnet_dense": schnet_dense, "spherenet": spherenet,
+             "spherenet_force": spherenet_force}
     if which not in paths:
         sys.exit(f"unknown path {which!r}; one of {sorted(paths)}")
     if not torch.cuda.is_available():

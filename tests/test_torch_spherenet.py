@@ -137,24 +137,31 @@ def test_two_adam_steps_match_jax(flags):
                                rtol=2e-4, atol=2e-4)
 
 
-def test_double_backward_through_the_model_raises():
-    _, (tb, _) = _batches()
-    tm = TSphereNet(device="cpu", **KW, **SLOT)
-    pos = tb.nodes["pos"].clone().requires_grad_()
-    e = tm(tb.replace_nodes(pos=pos)).sum()
-    with pytest.raises(NotImplementedError, match="force-training"):
-        torch.autograd.grad(e, pos, create_graph=True)
+@pytest.mark.parametrize("name", ["SphereNet", "DimeNetPP"])
+def test_slot_forces_match_unfused_branch(name):
+    """-dE/dpos through the slot branch (the kernel's first order with
+    dpt) equals the unfused branch's on the same weights, to the energies'
+    1e-4."""
+    JM, TM = MODELS[name]
+    (jb, _), (tb, _) = _batches()
+    flat = _flat(JM(**KW).init(jax.random.PRNGKey(0), jb)["params"])
+    forces = []
+    for flags in (None, SLOT):
+        pos = tb.nodes["pos"].clone().requires_grad_()
+        e = _port(TM, flat, flags)(tb.replace_nodes(pos=pos))
+        (g,) = torch.autograd.grad(e[tb.graph_mask].sum(), pos)
+        forces.append(-g.numpy())
+    assert np.abs(forces[0]).max() > 0
+    np.testing.assert_allclose(forces[1], forces[0], rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("basis_grads, err", [(True, NotImplementedError),
-                                              (False, ValueError)])
+@pytest.mark.parametrize("basis_grads, err", [(False, ValueError)])
 def test_energy_and_force_raises(basis_grads, err):
-    """Force training waits for the second-order kernel; without basis
-    gradients it is refused first, as in the JAX trainer."""
+    """Without basis gradients force training is refused, as in the JAX
+    trainer."""
     tm = TSphereNet(device="cpu", **KW, **SLOT,
                     pallas_basis_grads=basis_grads)
-    with pytest.raises(err, match="force-training" if basis_grads
-                       else "pallas_basis_grads"):
+    with pytest.raises(err, match="pallas_basis_grads"):
         make_step_fns(tm, torch.optim.Adam(tm.parameters()),
                       energy_and_force=True)
 

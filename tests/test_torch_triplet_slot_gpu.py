@@ -9,7 +9,10 @@ machine with the card, without the JAX conftest:
 Tolerances, as the largest error over the largest reference value of each
 tensor: 1e-4 in float32 (sums in another order); 1e-2 in bf16, where the
 output and the gradients are rounded to bf16 once at the end, so a sum in
-another order may land one bf16 step (2^-8 of the value) away.
+another order may land one bf16 step (2^-8 of the value) away. The
+second-order kernel's own outputs are float32 in both types and are held
+to 1e-4 (the bf16 operands are the same bf16 values on both sides; only
+the order of the f32 sums differs).
 """
 import pytest
 import torch
@@ -99,3 +102,77 @@ def test_cuda_input_without_kernel_shape_raises():
                                    True)
     with pytest.raises(ValueError, match="C in"):
         ts.fused_triplet_slot(*args, A, K, cfg)
+
+
+NAMES2 = ["xb", "ptb", "wsb", "wtb", "ctb"]
+
+
+def _cotangents(dev, dtype, args, seed=1):
+    """Seeded cotangents (u1, u2, u4, u5) of (dx, dpt, dws, dwt)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return [torch.randn(*a.shape, generator=g).to(dev, dt)
+            for a, dt in zip(args[:4], (dtype, dtype, torch.float32,
+                                        torch.float32))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("has_t", [True, False])
+@pytest.mark.parametrize("A", [16, 24, 29])
+def test_bwd2_kernel_matches_plain(A, has_t, dtype):
+    """At the force bench's slot sizes (K=16, C=64, n=3, k=6): all five
+    outputs, with every cotangent present and with u4 = u5 = None as in
+    force training; two runs give the same bits."""
+    from dig_tpu_torch.ops import triplet_slot as ts
+    dev = _device()
+    args, ct, (A, K, cfg) = _inputs(dev, dtype, A, 16, 4, 64, 3, 6, has_t)
+    us = _cotangents(dev, dtype, args)
+    k_args = ts._kernel_inputs(*args, A, K, cfg)
+    ct32 = ct.float().contiguous()
+    for present in (us, us[:2] + [None, None]):
+        before = ts.launches_bwd2
+        got = ts.triplet_slot_bwd2_kernel(*k_args, ct32, *present, A, K, cfg)
+        torch.cuda.synchronize()
+        assert ts.launches_bwd2 == before + 1
+        want = ts.fused_triplet_slot_bwd2_reference(*args, ct, *present, A,
+                                                    K, cfg)
+        for name, a, b in zip(NAMES2, got, want):
+            assert a.dtype == torch.float32 and a.shape == b.shape, name
+            assert torch.isfinite(a).all(), name
+            if name == "wtb" and not has_t:
+                assert float(a.abs().max()) == 0.0
+                continue
+            assert _rel(a, b) < 1e-4, name
+        again = ts.triplet_slot_bwd2_kernel(*k_args, ct32, *present, A, K,
+                                            cfg)
+        assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_double_backward_through_the_tower(dtype):
+    """Reverse over reverse through fused_triplet_slot, as force training
+    runs it: one launch of each kernel, and the second-order gradients of
+    x, pt, ws and wt (ws and wt reached through the saved inputs) agree
+    with the plain version's double backward."""
+    from dig_tpu_torch.ops import triplet_slot as ts
+    dev = _device()
+    args, ct, (A, K, cfg) = _inputs(dev, dtype, 29, 16, 4, 64, 3, 6, True)
+    w1, w2 = _cotangents(dev, dtype, args, seed=2)[:2]
+
+    def second(fn):
+        xs = [a.clone().requires_grad_() for a in args[:4]]
+        out = fn(*xs, *args[4:], A, K, cfg)
+        dx, dpt = torch.autograd.grad(out, xs[:2], ct, create_graph=True)
+        loss = (dx.float() * w1.float()).sum() + (dpt.float()
+                                                  * w2.float()).sum()
+        return torch.autograd.grad(loss, xs)
+
+    before = (ts.launches_fwd, ts.launches_bwd, ts.launches_bwd2)
+    got = second(ts.fused_triplet_slot)
+    torch.cuda.synchronize()
+    after = (ts.launches_fwd, ts.launches_bwd, ts.launches_bwd2)
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+    want = second(ts.fused_triplet_slot_reference)
+    for name, a, b in zip(["x", "pt", "ws", "wt"], got, want):
+        assert a.dtype == b.dtype == dtype, name
+        assert float(b.abs().max()) > 0, name
+        assert _rel(a, b) < TOL[dtype], name
