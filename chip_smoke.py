@@ -47,6 +47,27 @@ Phases, each printed as it runs; any failure exits non-zero:
      Run3D(energy_and_force=True, slot_size=29) epoch
  11. times: force step ms, edges/s; per-layer, per-bucket second-order
      kernel ms beside its bound and the plain version's ms
+ 12. kernel vs plain: the sorted-CSR segment sum at the two flat paths'
+     shapes (receivers of real batches), f32 and bf16, and on a skewed
+     random CSR; repeated calls bitwise equal; the closed autograd pair's
+     gradients to second order against the plain version's
+ 13. main path 4a: flat SchNet energy+force training at the config of
+     examples/threedgraph/run_morse_surrogate.py --model schnet --forces
+     (4 x 128, 128 filters, 50 Gaussians, cutoff 5, max_edges 16384, f32,
+     batches of 24 in slots of 29, Adam(1e-3), p = 100) with
+     segment_eb=1024, through make_step_fns(energy_and_force=True); 8
+     segment-sum launches per step; radius_overflow and csr_block_overflow
+     0; finite forces; the first step's loss and gradients held against
+     segment_eb=0 of the same weights; then one short
+     Run3D(energy_and_force=True, slot_size=29) epoch
+ 14. main path 4b: flat SphereNet energy training at the tutorial's widths
+     (tutorials/threedgraph.md: 4 x 128, int_emb 64, basis 8/8/8, out_emb
+     256, n=3, k=6, cutoff 5, f32) with max_edges 16384, max_in_degree 32,
+     segment_eb=1024, MoleculeLoader batches of 32, Adam(5e-4); 5
+     segment-sum launches per step; the same checks
+ 15. times: both flat steps in ms and edges/s; the segment-sum kernel per
+     call at both paths' shapes beside its byte bound, its plain version
+     and the PyTorch calls that compute the same sum
 The card's name and power limit (nvidia-smi), then the kernels as JSON,
 are the two lines before the last; the last line is
 {"ok": true, "device": {...}}.
@@ -136,6 +157,37 @@ SF_STEP_TOL = {"f32": (1e-4, 1e-3), "bf16": (5e-2, None)}
 SF_BF16_COS = (0.5, 0.7)
 SF_BF16_NORM = (0.5, 5.0)
 
+# Flat SchNet energy+force training (path 4a):
+# examples/threedgraph/run_morse_surrogate.py --model schnet --forces, which
+# calls Run3D(batch_size=24, lr=1e-3, p=100, slot_size=29), with the
+# sorted-CSR aggregation switched on (segment_eb=1024: the densest 32
+# receiver rows of this data hold at most 716 edges, plus 127 of slack)
+FS_KW = dict(cutoff=5.0, num_layers=4, hidden_channels=128, num_filters=128,
+             num_gaussians=50, max_edges=16384, segment_eb=1024)
+FS_G, FS_SLOT, FS_LR, FS_P = 24, 29, 1e-3, 100.0
+FS_STEPS, FS_WARMUP = 10, 3
+# Flat SphereNet energy training (path 4b): tutorials/threedgraph.md:18-27
+# widths, batches of 32 molecules (n_node_pad 32 x 29 = 928)
+SP_KW = dict(cutoff=5.0, num_layers=4, hidden_channels=128, int_emb_size=64,
+             basis_emb_size_dist=8, basis_emb_size_angle=8,
+             basis_emb_size_torsion=8, out_emb_channels=256,
+             num_spherical=3, num_radial=6, max_edges=16384,
+             max_in_degree=32, segment_eb=1024)
+SP_G, SP_LR, SP_STEPS, SP_WARMUP = 32, 5e-4, 8, 3
+# segment sum, kernel vs plain: largest error over the largest reference
+# value. Both sum the same values (bf16 data read as bf16 by both) in
+# float32; only the order differs (edge order against index_add_'s atomics).
+SEG_TOL = 1e-5
+# the closed pair's second derivative: products of two such sums
+SEG_TOL2 = 1e-4
+# first step of either flat path, segment_eb=1024 against segment_eb=0 of
+# the same weights: both float32, the two branches differ only in the
+# order of the edge->node sums (the kernel's edge order against
+# index_add_'s atomics), a few float32 roundings per sum carried through
+# 4 layers and, for forces, two derivative levels. Loss: relative error;
+# gradients: ||a-b|| / ||b|| for every parameter.
+FLAT_STEP_TOL = (1e-5, 1e-4)
+
 
 def log(*a):
     print(*a, flush=True)
@@ -166,6 +218,28 @@ def cuda_ms(torch, fn, iters=20, warmup=3):
         fn()
     end.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, iters=50, warmup=3, spin_cycles=50_000_000):
+    """Device time per call of a call shorter than its own host issue
+    time: a spin kernel (about 25 ms) holds the stream while the calls are
+    queued behind it, so the events time the card's work back to back and
+    not the host's issue rate. Fails if the host did not get ahead."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(spin_cycles)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    ahead = not start.query()
+    torch.cuda.synchronize()
+    if not ahead:
+        fail("device_ms: the spin ended before the calls were queued")
     return start.elapsed_time(end) / iters
 
 
@@ -1068,6 +1142,420 @@ def phase_sf_times(torch, ts, inputs):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# The flat layout: sorted-CSR segment sum, flat SchNet and SphereNet
+# ---------------------------------------------------------------------------
+
+def fs_molecules(n, seed=0):
+    """run_morse_surrogate.py's data: Morse molecules of 12-29 atoms, the
+    targets standardised to unit variance (forces by the same scale)."""
+    import numpy as np
+    from dig_tpu_torch.datasets import synthetic_morse_molecules
+    mols = synthetic_morse_molecules(n, seed=seed, min_atoms=12, max_atoms=29)
+    ys = np.array([m["y"][0] for m in mols])
+    mu, sd = ys.mean(), ys.std()
+    for m in mols:
+        m["y"] = ((m["y"][:1] - mu) / sd).astype(np.float32)
+        m["force"] = (m["force"] / sd).astype(np.float32)
+    return mols
+
+
+def fs_batches(torch, dev, n):
+    from dig_tpu_torch.datasets import MoleculeLoader
+    mols = fs_molecules(FS_G * (n + 1))
+    it = iter(MoleculeLoader(mols, FS_G, slot_size=FS_SLOT, shuffle=True,
+                             seed=0, device=dev))
+    return [next(it) for _ in range(n)]
+
+
+def sp_batches(torch, dev, n):
+    """The tutorial's batches of 32 synthetic molecules (12-29 atoms, 6 A
+    box); the target is the first column of y."""
+    from dig_tpu_torch.datasets import MoleculeLoader, synthetic_molecules
+    mols = synthetic_molecules(SP_G * (n + 1), seed=0, min_atoms=12,
+                               max_atoms=29, box=6.0)
+    it = iter(MoleculeLoader(mols, SP_G, shuffle=True, seed=0, device=dev))
+    return [b.replace_globals(energy=b.globals["y"][:, :1])
+            for b in (next(it) for _ in range(n))]
+
+
+def flat_csr(torch, g, kw):
+    """What the model's edge->node sum sees for batch g: the receivers of
+    the flat radius graph as the sum's ids (-1 at padding), rowptr, the
+    uncapped in-cutoff pairs (as Run3D counts them), radius_overflow,
+    csr_block_overflow at the model's segment_eb, and the largest
+    in-degree."""
+    from dig_tpu_torch.ops.radius import (_pairwise_same_graph,
+                                          radius_graph_flat, radius_overflow)
+    from dig_tpu_torch.ops.segment_csr import csr_block_overflow
+    pos, ng, nm = g.nodes["pos"], g.node_graph, g.node_mask
+    N = g.num_nodes
+    _, recv, emask = radius_graph_flat(pos, ng, nm, kw["cutoff"],
+                                       kw["max_edges"])
+    seg = torch.where(emask, recv, -1)
+    rowptr = torch.searchsorted(
+        torch.where(emask, recv, N),
+        torch.arange(N + 1, dtype=torch.int32, device=pos.device),
+        out_int32=True)
+    d2, valid = _pairwise_same_graph(pos, ng, nm)
+    adj = valid & (d2 < kw["cutoff"] ** 2)
+    return {"seg": seg, "rowptr": rowptr, "N": N,
+            "pairs": int(adj.sum()),
+            "radius_overflow": int(radius_overflow(pos, ng, nm, kw["cutoff"],
+                                                   kw["max_edges"])),
+            "block_overflow": int(csr_block_overflow(rowptr, N, 32,
+                                                     kw["segment_eb"])),
+            "max_degree": int(adj.sum(1).max())}
+
+
+def seg_cases(torch, dev, fs_b, sp_b):
+    """Inputs of the segment sum: each flat path's real receivers with
+    seeded random edge rows at its width (F = 128: SchNet's filters,
+    SphereNet's hidden channels), in the types its path uses, and a skewed
+    random CSR (one row holds a quarter of 20,000 edges, every 50th row
+    empty, a -1 tail) at F = 24 and 128."""
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    cases = []
+    for name, g, kw, dts in (("schnet_4a", fs_b, FS_KW, (torch.float32,)),
+                             ("spherenet_4b", sp_b, SP_KW,
+                              (torch.float32, torch.bfloat16))):
+        c = flat_csr(torch, g, kw)
+        data = torch.randn(c["seg"].shape[0], 128, generator=gen).to(dev)
+        for dt in dts:
+            cases.append(dict(c, name=name, data=data.to(dt),
+                              eb=kw["segment_eb"]))
+    N, E = 1000, 20000
+    rows = torch.randint(0, N, (E,), generator=gen)
+    rows = rows[rows % 50 != 7]
+    rows[: E // 4] = 123
+    seg = torch.sort(rows).values.to(torch.int32)
+    rowptr = torch.searchsorted(seg, torch.arange(N + 1, dtype=torch.int32),
+                                out_int32=True)
+    seg = torch.cat([seg, torch.full((512,), -1, dtype=torch.int32)]).to(dev)
+    for F in (24, 128):
+        for dt in (torch.float32, torch.bfloat16):
+            data = torch.randn(seg.shape[0], F, generator=gen).to(dev, dt)
+            cases.append({"name": "skewed", "seg": seg,
+                          "rowptr": rowptr.to(dev), "N": N, "data": data,
+                          "eb": 8192})
+    return cases
+
+
+def phase_seg_kernel_vs_plain(torch, sc, cases):
+    """Every case: kernel against plain, one launch, a repeated call the
+    same bits; the closed pair to second order in f32. Returns the largest
+    absolute error at path 4a's shape."""
+    err_4a = 0.0
+    for c in cases:
+        seg, rp, N, data = c["seg"], c["rowptr"], c["N"], c["data"]
+        before = sc.launches
+        out = sc.segment_sum_sorted_csr(data, seg, rp, N, 32, c["eb"])
+        torch.cuda.synchronize()
+        if sc.launches != before + 1:
+            fail(f"segment sum {c['name']}: {sc.launches - before} launches")
+        want = sc.segment_sum_sorted_csr_reference(data, seg, rp, N)
+        e = rel_err(out, want)
+        again = sc.segment_sum_sorted_csr(data, seg, rp, N, 32, c["eb"])
+        same = torch.equal(again, out)
+        log(f"  {c['name']} N={N} E={data.shape[0]} F={data.shape[1]} "
+            f"{str(data.dtype)[6:]}: rel err {e:.3e}; repeated call the same "
+            f"bits: {same}")
+        if e >= SEG_TOL or out.dtype != torch.float32:
+            fail(f"segment sum {c['name']}: rel err {e} >= {SEG_TOL}")
+        if not same:
+            fail(f"segment sum {c['name']} not bitwise repeatable")
+        if c["name"] == "schnet_4a":
+            err_4a = max(err_4a, float((out - want).abs().max()))
+        if data.dtype != torch.float32:
+            continue
+        gen = torch.Generator(device="cpu").manual_seed(6)
+        cw = torch.randn(N, data.shape[1], generator=gen).to(data.device)
+        v = torch.randn(*data.shape, generator=gen).to(data.device)
+        res = []
+        for fn in (lambda d: sc.segment_sum_sorted_csr(d, seg, rp, N, 32,
+                                                       c["eb"]),
+                   lambda d: sc.segment_sum_sorted_csr_reference(d, seg, rp,
+                                                                 N)):
+            d = data.clone().requires_grad_()
+            o = fn(d)
+            (g1,) = torch.autograd.grad(torch.sum(cw * o * o), d,
+                                        create_graph=True)
+            (g2,) = torch.autograd.grad(torch.sum(g1 * v * d), d)
+            res.append((g1.detach(), g2))
+        e1, e2 = rel_err(res[0][0], res[1][0]), rel_err(res[0][1], res[1][1])
+        log(f"    closed pair: first derivative rel err {e1:.3e}, second "
+            f"{e2:.3e}")
+        if e1 >= SEG_TOL or e2 >= SEG_TOL2:
+            fail(f"segment sum {c['name']} derivatives: {e1}, {e2}")
+    log(f"  max abs err at path 4a's shape: {err_4a:.3e}")
+    return err_4a
+
+
+def fs_model(torch, dev, segment_eb):
+    from dig_tpu_torch.models import SchNet
+    return SchNet(**dict(FS_KW, segment_eb=segment_eb),
+                  generator=torch.Generator().manual_seed(0), device=dev)
+
+
+def sp_model(torch, dev, segment_eb):
+    from dig_tpu_torch.models import SphereNet
+    return SphereNet(**dict(SP_KW, segment_eb=segment_eb),
+                     generator=torch.Generator().manual_seed(0), device=dev)
+
+
+def flat_first_step(torch, make_model, eb, batch, **step_kw):
+    """Loss and gradients of one step through make_step_fns (lr 0), the
+    kernel branch (segment_eb=eb) against index_add_ (segment_eb=0)."""
+    from dig_tpu_torch.train import make_step_fns
+    res = {}
+    for seg_eb in (eb, 0):
+        m = make_model(seg_eb)
+        step, _ = make_step_fns(m, torch.optim.SGD(m.parameters(), lr=0.0),
+                                loss="l1", **step_kw)
+        out = step(batch)
+        res[seg_eb] = (float(out["loss"]), [p.grad for p in m.parameters()],
+                       [n for n, _ in m.named_parameters()])
+        del m, step
+    (lk, gk, names), (lp, gp, _) = res[eb], res[0]
+    loss_err = abs(lk - lp) / abs(lp)
+    per = sorted(((float((a - b).norm() / b.norm().clamp_min(1e-30)), n)
+                  for a, b, n in zip(gk, gp, names)), reverse=True)
+    log(f"  first step: loss kernel {lk:.7f} index_add_ {lp:.7f} (rel "
+        f"{loss_err:.3e}); worst gradient rel-norm err {per[0][0]:.3e} "
+        f"({per[0][1]}), median {per[len(per) // 2][0]:.3e}")
+    if not math.isfinite(lk) or loss_err >= FLAT_STEP_TOL[0]:
+        fail(f"first-step loss: kernel {lk} vs index_add_ {lp}")
+    if not per[0][0] < FLAT_STEP_TOL[1]:
+        fail(f"first-step gradients differ: {per[:3]}")
+    return {"loss_rel_err": loss_err, "worst_grad": per[0]}
+
+
+def check_flat_batches(torch, batches, kw, what):
+    """Per batch: the flat_csr audit; fails on any dropped edge."""
+    csr = [flat_csr(torch, b, kw) for b in batches]
+    for key in ("radius_overflow", "block_overflow"):
+        if any(c[key] for c in csr):
+            fail(f"{what}: {key} {[c[key] for c in csr]}")
+    log(f"  radius_overflow 0 and csr_block_overflow 0 in all "
+        f"{len(batches)} batches; in-cutoff pairs per batch "
+        f"{min(c['pairs'] for c in csr)}-{max(c['pairs'] for c in csr)} of "
+        f"max_edges {kw['max_edges']}; largest in-degree "
+        f"{max(c['max_degree'] for c in csr)}")
+    return csr
+
+
+def reset_all(cf, ts, sc):
+    cf.reset_launch_counts()
+    ts.reset_launch_counts()
+    sc.reset_launch_counts()
+
+
+def others_idle(cf, ts, what):
+    counts = (cf.launches_fwd, cf.launches_bwd, ts.launches_fwd,
+              ts.launches_bwd, ts.launches_bwd2)
+    if any(counts):
+        fail(f"{what}: kernels of other paths launched {counts}")
+
+
+def timed_steps(torch, train_step, batches, warmup):
+    losses, t_start = [], None
+    for s, b in enumerate(batches):
+        if s == warmup:
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+        losses.append(train_step(b)["loss"])
+    torch.cuda.synchronize()
+    return [float(x) for x in losses], time.perf_counter() - t_start
+
+
+def phase_fs_main_path(torch, cf, ts, sc, dev, batches):
+    from dig_tpu_torch.threed import ThreeDEvaluator
+    from dig_tpu_torch.train import make_step_fns
+    csr = check_flat_batches(torch, batches, FS_KW, "path 4a")
+    step_errs = flat_first_step(
+        torch, lambda eb: fs_model(torch, dev, eb), FS_KW["segment_eb"],
+        batches[0], energy_and_force=True, p=FS_P)
+    model = fs_model(torch, dev, FS_KW["segment_eb"])
+    opt = torch.optim.Adam(model.parameters(), lr=FS_LR)
+    train_step, eval_step = make_step_fns(model, opt, energy_and_force=True,
+                                          p=FS_P, loss="l1")
+    reset_all(cf, ts, sc)
+    losses, dt = timed_steps(torch, train_step, batches, FS_WARMUP)
+    launches = sc.launches
+    others_idle(cf, ts, "path 4a")
+    want = 2 * FS_KW["num_layers"] * len(batches)
+    log(f"  {len(batches)} Adam steps, losses {[round(x, 4) for x in losses]}")
+    log(f"  segment-sum launches {launches} (2 x layers x steps = {want}: "
+        f"each layer's forward, and the outer backward where the force "
+        f"graph's row gathers re-enter the sum)")
+    if not all(math.isfinite(x) for x in losses):
+        fail("path 4a: non-finite loss")
+    if launches != want:
+        fail(f"path 4a: {launches} segment-sum launches, expected {want}")
+    out = eval_step(batches[0])
+    if not bool(torch.isfinite(out["force_pred"]).all()):
+        fail("path 4a: non-finite forces")
+    m = out["graph_mask"]
+    mae = ThreeDEvaluator().eval({"y_pred": out["y_pred"][m],
+                                  "y_true": batches[0].globals["y"][m]})["mae"]
+    if not math.isfinite(mae):
+        fail("path 4a: non-finite eval MAE")
+    timed = len(batches) - FS_WARMUP
+    pairs = sum(c["pairs"] for c in csr[FS_WARMUP:])
+    step_ms = dt / timed * 1e3
+    log(f"  eval: forces finite (largest |F| "
+        f"{float(out['force_pred'].abs().max()):.4g}), energy MAE {mae:.5f}")
+    log(f"  force step {step_ms:.3f} ms (mean of {timed} steps); "
+        f"{pairs / dt:.6g} edges/s over {pairs / timed:.0f} in-cutoff "
+        f"pairs per step (as Run3D counts them)")
+    return {"launches": launches, "steps": len(batches), "losses": losses,
+            "step_ms": step_ms, "edges_per_s": pairs / dt,
+            "pairs_per_step": pairs / timed, "first_step": step_errs,
+            "eval_mae": mae}
+
+
+def phase_fs_run3d(torch, sc, dev):
+    """One Run3D epoch as run_morse_surrogate.py calls it: 4 training
+    batches of 24, one validation and one test batch."""
+    from dig_tpu_torch.threed import Run3D, ThreeDEvaluator
+    mols = fs_molecules(FS_G * 6, seed=1)
+    model = fs_model(torch, dev, FS_KW["segment_eb"])
+    sc.reset_launch_counts()
+    t = time.perf_counter()
+    res = Run3D().run(mols[:4 * FS_G], mols[4 * FS_G:5 * FS_G],
+                      mols[5 * FS_G:], model,
+                      ThreeDEvaluator(), epochs=1, batch_size=FS_G,
+                      vt_batch_size=FS_G, lr=FS_LR, lr_decay_factor=0.5,
+                      lr_decay_step_size=15, energy_and_force=True, p=FS_P,
+                      slot_size=FS_SLOT, device=dev)
+    torch.cuda.synchronize()
+    n, L = sc.launches, FS_KW["num_layers"]
+    want = 4 * 2 * L + 2 * L        # 4 force steps, 2 evaluation batches
+    log(f"  Run3D epoch: best valid MAE {res['best_valid']:.5f}, test "
+        f"{res['best_test']:.5f}; {n} segment-sum launches (expected {want}:"
+        f" {2 * L} per training step, {L} per evaluation batch); "
+        f"{time.perf_counter() - t:.1f} s")
+    if not (math.isfinite(res["best_valid"])
+            and math.isfinite(res["best_test"])):
+        fail("Run3D flat SchNet: non-finite MAE")
+    if n != want:
+        fail(f"Run3D flat SchNet: {n} segment-sum launches, expected {want}")
+
+
+def phase_sp_main_path(torch, cf, ts, sc, dev, batches):
+    from dig_tpu_torch.threed import ThreeDEvaluator
+    from dig_tpu_torch.train import make_step_fns
+    csr = check_flat_batches(torch, batches, SP_KW, "path 4b")
+    if max(c["max_degree"] for c in csr) > SP_KW["max_in_degree"]:
+        fail("path 4b: an in-degree exceeds max_in_degree")
+    step_errs = flat_first_step(
+        torch, lambda eb: sp_model(torch, dev, eb), SP_KW["segment_eb"],
+        batches[0], target_key="energy")
+    model = sp_model(torch, dev, SP_KW["segment_eb"])
+    opt = torch.optim.Adam(model.parameters(), lr=SP_LR)
+    train_step, eval_step = make_step_fns(model, opt, loss="l1",
+                                          target_key="energy")
+    torch.cuda.reset_peak_memory_stats()
+    reset_all(cf, ts, sc)
+    losses, dt = timed_steps(torch, train_step, batches, SP_WARMUP)
+    launches = sc.launches
+    others_idle(cf, ts, "path 4b")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = (SP_KW["num_layers"] + 1) * len(batches)
+    log(f"  {len(batches)} Adam steps, losses {[round(x, 5) for x in losses]}")
+    log(f"  segment-sum launches {launches} ((layers + 1) x steps = {want}); "
+        f"peak device memory {peak:.2f} GiB")
+    if not all(math.isfinite(x) for x in losses):
+        fail("path 4b: non-finite loss")
+    if launches != want:
+        fail(f"path 4b: {launches} segment-sum launches, expected {want}")
+    out = eval_step(batches[0])
+    m = out["graph_mask"]
+    mae = ThreeDEvaluator().eval({"y_pred": out["y_pred"][m],
+                                  "y_true": batches[0].globals["energy"][m]}
+                                 )["mae"]
+    if not math.isfinite(mae):
+        fail("path 4b: non-finite eval MAE")
+    timed = len(batches) - SP_WARMUP
+    pairs = sum(c["pairs"] for c in csr[SP_WARMUP:])
+    step_ms = dt / timed * 1e3
+    log(f"  eval MAE {mae:.5f} over {int(m.sum())} molecules")
+    log(f"  step {step_ms:.3f} ms (mean of {timed} steps); "
+        f"{pairs / dt:.6g} edges/s over {pairs / timed:.0f} in-cutoff pairs "
+        f"per step")
+    return {"launches": launches, "steps": len(batches), "losses": losses,
+            "step_ms": step_ms, "edges_per_s": pairs / dt,
+            "pairs_per_step": pairs / timed, "first_step": step_errs,
+            "eval_mae": mae, "peak_gib": peak}
+
+
+def seg_bound(c):
+    """Least time for one call at this data: the counted edge rows, their
+    ids and the row pointers read once, the float32 output written once
+    (bytes); one add per element of a counted row (operations, f32)."""
+    nnz = int(((c["seg"] >= 0)).sum())
+    F = c["data"].shape[1]
+    nbytes = (nnz * F * c["data"].element_size() + 4 * nnz
+              + 4 * (c["N"] + 1) + 4 * c["N"] * F)
+    t_bytes, t_ops = nbytes / PEAK_BYTES, nnz * F / PEAK_FLOPS["f32"]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nnz, nbytes)
+
+
+def phase_seg_times(torch, sc, cases):
+    """Per call at each flat path's shape, device time with the host
+    ahead (device_ms): the bare kernel launch, its plain version, and the
+    PyTorch calls that compute the same sum over the counted (prefix)
+    edges: index_add_ into zeros, and segment_reduce over rowptr where it
+    runs (library_ms is the faster one). Beside them, host-clocked: the
+    kernel at the rate the host issues it, and the checked wrapper the
+    path calls (input checks and the overflow audit read on the host)."""
+    rows = []
+    for c in cases:
+        if c["name"] == "skewed":
+            continue
+        seg, rp, N, data = c["seg"], c["rowptr"], c["N"], c["data"]
+        launch = lambda: sc.segment_csr_launch(data, seg, rp, N)
+        k_ms = device_ms(torch, launch)
+        issued_ms = cuda_ms(torch, launch)
+        w_ms = cuda_ms(torch, lambda: sc.segment_csr_kernel(
+            data, seg, rp, N, 32, c["eb"]))
+        plain_ms = device_ms(torch, lambda: sc.segment_sum_sorted_csr_reference(
+            data, seg, rp, N))
+        bound_ms, by, nnz, nbytes = seg_bound(c)
+        real, idx = data[:nnz], seg[:nnz]
+        if not bool((seg[:nnz] >= 0).all()):
+            fail("segment sum timing: the counted edges are not a prefix")
+        lib = {"index_add_": device_ms(torch, lambda: torch.zeros(
+            N, data.shape[1], dtype=data.dtype, device=data.device
+        ).index_add_(0, idx, real))}
+        try:
+            lib["segment_reduce"] = device_ms(torch, lambda: torch.segment_reduce(
+                real, "sum", offsets=rp.long(), axis=0))
+        except RuntimeError as exc:          # a yardstick only, not the port
+            log(f"  torch.segment_reduce does not run here: "
+                f"{str(exc).splitlines()[0]}")
+        best = min(lib, key=lib.get)
+        rows.append({"case": c["name"], "dtype": str(data.dtype)[6:], "N": N,
+                     "E": data.shape[0], "nnz": nnz, "F": data.shape[1],
+                     "ms": k_ms, "issued_ms": issued_ms, "wrapper_ms": w_ms,
+                     "plain_ms": plain_ms,
+                     "bound_ms": bound_ms,
+                     "bound_by": by, "bytes": nbytes, "library": lib,
+                     "library_ms": lib[best], "library_call": best})
+    for r in rows:
+        libs = ", ".join(f"{k} {v:.4f} ms" for k, v in r["library"].items())
+        log(f"  segment_sum_sorted_csr {r['case']} {r['dtype']} N={r['N']} "
+            f"E={r['E']} ({r['nnz']} counted) F={r['F']}: kernel "
+            f"{r['ms']:.4f} ms (bound {r['bound_ms']:.5f} ms by "
+            f"{r['bound_by']}, {r['bytes'] / 1e6:.3f} MB, "
+            f"{r['bound_ms'] / r['ms']:.3f} of it); plain {r['plain_ms']:.4f}"
+            f" ms; {libs}; host-clocked: kernel as issued "
+            f"{r['issued_ms']:.4f} ms, checked wrapper {r['wrapper_ms']:.4f}"
+            f" ms")
+    return rows
+
+
 def build_all(_build, names):
     """Build every CUDA source at once (one nvcc each); the seconds each
     took and the whole."""
@@ -1091,6 +1579,7 @@ def main():
                                         synthetic_molecules)
     from dig_tpu_torch.ops import _build
     from dig_tpu_torch.ops import cfconv as cf
+    from dig_tpu_torch.ops import segment_csr as sc
     from dig_tpu_torch.ops import triplet_slot as ts
 
     torch.backends.cuda.matmul.allow_tf32 = False   # plain version = oracle
@@ -1109,7 +1598,7 @@ def main():
         f"{torch.version.cuda}")
 
     log("== 2. build")
-    sources = ["cfconv", "triplet_slot"]
+    sources = ["cfconv", "triplet_slot", "segment_csr"]
     secs, whole = build_all(_build, sources)
     log(f"  nvcc sm_90a builds, one process per source, all at once: "
         + ", ".join(f"{n} {secs[n]:.1f} s" for n in sources)
@@ -1166,6 +1655,34 @@ def main():
 
     log("== 11. times: triplet_slot second order")
     sf_rows = phase_sf_times(torch, ts, sf_inp)
+    del sf_b, sf_inp
+    torch.cuda.empty_cache()
+
+    fs_b = fs_batches(torch, dev, FS_STEPS + 1)
+    sp_b = sp_batches(torch, dev, SP_STEPS + 1)
+    log("== 12. kernel vs plain: segment_sum_sorted_csr (flat paths' "
+        "receivers, skewed random CSR)")
+    seg_inputs = seg_cases(torch, dev, fs_b[-1], sp_b[-1])
+    seg_err = phase_seg_kernel_vs_plain(torch, sc, seg_inputs)
+
+    log("== 13. main path 4a: flat SchNet energy+force 4x128 f32, "
+        "segment_eb=1024, batches of 24 in slots of 29, Adam(1e-3)")
+    fs_res = phase_fs_main_path(torch, cf, ts, sc, dev, fs_b[:FS_STEPS])
+    phase_fs_run3d(torch, sc, dev)
+    del fs_b
+    torch.cuda.empty_cache()
+
+    log("== 14. main path 4b: flat SphereNet energy 4x128 f32 (tutorial "
+        "widths), segment_eb=1024, batches of 32, Adam(5e-4)")
+    sp_res = phase_sp_main_path(torch, cf, ts, sc, dev, sp_b[:SP_STEPS])
+    del sp_b
+    torch.cuda.empty_cache()
+
+    log("== 15. times: segment_sum_sorted_csr; the flat steps")
+    seg_rows = phase_seg_times(torch, sc, seg_inputs)
+    log(f"  path 4a: force step {fs_res['step_ms']:.3f} ms, "
+        f"{fs_res['edges_per_s']:.6g} edges/s; path 4b: step "
+        f"{sp_res['step_ms']:.3f} ms, {sp_res['edges_per_s']:.6g} edges/s")
 
     def total(kernel, key):
         return sum(r[key] for r in rows if r["kernel"] == kernel
@@ -1214,6 +1731,18 @@ def main():
         "bound_ms": sum(r["bound_ms"] for r in b_rows),
         "bound_by": max(b_rows, key=lambda r: r["bound_ms"])["bound_by"],
         "library_ms": None})
+    r = next(r for r in seg_rows if r["case"] == "schnet_4a")
+    kernels.append({
+        "name": "segment_sum_sorted_csr", "route": "cuda",
+        "source": "dig_tpu_torch/csrc/segment_csr.cu",
+        "replaces": "dig_tpu/ops/pallas_segment.py:156",
+        "launches": fs_res["launches"], "max_abs_err": seg_err,
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    log("  (segment_sum_sorted_csr: one bare launch at path 4a's shape, "
+        "f32, device time with the host ahead, as are plain_ms and "
+        "library_ms (the faster of index_add_ and segment_reduce); launches "
+        "from path 4a's timed steps)")
     log("  (cfconv ms, plain_ms and bound_ms: one call per bucket, summed "
         "over the 3 buckets = one layer of one step; triplet_slot fwd/bwd: "
         "one call = one layer of one energy step (main path 2), no "

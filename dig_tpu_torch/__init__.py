@@ -8,11 +8,12 @@ PyTorch; each Pallas TPU kernel becomes a CUDA kernel written for Hopper
 Layering (mirrors ``dig_tpu``):
   device        ``resolve_device``: entry points default to the CUDA card
   graph_dense   dense per-graph molecular batches
-  graph         flat padded graph batches (slot-aligned layout)
-  ops           bases, radius graph and triplet tables, the fused cfconv
-                kernel, the slot triplet kernel (to second order)
+  graph         flat padded graph batches (and the slot-aligned layout)
+  ops           bases, flat and NK radius graphs and triplet tables, the
+                fused cfconv kernel, the slot triplet kernel (to second
+                order), the sorted-CSR segment-sum kernel
   nn            shared blocks and initializers
-  models        SchNetDense, SphereNet, DimeNetPP
+  models        SchNet, SchNetDense, SphereNet, DimeNetPP
   train         train steps (energy, energy+force, bucketed), Run3D,
                 checkpoints, metrics
   threed        evaluator, Run3D / run

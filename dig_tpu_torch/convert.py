@@ -12,8 +12,46 @@ from typing import Dict
 import numpy as np
 import torch
 
+from .models.schnet import SchNet
 from .models.schnet_dense import SchNetDense
 from .models.spherenet import _SphericalMPNN
+
+
+class _Tree:
+    """A flat flax tree being consumed: ``take`` pops an entry, ``put``
+    copies it into a parameter, ``finish`` raises on entries left unused
+    or parameters of the model left unset."""
+
+    def __init__(self, params: Dict[str, np.ndarray]):
+        self.todo = dict(params)
+        self.done = set()
+
+    def take(self, name: str) -> torch.Tensor:
+        if name not in self.todo:
+            raise KeyError(f"flax tree lacks {name!r}")
+        return torch.tensor(np.asarray(self.todo.pop(name), np.float32))
+
+    def put(self, dst: torch.Tensor, src: torch.Tensor) -> None:
+        if dst.shape != src.shape:
+            raise ValueError(f"shape {tuple(src.shape)} does not fit "
+                             f"{tuple(dst.shape)}")
+        dst.copy_(src)
+        self.done.add(id(dst))
+
+    def dense(self, lin, name: str) -> None:
+        """Flax ``Dense`` ``name`` (kernel [in, out], bias) into ``lin``."""
+        self.put(lin.weight, self.take(f"{name}/kernel").T)
+        if lin.bias is not None:
+            self.put(lin.bias, self.take(f"{name}/bias"))
+
+    def finish(self, model: torch.nn.Module) -> torch.nn.Module:
+        if self.todo:
+            raise KeyError(f"unused flax entries: {sorted(self.todo)}")
+        unset = [n for n, p in model.named_parameters()
+                 if id(p) not in self.done]
+        if unset:
+            raise KeyError(f"parameters not set from the flax tree: {unset}")
+        return model
 
 
 @torch.no_grad()
@@ -24,45 +62,44 @@ def schnet_dense_from_flax(params: Dict[str, np.ndarray],
     ``cf_w2_l``/``cf_b2_l`` (``use_pallas=True``) or ``MLP_l/Dense_{0,1}``
     (the einsum branch); both land in the interaction's filter MLP. Every
     entry must be used and every parameter of ``model`` set."""
-    todo = dict(params)
-
-    def take(name):
-        if name not in todo:
-            raise KeyError(f"flax tree lacks {name!r}")
-        return torch.tensor(np.asarray(todo.pop(name), np.float32))
-
-    def put(dst: torch.Tensor, src: torch.Tensor):
-        if dst.shape != src.shape:
-            raise ValueError(f"shape {tuple(src.shape)} does not fit "
-                             f"{tuple(dst.shape)}")
-        dst.copy_(src)
-
-    def dense(lin, idx):
-        put(lin.weight, take(f"Dense_{idx}/kernel").T)
-        if lin.bias is not None:
-            put(lin.bias, take(f"Dense_{idx}/bias"))
-
-    put(model.embedding.weight, take("Embed_0/embedding"))
+    t = _Tree(params)
+    t.put(model.embedding.weight, t.take("Embed_0/embedding"))
     L = len(model.interactions)
     for l, layer in enumerate(model.interactions):
-        dense(layer.lin_vj, 3 * l)
-        dense(layer.lin1, 3 * l + 1)
-        dense(layer.lin2, 3 * l + 2)
+        t.dense(layer.lin_vj, f"Dense_{3 * l}")
+        t.dense(layer.lin1, f"Dense_{3 * l + 1}")
+        t.dense(layer.lin2, f"Dense_{3 * l + 2}")
         m1, m2 = layer.mlp.layers
-        if f"cf_w1_{l}" in todo:
-            put(m1.weight, take(f"cf_w1_{l}").T)
-            put(m1.bias, take(f"cf_b1_{l}"))
-            put(m2.weight, take(f"cf_w2_{l}").T)
-            put(m2.bias, take(f"cf_b2_{l}"))
+        if f"cf_w1_{l}" in t.todo:
+            t.put(m1.weight, t.take(f"cf_w1_{l}").T)
+            t.put(m1.bias, t.take(f"cf_b1_{l}"))
+            t.put(m2.weight, t.take(f"cf_w2_{l}").T)
+            t.put(m2.bias, t.take(f"cf_b2_{l}"))
         else:
-            for lin, k in ((m1, 0), (m2, 1)):
-                put(lin.weight, take(f"MLP_{l}/Dense_{k}/kernel").T)
-                put(lin.bias, take(f"MLP_{l}/Dense_{k}/bias"))
-    dense(model.out1, 3 * L)
-    dense(model.out2, 3 * L + 1)
-    if todo:
-        raise KeyError(f"unused flax entries: {sorted(todo)}")
-    return model
+            t.dense(m1, f"MLP_{l}/Dense_0")
+            t.dense(m2, f"MLP_{l}/Dense_1")
+    t.dense(model.out1, f"Dense_{3 * L}")
+    t.dense(model.out2, f"Dense_{3 * L + 1}")
+    return t.finish(model)
+
+
+@torch.no_grad()
+def schnet_from_flax(params: Dict[str, np.ndarray], model: SchNet) -> SchNet:
+    """Copy a flax (flat) ``SchNet`` tree into ``model``:
+    ``SchNetInteraction_l/{MLP_0/Dense_{0,1}, Dense_0 (lin_vj), Dense_1,
+    Dense_2}``, the readout ``Dense_0``, ``Dense_1`` and ``Embed_0``. Every
+    entry must be used and every parameter of ``model`` set."""
+    t = _Tree(params)
+    t.put(model.embedding.weight, t.take("Embed_0/embedding"))
+    for l, layer in enumerate(model.interactions):
+        blk = f"SchNetInteraction_{l}/"
+        for k, lin in enumerate(layer.mlp.layers):
+            t.dense(lin, f"{blk}MLP_0/Dense_{k}")
+        for k, lin in enumerate((layer.lin_vj, layer.lin1, layer.lin2)):
+            t.dense(lin, f"{blk}Dense_{k}")
+    t.dense(model.out1, "Dense_0")
+    t.dense(model.out2, "Dense_1")
+    return t.finish(model)
 
 
 @torch.no_grad()
@@ -70,33 +107,19 @@ def spherenet_from_flax(params: Dict[str, np.ndarray],
                         model: _SphericalMPNN) -> _SphericalMPNN:
     """Copy a flax ``SphereNet`` / ``DimeNetPP`` tree into ``model``.
 
-    The fused (slot) and unfused branches share parameter names in flax,
-    so one tree loads into either branch. Dense kernels are transposed,
-    ``DistEmb_0/freq`` and the ``Embed`` table copied. Every entry must be
-    used and every parameter of ``model`` set."""
-    todo = dict(params)
-    done = set()
-
-    def take(name):
-        if name not in todo:
-            raise KeyError(f"flax tree lacks {name!r}")
-        return torch.tensor(np.asarray(todo.pop(name), np.float32))
-
-    def put(dst: torch.Tensor, src: torch.Tensor):
-        if dst.shape != src.shape:
-            raise ValueError(f"shape {tuple(src.shape)} does not fit "
-                             f"{tuple(dst.shape)}")
-        dst.copy_(src)
-        done.add(id(dst))
+    Every layout and branch (flat, NK unfused, slot kernel) has the same
+    parameters under the same flax names, so one tree loads into any of
+    them. Dense kernels are transposed, ``DistEmb_0/freq`` and the
+    ``Embed`` table copied. Every entry must be used and every parameter
+    of ``model`` set."""
+    t = _Tree(params)
 
     def denses(prefix, lins):
         for i, lin in enumerate(lins):
-            put(lin.weight, take(f"{prefix}Dense_{i}/kernel").T)
-            if lin.bias is not None:
-                put(lin.bias, take(f"{prefix}Dense_{i}/bias"))
+            t.dense(lin, f"{prefix}Dense_{i}")
 
-    put(model.dist_emb.freq, take("DistEmb_0/freq"))
-    put(model.init_block.embed.weight, take("InitBlock_0/Embed_0/embedding"))
+    t.put(model.dist_emb.freq, t.take("DistEmb_0/freq"))
+    t.put(model.init_block.embed.weight, t.take("InitBlock_0/Embed_0/embedding"))
     denses("InitBlock_0/", model.init_block.flax_denses())
     for i, uv in enumerate(model.update_vs):
         denses(f"UpdateV_{i}/", uv.flax_denses())
@@ -104,9 +127,4 @@ def spherenet_from_flax(params: Dict[str, np.ndarray],
         denses(f"UpdateE_{l}/", ue.flax_denses())
         for r, res in enumerate([*ue.before, *ue.after]):
             denses(f"UpdateE_{l}/ResidualLayer_{r}/", res.flax_denses())
-    if todo:
-        raise KeyError(f"unused flax entries: {sorted(todo)}")
-    unset = [n for n, p in model.named_parameters() if id(p) not in done]
-    if unset:
-        raise KeyError(f"parameters not set from the flax tree: {unset}")
-    return model
+    return t.finish(model)

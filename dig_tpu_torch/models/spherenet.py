@@ -1,13 +1,23 @@
-"""SphereNet and DimeNet++ on the slot-aligned [N, K] neighbour-table
-layout. Port of ``dig_tpu/models/spherenet.py``.
+"""SphereNet and DimeNet++ on the flat (compacted edge list) layout and on
+the slot-aligned [N, K] neighbour-table layout. Port of
+``dig_tpu/models/spherenet.py``.
 
-Supported layouts (``nk_degree > 0`` with ``block_size > 0``, slot-aligned
-batches from ``MoleculeLoader(slot_size=block_size)``):
+Supported layouts:
 
-* unfused: ``pallas_triplet`` off. The triplet product runs as plain
-  PyTorch over ``[T, C]`` tensors (``expand_kj``, ``triplets_to_edges``).
-* slot kernel: ``pallas_triplet``, ``pallas_fuse_basis`` and
-  ``pallas_slot`` on. The packed basis table ``[K, R, E]`` is built once
+* flat (``nk_degree=0``, the default): the radius graph is a compacted
+  edge list capped at ``max_edges`` (``radius_graph_flat``), the triplets
+  come from ``build_triplets`` with ``max_in_degree`` in-edge slots, and
+  the triplet product runs as plain PyTorch (``expand_kj``,
+  ``triplets_to_edges``). ``UpdateV`` sums edges onto nodes through the
+  sorted-CSR segment sum when ``segment_eb > 0`` (the kernel of
+  ``csrc/segment_csr.cu`` on the card), else through ``index_add_``. The
+  ``pallas_*`` flags are ignored here, as the JAX model falls back to its
+  unfused chain on this layout.
+* slot-aligned NK (``nk_degree > 0`` with ``block_size > 0``, batches from
+  ``MoleculeLoader(slot_size=block_size)``), either unfused
+  (``pallas_triplet`` off: the same plain chain over ``[T, C]`` tensors)
+  or through the slot kernel (``pallas_triplet``, ``pallas_fuse_basis``
+  and ``pallas_slot`` on). The packed basis table ``[K, R, E]`` is built once
   and every layer's triplet product is ``fused_triplet_slot`` (the CUDA
   kernels of ``csrc/triplet_slot.cu`` on the card). The two factorised
   basis projections are composed into ``ws = ws1 @ ws2`` and
@@ -22,12 +32,14 @@ whenever ``pos`` requires a gradient. ``forward(g, block_size=s)``
 overrides the slot size per call, so one module (one parameter set)
 serves every bucket of a ``BucketedMoleculeLoader`` batch.
 
-Every other layout raises ``NotImplementedError`` naming its ROADMAP item:
-the flat edge list (``nk_degree=0``), the unblocked NK builder,
-``fused_triplet_product`` (``pallas_triplet`` without ``pallas_fuse_basis``,
-queue 2 item 4), ``fused_triplet_pt`` (``pallas_fuse_basis`` without
-``pallas_slot``, ``pallas_triplet_pt.py``, queue 2 item 5), ``remat`` and
-``segment_eb > 0`` (queue 1 item 9).
+On the NK layout ``UpdateV`` is a reshape-sum and ``segment_eb`` is
+accepted and ignored, as in the JAX ``UpdateV``. Every other layout raises
+``NotImplementedError`` naming its ROADMAP item: the unblocked NK builder
+(``nk_degree > 0`` with ``block_size=0``), ``fused_triplet_product``
+(``pallas_triplet`` without ``pallas_fuse_basis`` on the NK layout, queue
+2 item 4), ``fused_triplet_pt`` (``pallas_fuse_basis`` without
+``pallas_slot``, ``pallas_triplet_pt.py``, queue 2 item 5) and ``remat``
+(queue 1 item 9).
 
 ``compute_dtype`` (e.g. ``torch.bfloat16``) casts where the JAX model
 casts: the distance embedding, the bases and the linears run in it;
@@ -48,18 +60,20 @@ from ..graph import GraphBatch
 from ..nn.blocks import dense
 from ..nn.init import glorot_orthogonal
 from ..ops.basis import Envelope, bessel_table, sph_full_table, sph_m0_table
-from ..ops.radius import NKGraph, radius_graph_nk_blocked
-from ..ops.segment import segment_sum
+from ..ops.radius import NKGraph, radius_graph_flat, radius_graph_nk_blocked
+from ..ops.segment import flat_edges_to_nodes, gather_rows, segment_sum
 from ..ops.triplet_slot import basis_pt_k, fused_triplet_slot
-from ..ops.triplets import (Triplets, build_triplets_nk, edges_to_nodes_nk,
-                            expand_kj, nk_edge_distances, nk_gather_nodes,
+from ..ops.triplets import (Triplets, build_triplets, build_triplets_nk,
+                            edge_distances, edges_to_nodes_nk, expand_kj,
+                            nk_edge_distances, nk_gather_nodes,
                             torsion_angles, triplet_geometry,
                             triplet_kj_distances, triplets_to_edges)
 
 
 class Geometry(NamedTuple):
-    """One batch's radius graph, triplets and geometry (float32)."""
-    nkg: NKGraph
+    """One batch's radius graph, triplets and geometry (float32). ``nkg``
+    is None on the flat layout, whose edge list is ``trip``'s."""
+    nkg: Optional[NKGraph]
     trip: Triplets
     dist: torch.Tensor                # [E] edge lengths
     angle: torch.Tensor               # [T] angle at j
@@ -149,8 +163,9 @@ class ResidualLayer(nn.Module):
 
 
 class InitBlock(nn.Module):
-    """init_e: e1 = act(W [x_i ; x_j ; act(W0 rbf)]), e2 = (W1 rbf) * e1;
-    x_j through the closed gather, x_i as a broadcast."""
+    """init_e: e1 = act(W [x_i ; x_j ; act(W0 rbf)]), e2 = (W1 rbf) * e1.
+    NK layout: x_j through the closed gather, x_i as a broadcast; flat:
+    ``x[senders]``, ``x[receivers]``."""
 
     def __init__(self, hidden: int, num_radial: int, dtype, gen):
         super().__init__()
@@ -170,9 +185,13 @@ class InitBlock(nn.Module):
         w = self.embed.weight
         x = (w if self.dtype is None else w.to(self.dtype))[z.long()]
         rbf0 = swish(dense(rbf, self.lin_rbf0, self.dtype))
-        N, K = trip.nk_nbr.shape
-        xs = nk_gather_nodes(x, trip)
-        xr = x[:, None, :].expand(N, K, x.shape[-1]).reshape(N * K, -1)
+        if trip.nk_nbr is None:
+            xs = gather_rows(x, trip.senders)
+            xr = gather_rows(x, trip.receivers)
+        else:
+            N, K = trip.nk_nbr.shape
+            xs = nk_gather_nodes(x, trip)
+            xr = x[:, None, :].expand(N, K, x.shape[-1]).reshape(N * K, -1)
         e1 = swish(dense(torch.cat([xr, xs, rbf0], dim=-1), self.lin,
                          self.dtype))
         e2 = dense(rbf, self.lin_rbf1, self.dtype) * e1
@@ -262,13 +281,16 @@ class UpdateE(nn.Module):
 
 
 class UpdateV(nn.Module):
-    """update_v: edge->node reshape-sum (NK layout), output MLP, float32
-    readout projection."""
+    """update_v: edge->node sum (NK layout: a reshape-sum; flat: the
+    sorted-CSR sum when ``segment_eb > 0``, else ``index_add_``), output
+    MLP, float32 readout projection."""
 
     def __init__(self, hidden: int, out_emb: int, out_channels: int,
-                 num_output_layers: int, output_init: str, dtype, gen):
+                 num_output_layers: int, output_init: str, segment_eb: int,
+                 dtype, gen):
         super().__init__()
         self.dtype = dtype
+        self.segment_eb = segment_eb
         self.lin_in = _linear(hidden, out_emb, True, gen)
         self.lins = nn.ModuleList(_linear(out_emb, out_emb, True, gen)
                                   for _ in range(num_output_layers))
@@ -280,8 +302,12 @@ class UpdateV(nn.Module):
     def flax_denses(self):
         return [self.lin_in, *self.lins, self.lin_out]
 
-    def forward(self, e2, edge_mask, num_nodes):
-        v = edges_to_nodes_nk(e2, num_nodes, mask=edge_mask)
+    def forward(self, e2, trip: Triplets, num_nodes):
+        if trip.nk_nbr is not None:
+            v = edges_to_nodes_nk(e2, num_nodes, mask=trip.edge_mask)
+        else:
+            v = flat_edges_to_nodes(e2, trip.receivers, num_nodes,
+                                    trip.edge_mask, self.segment_eb)
         v = dense(v, self.lin_in, self.dtype)
         for lin in self.lins:
             v = swish(dense(v, lin, self.dtype))
@@ -304,6 +330,7 @@ class _SphericalMPNN(nn.Module):
                  num_before_skip: int = 1, num_after_skip: int = 2,
                  num_output_layers: int = 3,
                  output_init: str = "GlorotOrthogonal",
+                 max_edges: int = 4096, max_in_degree: int = 24,
                  segment_eb: int = 0, nk_degree: int = 0,
                  block_size: int = 0,
                  compute_dtype: Optional[torch.dtype] = None,
@@ -313,23 +340,23 @@ class _SphericalMPNN(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  device: DeviceLike = None):
         super().__init__()
-        if nk_degree <= 0 or block_size <= 0:
+        if nk_degree > 0 and block_size <= 0:
             raise NotImplementedError(
-                "only the slot-aligned NK layout (nk_degree > 0, "
-                "block_size > 0) is ported; the flat edge list and the "
-                "unblocked NK builder are ROADMAP queue 1 items 7 and 9")
+                "the unblocked NK builder (nk_degree > 0, block_size=0) is "
+                "not ported (ROADMAP queue 1 item 9); use block_size > 0 "
+                "with slot-aligned batches, or the flat layout "
+                "(nk_degree=0)")
         if remat:
             raise NotImplementedError("remat is not ported (ROADMAP queue 1 "
                                       "item 9)")
-        if segment_eb > 0:
-            raise NotImplementedError(
-                "segment_eb > 0 needs segment_sum_sorted_csr (ROADMAP "
-                "queue 2 item 2)")
-        if pallas_triplet and not pallas_fuse_basis:
+        # the flat layout ignores the pallas_* flags (the JAX model's
+        # unfused fallback); on the NK layout they select a kernel
+        nk = nk_degree > 0
+        if nk and pallas_triplet and not pallas_fuse_basis:
             raise NotImplementedError(
                 "pallas_triplet without pallas_fuse_basis is "
                 "fused_triplet_product (ROADMAP queue 2 item 4)")
-        if pallas_triplet and not pallas_slot:
+        if nk and pallas_triplet and not pallas_slot:
             raise NotImplementedError(
                 "pallas_fuse_basis without pallas_slot is fused_triplet_pt "
                 "(pallas_triplet_pt.py, ROADMAP queue 2 item 5)")
@@ -340,6 +367,7 @@ class _SphericalMPNN(nn.Module):
         gen = generator or torch.Generator().manual_seed(0)
         self.cutoff = cutoff
         self.num_spherical, self.num_radial = num_spherical, num_radial
+        self.max_edges, self.max_in_degree = max_edges, max_in_degree
         self.nk_degree, self.block_size = nk_degree, block_size
         self.compute_dtype = compute_dtype
         self.pallas_triplet = pallas_triplet
@@ -351,7 +379,7 @@ class _SphericalMPNN(nn.Module):
         self.init_block = InitBlock(hidden_channels, num_radial, dt, gen)
         mk_v = lambda: UpdateV(hidden_channels, out_emb_channels,
                                out_channels, num_output_layers, output_init,
-                               dt, gen)
+                               segment_eb, dt, gen)
         self.update_vs = nn.ModuleList([mk_v()])
         self.update_es = nn.ModuleList()
         for _ in range(num_layers):
@@ -366,19 +394,29 @@ class _SphericalMPNN(nn.Module):
 
     @property
     def slot_fused(self) -> bool:
-        return self.pallas_triplet
+        return self.pallas_triplet and self.nk_degree > 0
 
     def geometry(self, pos: torch.Tensor, g: GraphBatch,
                  block_size: Optional[int] = None) -> Geometry:
         """Radius graph, triplets and per-edge / per-triplet geometry
-        (``block_size``: the batch's slot size, default the model's)."""
-        nkg = radius_graph_nk_blocked(pos, g.node_mask, self.cutoff,
-                                      self.nk_degree,
-                                      block_size or self.block_size,
-                                      node_graph=g.node_graph)
-        trip = build_triplets_nk(nkg)
+        (``block_size``: the batch's slot size on the NK layout, default the
+        model's)."""
+        if self.nk_degree > 0:
+            nkg = radius_graph_nk_blocked(pos, g.node_mask, self.cutoff,
+                                          self.nk_degree,
+                                          block_size or self.block_size,
+                                          node_graph=g.node_graph)
+            trip = build_triplets_nk(nkg)
+            dist = nk_edge_distances(pos, trip)
+        else:
+            nkg = None
+            senders, receivers, edge_mask = radius_graph_flat(
+                pos, g.node_graph, g.node_mask, self.cutoff, self.max_edges)
+            trip = build_triplets(senders, receivers, edge_mask, g.num_nodes,
+                                  self.max_in_degree)
+            dist = edge_distances(pos, senders, receivers, edge_mask)
         return Geometry(
-            nkg, trip, nk_edge_distances(pos, trip),
+            nkg, trip, dist,
             triplet_geometry(pos, trip), triplet_kj_distances(pos, trip),
             torsion_angles(pos, trip) if self.use_torsion else None)
 
@@ -404,14 +442,15 @@ class _SphericalMPNN(nn.Module):
 
     def forward(self, g: GraphBatch,
                 block_size: Optional[int] = None) -> torch.Tensor:
-        """Energies ``[G, out]`` of a slot-aligned batch whose slot size
-        is ``block_size`` (default: the model's)."""
+        """Energies ``[G, out]`` of a batch (on the NK layout a
+        slot-aligned one whose slot size is ``block_size``, default the
+        model's)."""
         A = block_size or self.block_size
         pos = g.nodes["pos"]
         N, G = g.num_nodes, g.num_graphs
         ns, nr, dt = self.num_spherical, self.num_radial, self.dtype
         geo = self.geometry(pos, g, A)
-        nkg, trip = geo.nkg, geo.trip
+        trip = geo.trip
         rbf0 = self.dist_emb(geo.dist)
         geom = sbf = tbf = None
         if self.slot_fused:
@@ -428,13 +467,13 @@ class _SphericalMPNN(nn.Module):
         if dt is not None:
             rbf0 = rbf0.to(dt)
         e1, e2 = self.init_block(g.nodes["z"], rbf0, trip)
-        v = self.update_vs[0](e2, nkg.edge_mask, N)
+        v = self.update_vs[0](e2, trip, N)
         u = segment_sum(v, g.node_graph, G, mask=g.node_mask)
         slot_atoms = A if self.slot_fused else 0
         for ue, uv in zip(self.update_es, self.update_vs[1:]):
             e1, e2 = ue(e1, rbf0, sbf, tbf, trip, geom=geom,
                         slot_atoms=slot_atoms)
-            v = uv(e2, nkg.edge_mask, N)
+            v = uv(e2, trip, N)
             u = u + segment_sum(v, g.node_graph, G, mask=g.node_mask)
         return u
 

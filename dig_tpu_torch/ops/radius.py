@@ -1,6 +1,8 @@
-"""Radius graph in the [N, K] neighbour-table layout for slot-aligned
-batches. Port of ``NKGraph``, ``radius_blocked_dropped`` and
-``radius_graph_nk_blocked`` of ``dig_tpu/ops/radius.py:94-272``.
+"""Radius and kNN graphs: the flat (compacted edge list) builders and the
+[N, K] neighbour-table layout for slot-aligned batches. Port of
+``radius_graph_flat``, ``knn_graph_flat``, ``adjacency_to_edges``,
+``radius_overflow``, ``NKGraph``, ``radius_blocked_dropped`` and
+``radius_graph_nk_blocked`` of ``dig_tpu/ops/radius.py``.
 
 Squared distances use the JAX package's expansion ``|p|^2 + |q|^2 -
 2 p.q`` with the products taken elementwise in float32 (no matmul: a TF32
@@ -10,7 +12,7 @@ so the tables equal the JAX tables exactly on the CPU.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -45,6 +47,64 @@ def _pairwise_same_graph(pos, node_graph, node_mask):
              & (node_graph[:, None] == node_graph[None, :]))
     valid = valid & ~torch.eye(n, dtype=torch.bool, device=pos.device)
     return d2, valid
+
+
+def _rank_rows(d2: torch.Tensor) -> torch.Tensor:
+    """Rank of each entry within its row, ascending, ties in column order
+    (a double stable argsort, as ``jnp.argsort``)."""
+    order = torch.argsort(d2, dim=1, stable=True)
+    return torch.argsort(order, dim=1, stable=True)
+
+
+def radius_graph_flat(pos, node_graph, node_mask, cutoff: float,
+                      max_edges: int,
+                      max_num_neighbors: Optional[int] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Bidirectional radius graph of a flat padded batch: ``(senders,
+    receivers, edge_mask)``, each ``[max_edges]``, every ordered in-cutoff
+    pair of one graph an edge (j -> i: sender j, receiver i), in the order
+    of :func:`adjacency_to_edges`. ``max_num_neighbors`` keeps each
+    receiver's nearest in-neighbours."""
+    d2, valid = _pairwise_same_graph(pos, node_graph, node_mask)
+    adj = valid & (d2 < cutoff * cutoff)
+    if max_num_neighbors is not None:
+        rank = _rank_rows(torch.where(adj, d2, torch.inf))
+        adj = adj & (rank < max_num_neighbors)
+    return adjacency_to_edges(adj, max_edges)
+
+
+def knn_graph_flat(pos, node_graph, node_mask, k: int, max_edges: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The k nearest neighbours of each node (receiver side), flat batch."""
+    d2, valid = _pairwise_same_graph(pos, node_graph, node_mask)
+    rank = _rank_rows(torch.where(valid, d2, torch.inf))
+    return adjacency_to_edges(valid & (rank < k), max_edges)
+
+
+def adjacency_to_edges(adj: torch.Tensor, max_edges: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Flatten a ``[N, N]`` (receiver, sender) adjacency into a capped edge
+    list, row-major by (receiver, sender) with padding last (a stable sort
+    of the flattened table), so the receivers of the real edges ascend:
+    the order the sorted-CSR segment sum needs. Edges beyond ``max_edges``
+    are dropped (:func:`radius_overflow` counts them); padding rows hold
+    node 0."""
+    n = adj.shape[0]
+    flat = adj.reshape(-1)
+    order = torch.argsort((~flat).to(torch.uint8), stable=True)
+    take = order[:max_edges]
+    edge_mask = flat[take]
+    receivers = torch.where(edge_mask, take // n, 0).to(torch.int32)
+    senders = torch.where(edge_mask, take % n, 0).to(torch.int32)
+    return senders, receivers, edge_mask
+
+
+def radius_overflow(pos, node_graph, node_mask, cutoff: float,
+                    max_edges: int) -> torch.Tensor:
+    """Number of real radius-graph edges the ``max_edges`` cap drops."""
+    d2, valid = _pairwise_same_graph(pos, node_graph, node_mask)
+    total = torch.sum(valid & (d2 < cutoff * cutoff))
+    return torch.clamp(total - max_edges, min=0)
 
 
 def radius_blocked_dropped(pos, node_graph, node_mask, cutoff: float,

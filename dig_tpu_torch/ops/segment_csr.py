@@ -1,0 +1,212 @@
+"""Sorted-CSR segment sum: the flat layout's edge->node aggregation. Port of
+``segment_sum_sorted_csr`` and ``csr_block_overflow`` of
+``dig_tpu/ops/pallas_segment.py``.
+
+    out[r] = sum of data[e] over e in [rowptr[r], rowptr[r+1]) with seg[e] == r
+
+``data [E, F]`` (float32 or bf16), ``seg [E]`` int32 ascending over the real
+edges (-1 marks padding), ``rowptr [num_rows + 1]`` -> ``[num_rows, F]``
+float32. On a CUDA tensor the sum launches the hand-written kernel of
+``csrc/segment_csr.cu`` (a warp per output row, edges summed in edge order:
+the same bits on every run) or raises; on a CPU tensor it runs the plain
+version :func:`segment_sum_sorted_csr_reference`. ``launches`` counts kernel
+launches.
+
+Deliberate deviation from the TPU kernel: that kernel reads a window of
+``max_edges_per_block`` edges for each block of ``block_rows`` rows and
+drops the edges that do not fit (:func:`csr_block_overflow` counts them).
+The card kernel walks ``rowptr`` and drops nothing. ``block_rows`` and
+``max_edges_per_block`` keep their JAX meaning: the card path computes
+:func:`csr_block_overflow` and raises unless it is 0, so both compute the
+same sum.
+
+The derivative is a closed pair of ``torch.autograd.Function``s. The VJP
+of the sum is the row gather ``ct[seg]`` with zeros at id -1 (the JAX
+``_ss_bwd``), cast to ``data``'s type; the VJP of that gather is the same
+CSR sum, since the ids are sorted. So every derivative order of the
+aggregation is a gather or a CSR sum: no scatter-add, and every sum the
+kernel takes is bit-repeatable. Both members are exact when the ids are
+sorted and ``rowptr`` is their row pointer (what ``segment_sum_sorted``
+builds).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+launches = 0
+
+_SHAPES = "negative size"
+
+
+def reset_launch_counts() -> None:
+    global launches
+    launches = 0
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def csr_block_overflow(rowptr: torch.Tensor, num_rows: int, block_rows: int,
+                       max_edges_per_block: int) -> torch.Tensor:
+    """Edges the TPU kernel would drop (0 == safe): per block of
+    ``block_rows`` rows its window holds ``max_edges_per_block - (start %
+    128)`` of the block's own edges (the window starts 128-aligned)."""
+    nb = _round_up(num_rows, block_rows) // block_rows
+    rp = rowptr.long()
+    pad = nb * block_rows + 1 - rp.shape[0]
+    if pad > 0:
+        rp = torch.cat([rp, rp[-1:].expand(pad)])
+    starts = rp[::block_rows][:nb]
+    ends = rp[::block_rows][1:nb + 1]
+    start_al = (starts // 128) * 128
+    kept = torch.minimum(
+        torch.clamp(start_al + max_edges_per_block - starts, min=0),
+        ends - starts)
+    return torch.sum((ends - starts) - kept)
+
+
+def segment_sum_sorted_csr_reference(data: torch.Tensor, seg_ids: torch.Tensor,
+                                     rowptr: torch.Tensor,
+                                     num_rows: int) -> torch.Tensor:
+    """Plain version of the kernel, with its membership rule: edge e counts
+    for row r = seg[e] when 0 <= r < num_rows and rowptr[r] <= e <
+    rowptr[r+1]. Sums in float32."""
+    E, F = data.shape
+    e = torch.arange(E, device=data.device)
+    seg = seg_ids.long()
+    rp = rowptr.long()
+    ok = (seg >= 0) & (seg < num_rows)
+    s = torch.where(ok, seg, 0)
+    take = ok & (rp[s] <= e) & (e < rp[s + 1])
+    out = torch.zeros((num_rows, F), dtype=torch.float32, device=data.device)
+    return out.index_add_(0, s, torch.where(take[:, None], data.float(), 0.0))
+
+
+def row_gather(u: torch.Tensor, seg_ids: torch.Tensor,
+               num_rows: int) -> torch.Tensor:
+    """``u[seg]`` with zeros where seg < 0 (ids clipped to the rows, as the
+    JAX ``_ss_bwd``)."""
+    safe = torch.clamp(seg_ids.long(), 0, num_rows - 1)
+    return torch.where((seg_ids >= 0)[:, None], u[safe], 0.0)
+
+
+def _library() -> ctypes.CDLL:
+    lib = _build.load("segment_csr")
+    if not getattr(lib, "_argtypes_set", False):
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.segment_csr_fwd.argtypes = [P, P, P, P, I, I, I, I, P]
+        lib.segment_csr_fwd.restype = I
+        lib._argtypes_set = True
+    return lib
+
+
+def segment_csr_kernel(data: torch.Tensor, seg_ids: torch.Tensor,
+                       rowptr: torch.Tensor, num_rows: int, block_rows: int,
+                       max_edges_per_block: int) -> torch.Tensor:
+    """Check CUDA inputs and launch the kernel; raises on what it does not
+    take and when the TPU kernel would drop edges
+    (``csr_block_overflow``, read on the host: one synchronisation)."""
+    if data.ndim != 2:
+        raise ValueError(f"segment_sum_sorted_csr: data must be [E, F], got "
+                         f"shape {tuple(data.shape)}")
+    E, F = data.shape
+    if data.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"segment_sum_sorted_csr kernel takes float32 or "
+                        f"bfloat16 data, got {data.dtype}")
+    for name, t, want in (("seg_ids", seg_ids, (E,)),
+                          ("rowptr", rowptr, (num_rows + 1,))):
+        if t.device != data.device:
+            raise ValueError(f"segment_sum_sorted_csr: {name} on {t.device}, "
+                             f"data on {data.device}")
+        if tuple(t.shape) != want:
+            raise ValueError(f"segment_sum_sorted_csr: {name} has shape "
+                             f"{tuple(t.shape)}, expected {want}")
+    dropped = int(csr_block_overflow(rowptr, num_rows, block_rows,
+                                     max_edges_per_block))
+    if dropped:
+        raise RuntimeError(
+            f"segment_sum_sorted_csr: {dropped} edges exceed "
+            f"max_edges_per_block={max_edges_per_block} for block_rows="
+            f"{block_rows}; the TPU kernel would drop them, so raise the cap "
+            f"(segment_eb)")
+    return segment_csr_launch(data.contiguous(),
+                              seg_ids.to(torch.int32).contiguous(),
+                              rowptr.to(torch.int32).contiguous(), num_rows)
+
+
+def segment_csr_launch(data: torch.Tensor, seg: torch.Tensor,
+                       rp: torch.Tensor, num_rows: int) -> torch.Tensor:
+    """The bare launch on inputs :func:`segment_csr_kernel` has checked:
+    contiguous CUDA ``data [E, F]`` (float32 or bf16), int32 ``seg [E]``
+    and ``rp [num_rows + 1]``."""
+    global launches
+    E, F = data.shape
+    out = torch.empty((num_rows, F), dtype=torch.float32, device=data.device)
+    rc = _library().segment_csr_fwd(
+        *map(_build.ptr, (data, seg, rp, out)), E, F, num_rows,
+        int(data.dtype == torch.bfloat16), _build.stream(data.device))
+    _build.check(rc, "segment_sum_sorted_csr kernel", _SHAPES)
+    launches += 1
+    return out
+
+
+def _segment_sum(data, seg_ids, rowptr, num_rows, block_rows, eb):
+    if data.is_cuda:
+        return segment_csr_kernel(data, seg_ids, rowptr, num_rows, block_rows,
+                                  eb)
+    if data.device.type != "cpu":
+        raise ValueError(f"segment_sum_sorted_csr runs on CUDA or the CPU, "
+                         f"not {data.device}")
+    return segment_sum_sorted_csr_reference(data, seg_ids, rowptr, num_rows)
+
+
+class _SegmentSumSortedCSR(torch.autograd.Function):
+    """``data [E, F] -> [num_rows, F]`` float32. Adjoint: :class:`_RowGather`."""
+
+    @staticmethod
+    def forward(ctx, data, seg_ids, rowptr, num_rows, block_rows, eb):
+        ctx.save_for_backward(seg_ids, rowptr)
+        ctx.meta = (num_rows, block_rows, eb, data.dtype)
+        return _segment_sum(data, seg_ids, rowptr, num_rows, block_rows, eb)
+
+    @staticmethod
+    def backward(ctx, ct):
+        seg_ids, rowptr = ctx.saved_tensors
+        num_rows, block_rows, eb, dtype = ctx.meta
+        return (_RowGather.apply(ct, seg_ids, rowptr, num_rows, block_rows,
+                                 eb, dtype), None, None, None, None, None)
+
+
+class _RowGather(torch.autograd.Function):
+    """``u [num_rows, F] -> [E, F]`` in ``dtype``: ``u[seg]``, zeros at id
+    -1. Adjoint: :class:`_SegmentSumSortedCSR`."""
+
+    @staticmethod
+    def forward(ctx, u, seg_ids, rowptr, num_rows, block_rows, eb, dtype):
+        ctx.save_for_backward(seg_ids, rowptr)
+        ctx.meta = (num_rows, block_rows, eb, u.dtype)
+        return row_gather(u, seg_ids, num_rows).to(dtype)
+
+    @staticmethod
+    def backward(ctx, w):
+        seg_ids, rowptr = ctx.saved_tensors
+        num_rows, block_rows, eb, dtype = ctx.meta
+        du = _SegmentSumSortedCSR.apply(w, seg_ids, rowptr, num_rows,
+                                        block_rows, eb)
+        return du.to(dtype), None, None, None, None, None, None
+
+
+def segment_sum_sorted_csr(data: torch.Tensor, seg_ids: torch.Tensor,
+                           rowptr: torch.Tensor, num_rows: int,
+                           block_rows: int = 32,
+                           max_edges_per_block: int = 1024) -> torch.Tensor:
+    """Sorted-CSR segment sum: data [E, F], seg_ids [E] (ascending; -1 for
+    padding), rowptr [num_rows + 1] -> [num_rows, F] float32.
+    Differentiable to any order (see the module docstring)."""
+    return _SegmentSumSortedCSR.apply(data, seg_ids, rowptr, num_rows,
+                                      block_rows, max_edges_per_block)

@@ -1,16 +1,22 @@
-"""Triplet (k->j->i) tables and angle/torsion geometry in the [N, K]
-neighbour-table layout. Port of the NK parts of ``dig_tpu/ops/triplets.py``.
+"""Triplet (k->j->i) tables and angle/torsion geometry, on the flat
+(compacted edge list) layout and on the [N, K] neighbour-table layout. Port
+of ``dig_tpu/ops/triplets.py``.
 
-Triplets are laid out ``[E, K]`` row-major (T = E*K): triplet (e, s) has
-ji-edge e = (i, d) and kj-edge ``senders[e]*K + s``, so the reduction over
-triplets of one edge is a reshape-sum and every table is index
-arithmetic.
+Triplets are laid out ``[E, D]`` row-major (T = E*D): triplet (e, s) has
+ji-edge e and, as its kj-edge, the s-th in-edge of e's sender, so the
+reduction over triplets of one edge is a reshape-sum. On the flat layout
+the in-edge tables come from one stable sort and a rank within each
+receiver's run (:func:`build_in_edge_table`); on the NK layout (D = K)
+every table is index arithmetic.
 
 Gathers whose plain adjoint would be a scatter-add come in closed pairs:
 each member is a ``torch.autograd.Function`` whose backward is the other
-member, so every derivative order is a gather over the reverse-edge table
+member, so every derivative order is a gather over a reverse table
 (deterministic, free of atomics). Both members are exact only when the
 consumer's cotangent is zero at invalid slots; every consumer here masks.
+The flat geometry's own gathers (``pos[senders]``, ``pos[in-neighbours]``)
+stay plain gathers, as in the JAX package (``gather_rows``): their adjoint
+on the card is ``index_add_``, which is not bitwise repeatable.
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .radius import NKGraph
+from .segment import gather_rows
 
 
 class Triplets(NamedTuple):
@@ -38,6 +45,70 @@ class Triplets(NamedTuple):
     edge_mask: torch.Tensor    # [E]
     nk_nbr: Optional[torch.Tensor] = None  # [N, K] sender table
     nk_rev: Optional[torch.Tensor] = None  # [N, K] reverse-edge ids
+
+
+def build_in_edge_table(receivers: torch.Tensor, edge_mask: torch.Tensor,
+                        num_nodes: int, max_in_degree: int):
+    """Capped per-node incoming-edge table ``(in_edges [N, D], in_mask
+    [N, D], edge_rank [E])``: ``in_edges[n, d]`` is the id of the d-th
+    edge (ascending id) with receiver n; ``edge_rank`` is each edge's slot
+    in its receiver's row (D for padding and for edges past the cap, which
+    are dropped)."""
+    E, D = receivers.shape[0], max_in_degree
+    dev = receivers.device
+    recv = torch.where(edge_mask, receivers.long(), num_nodes)  # park pads
+    order = torch.argsort(recv, stable=True)
+    recv_sorted = recv[order]
+    # rank within the receiver's run: position minus the run's start
+    rank = (torch.arange(E, device=dev)
+            - torch.searchsorted(recv_sorted, recv_sorted, side="left"))
+    valid = (recv_sorted < num_nodes) & (rank < D)
+    flat_idx = torch.where(valid, recv_sorted * D + rank, num_nodes * D)
+    # one spare slot takes the dropped entries and is cut off
+    in_edges = torch.zeros(num_nodes * D + 1, dtype=torch.int32, device=dev)
+    in_edges[flat_idx] = order.to(torch.int32)
+    in_mask = torch.zeros(num_nodes * D + 1, dtype=torch.bool, device=dev)
+    in_mask[flat_idx] = True
+    edge_rank = torch.full((E,), D, dtype=torch.int32, device=dev)
+    edge_rank[order] = torch.where(valid, rank, D).to(torch.int32)
+    return (in_edges[:-1].reshape(num_nodes, D),
+            in_mask[:-1].reshape(num_nodes, D), edge_rank)
+
+
+def build_triplets(senders: torch.Tensor, receivers: torch.Tensor,
+                   edge_mask: torch.Tensor, num_nodes: int,
+                   max_in_degree: int) -> Triplets:
+    """All (k->j->i) triplets with k != i of a flat edge list, ``[E * D]``.
+
+    Also builds the reverse table ``kj_bwd_idx [E, D]``: the triplet rows
+    whose kj-edge is f, i.e. ``out_edges[receivers[f]] * D +
+    edge_rank[f]`` (the out-edges of f's receiver, at f's slot), the
+    gather indices of :func:`expand_kj`'s adjoint. Exact whenever every
+    node's degree fits ``max_in_degree``."""
+    E, D = senders.shape[0], max_in_degree
+    i32 = torch.int32
+    in_edges, in_mask, edge_rank = build_in_edge_table(
+        receivers, edge_mask, num_nodes, D)
+    out_edges, out_mask, _ = build_in_edge_table(
+        senders, edge_mask, num_nodes, D)
+    j, i = senders.long(), receivers.long()
+    kj = in_edges[j]                                       # [E, D]
+    kj_valid = in_mask[j] & edge_mask[:, None]
+    k = torch.where(kj_valid, senders[kj.long()], 0)
+    mask = kj_valid & (k != receivers[:, None])
+    idx_ji = torch.arange(E, dtype=i32, device=senders.device)[:, None]
+    f_ok = edge_mask & (edge_rank < D)
+    kj_bwd_mask = out_mask[i] & f_ok[:, None]
+    kj_bwd_idx = torch.where(kj_bwd_mask, out_edges[i] * D
+                             + edge_rank[:, None], 0)
+    m = mask.reshape(-1)
+    z = lambda t: torch.where(m, t.expand(E, D).reshape(-1), 0).to(i32)
+    return Triplets(
+        idx_kj=z(kj), idx_ji=z(idx_ji), idx_k=z(k),
+        idx_j=z(senders[:, None]), idx_i=z(receivers[:, None]), mask=m,
+        in_edges=in_edges, in_mask=in_mask, kj_bwd_idx=kj_bwd_idx.to(i32),
+        kj_bwd_mask=kj_bwd_mask, senders=senders, receivers=receivers,
+        edge_mask=edge_mask)
 
 
 def build_triplets_nk(g: NKGraph) -> Triplets:
@@ -194,16 +265,56 @@ class _ExpandKJAdj(torch.autograd.Function):
                 None, None, None, None)
 
 
+def _expand_flat(x, mask, idx_kj):
+    return torch.where(mask[:, None], x[idx_kj.long()], 0)
+
+
+def _expand_flat_adj(ct, mask, kj_bwd_idx, kj_bwd_mask):
+    ct = torch.where(mask[:, None], ct, 0)
+    g = ct[kj_bwd_idx.long()]                             # [E, D, C]
+    return torch.where(kj_bwd_mask[:, :, None], g, 0).sum(dim=1)
+
+
+class _ExpandKJFlat(torch.autograd.Function):
+    """Edge rows ``x [E, C]`` to triplet rows ``[T, C]`` by ``idx_kj``,
+    zero at masked triplets. Adjoint: :class:`_ExpandKJFlatAdj`."""
+
+    @staticmethod
+    def forward(ctx, x, mask, idx_kj, kj_bwd_idx, kj_bwd_mask):
+        ctx.save_for_backward(mask, idx_kj, kj_bwd_idx, kj_bwd_mask)
+        return _expand_flat(x, mask, idx_kj)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return (_ExpandKJFlatAdj.apply(ct, *ctx.saved_tensors),
+                None, None, None, None)
+
+
+class _ExpandKJFlatAdj(torch.autograd.Function):
+    """``ct [T, C] -> [E, C]``: ``dx[f] = sum_d kj_bwd_mask[f, d] *
+    (mask * ct)[kj_bwd_idx[f, d]]``. Adjoint: :class:`_ExpandKJFlat`."""
+
+    @staticmethod
+    def forward(ctx, ct, mask, idx_kj, kj_bwd_idx, kj_bwd_mask):
+        ctx.save_for_backward(mask, idx_kj, kj_bwd_idx, kj_bwd_mask)
+        return _expand_flat_adj(ct, mask, kj_bwd_idx, kj_bwd_mask)
+
+    @staticmethod
+    def backward(ctx, u):
+        return (_ExpandKJFlat.apply(u, *ctx.saved_tensors),
+                None, None, None, None)
+
+
 def expand_kj(x: torch.Tensor, trip: Triplets) -> torch.Tensor:
     """Gather edge rows ``x [E, C]`` to triplet rows ``[T, C]`` (kj edge
-    of each triplet), zeroing masked triplets; the adjoint is a [K, C]
-    block gather over ``nk_rev``, not a scatter. NK layout only."""
-    if trip.nk_nbr is None:
-        raise NotImplementedError(
-            "expand_kj: only the NK layout is ported (ROADMAP queue 1 "
-            "item 7)")
-    return _ExpandKJ.apply(x, trip.mask, trip.nk_nbr, trip.nk_rev,
-                           trip.in_mask)
+    of each triplet), zeroing masked triplets. The adjoint is a gather over
+    the reverse table, not a scatter: [K, C] blocks over ``nk_rev`` on the
+    NK layout, rows over ``kj_bwd_idx`` on the flat one."""
+    if trip.nk_nbr is not None:
+        return _ExpandKJ.apply(x, trip.mask, trip.nk_nbr, trip.nk_rev,
+                               trip.in_mask)
+    return _ExpandKJFlat.apply(x, trip.mask, trip.idx_kj, trip.kj_bwd_idx,
+                               trip.kj_bwd_mask)
 
 
 # ---------------------------------------------------------------------------
@@ -211,15 +322,21 @@ def expand_kj(x: torch.Tensor, trip: Triplets) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _edge_frames(pos: torch.Tensor, trip: Triplets):
-    """Per-edge geometry, NK layout: ji [E] and jk [E, K] vectors
-    (componentwise), the neighbour table and the [E, K] slot mask."""
+    """Per-edge geometry: ji [E] and jk [E, D] vectors (componentwise),
+    the in-neighbour table [N, D] and the [E, D] slot mask."""
+    px, py, pz = pos[:, 0], pos[:, 1], pos[:, 2]
     if trip.nk_nbr is None:
-        raise NotImplementedError(
-            "_edge_frames: only the NK layout is ported (ROADMAP queue 1 "
-            "item 7)")
+        j, i = trip.senders, trip.receivers
+        kn_tab = torch.where(trip.in_mask, trip.senders[trip.in_edges.long()],
+                             0)
+        pi, pj = gather_rows(pos, i), gather_rows(pos, j)        # [E, 3]
+        pk = gather_rows(gather_rows(pos, kn_tab), j)             # [E, D, 3]
+        ji = tuple(pi[:, c] - pj[:, c] for c in range(3))
+        jk = tuple(pk[..., c] - pj[:, c, None] for c in range(3))
+        nbr_mask = trip.in_mask[j.long()] & trip.edge_mask[:, None]
+        return ji, jk, kn_tab, nbr_mask
     nbr = trip.nk_nbr
     N, K = nbr.shape
-    px, py, pz = pos[:, 0], pos[:, 1], pos[:, 2]
     pn = _NbrGather.apply(pos, nbr, trip.nk_rev, trip.in_mask)  # [N, K, 3]
     evx = pn[..., 0] - px[:, None]
     evy = pn[..., 1] - py[:, None]
@@ -236,6 +353,15 @@ def _edge_frames(pos: torch.Tensor, trip: Triplets):
 
 def _norm(x, y, z, eps):
     return torch.sqrt(torch.clamp(x * x + y * y + z * z, min=eps))
+
+
+def edge_distances(pos, senders, receivers, edge_mask,
+                   eps: float = 1e-12) -> torch.Tensor:
+    """Edge lengths [E] of a flat edge list; masked rows 1.0 (safe for
+    log and division)."""
+    diff = gather_rows(pos, receivers) - gather_rows(pos, senders)
+    d = torch.sqrt(torch.clamp(torch.sum(diff * diff, dim=-1), min=eps))
+    return torch.where(edge_mask, d, 1.0)
 
 
 def nk_edge_distances(pos, trip: Triplets, eps: float = 1e-12):

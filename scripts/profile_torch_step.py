@@ -1,6 +1,6 @@
 """Where the time of one of the port's train steps goes, on one card.
 
-    python scripts/profile_torch_step.py [schnet_dense|spherenet|spherenet_force]
+    python scripts/profile_torch_step.py [schnet_dense|spherenet|spherenet_force|schnet_force]
 
 ``schnet_dense`` (the default) runs main path 1 of chip_smoke.py
 (SchNetDense 4 x 128, bf16, fused cfconv, buckets {16: 252, 24: 380,
@@ -8,7 +8,12 @@
 k=6, K=16, slots of 29 atoms, 96 molecules a batch, bf16, slot kernel,
 Adam); ``spherenet_force`` runs main path 3 (the same model trained on
 energies and forces through make_bucketed_step_fns, buckets {16: 27,
-24: 43, 29: 26}, bench.py bench_spherenet_force). Traces a few steady
+24: 43, 29: 26}, bench.py bench_spherenet_force); ``schnet_force`` runs
+main path 4a (flat SchNet 4 x 128, f32, energy+force through
+make_step_fns, segment_eb=1024: the sorted-CSR segment-sum kernel, batches
+of 24 Morse molecules in slots of 29, Adam(1e-3), p = 100, as
+examples/threedgraph/run_morse_surrogate.py --model schnet --forces).
+Traces a few steady
 steps with torch.profiler and prints the
 step's host time, the device's busy and idle share, device time by
 kernel, and the host operators that took the most time.
@@ -107,12 +112,37 @@ def spherenet_force(dev, steps):
     return step, [next(it) for _ in range(steps)]
 
 
+def schnet_force(dev, steps):
+    import numpy as np
+
+    from dig_tpu_torch.datasets import (MoleculeLoader,
+                                        synthetic_morse_molecules)
+    from dig_tpu_torch.models import SchNet
+    from dig_tpu_torch.train import make_step_fns
+
+    mols = synthetic_morse_molecules(24 * (steps + 1), seed=0, min_atoms=12,
+                                     max_atoms=29)
+    ys = np.array([m["y"][0] for m in mols])
+    for m in mols:           # run_morse_surrogate.py's standardisation
+        m["y"] = ((m["y"][:1] - ys.mean()) / ys.std()).astype(np.float32)
+        m["force"] = (m["force"] / ys.std()).astype(np.float32)
+    it = iter(MoleculeLoader(mols, 24, slot_size=29, shuffle=True, seed=0,
+                             device=dev))
+    model = SchNet(cutoff=5.0, num_layers=4, hidden_channels=128,
+                   num_filters=128, num_gaussians=50, max_edges=16384,
+                   segment_eb=1024, device=dev)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    step, _ = make_step_fns(model, opt, energy_and_force=True, p=100.0)
+    return step, [next(it) for _ in range(steps)]
+
+
 def main():
     from torch.profiler import DeviceType, ProfilerActivity, profile
 
     which = sys.argv[1] if len(sys.argv) > 1 else "schnet_dense"
     paths = {"schnet_dense": schnet_dense, "spherenet": spherenet,
-             "spherenet_force": spherenet_force}
+             "spherenet_force": spherenet_force,
+             "schnet_force": schnet_force}
     if which not in paths:
         sys.exit(f"unknown path {which!r}; one of {sorted(paths)}")
     if not torch.cuda.is_available():
@@ -154,6 +184,11 @@ def main():
     for name, (t, c) in top[:25]:
         print(f"  {t / TRACED:8.3f} ms/step {t / total_kernel_ms:6.3f} "
               f"{c // TRACED:5d}x  {name[:90]}")
+    print("the port's own kernels:")
+    for name, (t, c) in top:
+        if any(k in name for k in ("cfconv", "triplet_slot", "segment_csr")):
+            print(f"  {t / TRACED:8.3f} ms/step {t / total_kernel_ms:6.3f} "
+                  f"{c // TRACED:5d}x  {name[:90]}")
     print("host operators by self CPU time:")
     ops = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
     for a in ops[:20]:

@@ -167,15 +167,29 @@ def test_energy_and_force_raises(basis_grads, err):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (dict(nk_degree=0), "queue 1"),
+    (dict(nk_degree=8, block_size=0), "queue 1 item 9"),
     (dict(pallas_triplet=True), "fused_triplet_product"),
     (dict(pallas_triplet=True, pallas_fuse_basis=True), "fused_triplet_pt"),
     (dict(remat=True), "remat"),
-    (dict(segment_eb=64), "segment_sum_sorted_csr"),
 ])
 def test_unported_layouts_raise(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         TSphereNet(device="cpu", **{**KW, **flags})
+
+
+@pytest.mark.parametrize("flags", [None, SLOT], ids=["unfused", "slot"])
+def test_segment_eb_is_ignored_on_the_slot_layout(flags):
+    """On the NK layout UpdateV is a reshape-sum and segment_eb is accepted
+    and ignored, as in the JAX UpdateV: the same energies as without it,
+    and as the JAX model with it."""
+    (jb, _), (tb, _) = _batches()
+    params = JSphereNet(**KW).init(jax.random.PRNGKey(0), jb)
+    flat = _flat(params["params"])
+    want = np.asarray(JSphereNet(**KW, segment_eb=64).apply(params, jb))
+    without = _port(TSphereNet, flat, flags)(tb).detach().numpy()
+    got = _port(TSphereNet, flat, flags, segment_eb=64)(tb).detach().numpy()
+    np.testing.assert_array_equal(got, without)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
 
 def test_convert_rejects_incomplete_tree():
