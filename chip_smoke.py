@@ -5,8 +5,9 @@
 
 Phases, each printed as it runs; any failure exits non-zero:
   1. card: name, count, power limit (nvidia-smi)
-  2. build: nvcc builds csrc/cfconv.cu and csrc/triplet_slot.cu for sm_90a,
-     both at once; the -Xptxas -v reports
+  2. build: nvcc builds csrc/cfconv.cu, csrc/triplet_slot.cu,
+     csrc/segment_csr.cu and csrc/triplet_product.cu for sm_90a, all at
+     once; the -Xptxas -v reports
   3. kernel vs plain: cfconv forward and all six gradients against the plain
      PyTorch version on the card, at the SchNetDense bucket shapes, in f32
      and bf16, need_dist_grad on and off; repeated backwards bitwise equal
@@ -68,6 +69,26 @@ Phases, each printed as it runs; any failure exits non-zero:
  15. times: both flat steps in ms and edges/s; the segment-sum kernel per
      call at both paths' shapes beside its byte bound, its plain version
      and the PyTorch calls that compute the same sum
+ 16. kernel vs plain: fused_triplet_product (path 5a's widths) and
+     fused_angle_product (path 5b's) with the bases, mask and raw triplet
+     gather of a real batch, f32 and bf16: the forward, the backward with
+     basis gradients on and off, the second order with u4 = u5 absent and
+     all present; masked triplets' cotangent rows exactly 0; repeated calls
+     bitwise equal
+ 17. main path 5a: SphereNet energy+force training on the unblocked NK
+     layout (bench_spherenet_force's widths, nk_degree 16, block_size 0,
+     pallas_triplet; MoleculeLoader batches of 96, Adam(5e-4), p = 100)
+     through make_step_fns; per step 4 forward, 8 backward and 4
+     second-order triplet_product launches; the first step held against the
+     unfused branch (f32 1e-4 / 1e-3, bf16 by direction and size); finite
+     forces; the uncapped pairs beside the kept NK edges
+ 18. main path 5b: DimeNet++ energy training (its published defaults, n=7,
+     k=6) on the same layout, fused_angle_product without basis gradients;
+     4 forward and 4 backward launches per step; the same checks without
+     forces
+ 19. times: both steps in ms and edges/s; each triplet_product kernel per
+     layer at both paths' shapes beside its bound and the plain version,
+     the forward also beside the torch.einsum that computes it
 The card's name and power limit (nvidia-smi), then the kernels as JSON,
 are the two lines before the last; the last line is
 {"ok": true, "device": {...}}.
@@ -187,6 +208,30 @@ SEG_TOL2 = 1e-4
 # 4 layers and, for forces, two derivative levels. Loss: relative error;
 # gradients: ||a-b|| / ||b|| for every parameter.
 FLAT_STEP_TOL = (1e-5, 1e-4)
+
+# SphereNet energy+force on the unblocked NK layout (path 5a): the widths
+# of bench.py bench_spherenet_force (:224-228) with the [N, N] top-k table
+# (nk_degree 16, block_size 0) and the fused triplet product
+# (pallas_triplet, basis gradients on); MoleculeLoader batches of 96
+# molecules at the default pad (96 x 29 = 2,784 node rows, so E = 44,544
+# edge rows and T = 712,704 triplet rows), make_step_fns(energy_and_force,
+# p = 100), Adam(5e-4), bf16
+NK_KW = dict(cutoff=5.0, num_layers=4, hidden_channels=128, num_spherical=3,
+             num_radial=6, nk_degree=16, block_size=0)
+# DimeNet++ energy training (path 5b): DimeNetPP's defaults, DIG's
+# dimenetpp.py:88-93 and the published DimeNet++ (4 x 128, int_emb 64, basis
+# 8, out_emb 256, n = 7, k = 6, cutoff 5), on the same table, without basis
+# cotangents (the round-2 ladder's energy-only configuration)
+DP_KW = dict(nk_degree=16, block_size=0, pallas_basis_grads=False)
+NK_G, NK_P, NK_LR, NK_STEPS, NK_WARMUP = 96, 100.0, 5e-4, 6, 2
+NK_C = 64                                  # int_emb_size: the kernels' C
+# kernel vs plain, largest error over the largest reference value per
+# tensor. f32: sums in another order. bf16: both compute in float32 from
+# the same bf16 operands and round each output once, so a sum in another
+# order may land one bf16 step (2^-8 of the value) away. The float32
+# outputs of the second-order kernel (wsb, wtb, ctb) are held to the f32
+# bound in both types.
+NK_TOL = {"f32": 1e-4, "bf16": 1e-2}
 
 
 def log(*a):
@@ -641,39 +686,87 @@ def phase_sn_kernel_vs_plain(torch, ts, inp):
     return errs
 
 
-def sn_first_step(torch, dev, batch):
-    """Loss and gradients of the first step through make_step_fns (lr 0,
-    so the weights stay), slot kernel vs unfused branch, f32 and bf16."""
-    from dig_tpu_torch.train import make_step_fns
-    errs = {}
-    for prec, cd in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+def rel_norm(torch, g, ref):
+    """||g - ref|| / ||ref||, the tensors of each list taken as one vector."""
+    flat = lambda t: torch.cat([x.reshape(-1) for x in t])
+    return float((flat(g) - flat(ref)).norm()
+                 / flat(ref).norm().clamp_min(1e-12))
+
+
+def first_step_vs_plain(torch, labels, make_model, make_step, batch, tols):
+    """Loss and gradients of one step at lr 0 (the weights stay) through
+    make_step(model, optimizer), the kernel branch make_model(dtype, True)
+    against the plain branch make_model(dtype, False) of the same weights,
+    for each precision of ``tols`` = {"f32" first, "bf16": (loss bound,
+    gradient bound)}; ``labels`` names the two branches. The gradient bound
+    holds every parameter's ||a-b|| / ||b||. None in its place (bf16 force
+    steps) holds the kernel branch's gradient to the f32 plain one by
+    direction and size instead (SF_BF16_COS, SF_BF16_NORM). Returns the
+    errors per precision."""
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    errs, truth = {}, None
+    for prec, (tol_loss, tol_grad) in tols.items():
         res = {}
-        for slot in (True, False):
-            m = sn_model(torch, dev, cd, slot)
-            step, _ = make_step_fns(m, torch.optim.SGD(m.parameters(), lr=0.0),
-                                    loss="l1", target_key="energy")
+        for kernel in (True, False):
+            m = make_model(dtypes[prec], kernel)
+            step = make_step(m, torch.optim.SGD(m.parameters(), lr=0.0))
             loss = float(step(batch)["loss"])
-            res[slot] = (loss, [p.grad.float() for p in m.parameters()])
+            res[kernel] = (loss, [p.grad.float() for p in m.parameters()])
+            names = [n for n, _ in m.named_parameters()]
             del m, step
+            torch.cuda.empty_cache()
         (lk, gk), (lp, gp) = res[True], res[False]
         loss_err = abs(lk - lp) / abs(lp)
-        grad_err = max(float((a - b).norm() / b.norm().clamp_min(1e-12))
-                       for a, b in zip(gk, gp))
-        log(f"  first step {prec}: loss slot kernel {lk:.6f} unfused {lp:.6f} "
-            f"(rel {loss_err:.3e}); worst grad rel-norm err {grad_err:.3e}")
-        tol_loss, tol_grad = SN_STEP_TOL[prec]
+        per = sorted(((rel_norm(torch, [a], [b]), n)
+                      for a, b, n in zip(gk, gp, names)), reverse=True)
+        whole = rel_norm(torch, gk, gp)
+        log(f"  first step {prec}: loss {labels[0]} {lk:.7f} {labels[1]} "
+            f"{lp:.7f} (rel {loss_err:.3e}); gradient rel-norm err "
+            f"{whole:.3e} over all parameters, median parameter "
+            f"{per[len(per) // 2][0]:.3e}, worst "
+            + ", ".join(f"{n} {e:.3e}" for e, n in per[:3]))
         if not math.isfinite(lk) or loss_err >= tol_loss:
-            fail(f"SphereNet first-step loss {prec}: {lk} vs {lp}")
-        if grad_err >= tol_grad:
-            fail(f"SphereNet first-step gradients {prec} differ: {grad_err}")
-        errs[prec] = {"loss_rel_err": loss_err, "grad_rel_err": grad_err}
+            fail(f"first-step loss {prec}: {labels[0]} {lk} vs {labels[1]} "
+                 f"{lp}")
+        errs[prec] = {"loss_rel_err": loss_err, "grad_rel_err": whole,
+                      "worst_param": per[0]}
+        if truth is None:                       # f32
+            truth = (lp, gp)
+        if tol_grad is not None:
+            if not per[0][0] < tol_grad:
+                fail(f"first-step gradients {prec} differ: {per[:3]}")
+            continue
+        agree = {}
+        for label, lx, g in ((labels[0], lk, gk), (labels[1], lp, gp)):
+            a = agree[label] = agreement(torch, g, truth[1], names)
+            log(f"    {label} {prec} against the f32 {labels[1]} step: loss "
+                f"{abs(lx - truth[0]) / abs(truth[0]):.3e}, gradient "
+                f"rel-norm {rel_norm(torch, g, truth[1]):.3e}, cosine "
+                f"{a['cos']:.4f} over all parameters, median parameter "
+                f"{a['median_cos']:.4f}; norm {a['norm']:.4f} x the f32 one "
+                f"over all parameters, per parameter {a['least'][0]:.4f} "
+                f"({a['least'][1]}) to {a['largest'][0]:.4f} "
+                f"({a['largest'][1]})")
+        a = errs[prec]["agreement"] = agree[labels[0]]
+        if (not a["cos"] >= SF_BF16_COS[0]
+                or not a["median_cos"] >= SF_BF16_COS[1]
+                or not SF_BF16_NORM[0] <= a["least"][0]
+                or not a["largest"][0] <= SF_BF16_NORM[1]):
+            fail(f"{prec} force gradient of the {labels[0]} branch against "
+                 f"the f32 one: {a}; cosines must reach {SF_BF16_COS}, each "
+                 f"parameter's norm ratio lie within {SF_BF16_NORM}")
     return errs
 
 
 def phase_sn_main_path(torch, cf, ts, dev, batches):
     from dig_tpu_torch.threed import ThreeDEvaluator
     from dig_tpu_torch.train import make_step_fns
-    step_errs = sn_first_step(torch, dev, batches[0])
+    step_errs = first_step_vs_plain(
+        torch, ("slot kernel", "unfused"),
+        lambda cd, slot: sn_model(torch, dev, cd, slot),
+        lambda m, opt: make_step_fns(m, opt, loss="l1",
+                                     target_key="energy")[0],
+        batches[0], SN_STEP_TOL)
     model = sn_model(torch, dev, torch.bfloat16, True)
     counts = []
     with torch.no_grad():
@@ -898,74 +991,6 @@ def phase_sf_kernel_vs_plain(torch, ts, dev, batch):
     return inputs, err
 
 
-def sf_first_step(torch, dev, batch):
-    """Loss and gradients of the first force step through
-    make_bucketed_step_fns (lr 0), slot kernel vs unfused branch, f32 and
-    bf16."""
-    from dig_tpu_torch.train import make_bucketed_step_fns
-    errs, truth = {}, None
-
-    def rel_norm(g, ref):
-        return float(torch.cat([(a - b).reshape(-1) for a, b in zip(g, ref)])
-                     .norm() / torch.cat([b.reshape(-1) for b in ref]).norm())
-    for prec, cd in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-        res = {}
-        for slot in (True, False):
-            m = sn_model(torch, dev, cd, slot)
-            step, _ = make_bucketed_step_fns(
-                m, torch.optim.SGD(m.parameters(), lr=0.0), p=SF_P)
-            loss = float(step(batch)["loss"])
-            res[slot] = (loss, [p.grad.float() for p in m.parameters()])
-            names = [n for n, _ in m.named_parameters()]
-            del m, step
-            torch.cuda.empty_cache()
-        (lk, gk), (lp, gp) = res[True], res[False]
-        loss_err = abs(lk - lp) / abs(lp)
-        per = sorted(((float((a - b).norm() / b.norm().clamp_min(1e-12)), n)
-                      for a, b, n in zip(gk, gp, names)), reverse=True)
-        whole = rel_norm(gk, gp)
-        log(f"  first force step {prec}: loss slot kernel {lk:.6f} unfused "
-            f"{lp:.6f} (rel {loss_err:.3e}); gradient rel-norm err "
-            f"{whole:.3e} over all parameters, median parameter "
-            f"{per[len(per) // 2][0]:.3e}, worst "
-            + ", ".join(f"{n} {e:.3e}" for e, n in per[:3]))
-        tol_loss, tol_grad = SF_STEP_TOL[prec]
-        if not math.isfinite(lk) or loss_err >= tol_loss:
-            fail(f"force first-step loss {prec}: {lk} vs {lp}")
-        errs[prec] = {"loss_rel_err": loss_err, "grad_rel_err": whole,
-                      "worst_param": per[0]}
-        if truth is None:                       # f32
-            truth = (lp, gp)
-            if whole >= tol_grad or per[0][0] >= tol_grad:
-                fail(f"force first-step gradients f32 differ: {whole} over "
-                     f"all, worst {per[0]}")
-            continue
-        to_k, to_p = rel_norm(gk, truth[1]), rel_norm(gp, truth[1])
-        log(f"    against the f32 unfused step: slot kernel loss "
-            f"{abs(lk - truth[0]) / abs(truth[0]):.3e}, gradient "
-            f"{to_k:.3e}; unfused loss "
-            f"{abs(lp - truth[0]) / abs(truth[0]):.3e}, gradient {to_p:.3e}")
-        errs[prec].update(slot_to_f32=to_k, unfused_to_f32=to_p)
-        agree = {label: agreement(torch, g, truth[1], names)
-                 for label, g in (("slot kernel", gk), ("unfused", gp))}
-        for label, a in agree.items():
-            log(f"    {label} bf16 against the f32 gradient: cosine "
-                f"{a['cos']:.4f} over all parameters, median parameter "
-                f"{a['median_cos']:.4f}; norm {a['norm']:.4f} x the f32 one "
-                f"over all parameters, per parameter {a['least'][0]:.4f} "
-                f"({a['least'][1]}) to {a['largest'][0]:.4f} "
-                f"({a['largest'][1]})")
-        a = errs[prec]["agreement"] = agree["slot kernel"]
-        if (not a["cos"] >= SF_BF16_COS[0]
-                or not a["median_cos"] >= SF_BF16_COS[1]
-                or not SF_BF16_NORM[0] <= a["least"][0]
-                or not a["largest"][0] <= SF_BF16_NORM[1]):
-            fail(f"bf16 force gradient of the slot branch against the f32 "
-                 f"one: {a}; cosines must reach {SF_BF16_COS}, each "
-                 f"parameter's norm ratio lie within {SF_BF16_NORM}")
-    return errs
-
-
 def agreement(torch, g, ref, names):
     """How a gradient (one tensor per parameter) agrees with a reference:
     the cosine of the whole gradient and the median of the per-parameter
@@ -986,7 +1011,11 @@ def agreement(torch, g, ref, names):
 def phase_sf_main_path(torch, cf, ts, dev, batches):
     from dig_tpu_torch.threed import ThreeDEvaluator
     from dig_tpu_torch.train import make_bucketed_step_fns
-    step_errs = sf_first_step(torch, dev, batches[0])
+    step_errs = first_step_vs_plain(
+        torch, ("slot kernel", "unfused"),
+        lambda cd, slot: sn_model(torch, dev, cd, slot),
+        lambda m, opt: make_bucketed_step_fns(m, opt, p=SF_P)[0],
+        batches[0], SF_STEP_TOL)
     model = sn_model(torch, dev, torch.bfloat16, True)
     counts = []                        # per batch: summed over the buckets
     with torch.no_grad():
@@ -1303,33 +1332,6 @@ def sp_model(torch, dev, segment_eb):
                      generator=torch.Generator().manual_seed(0), device=dev)
 
 
-def flat_first_step(torch, make_model, eb, batch, **step_kw):
-    """Loss and gradients of one step through make_step_fns (lr 0), the
-    kernel branch (segment_eb=eb) against index_add_ (segment_eb=0)."""
-    from dig_tpu_torch.train import make_step_fns
-    res = {}
-    for seg_eb in (eb, 0):
-        m = make_model(seg_eb)
-        step, _ = make_step_fns(m, torch.optim.SGD(m.parameters(), lr=0.0),
-                                loss="l1", **step_kw)
-        out = step(batch)
-        res[seg_eb] = (float(out["loss"]), [p.grad for p in m.parameters()],
-                       [n for n, _ in m.named_parameters()])
-        del m, step
-    (lk, gk, names), (lp, gp, _) = res[eb], res[0]
-    loss_err = abs(lk - lp) / abs(lp)
-    per = sorted(((float((a - b).norm() / b.norm().clamp_min(1e-30)), n)
-                  for a, b, n in zip(gk, gp, names)), reverse=True)
-    log(f"  first step: loss kernel {lk:.7f} index_add_ {lp:.7f} (rel "
-        f"{loss_err:.3e}); worst gradient rel-norm err {per[0][0]:.3e} "
-        f"({per[0][1]}), median {per[len(per) // 2][0]:.3e}")
-    if not math.isfinite(lk) or loss_err >= FLAT_STEP_TOL[0]:
-        fail(f"first-step loss: kernel {lk} vs index_add_ {lp}")
-    if not per[0][0] < FLAT_STEP_TOL[1]:
-        fail(f"first-step gradients differ: {per[:3]}")
-    return {"loss_rel_err": loss_err, "worst_grad": per[0]}
-
-
 def check_flat_batches(torch, batches, kw, what):
     """Per batch: the flat_csr audit; fails on any dropped edge."""
     csr = [flat_csr(torch, b, kw) for b in batches]
@@ -1372,9 +1374,12 @@ def phase_fs_main_path(torch, cf, ts, sc, dev, batches):
     from dig_tpu_torch.threed import ThreeDEvaluator
     from dig_tpu_torch.train import make_step_fns
     csr = check_flat_batches(torch, batches, FS_KW, "path 4a")
-    step_errs = flat_first_step(
-        torch, lambda eb: fs_model(torch, dev, eb), FS_KW["segment_eb"],
-        batches[0], energy_and_force=True, p=FS_P)
+    step_errs = first_step_vs_plain(
+        torch, ("kernel", "index_add_"),
+        lambda cd, k: fs_model(torch, dev, FS_KW["segment_eb"] if k else 0),
+        lambda m, opt: make_step_fns(m, opt, energy_and_force=True, p=FS_P,
+                                     loss="l1")[0],
+        batches[0], {"f32": FLAT_STEP_TOL})
     model = fs_model(torch, dev, FS_KW["segment_eb"])
     opt = torch.optim.Adam(model.parameters(), lr=FS_LR)
     train_step, eval_step = make_step_fns(model, opt, energy_and_force=True,
@@ -1448,9 +1453,12 @@ def phase_sp_main_path(torch, cf, ts, sc, dev, batches):
     csr = check_flat_batches(torch, batches, SP_KW, "path 4b")
     if max(c["max_degree"] for c in csr) > SP_KW["max_in_degree"]:
         fail("path 4b: an in-degree exceeds max_in_degree")
-    step_errs = flat_first_step(
-        torch, lambda eb: sp_model(torch, dev, eb), SP_KW["segment_eb"],
-        batches[0], target_key="energy")
+    step_errs = first_step_vs_plain(
+        torch, ("kernel", "index_add_"),
+        lambda cd, k: sp_model(torch, dev, SP_KW["segment_eb"] if k else 0),
+        lambda m, opt: make_step_fns(m, opt, loss="l1",
+                                     target_key="energy")[0],
+        batches[0], {"f32": FLAT_STEP_TOL})
     model = sp_model(torch, dev, SP_KW["segment_eb"])
     opt = torch.optim.Adam(model.parameters(), lr=SP_LR)
     train_step, eval_step = make_step_fns(model, opt, loss="l1",
@@ -1556,6 +1564,378 @@ def phase_seg_times(torch, sc, cases):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# The unblocked NK layout: fused_triplet_product / fused_angle_product
+# ---------------------------------------------------------------------------
+
+def nk_batches(torch, dev, n):
+    """Paths 5a and 5b: MoleculeLoader batches of 96 synthetic molecules
+    (12-29 atoms, 6 A box, seeded forces) at the loader's default pad of
+    96 x 29 node rows; the target is the first column of y."""
+    from dig_tpu_torch.datasets import MoleculeLoader, synthetic_molecules
+    mols = synthetic_molecules(NK_G * (n + 1), seed=0, min_atoms=12,
+                               max_atoms=29, box=6.0, with_forces=True)
+    mols = [dict(m, y=m["y"][:1]) for m in mols]
+    it = iter(MoleculeLoader(mols, NK_G, shuffle=True, seed=0, device=dev))
+    return [next(it) for _ in range(n)]
+
+
+def nk_model(torch, dev, cd, fused, path):
+    """Path 5a's SphereNet or path 5b's DimeNet++ on the unblocked table,
+    the fused branch (``pallas_triplet``) or the unfused one."""
+    from dig_tpu_torch.models import DimeNetPP, SphereNet
+    M, kw = (SphereNet, NK_KW) if path == "5a" else (DimeNetPP, DP_KW)
+    return M(**kw, pallas_triplet=fused, compute_dtype=cd,
+             generator=torch.Generator().manual_seed(0), device=dev)
+
+
+def nk_pair_counts(torch, b, geo, cutoff=5.0):
+    """(uncapped in-cutoff directed pairs, their largest in-degree, NK
+    edges kept by the K-table after the symmetrisation)."""
+    from dig_tpu_torch.ops.radius import _pairwise_same_graph
+    d2, valid = _pairwise_same_graph(b.nodes["pos"], b.node_graph,
+                                     b.node_mask)
+    adj = valid & (d2 < cutoff * cutoff)
+    return (int(adj.sum()), int(adj.sum(1).max()),
+            int(geo.nkg.edge_mask.sum()))
+
+
+def nk_kernel_inputs(torch, dev, batch, path):
+    """The operands of the path's triplet product at one layer from a real
+    batch: sbf (and tbf) and the triplet mask of the model's own geometry,
+    xg the raw expand_kj_raw gather of seeded edge rows (garbage at masked
+    triplets, as on the path), seeded weights at the path's widths, output
+    cotangent and second-order cotangents u1..u5; all float32. ``work``
+    counts the real triplets and the edges that own one."""
+    from dig_tpu_torch.ops.triplets import expand_kj_raw
+    model = nk_model(torch, dev, torch.float32, True, path)
+    with torch.no_grad():
+        geo = model.geometry(batch.nodes["pos"], batch)
+        sbf, tbf = model.bases(geo)
+        K = model.nk_degree
+        E = geo.nkg.senders.shape[0]
+        gen = torch.Generator(device="cpu").manual_seed(7)
+        r = lambda *s: torch.randn(*s, generator=gen).to(dev)
+        xg = expand_kj_raw(r(E, NK_C), geo.trip)
+    S1, S2 = sbf.shape[1], (0 if tbf is None else tbf.shape[1])
+    m2d = geo.trip.mask.reshape(E, K).float()
+    T = E * K
+    inp = {"xg": xg, "sbf": sbf, "tbf": tbf, "ws": r(S1, NK_C) * S1 ** -0.5,
+           "wt": r(S2, NK_C) * S2 ** -0.5 if S2 else None, "m2d": m2d,
+           "ct": r(E, NK_C), "K": K,
+           "us": [r(T, NK_C), r(T, S1), r(T, S2) if S2 else None,
+                  r(S1, NK_C), r(S2, NK_C) if S2 else None],
+           "work": {"triplets": int(m2d.sum()),
+                    "edges": int((m2d != 0).any(1).sum())}}
+    return inp
+
+
+def nk_args(torch, inp, dt):
+    """(xg, sbf, tbf, ws, wt, m2d) in the path's compute type ``dt``."""
+    c = lambda t: None if t is None else t.to(dt)
+    return [c(inp[k]) for k in ("xg", "sbf", "tbf", "ws", "wt", "m2d")]
+
+
+def nk_vjp(torch, tp, args, ct, K, basis):
+    """The op's output and its gradients with respect to (xg, sbf, tbf,
+    ws, wt) through the autograd tower (None for an absent input)."""
+    xs = [None if a is None else a.clone().requires_grad_()
+          for a in args[:5]]
+    out = tp.fused_triplet_product(*xs, args[5], K, basis)
+    live = [x for x in xs if x is not None]
+    g = iter(torch.autograd.grad(out, live, ct))
+    return out, [None if x is None else next(g) for x in xs]
+
+
+def phase_nk_kernel_vs_plain(torch, tp, inputs):
+    """Every kernel against its plain version at paths 5a's and 5b's
+    shapes, f32 and bf16: the forward; the backward with basis gradients on
+    and off; the second order with u4 = u5 absent and with all present.
+    Masked triplets' cotangent rows exactly 0; repeated calls the same
+    bits. Returns the largest absolute error per kernel in the main
+    paths' setting (bf16; 5a with basis gradients, u4 = u5 absent)."""
+    errs = {"fwd": 0.0, "bwd": 0.0, "bwd2": 0.0}
+    for path, inp in inputs.items():
+        K = inp["K"]
+        masked = inp["m2d"].reshape(-1) == 0
+        for prec, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            args = nk_args(torch, inp, dt)
+            ct = inp["ct"].to(dt)
+            line = []
+            for basis in (True, False):
+                out_k, g_k = nk_vjp(torch, tp, args, ct, K, basis)
+                torch.cuda.synchronize()
+                out_p = tp.fused_triplet_product_reference(*args[:5], K,
+                                                           args[5])
+                want = tp.fused_triplet_product_bwd_reference(*args, ct, K,
+                                                              basis)
+                e = rel_err(out_k, out_p)
+                if basis:
+                    line.append(f"fwd {e:.2e}")
+                if out_k.dtype != dt or e >= NK_TOL[prec]:
+                    fail(f"triplet_product forward {path} {prec}: rel err {e}")
+                for nm, a, w in zip(("dxg", "dsbf", "dtbf", "dws", "dwt"),
+                                    g_k, want):
+                    if w is None:
+                        continue
+                    if nm in ("dsbf", "dtbf") and not basis:
+                        if float(a.abs().max()) != 0.0:
+                            fail(f"{nm} not 0 without basis gradients")
+                        continue
+                    e = rel_err(a, w)
+                    line.append(f"{nm}{'' if basis else '(no basis)'} "
+                                f"{e:.2e}")
+                    if a.dtype != w.dtype or e >= NK_TOL[prec]:
+                        fail(f"triplet_product {nm} {path} {prec} basis="
+                             f"{basis}: rel err {e}")
+                    if a.shape[0] == masked.shape[0] and \
+                            float(a[masked].abs().max()) != 0.0:
+                        fail(f"triplet_product {nm}: masked rows not 0")
+                _, again = nk_vjp(torch, tp, args, ct, K, basis)
+                if not all(a is None or torch.equal(a, b)
+                           for a, b in zip(again, g_k)):
+                    fail(f"triplet_product backward not bitwise repeatable "
+                         f"({path}, {prec}, basis={basis})")
+                if prec == "bf16" and (basis == (path == "5a")):
+                    errs["fwd"] = max(errs["fwd"], float(
+                        (out_k.detach() - out_p).float().abs().max()))
+                    errs["bwd"] = max(errs["bwd"], max(
+                        float((a.float() - w.float()).abs().max())
+                        for a, w in zip(g_k, want)
+                        if w is not None and a is not None))
+            k_args = tp._kernel_inputs(*args, K)
+            ct32 = ct.float().contiguous()
+            u123 = [None if u is None else u.to(dt) for u in inp["us"][:3]]
+            for all_u in (False, True):
+                us = u123 + (inp["us"][3:] if all_u else [None] * 2)
+                got = tp.triplet_product_bwd2_kernel(*k_args, ct32, *us, K)
+                torch.cuda.synchronize()
+                f = lambda t: None if t is None else t.float()
+                want = tp.fused_triplet_product_bwd2_reference(
+                    *(f(a) for a in args[:5]), args[5], ct32, *us, K)
+                for nm, a, w in zip(("xb", "sb", "tb", "wsb", "wtb", "ctb"),
+                                    got, want):
+                    if w is None:
+                        continue
+                    if not bool(torch.isfinite(a).all()):
+                        fail(f"bwd2 {nm} not finite ({path}, {prec})")
+                    e = rel_err(a, w)
+                    tol = NK_TOL[prec] if a.dtype == dt else NK_TOL["f32"]
+                    line.append(f"{nm}{'(all u)' if all_u else ''} {e:.2e}")
+                    if e >= tol:
+                        fail(f"bwd2 {nm} {path} {prec} all_u={all_u}: rel "
+                             f"err {e} >= {tol}")
+                    if a.shape[0] == masked.shape[0] and \
+                            float(a[masked].abs().max()) != 0.0:
+                        fail(f"bwd2 {nm}: masked rows not 0")
+                    if path == "5a" and prec == "bf16" and not all_u:
+                        errs["bwd2"] = max(errs["bwd2"], float(
+                            (a.float() - w.float()).abs().max()))
+                again = tp.triplet_product_bwd2_kernel(*k_args, ct32, *us, K)
+                if not all(a is None or torch.equal(a, b)
+                           for a, b in zip(again, got)):
+                    fail(f"bwd2 not bitwise repeatable ({path}, {prec})")
+            log(f"  {path} E={args[5].shape[0]} K={K} S1={args[1].shape[1]} "
+                f"S2={0 if args[2] is None else args[2].shape[1]} {prec}: rel "
+                f"err " + ", ".join(line) + "; masked rows 0; repeated calls "
+                "the same bits")
+    log(f"  max abs err (bf16 as on the paths): fwd {errs['fwd']:.3e}, bwd "
+        f"{errs['bwd']:.3e}, bwd2 {errs['bwd2']:.3e}")
+    return errs
+
+
+def phase_nk_main_path(torch, cf, ts, sc, tp, dev, batches, path):
+    """Path 5a (SphereNet energy+force) or 5b (DimeNet++ energy) through
+    make_step_fns with Adam(5e-4), bf16: launch counts, finite losses (and
+    forces), uncapped pairs beside the kept NK edges, step ms and edges/s."""
+    from dig_tpu_torch.threed import ThreeDEvaluator
+    from dig_tpu_torch.train import make_step_fns
+    force = path == "5a"
+    step_errs = first_step_vs_plain(
+        torch, ("fused", "unfused"),
+        lambda cd, fused: nk_model(torch, dev, cd, fused, path),
+        lambda m, opt: make_step_fns(m, opt, energy_and_force=force, p=NK_P,
+                                     loss="l1")[0],
+        batches[0], SF_STEP_TOL if force else SN_STEP_TOL)
+    model = nk_model(torch, dev, torch.bfloat16, True, path)
+    with torch.no_grad():
+        counts = [nk_pair_counts(torch, b, model.geometry(b.nodes["pos"], b))
+                  for b in batches]
+    opt = torch.optim.Adam(model.parameters(), lr=NK_LR)
+    train_step, eval_step = make_step_fns(model, opt, energy_and_force=force,
+                                          p=NK_P, loss="l1")
+    torch.cuda.reset_peak_memory_stats()
+    reset_all(cf, ts, sc)
+    tp.reset_launch_counts()
+    warm = NK_WARMUP
+    losses, dt = timed_steps(torch, train_step, batches, warm)
+    launches = (tp.launches_fwd, tp.launches_bwd, tp.launches_bwd2)
+    others_idle(cf, ts, f"path {path}")
+    if sc.launches:
+        fail(f"path {path}: segment-sum kernel launched {sc.launches}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    L, n = len(model.update_es), len(batches)
+    want = (L * n, 2 * L * n, L * n) if force else (L * n, L * n, 0)
+    log(f"  {n} Adam steps, losses {[round(x, 4) for x in losses]}")
+    log(f"  triplet_product launches fwd {launches[0]} bwd {launches[1]} bwd2 "
+        f"{launches[2]} (expected {want}: per step and layer one forward"
+        + (", the backward in the inner create_graph pass and in the outer "
+           "pass, one second order)" if force else ", one backward)")
+        + f"; peak device memory {peak:.2f} GiB")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"path {path}: non-finite loss")
+    if launches != want:
+        fail(f"path {path}: triplet_product launches {launches} != {want}")
+    out = eval_step(batches[0])
+    m = out["graph_mask"]
+    mae = ThreeDEvaluator().eval({"y_pred": out["y_pred"][m],
+                                  "y_true": batches[0].globals["y"][m]})["mae"]
+    if not math.isfinite(mae):
+        fail(f"path {path}: non-finite eval MAE")
+    fmax = None
+    if force:
+        if not bool(torch.isfinite(out["force_pred"]).all()):
+            fail("path 5a: non-finite forces")
+        fmax = float(out["force_pred"].abs().max())
+    timed = n - warm
+    pairs = sum(c[0] for c in counts[warm:])
+    kept = sum(c[2] for c in counts[warm:])
+    step_ms = dt / timed * 1e3
+    log(f"  eval: energy MAE {mae:.5f} over {int(m.sum())} molecules"
+        + (f"; forces finite (largest |F| {fmax:.4g})" if force else ""))
+    log(f"  step {step_ms:.3f} ms (mean of {timed} steps); {pairs / dt:.6g} "
+        f"edges/s over the {pairs / timed:.0f} uncapped in-cutoff pairs per "
+        f"step, {kept / dt:.6g} over the {kept / timed:.0f} NK edges kept "
+        f"({1 - kept / pairs:.3f} of the pairs dropped by the K="
+        f"{NK_KW['nk_degree']} top-k and the symmetrisation); largest "
+        f"uncapped in-degree {max(c[1] for c in counts)}")
+    return {"launches": launches, "steps": n, "losses": losses,
+            "step_ms": step_ms, "edges_per_s": pairs / dt,
+            "kept_edges_per_s": kept / dt, "pairs_per_step": pairs / timed,
+            "kept_per_step": kept / timed, "first_step": step_errs,
+            "eval_mae": mae, "peak_gib": peak}
+
+
+def nk_bounds(args, inp, prec, kind, basis=True, all_u=False):
+    """Least time for one call's work at this data: real triplets only
+    (a masked one contributes exactly zero). Bytes, in the types the
+    function takes and returns (as the JAX _run_fwd/_run_bwd/_run_bwd2
+    declare them): the xg, sbf and tbf rows of each real triplet (the
+    second order also u1, u2, u3's), the output cotangent rows of the
+    edges that own one, the mask and the weights in full in; out [E, C],
+    or dxg / xb [T, C], dsbf / sb, dtbf / tb and the weight cotangents
+    (ctb [E, C] in ct's type) in full out. Operations per real triplet, NB
+    = S1 + S2: forward 2 C NB for the basis products and 3 C; backward 4 C
+    NB (the products again, the weight gradients) and 6 C, with basis
+    gradients 2 C NB more; second order 10 C NB (s, t; P, Q from u2, u3;
+    sb, tb; wsb, wtb) and 20 C, with u4, u5 4 C NB more."""
+    xg, sbf, tbf, ws, wt, m2d = args
+    C = xg.shape[1]
+    S1, S2 = sbf.shape[1], (0 if tbf is None else tbf.shape[1])
+    NB, es = S1 + S2, xg.element_size()
+    Tr, Er = inp["work"]["triplets"], inp["work"]["edges"]
+    el = lambda t: 0 if t is None else t.numel() * t.element_size()
+    w = el(ws) + el(wt)
+    rows = Tr * (C + NB) * es
+    small = el(m2d) + w
+    if kind == "fwd":
+        flops = Tr * (2 * C * NB + 3 * C)
+        nbytes = rows + small + m2d.shape[0] * C * es
+    elif kind == "bwd":
+        flops = Tr * (4 * C * NB + 6 * C + (2 * C * NB if basis else 0))
+        nbytes = (rows + Er * C * es + small + el(xg) + w
+                  + ((el(sbf) + el(tbf)) if basis else 0))
+    else:
+        flops = Tr * (10 * C * NB + 20 * C + (4 * C * NB if all_u else 0))
+        nbytes = (2 * rows + Er * C * es + small + (w if all_u else 0)
+                  + el(xg) + el(sbf) + el(tbf) + w + m2d.shape[0] * C * es)
+    t_ops = flops / PEAK_FLOPS[prec]
+    t_bytes = nbytes / PEAK_BYTES
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    return max(t_ops, t_bytes) * 1e3, by, flops, nbytes
+
+
+def nk_library_fwd(torch, args, K):
+    """The one PyTorch call that computes the forward: an einsum over the
+    [E, K] views of the triplet rows (torch picks the contraction order,
+    opt_einsum's where that package is installed, else left to right).
+    Timed only; the port never calls it."""
+    xg, sbf, tbf, ws, wt, m2d = args
+    v = lambda t: t.view(m2d.shape[0], K, t.shape[1])
+    if tbf is None:
+        return lambda: torch.einsum("ek,ekc,eks,sc->ec", m2d, v(xg), v(sbf),
+                                    ws)
+    return lambda: torch.einsum("ek,ekc,eks,sc,ekr,rc->ec", m2d, v(xg),
+                                v(sbf), ws, v(tbf), wt)
+
+
+def phase_nk_times(torch, tp, inputs):
+    """One call of each kernel per layer at each path's shape, the bare
+    launch on validated operands (CUDA events), beside its bound and the
+    plain version's time. The forward also beside the einsum that computes
+    it (library_ms), held once to the plain forward; no PyTorch call
+    returns the backward's or the second order's cotangents."""
+    opt = torch.backends.opt_einsum.is_available()
+    log(f"  torch.einsum contraction order: "
+        f"{'opt_einsum' if opt else 'left to right'}")
+    rows = []
+    for path, inp in inputs.items():
+        K = inp["K"]
+        basis = path == "5a"
+        for prec, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            args = nk_args(torch, inp, dt)
+            k_args = tp._kernel_inputs(*args, K)
+            ct = inp["ct"].to(dt)
+            ct32 = ct.float().contiguous()
+            us = [None if u is None else u.to(dt) for u in inp["us"][:3]] + \
+                [None, None]
+            plain = {
+                "fwd": lambda: tp.fused_triplet_product_reference(
+                    *args[:5], K, args[5]),
+                "bwd": lambda: tp.fused_triplet_product_bwd_reference(
+                    *args, ct, K, basis),
+                "bwd2": lambda: tp.fused_triplet_product_bwd2_reference(
+                    *args, ct, *us, K)}
+            kern = {
+                "fwd": lambda: tp.triplet_product_forward_kernel(*k_args, K),
+                "bwd": lambda: tp.triplet_product_backward_kernel(
+                    *k_args, ct32, K, basis),
+                "bwd2": lambda: tp.triplet_product_bwd2_kernel(
+                    *k_args, ct32, *us, K)}
+            kinds = ("fwd", "bwd", "bwd2") if basis else ("fwd", "bwd")
+            for kind in kinds:
+                ms = cuda_ms(torch, kern[kind])
+                p_ms = cuda_ms(torch, plain[kind], iters=3, warmup=1)
+                b = nk_bounds(args, inp, prec, kind, basis)
+                lib_ms = lib_err = None
+                if kind == "fwd":
+                    lib = nk_library_fwd(torch, args, K)
+                    lib_err = rel_err(lib(), plain["fwd"]())
+                    if prec == "f32" and lib_err >= NK_TOL["f32"]:
+                        fail(f"einsum forward {path}: rel err {lib_err} "
+                             f"against the plain forward")
+                    lib_ms = cuda_ms(torch, lib, iters=3, warmup=1)
+                    torch.cuda.empty_cache()
+                rows.append({"kernel": f"triplet_product_{kind}", "path": path,
+                             "precision": prec, "basis_grads": basis,
+                             "ms": ms, "plain_ms": p_ms, "bound_ms": b[0],
+                             "bound_by": b[1], "flops": b[2], "bytes": b[3],
+                             "library_ms": lib_ms, "library_err": lib_err,
+                             "triplets": inp["work"]["triplets"],
+                             "T": args[0].shape[0]})
+    for r in rows:
+        log(f"  {r['kernel']} path {r['path']} {r['precision']} (basis_grads "
+            f"{r['basis_grads']}; {r['triplets']} real triplets of {r['T']}): "
+            f"{r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']}, {r['bound_ms'] / r['ms']:.4f} of it; "
+            f"{r['flops'] / 1e9:.3f} GFLOP, {r['bytes'] / 1e6:.2f} MB; plain "
+            f"{r['plain_ms']:.3f} ms"
+            + ("" if r["library_ms"] is None else
+               f"; einsum {r['library_ms']:.3f} ms, rel err "
+               f"{r['library_err']:.2e} against plain") + ")")
+    return rows
+
+
 def build_all(_build, names):
     """Build every CUDA source at once (one nvcc each); the seconds each
     took and the whole."""
@@ -1580,6 +1960,7 @@ def main():
     from dig_tpu_torch.ops import _build
     from dig_tpu_torch.ops import cfconv as cf
     from dig_tpu_torch.ops import segment_csr as sc
+    from dig_tpu_torch.ops import triplet_product as tp
     from dig_tpu_torch.ops import triplet_slot as ts
 
     torch.backends.cuda.matmul.allow_tf32 = False   # plain version = oracle
@@ -1598,7 +1979,7 @@ def main():
         f"{torch.version.cuda}")
 
     log("== 2. build")
-    sources = ["cfconv", "triplet_slot", "segment_csr"]
+    sources = ["cfconv", "triplet_slot", "segment_csr", "triplet_product"]
     secs, whole = build_all(_build, sources)
     log(f"  nvcc sm_90a builds, one process per source, all at once: "
         + ", ".join(f"{n} {secs[n]:.1f} s" for n in sources)
@@ -1684,6 +2065,38 @@ def main():
         f"{fs_res['edges_per_s']:.6g} edges/s; path 4b: step "
         f"{sp_res['step_ms']:.3f} ms, {sp_res['edges_per_s']:.6g} edges/s")
 
+    del seg_inputs
+    torch.cuda.empty_cache()
+    nk_b = nk_batches(torch, dev, NK_STEPS + 1)
+    log("== 16. kernel vs plain: fused_triplet_product (path 5a) and "
+        "fused_angle_product (path 5b), the bases and mask of a real batch")
+    nk_inp = {"5a": nk_kernel_inputs(torch, dev, nk_b[-1], "5a"),
+              "5b": nk_kernel_inputs(torch, dev, nk_b[-1], "5b")}
+    nk_errs = phase_nk_kernel_vs_plain(torch, tp, nk_inp)
+
+    log("== 17. main path 5a: SphereNet energy+force 4x128 bf16 on the "
+        "unblocked NK layout (K=16), fused_triplet_product, batches of 96, "
+        "Adam(5e-4)")
+    nk_res = {"5a": phase_nk_main_path(torch, cf, ts, sc, tp, dev,
+                                       nk_b[:NK_STEPS], "5a")}
+    torch.cuda.empty_cache()
+
+    log("== 18. main path 5b: DimeNet++ energy 4x128 bf16 (n=7, k=6) on the "
+        "unblocked NK layout (K=16), fused_angle_product without basis "
+        "gradients, batches of 96, Adam(5e-4)")
+    nk_res["5b"] = phase_nk_main_path(torch, cf, ts, sc, tp, dev,
+                                      nk_b[:NK_STEPS], "5b")
+    del nk_b
+    torch.cuda.empty_cache()
+
+    log("== 19. times: fused_triplet_product / fused_angle_product; paths "
+        "5a and 5b")
+    nk_rows = phase_nk_times(torch, tp, nk_inp)
+    for path, r in nk_res.items():
+        log(f"  path {path}: step {r['step_ms']:.3f} ms, "
+            f"{r['edges_per_s']:.6g} edges/s (uncapped pairs), "
+            f"{r['kept_edges_per_s']:.6g} (kept NK edges)")
+
     def total(kernel, key):
         return sum(r[key] for r in rows if r["kernel"] == kernel
                    and r["precision"] == "bf16"
@@ -1739,6 +2152,23 @@ def main():
         "launches": fs_res["launches"], "max_abs_err": seg_err,
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    for kind, i in (("fwd", 0), ("bwd", 1), ("bwd2", 2)):
+        r = next(r for r in nk_rows if r["kernel"] == f"triplet_product_{kind}"
+                 and r["path"] == "5a" and r["precision"] == "bf16")
+        kernels.append({
+            "name": f"triplet_product_{kind}", "route": "cuda",
+            "source": "dig_tpu_torch/csrc/triplet_product.cu",
+            "replaces": "dig_tpu/ops/pallas_triplet.py:"
+                        + {"fwd": "263", "bwd": "312", "bwd2": "386"}[kind],
+            "launches": sum(res["launches"][i] for res in nk_res.values()),
+            "max_abs_err": nk_errs[kind], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    log("  (triplet_product_*: one bare launch = one layer of one path-5a "
+        "step, bf16, basis gradients on, u4 = u5 absent; launches summed "
+        "over the timed runs of paths 5a and 5b; the forward's library_ms "
+        "is the einsum that computes it; no PyTorch call returns the "
+        "backward's or the second order's cotangents, so theirs is null)")
     log("  (segment_sum_sorted_csr: one bare launch at path 4a's shape, "
         "f32, device time with the host ahead, as are plain_ms and "
         "library_ms (the faster of index_add_ and segment_reduce); launches "

@@ -1,6 +1,5 @@
 """SphereNet and DimeNet++ on the flat (compacted edge list) layout and on
-the slot-aligned [N, K] neighbour-table layout. Port of
-``dig_tpu/models/spherenet.py``.
+the [N, K] neighbour-table layout. Port of ``dig_tpu/models/spherenet.py``.
 
 Supported layouts:
 
@@ -13,33 +12,45 @@ Supported layouts:
   ``csrc/segment_csr.cu`` on the card), else through ``index_add_``. The
   ``pallas_*`` flags are ignored here, as the JAX model falls back to its
   unfused chain on this layout.
-* slot-aligned NK (``nk_degree > 0`` with ``block_size > 0``, batches from
-  ``MoleculeLoader(slot_size=block_size)``), either unfused
-  (``pallas_triplet`` off: the same plain chain over ``[T, C]`` tensors)
-  or through the slot kernel (``pallas_triplet``, ``pallas_fuse_basis``
-  and ``pallas_slot`` on). The packed basis table ``[K, R, E]`` is built once
-  and every layer's triplet product is ``fused_triplet_slot`` (the CUDA
-  kernels of ``csrc/triplet_slot.cu`` on the card). The two factorised
-  basis projections are composed into ``ws = ws1 @ ws2`` and
-  ``wt = wt1 @ wt2`` from the same Linear weights, so one parameter set
-  serves both branches.
+* NK (``nk_degree > 0``): the radius graph is a per-node nearest-K table,
+  built over the whole batch (``block_size=0``: ``radius_graph_nk``, any
+  flat batch) or per slot of a slot-aligned batch (``block_size > 0``:
+  ``radius_graph_nk_blocked``, batches from
+  ``MoleculeLoader(slot_size=block_size)``). Three branches:
+
+  - unfused (``pallas_triplet`` off): the plain chain over ``[T, C]``
+    tensors (``expand_kj``, ``triplets_to_edges``);
+  - the triplet product (``pallas_triplet`` without
+    ``pallas_fuse_basis``): ``expand_kj_raw`` gathers the triplet rows and
+    every layer's product is ``fused_triplet_product`` (DimeNet++:
+    ``fused_angle_product``), the CUDA kernels of
+    ``csrc/triplet_product.cu`` on the card; ``pallas_basis_grads=False``
+    skips the basis cotangents (energy training only);
+  - the slot kernel (``pallas_triplet``, ``pallas_fuse_basis`` and
+    ``pallas_slot`` with ``block_size > 0``): the packed basis table
+    ``[K, R, E]`` is built once and every layer's product is
+    ``fused_triplet_slot`` (``csrc/triplet_slot.cu`` on the card).
+
+  The fused branches compose the two factorised basis projections into
+  ``ws = ws1 @ ws2`` and ``wt = wt1 @ wt2`` from the same Linear weights,
+  so one parameter set serves every branch.
 
 Both branches differentiate twice: force training takes ``-dE/dpos``
-with ``create_graph`` inside the loss. The geometry keeps its graph back
-to ``pos`` (closed gather pairs, the argmin-recompute torsion, the basis
-closed forms), and the slot kernel's basis gradient ``dpt`` is asked for
-whenever ``pos`` requires a gradient. ``forward(g, block_size=s)``
-overrides the slot size per call, so one module (one parameter set)
-serves every bucket of a ``BucketedMoleculeLoader`` batch.
+with ``create_graph`` inside the loss (the fused branches through their
+second-order kernels; ``pallas_basis_grads=True`` is required there).
+The geometry keeps its graph back to ``pos`` (closed gather pairs, the
+argmin-recompute torsion, the basis closed forms), and the fused kernels'
+basis gradients are asked for whenever ``pos`` requires a gradient.
+``forward(g, block_size=s)`` overrides the slot size per call of a
+blocked model, so one module (one parameter set) serves every bucket of a
+``BucketedMoleculeLoader`` batch; an unblocked model builds its table over
+the whole batch whatever the call says.
 
 On the NK layout ``UpdateV`` is a reshape-sum and ``segment_eb`` is
-accepted and ignored, as in the JAX ``UpdateV``. Every other layout raises
-``NotImplementedError`` naming its ROADMAP item: the unblocked NK builder
-(``nk_degree > 0`` with ``block_size=0``), ``fused_triplet_product``
-(``pallas_triplet`` without ``pallas_fuse_basis`` on the NK layout, queue
-2 item 4), ``fused_triplet_pt`` (``pallas_fuse_basis`` without
-``pallas_slot``, ``pallas_triplet_pt.py``, queue 2 item 5) and ``remat``
-(queue 1 item 9).
+accepted and ignored, as in the JAX ``UpdateV``. Two options raise
+``NotImplementedError`` naming their ROADMAP item: ``fused_triplet_pt``
+(``pallas_fuse_basis`` on the NK layout without the slot kernel,
+``pallas_triplet_pt.py``, queue 2 item 5) and ``remat`` (queue 1 item 9).
 
 ``compute_dtype`` (e.g. ``torch.bfloat16``) casts where the JAX model
 casts: the distance embedding, the bases and the linears run in it;
@@ -60,12 +71,14 @@ from ..graph import GraphBatch
 from ..nn.blocks import dense
 from ..nn.init import glorot_orthogonal
 from ..ops.basis import Envelope, bessel_table, sph_full_table, sph_m0_table
-from ..ops.radius import NKGraph, radius_graph_flat, radius_graph_nk_blocked
+from ..ops.radius import (NKGraph, radius_graph_flat, radius_graph_nk,
+                          radius_graph_nk_blocked)
 from ..ops.segment import flat_edges_to_nodes, gather_rows, segment_sum
+from ..ops.triplet_product import fused_angle_product, fused_triplet_product
 from ..ops.triplet_slot import basis_pt_k, fused_triplet_slot
 from ..ops.triplets import (Triplets, build_triplets, build_triplets_nk,
                             edge_distances, edges_to_nodes_nk, expand_kj,
-                            nk_edge_distances, nk_gather_nodes,
+                            expand_kj_raw, nk_edge_distances, nk_gather_nodes,
                             torsion_angles, triplet_geometry,
                             triplet_kj_distances, triplets_to_edges)
 
@@ -200,16 +213,18 @@ class InitBlock(nn.Module):
 
 class UpdateE(nn.Module):
     """update_e: basis projections, down-projection, the triplet product
-    (unfused, or the slot kernel when ``slot_atoms > 0``), up-projection
-    and residual stacks around a skip."""
+    (``branch``: "unfused"; "product", ``fused_triplet_product`` /
+    ``fused_angle_product``; "slot", the slot kernel on ``geom``), up-
+    projection and residual stacks around a skip."""
 
     def __init__(self, hidden: int, int_emb: int, b_dist: int, b_angle: int,
                  b_torsion: int, use_torsion: bool, num_before_skip: int,
                  num_after_skip: int, num_spherical: int, num_radial: int,
-                 dtype, gen):
+                 basis_grads: bool, dtype, gen):
         super().__init__()
         self.dtype = dtype
         self.use_torsion = use_torsion
+        self.basis_grads = basis_grads
         self.ns, self.nr = num_spherical, num_radial
         self.int_emb = int_emb
         L = lambda i, o, b=False: _linear(i, o, b, gen)
@@ -246,14 +261,16 @@ class UpdateE(nn.Module):
         dt = self.dtype or torch.float32
         return lin1.weight.t().to(dt) @ lin2.weight.t().to(dt)
 
-    def forward(self, e1, rbf0, sbf, tbf, trip, geom=None, slot_atoms=0):
+    def forward(self, e1, rbf0, sbf, tbf, trip, branch="unfused",
+                geom=None):
+        """``geom``: ``(pt [K, R, E], m2T, lj, slot size)`` for "slot"."""
         dt = self.dtype
         x_ji = swish(dense(e1, self.lin_ji, dt))
         x_kj = swish(dense(e1, self.lin_kj, dt))
         rbf = dense(dense(rbf0, self.lin_rbf1, dt), self.lin_rbf2, dt)
         x_kj = swish(dense(x_kj * rbf, self.lin_down, dt))
-        if slot_atoms > 0:
-            pt_s, m2t, lj = geom
+        if branch == "slot":
+            pt_s, m2t, lj, slot_atoms = geom
             K = trip.nk_nbr.shape[1]
             ws = self.composed(self.lin_sbf1, self.lin_sbf2)
             wt = (self.composed(self.lin_t1, self.lin_t2) if self.use_torsion
@@ -262,6 +279,19 @@ class UpdateE(nn.Module):
             x_kj = fused_triplet_slot(x_kj, pt_s, ws, wt, m2t, lj,
                                       slot_atoms, K,
                                       (self.ns, self.nr, self.use_torsion))
+        elif branch == "product":
+            # the raw gather: the kernel masks its rows and their cotangents
+            K = trip.nk_nbr.shape[1]
+            xg = expand_kj_raw(x_kj, trip)
+            m2d = trip.mask.reshape(-1, K).to(dt or torch.float32)
+            ws = self.composed(self.lin_sbf1, self.lin_sbf2)
+            if self.use_torsion:
+                x_kj = fused_triplet_product(
+                    xg, sbf, tbf, ws, self.composed(self.lin_t1, self.lin_t2),
+                    m2d, K, basis_grads=self.basis_grads)
+            else:
+                x_kj = fused_angle_product(xg, sbf, ws, m2d, K,
+                                           basis_grads=self.basis_grads)
         else:
             s = dense(dense(sbf, self.lin_sbf1, dt), self.lin_sbf2, dt)
             x_kj = expand_kj(x_kj, trip) * s
@@ -340,26 +370,17 @@ class _SphericalMPNN(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  device: DeviceLike = None):
         super().__init__()
-        if nk_degree > 0 and block_size <= 0:
-            raise NotImplementedError(
-                "the unblocked NK builder (nk_degree > 0, block_size=0) is "
-                "not ported (ROADMAP queue 1 item 9); use block_size > 0 "
-                "with slot-aligned batches, or the flat layout "
-                "(nk_degree=0)")
         if remat:
             raise NotImplementedError("remat is not ported (ROADMAP queue 1 "
                                       "item 9)")
         # the flat layout ignores the pallas_* flags (the JAX model's
         # unfused fallback); on the NK layout they select a kernel
-        nk = nk_degree > 0
-        if nk and pallas_triplet and not pallas_fuse_basis:
+        if (nk_degree > 0 and pallas_triplet and pallas_fuse_basis
+                and not (pallas_slot and block_size > 0)):
             raise NotImplementedError(
-                "pallas_triplet without pallas_fuse_basis is "
-                "fused_triplet_product (ROADMAP queue 2 item 4)")
-        if nk and pallas_triplet and not pallas_slot:
-            raise NotImplementedError(
-                "pallas_fuse_basis without pallas_slot is fused_triplet_pt "
-                "(pallas_triplet_pt.py, ROADMAP queue 2 item 5)")
+                "pallas_fuse_basis without the slot kernel (pallas_slot, "
+                "block_size > 0) is fused_triplet_pt (pallas_triplet_pt.py, "
+                "ROADMAP queue 2 item 5)")
         if compute_dtype not in (None, torch.float32, torch.bfloat16):
             raise ValueError(f"compute_dtype must be None, float32 or "
                              f"bfloat16, got {compute_dtype}")
@@ -387,25 +408,44 @@ class _SphericalMPNN(nn.Module):
                 hidden_channels, int_emb_size, basis_emb_size_dist,
                 basis_emb_size_angle, basis_emb_size_torsion,
                 self.use_torsion, num_before_skip, num_after_skip,
-                num_spherical, num_radial, dt, gen))
+                num_spherical, num_radial, pallas_basis_grads, dt, gen))
             self.update_vs.append(mk_v())
         self.dtype = dt
         self.to(device)
 
     @property
     def slot_fused(self) -> bool:
-        return self.pallas_triplet and self.nk_degree > 0
+        """Every layer's triplet product through ``fused_triplet_slot``."""
+        return (self.pallas_triplet and self.pallas_fuse_basis
+                and self.pallas_slot and self.nk_degree > 0
+                and self.block_size > 0)
+
+    @property
+    def product_fused(self) -> bool:
+        """Every layer's triplet product through ``fused_triplet_product``
+        (``fused_angle_product`` without torsion)."""
+        return (self.pallas_triplet and not self.pallas_fuse_basis
+                and self.nk_degree > 0)
+
+    def _slot_size(self, block_size: Optional[int]) -> int:
+        """The batch's slot size: the call's, else the model's; 0 (the
+        whole batch) for an unblocked model."""
+        return (block_size or self.block_size) if self.block_size > 0 else 0
 
     def geometry(self, pos: torch.Tensor, g: GraphBatch,
                  block_size: Optional[int] = None) -> Geometry:
         """Radius graph, triplets and per-edge / per-triplet geometry
-        (``block_size``: the batch's slot size on the NK layout, default the
-        model's)."""
+        (``block_size``: the batch's slot size on the blocked NK layout,
+        default the model's)."""
         if self.nk_degree > 0:
-            nkg = radius_graph_nk_blocked(pos, g.node_mask, self.cutoff,
-                                          self.nk_degree,
-                                          block_size or self.block_size,
-                                          node_graph=g.node_graph)
+            A = self._slot_size(block_size)
+            if A > 0:
+                nkg = radius_graph_nk_blocked(pos, g.node_mask, self.cutoff,
+                                              self.nk_degree, A,
+                                              node_graph=g.node_graph)
+            else:
+                nkg = radius_graph_nk(pos, g.node_graph, g.node_mask,
+                                      self.cutoff, self.nk_degree)
             trip = build_triplets_nk(nkg)
             dist = nk_edge_distances(pos, trip)
         else:
@@ -427,7 +467,7 @@ class _SphericalMPNN(nn.Module):
         its graph back to the positions), the triplet mask and the
         slot-local sender ids, in the compute type (``lj`` int32)."""
         ns, nr = self.num_spherical, self.num_radial
-        A, K = block_size or self.block_size, self.nk_degree
+        A, K = self._slot_size(block_size), self.nk_degree
         E = geo.nkg.senders.shape[0]
         smaj = lambda v: v.reshape(E, K).t()          # [T] e-major -> [K, E]
         pt_s = basis_pt_k(ns, nr, smaj(geo.angle),
@@ -440,27 +480,36 @@ class _SphericalMPNN(nn.Module):
         lj = (geo.nkg.senders - slot * A).to(torch.int32)[None]
         return pt_s.to(cdt), m2t, lj
 
+    def bases(self, geo: Geometry):
+        """``(sbf [T, n*k], tbf [T, n*n*k] or None)``, float32: the angle
+        and torsion bases of the unfused and the product branch, from one
+        shared Bessel evaluation on the triplet rows."""
+        ns, nr = self.num_spherical, self.num_radial
+        rbf_kj = bessel_table(ns, nr, geo.dist_kj / self.cutoff)
+        sbf = AngleEmb(ns, nr, self.cutoff)(rbf_kj, geo.angle)
+        tbf = (TorsionEmb(ns, nr, self.cutoff)(rbf_kj, geo.angle, geo.phi)
+               if self.use_torsion else None)
+        return sbf, tbf
+
     def forward(self, g: GraphBatch,
                 block_size: Optional[int] = None) -> torch.Tensor:
-        """Energies ``[G, out]`` of a batch (on the NK layout a
+        """Energies ``[G, out]`` of a batch (on the blocked NK layout a
         slot-aligned one whose slot size is ``block_size``, default the
         model's)."""
-        A = block_size or self.block_size
+        A = self._slot_size(block_size)
         pos = g.nodes["pos"]
         N, G = g.num_nodes, g.num_graphs
-        ns, nr, dt = self.num_spherical, self.num_radial, self.dtype
+        dt = self.dtype
         geo = self.geometry(pos, g, A)
         trip = geo.trip
         rbf0 = self.dist_emb(geo.dist)
         geom = sbf = tbf = None
-        if self.slot_fused:
-            geom = self.slot_operands(geo, A)
+        branch = ("slot" if self.slot_fused else
+                  "product" if self.product_fused else "unfused")
+        if branch == "slot":
+            geom = self.slot_operands(geo, A) + (A,)
         else:
-            rbf_kj = bessel_table(ns, nr, geo.dist_kj / self.cutoff)
-            sbf = AngleEmb(ns, nr, self.cutoff)(rbf_kj, geo.angle)
-            if self.use_torsion:
-                tbf = TorsionEmb(ns, nr, self.cutoff)(rbf_kj, geo.angle,
-                                                      geo.phi)
+            sbf, tbf = self.bases(geo)
             if dt is not None:
                 sbf = sbf.to(dt)
                 tbf = None if tbf is None else tbf.to(dt)
@@ -469,10 +518,8 @@ class _SphericalMPNN(nn.Module):
         e1, e2 = self.init_block(g.nodes["z"], rbf0, trip)
         v = self.update_vs[0](e2, trip, N)
         u = segment_sum(v, g.node_graph, G, mask=g.node_mask)
-        slot_atoms = A if self.slot_fused else 0
         for ue, uv in zip(self.update_es, self.update_vs[1:]):
-            e1, e2 = ue(e1, rbf0, sbf, tbf, trip, geom=geom,
-                        slot_atoms=slot_atoms)
+            e1, e2 = ue(e1, rbf0, sbf, tbf, trip, branch, geom)
             v = uv(e2, trip, N)
             u = u + segment_sum(v, g.node_graph, G, mask=g.node_mask)
         return u

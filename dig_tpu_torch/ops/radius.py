@@ -1,8 +1,10 @@
 """Radius and kNN graphs: the flat (compacted edge list) builders and the
-[N, K] neighbour-table layout for slot-aligned batches. Port of
+[N, K] neighbour-table layout, over the whole batch or per slot of a
+slot-aligned batch. Port of
 ``radius_graph_flat``, ``knn_graph_flat``, ``adjacency_to_edges``,
-``radius_overflow``, ``NKGraph``, ``radius_blocked_dropped`` and
-``radius_graph_nk_blocked`` of ``dig_tpu/ops/radius.py``.
+``radius_overflow``, ``NKGraph``, ``radius_graph_nk``,
+``radius_blocked_dropped`` and ``radius_graph_nk_blocked`` of
+``dig_tpu/ops/radius.py``.
 
 Squared distances use the JAX package's expansion ``|p|^2 + |q|^2 -
 2 p.q`` with the products taken elementwise in float32 (no matmul: a TF32
@@ -120,6 +122,72 @@ def radius_blocked_dropped(pos, node_graph, node_mask, cutoff: float,
     return torch.sum(valid & cross & (d2 < cutoff * cutoff))
 
 
+def _nk_tables(adj, d2, k: int):
+    """Per row of a ``[nb, B, B]`` candidate table: the K nearest in-cutoff
+    neighbours (``top_k``; the K axis padded when a block holds fewer than
+    K candidates), ``(lidx, nbr_mask, rev_slot)``, each ``[nb, B, K]``.
+    ``lidx`` is the top-k table (0 past a row's neighbours); ``nbr_mask``
+    keeps only mutual edges (symmetrisation); ``rev_slot[b, i, d]`` is the
+    first position of i among the kept slots of row ``lidx[b, i, d]`` (as
+    ``jnp.argmax`` of the hit table)."""
+    nb, B, _ = adj.shape
+    dev = adj.device
+    score = torch.where(adj, -d2, -torch.inf)
+    kk = min(k, B)
+    vals, lidx = torch.topk(score, kk, dim=-1, sorted=True)
+    if kk < k:          # pad the K axis so edge ids stay e = i*k + d
+        pad = k - kk
+        vals = torch.cat([vals, torch.full((nb, B, pad), -torch.inf,
+                                           device=dev)], dim=-1)
+        lidx = torch.cat([lidx, torch.zeros((nb, B, pad), dtype=lidx.dtype,
+                                            device=dev)], dim=-1)
+    top = vals > -torch.inf
+    lidx = torch.where(top, lidx, 0)
+
+    # kept[b, i, m]: m survived i's top-k (a scatter, the same table as the
+    # JAX one-hot comparison); keep (i, m) only if i survived m's too
+    bi = torch.arange(nb, device=dev)[:, None, None]
+    ar = torch.arange(B, device=dev)
+    kept = torch.zeros((nb, B, B), dtype=torch.bool, device=dev)
+    ii = ar[None, :, None].expand_as(lidx)
+    kept[bi.expand_as(lidx)[top], ii[top], lidx[top]] = True
+    nbr_mask = top & kept[bi, lidx, ar[None, :, None]]
+    hit = (lidx[bi, lidx] == ar[None, :, None, None]) & nbr_mask[bi, lidx]
+    return lidx, nbr_mask, _first_true(hit)
+
+
+def _nk_graph(nbr_idx, nbr_mask, rev_slot, k: int) -> NKGraph:
+    """The :class:`NKGraph` of ``[N, K]`` sender, mask and reverse-slot
+    tables."""
+    N = nbr_idx.shape[0]
+    nbr_idx = nbr_idx.to(torch.int32)
+    rev_edge = torch.where(nbr_mask, nbr_idx * k + rev_slot, 0).to(
+        torch.int32)
+    receivers = torch.repeat_interleave(
+        torch.arange(N, dtype=torch.int32, device=nbr_idx.device), k)
+    flat_mask = nbr_mask.reshape(-1)
+    return NKGraph(nbr_idx=nbr_idx, nbr_mask=nbr_mask, rev_edge=rev_edge,
+                   senders=nbr_idx.reshape(-1),
+                   receivers=torch.where(flat_mask, receivers, 0),
+                   edge_mask=flat_mask)
+
+
+def radius_graph_nk(pos, node_graph, node_mask, cutoff: float,
+                    k: int) -> NKGraph:
+    """Radius graph of any flat batch as a per-node nearest-K table, over
+    the ``[N, N]`` same-graph distance table: per receiver the K nearest
+    in-cutoff neighbours (``top_k``), then only mutual edges survive
+    (symmetrisation), then each edge learns its reverse.
+
+    As the JAX builder, ``nbr_idx`` (and ``senders``) keep the top-k's
+    sender at slots the symmetrisation masks (the consumers mask them);
+    slots past a row's in-cutoff neighbours hold node 0."""
+    d2, valid = _pairwise_same_graph(pos, node_graph, node_mask)
+    adj = valid & (d2 < cutoff * cutoff)
+    lidx, nbr_mask, rev_slot = _nk_tables(adj[None], d2[None], k)
+    return _nk_graph(lidx[0], nbr_mask[0], rev_slot[0], k)
+
+
 def radius_graph_nk_blocked(pos, node_mask, cutoff: float, k: int,
                             block: int,
                             node_graph: Optional[torch.Tensor] = None
@@ -128,7 +196,8 @@ def radius_graph_nk_blocked(pos, node_mask, cutoff: float, k: int,
     pair lives inside one ``block`` of node rows. Per receiver the K
     nearest in-cutoff neighbours are kept (``top_k``), then only mutual
     edges survive (symmetrisation), then each edge learns its reverse.
-    Global node and edge indices, as ``radius_graph_nk``."""
+    Global node and edge indices, as ``radius_graph_nk``; the senders of
+    masked slots are 0, as in the JAX blocked builder."""
     N = pos.shape[0]
     if N % block:
         raise ValueError(f"{N} nodes is not a multiple of block={block}")
@@ -143,50 +212,11 @@ def radius_graph_nk_blocked(pos, node_mask, cutoff: float, k: int,
         gb = node_graph.reshape(nb, block)
         valid = valid & (gb[:, :, None] == gb[:, None, :])
     adj = valid & (d2 < cutoff * cutoff)
-    score = torch.where(adj, -d2, -torch.inf)
-    kk = min(k, block)
-    vals, lidx = torch.topk(score, kk, dim=-1, sorted=True)
-    if kk < k:          # pad the K axis so edge ids stay e = i*k + d
-        pad = k - kk
-        vals = torch.cat([vals, torch.full((nb, block, pad), -torch.inf,
-                                           device=dev)], dim=-1)
-        lidx = torch.cat([lidx, torch.zeros((nb, block, pad),
-                                            dtype=lidx.dtype, device=dev)],
-                         dim=-1)
-    nbr_mask = vals > -torch.inf
-    lidx = torch.where(nbr_mask, lidx, 0)
-
-    # symmetrise: kept[b, i, m] = m survived i's top-k; keep (i, m) only if
-    # i survived m's top-k too
-    bi = torch.arange(nb, device=dev)[:, None, None]
-    kept = torch.zeros((nb, block, block), dtype=torch.bool, device=dev)
-    ii = torch.arange(block, device=dev)[None, :, None].expand_as(lidx)
-    kept[bi.expand_as(lidx)[nbr_mask], ii[nbr_mask], lidx[nbr_mask]] = True
-    mutual = kept[bi, lidx, torch.arange(block, device=dev)[None, :, None]]
-    nbr_mask = nbr_mask & mutual
-
-    # rev_slot[b, i, d]: first position of i among the valid slots of row
-    # lidx[b, i, d] (argmax of the hit table, first maximum on ties)
-    nbr_of_m = lidx[bi, lidx]                                # [nb, B, K, K]
-    nm_of = nbr_mask[bi, lidx]
-    hit = (nbr_of_m == torch.arange(block, device=dev)[None, :, None, None]) \
-        & nm_of
-    rev_slot = _first_true(hit)
-
+    lidx, nbr_mask, rev_slot = _nk_tables(adj, d2, k)
     off = (torch.arange(nb, device=dev) * block)[:, None, None]
-    gidx = (lidx + off).reshape(N, k)
     nbr_mask = nbr_mask.reshape(N, k)
-    rev_slot = rev_slot.reshape(N, k)
-    nbr_idx = torch.where(nbr_mask, gidx, 0).to(torch.int32)
-    rev_edge = torch.where(nbr_mask, nbr_idx * k + rev_slot, 0).to(
-        torch.int32)
-    receivers = torch.repeat_interleave(
-        torch.arange(N, dtype=torch.int32, device=dev), k)
-    flat_mask = nbr_mask.reshape(-1)
-    return NKGraph(nbr_idx=nbr_idx, nbr_mask=nbr_mask, rev_edge=rev_edge,
-                   senders=nbr_idx.reshape(-1),
-                   receivers=torch.where(flat_mask, receivers, 0),
-                   edge_mask=flat_mask)
+    nbr_idx = torch.where(nbr_mask, (lidx + off).reshape(N, k), 0)
+    return _nk_graph(nbr_idx, nbr_mask, rev_slot.reshape(N, k), k)
 
 
 def _first_true(hit: torch.Tensor) -> torch.Tensor:

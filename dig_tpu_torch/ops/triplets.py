@@ -221,19 +221,24 @@ def nk_gather_nodes(x: torch.Tensor, trip: Triplets) -> torch.Tensor:
                             trip.in_mask).reshape(N * K, -1)
 
 
-def _expand(x, mask, nbr):
+def _expand_raw(x, nbr):
     N, K = nbr.shape
-    out = x.reshape(N, K, x.shape[-1])[nbr.long()]       # [N, K, K, C]
-    return torch.where(mask[:, None], out.reshape(mask.shape[0], -1), 0)
+    return x.reshape(N, K, x.shape[-1])[nbr.long()].reshape(N * K * K, -1)
+
+
+def _expand_raw_adj(ct, rev, in_mask):
+    N, K = rev.shape
+    g4 = ct.reshape(N * K, K, ct.shape[-1])[rev.long()]   # [N, K, K, C]
+    g4 = torch.where(in_mask[:, :, None, None], g4, 0)
+    return g4.sum(dim=1).reshape(N * K, -1)
+
+
+def _expand(x, mask, nbr):
+    return torch.where(mask[:, None], _expand_raw(x, nbr), 0)
 
 
 def _expand_adj(ct, mask, rev, in_mask):
-    N, K = rev.shape
-    C = ct.shape[-1]
-    ct = torch.where(mask[:, None], ct, 0)
-    g4 = ct.reshape(N * K, K, C)[rev.long()]             # [N, K, K, C]
-    g4 = torch.where(in_mask[:, :, None, None], g4, 0)
-    return g4.sum(dim=1).reshape(N * K, C)
+    return _expand_raw_adj(torch.where(mask[:, None], ct, 0), rev, in_mask)
 
 
 class _ExpandKJ(torch.autograd.Function):
@@ -263,6 +268,51 @@ class _ExpandKJAdj(torch.autograd.Function):
         mask, nbr, rev, in_mask = ctx.saved_tensors
         return (_ExpandKJ.apply(u, mask, nbr, rev, in_mask),
                 None, None, None, None)
+
+
+class _ExpandKJRaw(torch.autograd.Function):
+    """:func:`expand_kj_raw`: edge rows ``x [E, C]`` to triplet rows
+    ``[T, C]`` by [K, C] blocks, garbage at masked triplets. Adjoint:
+    :class:`_ExpandKJRawAdj`."""
+
+    @staticmethod
+    def forward(ctx, x, nbr, rev, in_mask):
+        ctx.save_for_backward(nbr, rev, in_mask)
+        return _expand_raw(x, nbr)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return (_ExpandKJRawAdj.apply(ct, *ctx.saved_tensors),
+                None, None, None)
+
+
+class _ExpandKJRawAdj(torch.autograd.Function):
+    """``ct [T, C] -> [E, C]``: ``dx[j*K + s] = sum_m in_mask[j, m] *
+    ct.reshape(E, K, C)[rev[j, m], s]``, over the mutual-edge slots only and
+    mask-free in ``ct``. Adjoint: :class:`_ExpandKJRaw`."""
+
+    @staticmethod
+    def forward(ctx, ct, nbr, rev, in_mask):
+        ctx.save_for_backward(nbr, rev, in_mask)
+        return _expand_raw_adj(ct, rev, in_mask)
+
+    @staticmethod
+    def backward(ctx, u):
+        return (_ExpandKJRaw.apply(u, *ctx.saved_tensors),
+                None, None, None)
+
+
+def expand_kj_raw(x: torch.Tensor, trip: Triplets) -> torch.Tensor:
+    """Mask-free NK block gather (the edge rows ``x [E, C]`` at each
+    triplet's kj edge, ``[T, C]``): garbage rows at masked triplets, and an
+    adjoint over the mutual-edge slots that does not mask its cotangent.
+
+    Sound only for a consumer that multiplies the rows by the triplet mask
+    before any reduction and zeroes its cotangent at masked triplets, as
+    ``fused_triplet_product`` / ``fused_angle_product`` do; it saves the
+    two [T, C] ``where`` passes of :func:`expand_kj`. Both members of the
+    closed pair are gathers, to any derivative order."""
+    return _ExpandKJRaw.apply(x, trip.nk_nbr, trip.nk_rev, trip.in_mask)
 
 
 def _expand_flat(x, mask, idx_kj):

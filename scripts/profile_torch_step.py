@@ -1,6 +1,6 @@
 """Where the time of one of the port's train steps goes, on one card.
 
-    python scripts/profile_torch_step.py [schnet_dense|spherenet|spherenet_force|schnet_force]
+    python scripts/profile_torch_step.py [schnet_dense|spherenet|spherenet_force|schnet_force|spherenet_nk_force]
 
 ``schnet_dense`` (the default) runs main path 1 of chip_smoke.py
 (SchNetDense 4 x 128, bf16, fused cfconv, buckets {16: 252, 24: 380,
@@ -12,7 +12,11 @@ energies and forces through make_bucketed_step_fns, buckets {16: 27,
 main path 4a (flat SchNet 4 x 128, f32, energy+force through
 make_step_fns, segment_eb=1024: the sorted-CSR segment-sum kernel, batches
 of 24 Morse molecules in slots of 29, Adam(1e-3), p = 100, as
-examples/threedgraph/run_morse_surrogate.py --model schnet --forces).
+examples/threedgraph/run_morse_surrogate.py --model schnet --forces);
+``spherenet_nk_force`` runs main path 5a (SphereNet 4 x 128, n=3, k=6,
+bf16, on the unblocked [N, K] table with K=16, fused_triplet_product with
+basis gradients, energy+force through make_step_fns, MoleculeLoader
+batches of 96, Adam(5e-4), p = 100).
 Traces a few steady
 steps with torch.profiler and prints the
 step's host time, the device's busy and idle share, device time by
@@ -136,13 +140,32 @@ def schnet_force(dev, steps):
     return step, [next(it) for _ in range(steps)]
 
 
+def spherenet_nk_force(dev, steps):
+    from dig_tpu_torch.datasets import MoleculeLoader, synthetic_molecules
+    from dig_tpu_torch.models import SphereNet
+    from dig_tpu_torch.train import make_step_fns
+
+    mols = synthetic_molecules(96 * (steps + 1), seed=0, min_atoms=12,
+                               max_atoms=29, box=6.0, with_forces=True)
+    mols = [dict(m, y=m["y"][:1]) for m in mols]
+    it = iter(MoleculeLoader(mols, 96, shuffle=True, seed=0, device=dev))
+    model = SphereNet(cutoff=5.0, num_layers=4, hidden_channels=128,
+                      num_spherical=3, num_radial=6, nk_degree=16,
+                      block_size=0, compute_dtype=torch.bfloat16,
+                      pallas_triplet=True, device=dev)
+    opt = torch.optim.Adam(model.parameters(), lr=5e-4)
+    step, _ = make_step_fns(model, opt, energy_and_force=True, p=100.0)
+    return step, [next(it) for _ in range(steps)]
+
+
 def main():
     from torch.profiler import DeviceType, ProfilerActivity, profile
 
     which = sys.argv[1] if len(sys.argv) > 1 else "schnet_dense"
     paths = {"schnet_dense": schnet_dense, "spherenet": spherenet,
              "spherenet_force": spherenet_force,
-             "schnet_force": schnet_force}
+             "schnet_force": schnet_force,
+             "spherenet_nk_force": spherenet_nk_force}
     if which not in paths:
         sys.exit(f"unknown path {which!r}; one of {sorted(paths)}")
     if not torch.cuda.is_available():
@@ -186,7 +209,8 @@ def main():
               f"{c // TRACED:5d}x  {name[:90]}")
     print("the port's own kernels:")
     for name, (t, c) in top:
-        if any(k in name for k in ("cfconv", "triplet_slot", "segment_csr")):
+        if any(k in name for k in ("cfconv", "triplet_slot", "segment_csr",
+                                   "triplet_product")):
             print(f"  {t / TRACED:8.3f} ms/step {t / total_kernel_ms:6.3f} "
                   f"{c // TRACED:5d}x  {name[:90]}")
     print("host operators by self CPU time:")

@@ -120,23 +120,38 @@ def test_geometry_and_position_gradients(name):
 
 
 def test_basis_tables_on_a_grid():
-    n, k = 3, 6
+    """n = 3 (the slot paths) and the tables DimeNet++ builds at its
+    published n = 7, k = 6 (Bessel and Y_l^0). At n = 7 the closed forms of
+    j_l up to l = 6 cancel terms of order 1/x^7 near x = 0.05 in float32
+    (the two libraries round them differently, 4.8e-4 of the table's
+    largest value on this grid), so the n = 7 Bessel table is held to 1e-3
+    of its largest value."""
     x = np.linspace(0.05, 1.0, 40, dtype=np.float32)
     th = np.linspace(0.0, np.pi, 40, dtype=np.float32)
     ph = np.linspace(0.0, 2 * np.pi, 40, dtype=np.float32)
+    n, k = 3, 6
     cases = [
         (jbasis.bessel_table(n, k, x),
-         tbasis.bessel_table(n, k, torch.tensor(x)), 1e-4),
+         tbasis.bessel_table(n, k, torch.tensor(x)), 1e-4, 1e-4),
         (jbasis.sph_m0_table(n, th),
-         tbasis.sph_m0_table(n, torch.tensor(th)), 1e-5),
+         tbasis.sph_m0_table(n, torch.tensor(th)), 1e-5, 1e-5),
         (jbasis.sph_full_table(n, th, ph),
-         tbasis.sph_full_table(n, torch.tensor(th), torch.tensor(ph)), 1e-5),
-        (jbasis.Envelope(5)(x), tbasis.Envelope(5)(torch.tensor(x)), 1e-5),
+         tbasis.sph_full_table(n, torch.tensor(th), torch.tensor(ph)), 1e-5,
+         1e-5),
+        (jbasis.Envelope(5)(x), tbasis.Envelope(5)(torch.tensor(x)), 1e-5,
+         1e-5),
     ]
-    for want, got, tol in cases:
+    b7 = np.asarray(jbasis.bessel_table(7, 6, x))
+    cases += [
+        (b7, tbasis.bessel_table(7, 6, torch.tensor(x)), 1e-4,
+         1e-3 * np.abs(b7).max()),
+        (jbasis.sph_m0_table(7, th), tbasis.sph_m0_table(7, torch.tensor(th)),
+         1e-5, 1e-5),
+    ]
+    for want, got, rtol, atol in cases:
         assert tuple(got.shape) == np.shape(want)
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=tol,
-                                   atol=tol)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=rtol,
+                                   atol=atol)
 
 
 @pytest.mark.parametrize("which", ["nk_gather_nodes", "expand_kj"])

@@ -167,8 +167,6 @@ def test_energy_and_force_raises(basis_grads, err):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (dict(nk_degree=8, block_size=0), "queue 1 item 9"),
-    (dict(pallas_triplet=True), "fused_triplet_product"),
     (dict(pallas_triplet=True, pallas_fuse_basis=True), "fused_triplet_pt"),
     (dict(remat=True), "remat"),
 ])
