@@ -6,8 +6,8 @@
 Phases, each printed as it runs; any failure exits non-zero:
   1. card: name, count, power limit (nvidia-smi)
   2. build: nvcc builds csrc/cfconv.cu, csrc/triplet_slot.cu,
-     csrc/segment_csr.cu and csrc/triplet_product.cu for sm_90a, all at
-     once; the -Xptxas -v reports
+     csrc/segment_csr.cu, csrc/triplet_product.cu and csrc/triplet_pt.cu
+     for sm_90a, all at once; the -Xptxas -v reports
   3. kernel vs plain: cfconv forward and all six gradients against the plain
      PyTorch version on the card, at the SchNetDense bucket shapes, in f32
      and bf16, need_dist_grad on and off; repeated backwards bitwise equal
@@ -25,7 +25,9 @@ Phases, each printed as it runs; any failure exits non-zero:
   7. main path 2: SphereNet (bench.py bench_spherenet: 4 x 128, n=3, k=6,
      K=16, slots of 29 atoms, bf16, slot kernel) takes Adam steps on
      MoleculeLoader batches through make_step_fns; 4 + 4 triplet_slot
-     launches per step; the first step's loss and gradients are held
+     launches per step, and 6 segment-sum launches (the per-graph
+     readouts, layers + 1, and the embedding gather's adjoint); the first
+     step's loss and gradients are held
      against the unfused branch of the same weights; radius_blocked_dropped
      must be 0; one eval pass through ThreeDEvaluator
   8. times: step ms, edges/s; per-layer triplet_slot kernel ms beside the
@@ -40,7 +42,8 @@ Phases, each printed as it runs; any failure exits non-zero:
      BucketedMoleculeLoader slots {16: 27, 24: 43, 29: 26}, loss
      |E-y| + 100 |F_pred-F| per real graph, Adam) through
      make_bucketed_step_fns; per step 12 forward, 24 backward and 12
-     second-order triplet_slot launches; the first step's loss and
+     second-order triplet_slot launches and 18 segment sums (readouts and
+     embedding gathers); the first step's loss and
      gradients held against the unfused branch (f32), and the bf16
      gradient against the f32 one by cosine and per-parameter norm;
      finite forces;
@@ -56,15 +59,16 @@ Phases, each printed as it runs; any failure exits non-zero:
      examples/threedgraph/run_morse_surrogate.py --model schnet --forces
      (4 x 128, 128 filters, 50 Gaussians, cutoff 5, max_edges 16384, f32,
      batches of 24 in slots of 29, Adam(1e-3), p = 100) with
-     segment_eb=1024, through make_step_fns(energy_and_force=True); 8
-     segment-sum launches per step; radius_overflow and csr_block_overflow
+     segment_eb=1024, through make_step_fns(energy_and_force=True); 18
+     segment-sum launches per step (edge->node sums, the readout, the row
+     gathers' adjoints); radius_overflow and csr_block_overflow
      0; finite forces; the first step's loss and gradients held against
      segment_eb=0 of the same weights; then one short
      Run3D(energy_and_force=True, slot_size=29) epoch
  14. main path 4b: flat SphereNet energy training at the tutorial's widths
      (tutorials/threedgraph.md: 4 x 128, int_emb 64, basis 8/8/8, out_emb
      256, n=3, k=6, cutoff 5, f32) with max_edges 16384, max_in_degree 32,
-     segment_eb=1024, MoleculeLoader batches of 32, Adam(5e-4); 5
+     segment_eb=1024, MoleculeLoader batches of 32, Adam(5e-4); 13
      segment-sum launches per step; the same checks
  15. times: both flat steps in ms and edges/s; the segment-sum kernel per
      call at both paths' shapes beside its byte bound, its plain version
@@ -79,7 +83,9 @@ Phases, each printed as it runs; any failure exits non-zero:
      layout (bench_spherenet_force's widths, nk_degree 16, block_size 0,
      pallas_triplet; MoleculeLoader batches of 96, Adam(5e-4), p = 100)
      through make_step_fns; per step 4 forward, 8 backward and 4
-     second-order triplet_product launches; the first step held against the
+     second-order triplet_product launches (no triplet_pt launch) and 6
+     segment sums (readouts, embedding gather); the first step held
+     against the
      unfused branch (f32 1e-4 / 1e-3, bf16 by direction and size); finite
      forces; the uncapped pairs beside the kept NK edges
  18. main path 5b: DimeNet++ energy training (its published defaults, n=7,
@@ -89,14 +95,39 @@ Phases, each printed as it runs; any failure exits non-zero:
  19. times: both steps in ms and edges/s; each triplet_product kernel per
      layer at both paths' shapes beside its bound and the plain version,
      the forward also beside the torch.einsum that computes it
+ 20. kernel vs plain: fused_triplet_pt at path 6a's shape (SphereNet's
+     packed basis of a real batch, R = 30) and 6b's (DimeNet++'s, R = 49,
+     no torsion), f32 and bf16: the forward, the backward with dpt asked
+     for and not, the second order with u4 = u5 absent and all present;
+     masked triplets' rows and columns exactly 0; repeated calls bitwise
+     equal
+ 21. main path 6a: SphereNet energy+force on the unblocked NK layout with
+     the packed basis (path 5a's widths and batches, pallas_triplet and
+     pallas_fuse_basis: basis_pt once per forward, fused_triplet_pt in
+     every layer) through make_step_fns; per step 4 forward, 8 backward and
+     4 second-order triplet_pt launches, no triplet_product launch, 6
+     segment sums; the first step held against the unfused branch
+     (f32 1e-4 / 1e-3, bf16 by direction and size); finite forces
+ 22. main path 6b: DimeNet++ at its published widths (n=7, k=6, out_emb
+     256), energy+force on the same table through fused_triplet_pt without
+     torsion; the same checks and launch counts
+ 23. repeatability: one step of paths 3, 4a and 6a from the same seeded
+     state, each in two fresh processes (chip_smoke.py --repeat-step PATH
+     OUT), gives the same bits for the loss and every parameter after Adam
+ 24. times: each triplet_pt kernel per layer at paths 6a's and 6b's
+     shapes beside its byte bound, the plain version and, for the
+     forward, the einsum over sbf and tbf assembled outside the timed
+     call; both steps in ms and edges/s
 The card's name and power limit (nvidia-smi), then the kernels as JSON,
 are the two lines before the last; the last line is
 {"ok": true, "device": {...}}.
 """
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 CUTOFF, LAYERS, HIDDEN, GAUSSIANS = 5.0, 4, 128, 50
@@ -232,6 +263,30 @@ NK_C = 64                                  # int_emb_size: the kernels' C
 # outputs of the second-order kernel (wsb, wtb, ctb) are held to the f32
 # bound in both types.
 NK_TOL = {"f32": 1e-4, "bf16": 1e-2}
+
+# SphereNet (path 6a) and DimeNet++ (path 6b) energy+force on the same
+# unblocked table with the packed basis: pallas_triplet and
+# pallas_fuse_basis without the slot kernel, so basis_pt builds the [R, T]
+# table once per forward and every layer runs fused_triplet_pt (the round-3
+# force ladder's "packed transposed basis" rung, docs/performance.md:102).
+# 6a at path 5a's widths; 6b at DimeNetPP's published defaults (n = 7,
+# k = 6, out_emb 256), with basis gradients for the force loss. The same
+# batches, Adam(5e-4), p = 100, bf16.
+PT_PATHS = ("6a", "6b")
+DP6_KW = dict(nk_degree=16, block_size=0)
+# first force step of path 6b, kernel branch vs the unfused one: the f32
+# force loss of DimeNet++ at n = 7 is ill-conditioned, so its loss bound
+# holds the energy term and the force term gets a bound of its own (the
+# third entry). The spherical Bessel closed forms up to l = 6 cancel
+# catastrophically at short k-j distances (x = d_kj / cutoff down to 0.06
+# in this data) and the forces are their derivatives: on the CPU the
+# unfused branch's own f32 force term moves by 1.2e-4 when only the thread
+# count (the order of its matmul sums) changes, on 8 molecules, while its
+# energy term moves by 4e-6 (scripts/force_conditioning.py). Energy term
+# 1e-4 and every parameter's gradient 1e-3 as on the other force paths;
+# the force term 1e-2, which a dropped or wrong position path (an O(1)
+# change) fails.
+DP6_STEP_TOL = {"f32": (1e-4, 1e-3, 1e-2), "bf16": (5e-2, None)}
 
 
 def log(*a):
@@ -701,33 +756,52 @@ def first_step_vs_plain(torch, labels, make_model, make_step, batch, tols):
     gradient bound)}; ``labels`` names the two branches. The gradient bound
     holds every parameter's ||a-b|| / ||b||. None in its place (bf16 force
     steps) holds the kernel branch's gradient to the f32 plain one by
-    direction and size instead (SF_BF16_COS, SF_BF16_NORM). Returns the
-    errors per precision."""
+    direction and size instead (SF_BF16_COS, SF_BF16_NORM). A third entry
+    (DP6_STEP_TOL) makes the loss bound hold the energy term of a force
+    step and bounds the force term by itself. Returns the errors per
+    precision."""
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
     errs, truth = {}, None
-    for prec, (tol_loss, tol_grad) in tols.items():
-        res = {}
+    for prec, tol in tols.items():
+        tol_loss, tol_grad = tol[:2]
+        tol_force = tol[2] if len(tol) > 2 else None
+        res, terms = {}, {}
         for kernel in (True, False):
             m = make_model(dtypes[prec], kernel)
             step = make_step(m, torch.optim.SGD(m.parameters(), lr=0.0))
-            loss = float(step(batch)["loss"])
+            aux = step(batch)
+            loss = float(aux["loss"])
+            terms[kernel] = {k: float(v) for k, v in aux.items()
+                             if k in ("e_loss", "f_loss")}
             res[kernel] = (loss, [p.grad.float() for p in m.parameters()])
             names = [n for n, _ in m.named_parameters()]
             del m, step
             torch.cuda.empty_cache()
         (lk, gk), (lp, gp) = res[True], res[False]
         loss_err = abs(lk - lp) / abs(lp)
+        if tol_force is not None:
+            rel = {k: abs(terms[True][k] - terms[False][k])
+                   / abs(terms[False][k]) for k in ("e_loss", "f_loss")}
+            log(f"  first step {prec}: energy term {labels[0]} "
+                f"{terms[True]['e_loss']:.7f} {labels[1]} "
+                f"{terms[False]['e_loss']:.7f} (rel {rel['e_loss']:.3e}, "
+                f"held to {tol_loss}); force term rel {rel['f_loss']:.3e} "
+                f"(held to {tol_force})")
+            if not math.isfinite(lk) or rel["f_loss"] >= tol_force:
+                fail(f"first-step force term {prec}: {terms}")
+            loss_err = rel["e_loss"]
         per = sorted(((rel_norm(torch, [a], [b]), n)
                       for a, b, n in zip(gk, gp, names)), reverse=True)
         whole = rel_norm(torch, gk, gp)
         log(f"  first step {prec}: loss {labels[0]} {lk:.7f} {labels[1]} "
-            f"{lp:.7f} (rel {loss_err:.3e}); gradient rel-norm err "
+            f"{lp:.7f} ({'energy term ' if tol_force else ''}rel "
+            f"{loss_err:.3e}); gradient rel-norm err "
             f"{whole:.3e} over all parameters, median parameter "
             f"{per[len(per) // 2][0]:.3e}, worst "
             + ", ".join(f"{n} {e:.3e}" for e, n in per[:3]))
         if not math.isfinite(lk) or loss_err >= tol_loss:
             fail(f"first-step loss {prec}: {labels[0]} {lk} vs {labels[1]} "
-                 f"{lp}")
+                 f"{lp} (rel {loss_err})")
         errs[prec] = {"loss_rel_err": loss_err, "grad_rel_err": whole,
                       "worst_param": per[0]}
         if truth is None:                       # f32
@@ -758,7 +832,19 @@ def first_step_vs_plain(torch, labels, make_model, make_step, batch, tols):
     return errs
 
 
-def phase_sn_main_path(torch, cf, ts, dev, batches):
+def readout_launches(sc, want, what):
+    """The sorted-CSR sums of a SphereNet step on the NK or slot layout
+    must have gone through the segment-sum kernel: per model call the
+    L + 1 per-graph readouts (their adjoints are row gathers, and the force
+    loss's inner pass feeds them a constant) and, in the backward, the
+    adjoint of the atom-embedding gather: L + 2."""
+    if sc.launches != want:
+        fail(f"{what}: {sc.launches} segment-sum launches, expected {want} "
+             f"(the readouts and the embedding gather's adjoint)")
+    return sc.launches
+
+
+def phase_sn_main_path(torch, cf, ts, sc, dev, batches):
     from dig_tpu_torch.threed import ThreeDEvaluator
     from dig_tpu_torch.train import make_step_fns
     step_errs = first_step_vs_plain(
@@ -779,8 +865,7 @@ def phase_sn_main_path(torch, cf, ts, dev, batches):
     opt = torch.optim.Adam(model.parameters(), lr=5e-4)
     train_step, eval_step = make_step_fns(model, opt, loss="l1",
                                           target_key="energy")
-    cf.reset_launch_counts()
-    ts.reset_launch_counts()
+    reset_all(cf, ts, sc)
     losses, t_start = [], None
     for s, b in enumerate(batches):
         if s == SN_WARMUP:
@@ -792,10 +877,13 @@ def phase_sn_main_path(torch, cf, ts, dev, batches):
     launches = (ts.launches_fwd, ts.launches_bwd)
     losses = [float(x) for x in losses]
     want = SN_KW["num_layers"] * len(batches)
+    seg = readout_launches(sc, (SN_KW["num_layers"] + 2) * len(batches),
+                           "path 2")
     log(f"  {len(batches)} Adam steps, losses {[round(x, 5) for x in losses]}")
     log(f"  triplet_slot launches fwd {launches[0]} bwd {launches[1]} "
-        f"(layers x steps = {want}); cfconv {cf.launches_fwd} "
-        f"{cf.launches_bwd}")
+        f"(layers x steps = {want}); segment sum {seg} ((layers + 2) x "
+        f"steps: the readouts, the embedding gather's adjoint); cfconv "
+        f"{cf.launches_fwd} {cf.launches_bwd}")
     if not all(math.isfinite(x) for x in losses):
         fail("non-finite SphereNet loss")
     if launches != (want, want):
@@ -1008,7 +1096,7 @@ def agreement(torch, g, ref, names):
             "least": ratios[0], "largest": ratios[-1]}
 
 
-def phase_sf_main_path(torch, cf, ts, dev, batches):
+def phase_sf_main_path(torch, cf, ts, sc, dev, batches):
     from dig_tpu_torch.threed import ThreeDEvaluator
     from dig_tpu_torch.train import make_bucketed_step_fns
     step_errs = first_step_vs_plain(
@@ -1030,8 +1118,7 @@ def phase_sf_main_path(torch, cf, ts, dev, batches):
              f"are not slot-aligned")
     opt = torch.optim.Adam(model.parameters(), lr=5e-4)
     train_step, eval_step = make_bucketed_step_fns(model, opt, p=SF_P)
-    cf.reset_launch_counts()
-    ts.reset_launch_counts()
+    reset_all(cf, ts, sc)
     losses, t_start = [], None
     for s, bs in enumerate(batches):
         if s == SF_WARMUP:
@@ -1044,10 +1131,15 @@ def phase_sf_main_path(torch, cf, ts, dev, batches):
     losses = [float(x) for x in losses]
     calls = SN_KW["num_layers"] * len(SF_SLOTS) * len(batches)
     want = (calls, 2 * calls, calls)
+    seg = readout_launches(
+        sc, (SN_KW["num_layers"] + 2) * len(SF_SLOTS) * len(batches),
+        "path 3")
     log(f"  {len(batches)} Adam steps, losses {[round(x, 4) for x in losses]}")
     log(f"  triplet_slot launches fwd {launches[0]} bwd {launches[1]} bwd2 "
         f"{launches[2]} (layers x buckets x steps = {calls}: the backward "
         f"once with dpt under create_graph and once in the outer pass); "
+        f"segment sum {seg} ((layers + 2) x buckets x steps: the readouts, "
+        f"the embedding gather's adjoint); "
         f"cfconv {cf.launches_fwd} {cf.launches_bwd}")
     if not all(math.isfinite(x) for x in losses):
         fail("non-finite force-training loss")
@@ -1388,11 +1480,14 @@ def phase_fs_main_path(torch, cf, ts, sc, dev, batches):
     losses, dt = timed_steps(torch, train_step, batches, FS_WARMUP)
     launches = sc.launches
     others_idle(cf, ts, "path 4a")
-    want = 2 * FS_KW["num_layers"] * len(batches)
+    want = (4 * FS_KW["num_layers"] + 2) * len(batches)
     log(f"  {len(batches)} Adam steps, losses {[round(x, 4) for x in losses]}")
-    log(f"  segment-sum launches {launches} (2 x layers x steps = {want}: "
-        f"each layer's forward, and the outer backward where the force "
-        f"graph's row gathers re-enter the sum)")
+    log(f"  segment-sum launches {launches} ((4 x layers + 2) x steps = "
+        f"{want}: per layer the edge->node sum in the forward and in the "
+        f"outer backward, where the force graph's row gathers re-enter it, "
+        f"and the sender gather's adjoint in the inner and the outer "
+        f"backward; the readout, and the inner backward's adjoints of the "
+        f"two position gathers of the edge lengths)")
     if not all(math.isfinite(x) for x in losses):
         fail("path 4a: non-finite loss")
     if launches != want:
@@ -1435,11 +1530,13 @@ def phase_fs_run3d(torch, sc, dev):
                       slot_size=FS_SLOT, device=dev)
     torch.cuda.synchronize()
     n, L = sc.launches, FS_KW["num_layers"]
-    want = 4 * 2 * L + 2 * L        # 4 force steps, 2 evaluation batches
+    # 4 force steps, 2 evaluation batches (a forward and its backward for
+    # the forces)
+    want = 4 * (4 * L + 2) + 2 * (2 * L + 2)
     log(f"  Run3D epoch: best valid MAE {res['best_valid']:.5f}, test "
         f"{res['best_test']:.5f}; {n} segment-sum launches (expected {want}:"
-        f" {2 * L} per training step, {L} per evaluation batch); "
-        f"{time.perf_counter() - t:.1f} s")
+        f" {4 * L + 2} per training step, {2 * L + 2} per evaluation "
+        f"batch); {time.perf_counter() - t:.1f} s")
     if not (math.isfinite(res["best_valid"])
             and math.isfinite(res["best_test"])):
         fail("Run3D flat SchNet: non-finite MAE")
@@ -1469,10 +1566,12 @@ def phase_sp_main_path(torch, cf, ts, sc, dev, batches):
     launches = sc.launches
     others_idle(cf, ts, "path 4b")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    want = (SP_KW["num_layers"] + 1) * len(batches)
+    want = (2 * SP_KW["num_layers"] + 5) * len(batches)
     log(f"  {len(batches)} Adam steps, losses {[round(x, 5) for x in losses]}")
-    log(f"  segment-sum launches {launches} ((layers + 1) x steps = {want}); "
-        f"peak device memory {peak:.2f} GiB")
+    log(f"  segment-sum launches {launches} ((2 x layers + 5) x steps = "
+        f"{want}: the layers + 1 edge->node sums, the layers + 1 readouts, "
+        f"the adjoints of the embedding gather and of the two row gathers "
+        f"of the first block); peak device memory {peak:.2f} GiB")
     if not all(math.isfinite(x) for x in losses):
         fail("path 4b: non-finite loss")
     if launches != want:
@@ -1581,11 +1680,15 @@ def nk_batches(torch, dev, n):
 
 
 def nk_model(torch, dev, cd, fused, path):
-    """Path 5a's SphereNet or path 5b's DimeNet++ on the unblocked table,
-    the fused branch (``pallas_triplet``) or the unfused one."""
+    """The SphereNet of paths 5a / 6a or the DimeNet++ of paths 5b / 6b on
+    the unblocked table, the fused branch or the unfused one: on paths 5a
+    and 5b ``pallas_triplet`` (the triplet product), on 6a and 6b
+    ``pallas_triplet`` with ``pallas_fuse_basis`` (the packed basis)."""
     from dig_tpu_torch.models import DimeNetPP, SphereNet
-    M, kw = (SphereNet, NK_KW) if path == "5a" else (DimeNetPP, DP_KW)
-    return M(**kw, pallas_triplet=fused, compute_dtype=cd,
+    M, kw = {"5a": (SphereNet, NK_KW), "5b": (DimeNetPP, DP_KW),
+             "6a": (SphereNet, NK_KW), "6b": (DimeNetPP, DP6_KW)}[path]
+    packed = dict(pallas_fuse_basis=fused) if path in PT_PATHS else {}
+    return M(**kw, **packed, pallas_triplet=fused, compute_dtype=cd,
              generator=torch.Generator().manual_seed(0), device=dev)
 
 
@@ -1641,7 +1744,7 @@ def nk_vjp(torch, tp, args, ct, K, basis):
     ws, wt) through the autograd tower (None for an absent input)."""
     xs = [None if a is None else a.clone().requires_grad_()
           for a in args[:5]]
-    out = tp.fused_triplet_product(*xs, args[5], K, basis)
+    out = tp.fused_triplet_product(*xs, args[5], K, basis_grads=basis)
     live = [x for x in xs if x is not None]
     g = iter(torch.autograd.grad(out, live, ct))
     return out, [None if x is None else next(g) for x in xs]
@@ -1744,19 +1847,24 @@ def phase_nk_kernel_vs_plain(torch, tp, inputs):
     return errs
 
 
-def phase_nk_main_path(torch, cf, ts, sc, tp, dev, batches, path):
+def phase_nk_main_path(torch, cf, ts, sc, tp, tpt, dev, batches, path):
     """Path 5a (SphereNet energy+force) or 5b (DimeNet++ energy) through
-    make_step_fns with Adam(5e-4), bf16: launch counts, finite losses (and
+    the triplet product, or 6a (SphereNet) or 6b (DimeNet++ at its
+    published widths) energy+force through the packed basis, with
+    make_step_fns and Adam(5e-4), bf16: launch counts, finite losses (and
     forces), uncapped pairs beside the kept NK edges, step ms and edges/s."""
     from dig_tpu_torch.threed import ThreeDEvaluator
     from dig_tpu_torch.train import make_step_fns
-    force = path == "5a"
+    force = path != "5b"
+    op, other = (tpt, tp) if path in PT_PATHS else (tp, tpt)
+    op_name = "triplet_pt" if path in PT_PATHS else "triplet_product"
     step_errs = first_step_vs_plain(
         torch, ("fused", "unfused"),
         lambda cd, fused: nk_model(torch, dev, cd, fused, path),
         lambda m, opt: make_step_fns(m, opt, energy_and_force=force, p=NK_P,
                                      loss="l1")[0],
-        batches[0], SF_STEP_TOL if force else SN_STEP_TOL)
+        batches[0], (DP6_STEP_TOL if path == "6b" else SF_STEP_TOL) if force
+        else SN_STEP_TOL)
     model = nk_model(torch, dev, torch.bfloat16, True, path)
     with torch.no_grad():
         counts = [nk_pair_counts(torch, b, model.geometry(b.nodes["pos"], b))
@@ -1767,25 +1875,29 @@ def phase_nk_main_path(torch, cf, ts, sc, tp, dev, batches, path):
     torch.cuda.reset_peak_memory_stats()
     reset_all(cf, ts, sc)
     tp.reset_launch_counts()
+    tpt.reset_launch_counts()
     warm = NK_WARMUP
     losses, dt = timed_steps(torch, train_step, batches, warm)
-    launches = (tp.launches_fwd, tp.launches_bwd, tp.launches_bwd2)
+    launches = (op.launches_fwd, op.launches_bwd, op.launches_bwd2)
     others_idle(cf, ts, f"path {path}")
-    if sc.launches:
-        fail(f"path {path}: segment-sum kernel launched {sc.launches}")
+    if other.launches_fwd or other.launches_bwd or other.launches_bwd2:
+        fail(f"path {path}: the other triplet kernels launched")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     L, n = len(model.update_es), len(batches)
+    seg = readout_launches(sc, (L + 2) * n, f"path {path}")
     want = (L * n, 2 * L * n, L * n) if force else (L * n, L * n, 0)
     log(f"  {n} Adam steps, losses {[round(x, 4) for x in losses]}")
-    log(f"  triplet_product launches fwd {launches[0]} bwd {launches[1]} bwd2 "
+    log(f"  {op_name} launches fwd {launches[0]} bwd {launches[1]} bwd2 "
         f"{launches[2]} (expected {want}: per step and layer one forward"
         + (", the backward in the inner create_graph pass and in the outer "
            "pass, one second order)" if force else ", one backward)")
-        + f"; peak device memory {peak:.2f} GiB")
+        + f"; no other triplet kernel; segment sum {seg} ((layers + 2) x "
+        f"steps: the readouts, the embedding gather's adjoint); peak device "
+        f"memory {peak:.2f} GiB")
     if not all(math.isfinite(x) for x in losses):
         fail(f"path {path}: non-finite loss")
     if launches != want:
-        fail(f"path {path}: triplet_product launches {launches} != {want}")
+        fail(f"path {path}: {op_name} launches {launches} != {want}")
     out = eval_step(batches[0])
     m = out["graph_mask"]
     mae = ThreeDEvaluator().eval({"y_pred": out["y_pred"][m],
@@ -1795,7 +1907,7 @@ def phase_nk_main_path(torch, cf, ts, sc, tp, dev, batches, path):
     fmax = None
     if force:
         if not bool(torch.isfinite(out["force_pred"]).all()):
-            fail("path 5a: non-finite forces")
+            fail(f"path {path}: non-finite forces")
         fmax = float(out["force_pred"].abs().max())
     timed = n - warm
     pairs = sum(c[0] for c in counts[warm:])
@@ -1936,6 +2048,344 @@ def phase_nk_times(torch, tp, inputs):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# The packed basis on the unblocked NK layout: fused_triplet_pt
+# ---------------------------------------------------------------------------
+
+def pt_kernel_inputs(torch, dev, batch, path):
+    """The operands of the path's packed-basis product at one layer from a
+    real batch: the model's own pt [R, T] (basis_pt of its geometry) and
+    triplet mask, xg the raw expand_kj_raw gather of seeded edge rows
+    (garbage at masked triplets, as on the path), seeded weights at the
+    path's widths (wt a [1, C] zero dummy without torsion), the output
+    cotangent and the second-order cotangents u1 (of dxg), u2 (of dpt), u4,
+    u5; all float32. ``work`` counts the real triplets and the edges that
+    own one."""
+    from dig_tpu_torch.ops.triplet_pt import basis_pt
+    from dig_tpu_torch.ops.triplets import expand_kj_raw
+    model = nk_model(torch, dev, torch.float32, True, path)
+    n, k, has_t = model.num_spherical, model.num_radial, model.use_torsion
+    with torch.no_grad():
+        geo = model.geometry(batch.nodes["pos"], batch)
+        pt = basis_pt(n, k, geo.angle, geo.phi, geo.dist_kj / model.cutoff,
+                      has_t)
+        K = model.nk_degree
+        E = geo.nkg.senders.shape[0]
+        gen = torch.Generator(device="cpu").manual_seed(8)
+        r = lambda *s: torch.randn(*s, generator=gen).to(dev)
+        xg = expand_kj_raw(r(E, NK_C), geo.trip)
+    nk, ntk = n * k, (n * n * k if has_t else 1)
+    m2 = geo.trip.mask.reshape(E, K).float()
+    T = E * K
+    return {"xg": xg, "pt": pt, "ws": r(nk, NK_C) * nk ** -0.5,
+            "wt": (r(ntk, NK_C) * ntk ** -0.5 if has_t
+                   else torch.zeros(1, NK_C, device=dev)),
+            "m2": m2, "ct": r(E, NK_C), "K": K, "cfg": (n, k, has_t),
+            "us": [r(T, NK_C), r(*pt.shape), r(nk, NK_C), r(ntk, NK_C)],
+            "work": {"triplets": int(m2.sum()),
+                     "edges": int((m2 != 0).any(1).sum())}}
+
+
+def pt_args(torch, inp, dt):
+    """(xg, pt, ws, wt, m2) in the path's compute type ``dt``."""
+    return [inp[k].to(dt) for k in ("xg", "pt", "ws", "wt", "m2")]
+
+
+def pt_vjp(torch, tpt, args, ct, K, cfg, need_dpt):
+    """The op's output and its gradients with respect to (xg, pt, ws, wt)
+    through the autograd tower (pt's None unless need_dpt, wt's None
+    without torsion)."""
+    live = [True, need_dpt, True, cfg[2]]
+    xs = [a.clone().requires_grad_(f) for a, f in zip(args[:4], live)]
+    out = tpt.fused_triplet_pt(*xs, args[4], K, 128, cfg)
+    g = iter(torch.autograd.grad(out, [x for x in xs if x.requires_grad],
+                                 ct))
+    return out, [next(g) if x.requires_grad else None for x in xs]
+
+
+def masked_zero(a, masked):
+    """Whether the rows (xg-shaped) or columns (pt-shaped) of masked
+    triplets are exactly 0."""
+    if a.shape[0] == masked.shape[0]:
+        return float(a[masked].abs().max()) == 0.0
+    return float(a[:, masked].abs().max()) == 0.0
+
+
+def phase_pt_kernel_vs_plain(torch, tpt, inputs):
+    """Every triplet_pt kernel against its plain version at paths 6a's and
+    6b's shapes, f32 and bf16: the forward; the backward with dpt asked for
+    and not; the second order with u4 = u5 absent and with all present.
+    Masked triplets' rows and columns exactly 0; repeated calls the same
+    bits. The second order's float32 outputs (wsb, wtb, ctb) are held to
+    the f32 bound against the plain version, which computes in float32
+    from the same operands. Returns the largest absolute error per kernel
+    in path 6a's setting (bf16, dpt asked for, u4 = u5 absent)."""
+    errs = {"fwd": 0.0, "bwd": 0.0, "bwd2": 0.0}
+    for path, inp in inputs.items():
+        K, cfg = inp["K"], inp["cfg"]
+        masked = inp["m2"].reshape(-1) == 0
+        for prec, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            args = pt_args(torch, inp, dt)
+            ct = inp["ct"].to(dt)
+            line = []
+            out_k, g_k = pt_vjp(torch, tpt, args, ct, K, cfg, True)
+            torch.cuda.synchronize()
+            out_p = tpt.fused_triplet_pt_ref(*args, K, cfg)
+            want = tpt.fused_triplet_pt_bwd_ref(*args, ct, K, cfg)
+            e = rel_err(out_k, out_p)
+            line.append(f"fwd {e:.2e}")
+            if out_k.dtype != dt or e >= NK_TOL[prec]:
+                fail(f"triplet_pt forward {path} {prec}: rel err {e}")
+            for nm, a, w in zip(("dxg", "dpt", "dws", "dwt"), g_k, want):
+                if a is None:
+                    continue
+                e = rel_err(a, w)
+                line.append(f"{nm} {e:.2e}")
+                if a.dtype != dt or e >= NK_TOL[prec]:
+                    fail(f"triplet_pt {nm} {path} {prec}: rel err {e}")
+                if nm in ("dxg", "dpt") and not masked_zero(a, masked):
+                    fail(f"triplet_pt {nm}: masked triplets not 0")
+            _, g_n = pt_vjp(torch, tpt, args, ct, K, cfg, False)
+            if not all(b is None or torch.equal(a, b)
+                       for i, (a, b) in enumerate(zip(g_k, g_n)) if i != 1):
+                fail(f"triplet_pt gradients changed without dpt ({path}, "
+                     f"{prec})")
+            _, again = pt_vjp(torch, tpt, args, ct, K, cfg, True)
+            if not all(a is None or torch.equal(a, b)
+                       for a, b in zip(again, g_k)):
+                fail(f"triplet_pt backward not bitwise repeatable ({path}, "
+                     f"{prec})")
+            if prec == "bf16" and path == "6a":
+                errs["fwd"] = float((out_k.detach() - out_p).float().abs().max())
+                errs["bwd"] = max(float((a.float() - w.float()).abs().max())
+                                  for a, w in zip(g_k, want) if a is not None)
+            k_args = tpt._kernel_inputs(*args, K, cfg)
+            ct32 = ct.float().contiguous()
+            u12 = [u.to(dt) for u in inp["us"][:2]]
+            for all_u in (False, True):
+                us = u12 + (inp["us"][2:] if all_u else [None, None])
+                got = tpt.triplet_pt_bwd2_kernel(*k_args, ct32, *us, K, cfg)
+                torch.cuda.synchronize()
+                want = tpt.fused_triplet_pt_bwd2_ref(*args, ct, *us, K, cfg)
+                for nm, a, w in zip(("xb", "ptb", "wsb", "wtb", "ctb"), got,
+                                    want):
+                    if nm == "wtb" and not cfg[2]:
+                        continue
+                    if not bool(torch.isfinite(a).all()):
+                        fail(f"bwd2 {nm} not finite ({path}, {prec})")
+                    e = rel_err(a, w)
+                    tol = NK_TOL[prec] if a.dtype == dt else NK_TOL["f32"]
+                    line.append(f"{nm}{'(all u)' if all_u else ''} {e:.2e}")
+                    if e >= tol:
+                        fail(f"triplet_pt bwd2 {nm} {path} {prec} all_u="
+                             f"{all_u}: rel err {e} >= {tol}")
+                    if nm in ("xb", "ptb") and not masked_zero(a, masked):
+                        fail(f"triplet_pt bwd2 {nm}: masked triplets not 0")
+                    if path == "6a" and prec == "bf16" and not all_u:
+                        errs["bwd2"] = max(errs["bwd2"], float(
+                            (a.float() - w.float()).abs().max()))
+                again = tpt.triplet_pt_bwd2_kernel(*k_args, ct32, *us, K,
+                                                   cfg)
+                if not all(torch.equal(a, b) for a, b in zip(again, got)):
+                    fail(f"triplet_pt bwd2 not bitwise repeatable ({path}, "
+                         f"{prec})")
+            log(f"  {path} E={args[4].shape[0]} K={K} R={args[1].shape[0]} "
+                f"has_t={cfg[2]} {prec}: rel err " + ", ".join(line)
+                + "; masked triplets 0; without dpt the same other "
+                "gradients; repeated calls the same bits")
+    log(f"  max abs err (bf16 as on path 6a): fwd {errs['fwd']:.3e}, bwd "
+        f"{errs['bwd']:.3e}, bwd2 {errs['bwd2']:.3e}")
+    return errs
+
+
+REPEAT_PATHS = ("3", "4a", "6a")
+
+
+def repeat_case(torch, dev, path):
+    """(model, train step, batch) of one step of path 3, 4a or 6a from the
+    seeded state."""
+    from dig_tpu_torch.train import make_bucketed_step_fns, make_step_fns
+    adam = lambda m, lr: torch.optim.Adam(m.parameters(), lr=lr)
+    if path == "3":
+        m = sn_model(torch, dev, torch.bfloat16, True)
+        return (m, make_bucketed_step_fns(m, adam(m, 5e-4), p=SF_P)[0],
+                sf_batches(torch, dev, 1)[0])
+    if path == "4a":
+        m = fs_model(torch, dev, FS_KW["segment_eb"])
+        return (m, make_step_fns(m, adam(m, FS_LR), energy_and_force=True,
+                                 p=FS_P, loss="l1")[0],
+                fs_batches(torch, dev, 1)[0])
+    m = nk_model(torch, dev, torch.bfloat16, True, "6a")
+    return (m, make_step_fns(m, adam(m, NK_LR), energy_and_force=True,
+                             p=NK_P, loss="l1")[0],
+            nk_batches(torch, dev, 1)[0])
+
+
+def repeat_step(path, out):
+    """``chip_smoke.py --repeat-step PATH OUT``: one step of the path from
+    the seeded state in this process; the loss and the parameters after
+    Adam go to OUT (torch.save)."""
+    import torch
+    model, step, batch = repeat_case(torch, torch.device("cuda"), path)
+    loss = step(batch)["loss"]
+    torch.save({"loss": loss.detach().cpu(),
+                **{n: p.detach().cpu() for n, p in model.named_parameters()}},
+               out)
+
+
+def phase_repeat(torch):
+    """Per path, two fresh processes each take one step from the same
+    seeded state on the same batch: the loss and every parameter after
+    Adam must be the same bits. (Within one process a second force step
+    need not repeat the first: the autograd engine orders the outer
+    backward by sequence numbers that the double backward's nodes draw
+    from the device thread's counter, which runs on across steps.)"""
+    with tempfile.TemporaryDirectory() as tmp:
+        for path in REPEAT_PATHS:
+            runs = []
+            for i in range(2):
+                out = os.path.join(tmp, f"{path}_{i}.pt")
+                res = subprocess.run(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--repeat-step", path, out], capture_output=True,
+                    text=True, timeout=900)
+                if res.returncode != 0:
+                    fail(f"path {path} step process: {res.stderr[-2000:]}")
+                runs.append(torch.load(out))
+            a, b = runs
+            same = [torch.equal(a[k], b[k]) for k in a if k != "loss"]
+            log(f"  path {path}: loss {float(a['loss']):.7f} and "
+                f"{float(b['loss']):.7f}, the same bits: "
+                f"{torch.equal(a['loss'], b['loss'])}; {sum(same)} of "
+                f"{len(same)} parameters the same bits after Adam")
+            if not (torch.equal(a["loss"], b["loss"]) and all(same)):
+                fail(f"path {path}: two identical steps differ")
+
+
+def pt_bounds(args, inp, prec, kind, all_u=False):
+    """Least time for one call's work at this data: real triplets only
+    (a masked one contributes exactly zero). Bytes, in the types the
+    function takes and returns (as the JAX _run_fwd/_run_bwd/_run_bwd2
+    declare them): the xg row and the pt column of each real triplet (the
+    second order also u1's row and u2's column), the output cotangent rows
+    of the edges that own one, the mask and the weights in full in; out
+    [E, C], or dxg / xb [T, C] and dpt / ptb [R, T] and the weight
+    cotangents (ctb [E, C] in ct's type) in full out. Operations per real
+    triplet, NB = nk + ntk assembled basis rows: forward NB products for
+    the assembly, 2 C NB for the basis products and 3 C; backward (with
+    dpt, as on the force paths) the assembly and the products again, the
+    weight gradients (2 C NB), 6 C, and the basis cotangents (2 C NB) with
+    their adjoint through the assembly (about 3 NB); second order 10 C NB
+    (sv, tv; dsv, dtv; the weight gradients; the basis cotangents) and
+    20 C, about 10 NB for the assembly, its tangent and adjoints, with u4,
+    u5 4 C NB more."""
+    xg, pt, ws, wt, m2 = args
+    C, R = xg.shape[1], pt.shape[0]
+    NB = ws.shape[0] + (wt.shape[0] if wt.shape[0] > 1 else 0)
+    es, ps = xg.element_size(), pt.element_size()
+    Tr, Er = inp["work"]["triplets"], inp["work"]["edges"]
+    el = lambda t: t.numel() * t.element_size()
+    w = el(ws) + el(wt)
+    rows = Tr * (C * es + R * ps)
+    small = el(m2) + w
+    if kind == "fwd":
+        flops = Tr * (2 * C * NB + 3 * C + NB)
+        nbytes = rows + small + m2.shape[0] * C * es
+    elif kind == "bwd":
+        flops = Tr * (6 * C * NB + 6 * C + 4 * NB)
+        nbytes = rows + Er * C * es + small + el(xg) + el(pt) + w
+    else:
+        flops = Tr * (10 * C * NB + 20 * C + 10 * NB
+                      + (4 * C * NB if all_u else 0))
+        nbytes = (2 * rows + Er * C * es + small + (w if all_u else 0)
+                  + el(xg) + el(pt) + w + m2.shape[0] * C * es)
+    t_ops = flops / PEAK_FLOPS[prec]
+    t_bytes = nbytes / PEAK_BYTES
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    return max(t_ops, t_bytes) * 1e3, by, flops, nbytes
+
+
+def pt_assembled(torch, args, cfg):
+    """sbf [T, nk] and tbf [T, ntk] (None without torsion) assembled from
+    pt and rounded to its type, as the kernels form them: the operands of
+    the einsum that stands beside the forward (nk_library_fwd)."""
+    n, k, has_t = cfg
+    nk = n * k
+    f = args[1].float()
+    sbf = (f[:nk] * f[nk:nk + n].repeat_interleave(k, 0)).t()
+    tbf = ((f[nk + n:].repeat_interleave(k, 0) * f[:nk].repeat(n, 1)).t()
+           if has_t else None)
+    c = lambda t: None if t is None else t.to(args[1].dtype).contiguous()
+    return c(sbf), c(tbf)
+
+
+def phase_pt_times(torch, tpt, inputs):
+    """One call of each triplet_pt kernel per layer at each path's shape,
+    the bare launch on validated operands (CUDA events), as the force
+    paths run it (dpt asked for, u4 = u5 absent), beside its bound and the
+    plain version's time. The forward also beside the einsum over sbf and
+    tbf assembled outside the timed call (library_ms), held once to the
+    plain forward; no PyTorch call returns the backward's or the second
+    order's cotangents."""
+    rows = []
+    for path, inp in inputs.items():
+        K, cfg = inp["K"], inp["cfg"]
+        for prec, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            args = pt_args(torch, inp, dt)
+            k_args = tpt._kernel_inputs(*args, K, cfg)
+            ct = inp["ct"].to(dt)
+            ct32 = ct.float().contiguous()
+            us = [u.to(dt) for u in inp["us"][:2]] + [None, None]
+            plain = {
+                "fwd": lambda: tpt.fused_triplet_pt_ref(*args, K, cfg),
+                "bwd": lambda: tpt.fused_triplet_pt_bwd_ref(*args, ct, K,
+                                                            cfg),
+                "bwd2": lambda: tpt.fused_triplet_pt_bwd2_ref(
+                    *args, ct, *us, K, cfg)}
+            kern = {
+                "fwd": lambda: tpt.triplet_pt_forward_kernel(*k_args, K,
+                                                             cfg),
+                "bwd": lambda: tpt.triplet_pt_backward_kernel(
+                    *k_args, ct32, K, cfg, True),
+                "bwd2": lambda: tpt.triplet_pt_bwd2_kernel(
+                    *k_args, ct32, *us, K, cfg)}
+            for kind in ("fwd", "bwd", "bwd2"):
+                ms = cuda_ms(torch, kern[kind])
+                p_ms = cuda_ms(torch, plain[kind], iters=3, warmup=1)
+                b = pt_bounds(args, inp, prec, kind)
+                lib_ms = lib_err = None
+                if kind == "fwd":
+                    sbf, tbf = pt_assembled(torch, args, cfg)
+                    lib = nk_library_fwd(torch, [args[0], sbf, tbf, args[2],
+                                                 args[3] if cfg[2] else None,
+                                                 args[4]], K)
+                    lib_err = rel_err(lib(), plain["fwd"]())
+                    if prec == "f32" and lib_err >= NK_TOL["f32"]:
+                        fail(f"einsum forward {path}: rel err {lib_err} "
+                             f"against the plain forward")
+                    lib_ms = cuda_ms(torch, lib, iters=3, warmup=1)
+                    del sbf, tbf, lib
+                    torch.cuda.empty_cache()
+                rows.append({"kernel": f"triplet_pt_{kind}", "path": path,
+                             "precision": prec, "ms": ms, "plain_ms": p_ms,
+                             "bound_ms": b[0], "bound_by": b[1],
+                             "flops": b[2], "bytes": b[3],
+                             "library_ms": lib_ms, "library_err": lib_err,
+                             "triplets": inp["work"]["triplets"],
+                             "T": args[0].shape[0]})
+    for r in rows:
+        log(f"  {r['kernel']} path {r['path']} {r['precision']} "
+            f"({r['triplets']} real triplets of {r['T']}): {r['ms']:.4f} ms "
+            f"(bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
+            f"{r['bound_ms'] / r['ms']:.4f} of it; {r['flops'] / 1e9:.3f} "
+            f"GFLOP, {r['bytes'] / 1e6:.2f} MB; plain {r['plain_ms']:.3f} ms"
+            + ("" if r["library_ms"] is None else
+               f"; einsum over sbf and tbf assembled outside the timed call "
+               f"{r['library_ms']:.3f} ms, rel err {r['library_err']:.2e} "
+               f"against plain") + ")")
+    return rows
+
+
 def build_all(_build, names):
     """Build every CUDA source at once (one nvcc each); the seconds each
     took and the whole."""
@@ -1955,12 +2405,16 @@ def main():
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
+    if sys.argv[1:2] == ["--repeat-step"]:
+        repeat_step(*sys.argv[2:4])
+        return
     from dig_tpu_torch.datasets import (BucketedDenseMoleculeLoader,
                                         synthetic_molecules)
     from dig_tpu_torch.ops import _build
     from dig_tpu_torch.ops import cfconv as cf
     from dig_tpu_torch.ops import segment_csr as sc
     from dig_tpu_torch.ops import triplet_product as tp
+    from dig_tpu_torch.ops import triplet_pt as tpt
     from dig_tpu_torch.ops import triplet_slot as ts
 
     torch.backends.cuda.matmul.allow_tf32 = False   # plain version = oracle
@@ -1979,7 +2433,8 @@ def main():
         f"{torch.version.cuda}")
 
     log("== 2. build")
-    sources = ["cfconv", "triplet_slot", "segment_csr", "triplet_product"]
+    sources = ["cfconv", "triplet_slot", "segment_csr", "triplet_product",
+               "triplet_pt"]
     secs, whole = build_all(_build, sources)
     log(f"  nvcc sm_90a builds, one process per source, all at once: "
         + ", ".join(f"{n} {secs[n]:.1f} s" for n in sources)
@@ -2017,7 +2472,7 @@ def main():
     sn_errs = phase_sn_kernel_vs_plain(torch, ts, sn_inp)
 
     log("== 7. main path 2: SphereNet 4x128 bf16, slot kernel, Adam(5e-4)")
-    sn_res = phase_sn_main_path(torch, cf, ts, dev, sn_b[:SN_STEPS])
+    sn_res = phase_sn_main_path(torch, cf, ts, sc, dev, sn_b[:SN_STEPS])
 
     log("== 8. times: triplet_slot")
     sn_rows = phase_sn_times(torch, ts, sn_inp)
@@ -2031,7 +2486,7 @@ def main():
 
     log("== 10. main path 3: SphereNet energy+force 4x128 bf16, slot "
         "kernel, buckets {16: 27, 24: 43, 29: 26}, Adam(5e-4)")
-    sf_res = phase_sf_main_path(torch, cf, ts, dev, sf_b[:SF_STEPS])
+    sf_res = phase_sf_main_path(torch, cf, ts, sc, dev, sf_b[:SF_STEPS])
     phase_sf_run3d(torch, ts, dev)
 
     log("== 11. times: triplet_slot second order")
@@ -2077,22 +2532,56 @@ def main():
     log("== 17. main path 5a: SphereNet energy+force 4x128 bf16 on the "
         "unblocked NK layout (K=16), fused_triplet_product, batches of 96, "
         "Adam(5e-4)")
-    nk_res = {"5a": phase_nk_main_path(torch, cf, ts, sc, tp, dev,
+    nk_res = {"5a": phase_nk_main_path(torch, cf, ts, sc, tp, tpt, dev,
                                        nk_b[:NK_STEPS], "5a")}
     torch.cuda.empty_cache()
 
     log("== 18. main path 5b: DimeNet++ energy 4x128 bf16 (n=7, k=6) on the "
         "unblocked NK layout (K=16), fused_angle_product without basis "
         "gradients, batches of 96, Adam(5e-4)")
-    nk_res["5b"] = phase_nk_main_path(torch, cf, ts, sc, tp, dev,
+    nk_res["5b"] = phase_nk_main_path(torch, cf, ts, sc, tp, tpt, dev,
                                       nk_b[:NK_STEPS], "5b")
-    del nk_b
     torch.cuda.empty_cache()
 
     log("== 19. times: fused_triplet_product / fused_angle_product; paths "
         "5a and 5b")
     nk_rows = phase_nk_times(torch, tp, nk_inp)
     for path, r in nk_res.items():
+        log(f"  path {path}: step {r['step_ms']:.3f} ms, "
+            f"{r['edges_per_s']:.6g} edges/s (uncapped pairs), "
+            f"{r['kept_edges_per_s']:.6g} (kept NK edges)")
+    del nk_inp
+    torch.cuda.empty_cache()
+
+    log("== 20. kernel vs plain: fused_triplet_pt (paths 6a and 6b), the "
+        "packed basis and mask of a real batch")
+    pt_inp = {p: pt_kernel_inputs(torch, dev, nk_b[-1], p) for p in PT_PATHS}
+    pt_errs = phase_pt_kernel_vs_plain(torch, tpt, pt_inp)
+
+    log("== 21. main path 6a: SphereNet energy+force 4x128 bf16 on the "
+        "unblocked NK layout (K=16), the packed basis (fused_triplet_pt), "
+        "batches of 96, Adam(5e-4)")
+    pt_res = {"6a": phase_nk_main_path(torch, cf, ts, sc, tp, tpt, dev,
+                                       nk_b[:NK_STEPS], "6a")}
+    torch.cuda.empty_cache()
+
+    log("== 22. main path 6b: DimeNet++ energy+force 4x128 bf16 (n=7, k=6, "
+        "its published widths) on the same layout, the packed basis without "
+        "torsion, batches of 96, Adam(5e-4)")
+    pt_res["6b"] = phase_nk_main_path(torch, cf, ts, sc, tp, tpt, dev,
+                                      nk_b[:NK_STEPS], "6b")
+    torch.cuda.empty_cache()
+
+    del nk_b
+    torch.cuda.empty_cache()
+    log("== 23. repeatability: paths 3, 4a and 6a, one step each in two "
+        "fresh processes from the same seeded state")
+    phase_repeat(torch)
+    torch.cuda.empty_cache()
+
+    log("== 24. times: fused_triplet_pt; paths 6a and 6b")
+    pt_rows = phase_pt_times(torch, tpt, pt_inp)
+    for path, r in pt_res.items():
         log(f"  path {path}: step {r['step_ms']:.3f} ms, "
             f"{r['edges_per_s']:.6g} edges/s (uncapped pairs), "
             f"{r['kept_edges_per_s']:.6g} (kept NK edges)")
@@ -2164,6 +2653,25 @@ def main():
             "max_abs_err": nk_errs[kind], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    for kind in ("fwd", "bwd", "bwd2"):
+        r = next(r for r in pt_rows if r["kernel"] == f"triplet_pt_{kind}"
+                 and r["path"] == "6a" and r["precision"] == "bf16")
+        kernels.append({
+            "name": f"triplet_pt_{kind}", "route": "cuda",
+            "source": "dig_tpu_torch/csrc/triplet_pt.cu",
+            "replaces": "dig_tpu/ops/pallas_triplet_pt.py:"
+                        + {"fwd": "236", "bwd": "263", "bwd2": "294"}[kind],
+            "launches": sum(res["launches"][("fwd", "bwd", "bwd2").index(
+                kind)] for res in pt_res.values()),
+            "max_abs_err": pt_errs[kind], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    log("  (triplet_pt_*: one bare launch = one layer of one path-6a step, "
+        "bf16, dpt asked for, u4 = u5 absent; launches summed over the timed "
+        "runs of paths 6a and 6b; the forward's library_ms is the einsum over "
+        "sbf and tbf assembled outside the timed call; no PyTorch call "
+        "returns the backward's or the second order's cotangents, so theirs "
+        "is null)")
     log("  (triplet_product_*: one bare launch = one layer of one path-5a "
         "step, bf16, basis gradients on, u4 = u5 absent; launches summed "
         "over the timed runs of paths 5a and 5b; the forward's library_ms "

@@ -10,8 +10,9 @@ Layering (mirrors ``dig_tpu``):
   graph_dense   dense per-graph molecular batches
   graph         flat padded graph batches (and the slot-aligned layout)
   ops           bases, flat and NK radius graphs and triplet tables, the
-                fused cfconv kernel, the slot triplet kernel (to second
-                order), the sorted-CSR segment-sum kernel
+                fused cfconv kernel, the triplet product, packed-basis and
+                slot triplet kernels (to second order), the sorted-CSR
+                segment-sum kernel
   nn            shared blocks and initializers
   models        SchNet, SchNetDense, SphereNet, DimeNetPP
   train         train steps (energy, energy+force, bucketed), Run3D,
@@ -23,6 +24,7 @@ Layering (mirrors ``dig_tpu``):
 
 __version__ = "0.1.0"
 
+from . import graph, graph_dense, ops
 from .device import resolve_device
 
-__all__ = ["resolve_device", "__version__"]
+__all__ = ["graph", "graph_dense", "ops", "resolve_device", "__version__"]

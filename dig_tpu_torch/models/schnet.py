@@ -27,7 +27,7 @@ from ..graph import GraphBatch
 from ..nn.blocks import shifted_softplus
 from ..ops.basis import cosine_cutoff, gaussian_rbf
 from ..ops.radius import radius_graph_flat
-from ..ops.segment import flat_edges_to_nodes, gather_rows, segment_sum
+from ..ops.segment import flat_edges_to_nodes, gather_rows, readout_sum
 from ..ops.triplets import edge_distances
 from .schnet_dense import Interaction, _linear
 
@@ -86,4 +86,4 @@ class SchNet(nn.Module):
             v = torch.where(mask, v + out, 0.0)
 
         h = self.out2(shifted_softplus(self.out1(v)))
-        return segment_sum(h, g.node_graph, g.num_graphs, mask=g.node_mask)
+        return readout_sum(h, g.node_graph, g.num_graphs, g.node_mask)

@@ -16,7 +16,7 @@ Supported layouts:
   built over the whole batch (``block_size=0``: ``radius_graph_nk``, any
   flat batch) or per slot of a slot-aligned batch (``block_size > 0``:
   ``radius_graph_nk_blocked``, batches from
-  ``MoleculeLoader(slot_size=block_size)``). Three branches:
+  ``MoleculeLoader(slot_size=block_size)``). Four branches:
 
   - unfused (``pallas_triplet`` off): the plain chain over ``[T, C]``
     tensors (``expand_kj``, ``triplets_to_edges``);
@@ -26,6 +26,11 @@ Supported layouts:
     ``fused_angle_product``), the CUDA kernels of
     ``csrc/triplet_product.cu`` on the card; ``pallas_basis_grads=False``
     skips the basis cotangents (energy training only);
+  - the packed basis (``pallas_triplet`` and ``pallas_fuse_basis`` without
+    the slot kernel: ``block_size=0``, or ``pallas_slot`` off): the packed
+    transposed basis table ``[R, T]`` is built once, ``expand_kj_raw``
+    gathers the triplet rows and every layer's product is
+    ``fused_triplet_pt`` (``csrc/triplet_pt.cu`` on the card);
   - the slot kernel (``pallas_triplet``, ``pallas_fuse_basis`` and
     ``pallas_slot`` with ``block_size > 0``): the packed basis table
     ``[K, R, E]`` is built once and every layer's product is
@@ -47,10 +52,10 @@ blocked model, so one module (one parameter set) serves every bucket of a
 the whole batch whatever the call says.
 
 On the NK layout ``UpdateV`` is a reshape-sum and ``segment_eb`` is
-accepted and ignored, as in the JAX ``UpdateV``. Two options raise
-``NotImplementedError`` naming their ROADMAP item: ``fused_triplet_pt``
-(``pallas_fuse_basis`` on the NK layout without the slot kernel,
-``pallas_triplet_pt.py``, queue 2 item 5) and ``remat`` (queue 1 item 9).
+accepted and ignored, as in the JAX ``UpdateV``. The per-graph readout is
+``readout_sum`` (the sorted-CSR sum: bitwise repeatable on the card).
+``remat`` raises ``NotImplementedError`` naming its ROADMAP item (queue 1
+item 9).
 
 ``compute_dtype`` (e.g. ``torch.bfloat16``) casts where the JAX model
 casts: the distance embedding, the bases and the linears run in it;
@@ -73,8 +78,9 @@ from ..nn.init import glorot_orthogonal
 from ..ops.basis import Envelope, bessel_table, sph_full_table, sph_m0_table
 from ..ops.radius import (NKGraph, radius_graph_flat, radius_graph_nk,
                           radius_graph_nk_blocked)
-from ..ops.segment import flat_edges_to_nodes, gather_rows, segment_sum
+from ..ops.segment import flat_edges_to_nodes, gather_rows, readout_sum
 from ..ops.triplet_product import fused_angle_product, fused_triplet_product
+from ..ops.triplet_pt import basis_pt, fused_triplet_pt
 from ..ops.triplet_slot import basis_pt_k, fused_triplet_slot
 from ..ops.triplets import (Triplets, build_triplets, build_triplets_nk,
                             edge_distances, edges_to_nodes_nk, expand_kj,
@@ -196,7 +202,9 @@ class InitBlock(nn.Module):
 
     def forward(self, z, rbf, trip):
         w = self.embed.weight
-        x = (w if self.dtype is None else w.to(self.dtype))[z.long()]
+        # gather_rows: its adjoint (a sorted-CSR sum) repeats bit for bit on
+        # the card, where indexing's accumulates with atomics
+        x = gather_rows(w if self.dtype is None else w.to(self.dtype), z)
         rbf0 = swish(dense(rbf, self.lin_rbf0, self.dtype))
         if trip.nk_nbr is None:
             xs = gather_rows(x, trip.senders)
@@ -214,8 +222,9 @@ class InitBlock(nn.Module):
 class UpdateE(nn.Module):
     """update_e: basis projections, down-projection, the triplet product
     (``branch``: "unfused"; "product", ``fused_triplet_product`` /
-    ``fused_angle_product``; "slot", the slot kernel on ``geom``), up-
-    projection and residual stacks around a skip."""
+    ``fused_angle_product``; "pt", ``fused_triplet_pt`` on the packed table
+    ``geom``; "slot", the slot kernel on ``geom``), up-projection and
+    residual stacks around a skip."""
 
     def __init__(self, hidden: int, int_emb: int, b_dist: int, b_angle: int,
                  b_torsion: int, use_torsion: bool, num_before_skip: int,
@@ -261,37 +270,47 @@ class UpdateE(nn.Module):
         dt = self.dtype or torch.float32
         return lin1.weight.t().to(dt) @ lin2.weight.t().to(dt)
 
+    def packed_weights(self):
+        """``(ws, wt)`` of the packed-basis kernels: the composed angle and
+        torsion projections, ``wt`` a ``[1, int_emb]`` zero dummy (no
+        parameter) without torsion."""
+        ws = self.composed(self.lin_sbf1, self.lin_sbf2)
+        wt = (self.composed(self.lin_t1, self.lin_t2) if self.use_torsion
+              else torch.zeros((1, self.int_emb), dtype=ws.dtype,
+                               device=ws.device))
+        return ws, wt
+
     def forward(self, e1, rbf0, sbf, tbf, trip, branch="unfused",
                 geom=None):
-        """``geom``: ``(pt [K, R, E], m2T, lj, slot size)`` for "slot"."""
+        """``geom``: ``(pt [K, R, E], m2T, lj, slot size)`` for "slot", the
+        packed table ``pt [R, T]`` for "pt"."""
         dt = self.dtype
         x_ji = swish(dense(e1, self.lin_ji, dt))
         x_kj = swish(dense(e1, self.lin_kj, dt))
         rbf = dense(dense(rbf0, self.lin_rbf1, dt), self.lin_rbf2, dt)
         x_kj = swish(dense(x_kj * rbf, self.lin_down, dt))
+        cfg = (self.ns, self.nr, self.use_torsion)
         if branch == "slot":
             pt_s, m2t, lj, slot_atoms = geom
             K = trip.nk_nbr.shape[1]
-            ws = self.composed(self.lin_sbf1, self.lin_sbf2)
-            wt = (self.composed(self.lin_t1, self.lin_t2) if self.use_torsion
-                  else torch.zeros((1, self.int_emb), dtype=ws.dtype,
-                                   device=ws.device))
-            x_kj = fused_triplet_slot(x_kj, pt_s, ws, wt, m2t, lj,
-                                      slot_atoms, K,
-                                      (self.ns, self.nr, self.use_torsion))
-        elif branch == "product":
+            x_kj = fused_triplet_slot(x_kj, pt_s, *self.packed_weights(), m2t,
+                                      lj, slot_atoms, K, cfg)
+        elif branch in ("pt", "product"):
             # the raw gather: the kernel masks its rows and their cotangents
             K = trip.nk_nbr.shape[1]
             xg = expand_kj_raw(x_kj, trip)
             m2d = trip.mask.reshape(-1, K).to(dt or torch.float32)
-            ws = self.composed(self.lin_sbf1, self.lin_sbf2)
-            if self.use_torsion:
+            if branch == "pt":
+                x_kj = fused_triplet_pt(xg, geom, *self.packed_weights(), m2d,
+                                        K, 128, cfg)
+            elif self.use_torsion:
                 x_kj = fused_triplet_product(
-                    xg, sbf, tbf, ws, self.composed(self.lin_t1, self.lin_t2),
-                    m2d, K, basis_grads=self.basis_grads)
+                    xg, sbf, tbf, *self.packed_weights(), m2d, K,
+                    basis_grads=self.basis_grads)
             else:
-                x_kj = fused_angle_product(xg, sbf, ws, m2d, K,
-                                           basis_grads=self.basis_grads)
+                x_kj = fused_angle_product(
+                    xg, sbf, self.composed(self.lin_sbf1, self.lin_sbf2), m2d,
+                    K, basis_grads=self.basis_grads)
         else:
             s = dense(dense(sbf, self.lin_sbf1, dt), self.lin_sbf2, dt)
             x_kj = expand_kj(x_kj, trip) * s
@@ -373,14 +392,6 @@ class _SphericalMPNN(nn.Module):
         if remat:
             raise NotImplementedError("remat is not ported (ROADMAP queue 1 "
                                       "item 9)")
-        # the flat layout ignores the pallas_* flags (the JAX model's
-        # unfused fallback); on the NK layout they select a kernel
-        if (nk_degree > 0 and pallas_triplet and pallas_fuse_basis
-                and not (pallas_slot and block_size > 0)):
-            raise NotImplementedError(
-                "pallas_fuse_basis without the slot kernel (pallas_slot, "
-                "block_size > 0) is fused_triplet_pt (pallas_triplet_pt.py, "
-                "ROADMAP queue 2 item 5)")
         if compute_dtype not in (None, torch.float32, torch.bfloat16):
             raise ValueError(f"compute_dtype must be None, float32 or "
                              f"bfloat16, got {compute_dtype}")
@@ -419,6 +430,13 @@ class _SphericalMPNN(nn.Module):
         return (self.pallas_triplet and self.pallas_fuse_basis
                 and self.pallas_slot and self.nk_degree > 0
                 and self.block_size > 0)
+
+    @property
+    def pt_fused(self) -> bool:
+        """Every layer's triplet product through ``fused_triplet_pt`` on the
+        packed table (the JAX model's ``fuse_basis and not slot_fused``)."""
+        return (self.pallas_triplet and self.pallas_fuse_basis
+                and self.nk_degree > 0 and not self.slot_fused)
 
     @property
     def product_fused(self) -> bool:
@@ -504,10 +522,15 @@ class _SphericalMPNN(nn.Module):
         trip = geo.trip
         rbf0 = self.dist_emb(geo.dist)
         geom = sbf = tbf = None
-        branch = ("slot" if self.slot_fused else
+        branch = ("slot" if self.slot_fused else "pt" if self.pt_fused else
                   "product" if self.product_fused else "unfused")
         if branch == "slot":
             geom = self.slot_operands(geo, A) + (A,)
+        elif branch == "pt":
+            # the packed transposed table [R, T], built once for all layers
+            geom = basis_pt(self.num_spherical, self.num_radial, geo.angle,
+                            geo.phi, geo.dist_kj / self.cutoff,
+                            self.use_torsion).to(dt or torch.float32)
         else:
             sbf, tbf = self.bases(geo)
             if dt is not None:
@@ -517,11 +540,11 @@ class _SphericalMPNN(nn.Module):
             rbf0 = rbf0.to(dt)
         e1, e2 = self.init_block(g.nodes["z"], rbf0, trip)
         v = self.update_vs[0](e2, trip, N)
-        u = segment_sum(v, g.node_graph, G, mask=g.node_mask)
+        u = readout_sum(v, g.node_graph, G, g.node_mask)
         for ue, uv in zip(self.update_es, self.update_vs[1:]):
             e1, e2 = ue(e1, rbf0, sbf, tbf, trip, branch, geom)
             v = uv(e2, trip, N)
-            u = u + segment_sum(v, g.node_graph, G, mask=g.node_mask)
+            u = u + readout_sum(v, g.node_graph, G, g.node_mask)
         return u
 
 

@@ -1,5 +1,31 @@
+"""Graph ops: segment sums, radius graphs, triplet tables and geometry,
+bases, and the fused kernels (cfconv, the triplet product, the packed-basis
+and slot triplet kernels, the sorted-CSR segment sum). Mirrors
+``dig_tpu.ops``: every name of its ``__all__`` that the port has, plus the
+port's kernels. Importing it builds nothing: each kernel is built on its
+first launch on the card.
+"""
 from .basis import cosine_cutoff, gaussian_rbf
 from .cfconv import MASK_DIST, cfconv_fused, cfconv_reference
+from .radius import (knn_graph_flat, radius_blocked_dropped,
+                     radius_graph_flat, radius_graph_nk,
+                     radius_graph_nk_blocked, radius_overflow)
+from .segment import segment_sum, segment_sum_sorted
+from .triplet_product import fused_angle_product, fused_triplet_product
+from .triplet_pt import basis_pt, fused_triplet_pt, pt_rows
+from .triplets import (build_triplets, build_triplets_nk, nk_edge_distances,
+                       nk_gather_nodes, torsion_angles, triplet_geometry,
+                       triplet_kj_distances)
 
-__all__ = ["cosine_cutoff", "gaussian_rbf", "MASK_DIST", "cfconv_fused",
-           "cfconv_reference"]
+__all__ = [
+    "segment_sum", "segment_sum_sorted",
+    "radius_graph_flat", "knn_graph_flat", "radius_overflow",
+    "radius_graph_nk", "radius_graph_nk_blocked", "radius_blocked_dropped",
+    "build_triplets", "build_triplets_nk", "nk_edge_distances",
+    "nk_gather_nodes", "triplet_geometry",
+    "torsion_angles", "triplet_kj_distances",
+    "fused_angle_product", "fused_triplet_product",
+    "fused_triplet_pt", "basis_pt", "pt_rows",
+    "cosine_cutoff", "gaussian_rbf", "MASK_DIST", "cfconv_fused",
+    "cfconv_reference",
+]

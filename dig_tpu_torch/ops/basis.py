@@ -178,6 +178,20 @@ def make_sph_funcs_full(num_spherical: int):
     return funcs
 
 
+def packed_basis_rows(num_spherical: int, num_radial: int, theta, phi, dk,
+                      has_t: bool):
+    """The rows of the packed basis tables (``ops.triplet_pt.basis_pt``,
+    ``ops.triplet_slot.basis_pt_k``), each shaped as the per-triplet
+    scalars: the Bessel functions of ``dk`` (l-major, n*k), Y_l^0(theta)
+    (n), then, with ``has_t``, Y_l^m(theta, phi) (n*n)."""
+    rows = [f(dk) for row in make_bessel_funcs(num_spherical, num_radial)
+            for f in row]
+    rows += [f(theta) for f in make_sph_funcs_m0(num_spherical)]
+    if has_t:
+        rows += [f(theta, phi) for f in make_sph_funcs_full(num_spherical)]
+    return rows
+
+
 def bessel_table(num_spherical: int, num_radial: int, x: torch.Tensor):
     """All (l, m) Bessel basis functions: ``[..., n_s, n_r]``."""
     fs = make_bessel_funcs(num_spherical, num_radial)

@@ -1,5 +1,6 @@
 """Segment reductions. Port of ``segment_sum``, ``segment_sum_sorted`` and
-``_apply_mask`` of ``dig_tpu/ops/segment.py``.
+``_apply_mask`` of ``dig_tpu/ops/segment.py``, with the port's repeatable
+readout and row gather.
 
 Static output sizes; an optional ``mask`` over the data rows makes
 masked rows contribute the identity. Indices must be in range (padding
@@ -8,11 +9,13 @@ convention: index 0 with a False mask).
 ``segment_sum`` is ``index_add_``. On CUDA that adds with atomics in an
 order that changes from run to run, so its result is NOT bitwise
 repeatable there (the JAX package's TPU scatter-add is); on the CPU it
-is. The NK model path aggregates edges by a reshape-sum instead
-(``ops.triplets.edges_to_nodes_nk``) and uses this only for the
-per-graph readout. ``segment_sum_sorted`` goes through the sorted-CSR
-kernel (``ops.segment_csr``): its sums are bitwise repeatable on the card at
-every derivative order.
+is. The models therefore sum through the sorted-CSR kernel
+(``ops.segment_csr``), whose sums are bitwise repeatable on the card at
+every derivative order: ``segment_sum_sorted`` (the flat edge->node sum
+with ``segment_eb > 0``), :func:`readout_sum` (the per-graph readout) and
+:func:`gather_rows` (row gathers whose adjoint is such a sum). The NK
+layout aggregates edges by a reshape-sum
+(``ops.triplets.edges_to_nodes_nk``).
 """
 from __future__ import annotations
 
@@ -20,7 +23,8 @@ from typing import Optional
 
 import torch
 
-from .segment_csr import segment_sum_sorted_csr
+from .segment_csr import (_RowGather, full_window,
+                          segment_sum_sorted_csr)
 
 
 def _apply_mask(data: torch.Tensor, mask: Optional[torch.Tensor],
@@ -31,13 +35,43 @@ def _apply_mask(data: torch.Tensor, mask: Optional[torch.Tensor],
     return torch.where(m, data, fill)
 
 
+class _Permute(torch.autograd.Function):
+    """``x[perm]`` for a permutation ``perm`` of the rows, whose inverse is
+    ``inv``. Adjoint: the same Function with the two swapped (a gather,
+    so every derivative order is free of atomics)."""
+
+    @staticmethod
+    def forward(ctx, x, perm, inv):
+        ctx.save_for_backward(perm, inv)
+        return x[perm]
+
+    @staticmethod
+    def backward(ctx, ct):
+        perm, inv = ctx.saved_tensors
+        return _Permute.apply(ct, inv, perm), None, None
+
+
 def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``x[idx]`` for an index tensor of any shape, through
-    ``index_select``: its adjoint is ``index_add_``. (The adjoint of
-    advanced indexing is a sort-based accumulation that handles the
-    indices repeated at one row in series, and every padding edge of a
-    flat edge list points at node 0.)"""
-    out = x.index_select(0, idx.reshape(-1).long())
+    """``x[idx]`` for an index tensor of any shape (every index in
+    ``[0, x.shape[0])``), differentiable to any order with a bitwise
+    repeatable adjoint: the indices are stably sorted, the rows gathered in
+    that order (``_RowGather``, whose adjoint is the sorted-CSR sum: the
+    kernel on the card) and put back in the index order by a permutation
+    (:class:`_Permute`). (The adjoint of ``index_select`` is
+    ``index_add_``, which adds with atomics on the card.)"""
+    N = x.shape[0]
+    flat = idx.reshape(-1).long()
+    with torch.no_grad():
+        order = torch.argsort(flat, stable=True)
+        inv = torch.empty_like(order)
+        inv[order] = torch.arange(order.shape[0], device=order.device)
+        ids = flat[order].to(torch.int32)
+        rowptr = torch.searchsorted(
+            ids, torch.arange(N + 1, dtype=torch.int32, device=ids.device),
+            out_int32=True)
+    rows = _RowGather.apply(x.reshape(N, -1), ids, rowptr, N, 32,
+                            full_window(ids.shape[0]), x.dtype)
+    out = _Permute.apply(rows, inv, order)
     return out.reshape(tuple(idx.shape) + tuple(x.shape[1:]))
 
 
@@ -85,6 +119,31 @@ def segment_sum_sorted(data: torch.Tensor, segment_ids: torch.Tensor,
             side="left", out_int32=True)
     return segment_sum_sorted_csr(data, ids, rowptr, num_segments, block_rows,
                                   max_edges_per_block).to(data.dtype)
+
+
+def readout_sum(data: torch.Tensor, node_graph: torch.Tensor,
+                num_graphs: int, node_mask: torch.Tensor) -> torch.Tensor:
+    """Per-graph sum of the real node rows (the JAX models'
+    ``segment_sum(v, node_graph, G, mask=node_mask)``) through the
+    sorted-CSR sum, in ``data``'s dtype: bitwise repeatable on the card, the
+    plain version on the CPU.
+
+    The graph ids of the real rows must be non-decreasing, as every loader
+    of the package lays them out (``graph.batch_np``). Padding rows may sit
+    anywhere, also inside a graph's slot of a slot-aligned batch, where they
+    carry the last graph's id: the row pointer comes from the running
+    maximum of the masked ids, never from ``node_graph`` as it stands. The
+    window holds all rows, so there is no overflow to check."""
+    with torch.no_grad():
+        ids = torch.where(node_mask, node_graph.long(), -1)
+        key = torch.cummax(ids, dim=0).values
+        rowptr = torch.searchsorted(
+            key, torch.arange(num_graphs + 1, device=key.device),
+            out_int32=True)
+    data = _apply_mask(data, node_mask, 0.0)
+    return segment_sum_sorted_csr(data, ids.to(torch.int32), rowptr,
+                                  num_graphs, 32,
+                                  full_window(data.shape[0])).to(data.dtype)
 
 
 def flat_edges_to_nodes(data: torch.Tensor, receivers: torch.Tensor,

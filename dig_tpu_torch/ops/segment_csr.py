@@ -18,7 +18,10 @@ drops the edges that do not fit (:func:`csr_block_overflow` counts them).
 The card kernel walks ``rowptr`` and drops nothing. ``block_rows`` and
 ``max_edges_per_block`` keep their JAX meaning: the card path computes
 :func:`csr_block_overflow` and raises unless it is 0, so both compute the
-same sum.
+same sum. A window of at least ``E + 127`` edges (:func:`full_window`)
+holds every block's edges whatever the row pointer, so the overflow is 0
+by construction and the card path skips the check and its host
+synchronisation.
 
 The derivative is a closed pair of ``torch.autograd.Function``s. The VJP
 of the sum is the row gather ``ct[seg]`` with zeros at id -1 (the JAX
@@ -49,6 +52,13 @@ def reset_launch_counts() -> None:
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def full_window(num_edges: int) -> int:
+    """The least ``max_edges_per_block`` that holds every block's edges for
+    any row pointer over ``num_edges`` edges (its 128-aligned start is at
+    most 127 edges early): :func:`csr_block_overflow` is then 0."""
+    return num_edges + 127
 
 
 def csr_block_overflow(rowptr: torch.Tensor, num_rows: int, block_rows: int,
@@ -109,8 +119,9 @@ def segment_csr_kernel(data: torch.Tensor, seg_ids: torch.Tensor,
                        rowptr: torch.Tensor, num_rows: int, block_rows: int,
                        max_edges_per_block: int) -> torch.Tensor:
     """Check CUDA inputs and launch the kernel; raises on what it does not
-    take and when the TPU kernel would drop edges
-    (``csr_block_overflow``, read on the host: one synchronisation)."""
+    take and when the TPU kernel would drop edges (``csr_block_overflow``,
+    read on the host: one synchronisation, skipped when
+    ``max_edges_per_block`` is at least :func:`full_window`)."""
     if data.ndim != 2:
         raise ValueError(f"segment_sum_sorted_csr: data must be [E, F], got "
                          f"shape {tuple(data.shape)}")
@@ -126,8 +137,8 @@ def segment_csr_kernel(data: torch.Tensor, seg_ids: torch.Tensor,
         if tuple(t.shape) != want:
             raise ValueError(f"segment_sum_sorted_csr: {name} has shape "
                              f"{tuple(t.shape)}, expected {want}")
-    dropped = int(csr_block_overflow(rowptr, num_rows, block_rows,
-                                     max_edges_per_block))
+    dropped = 0 if max_edges_per_block >= full_window(E) else int(
+        csr_block_overflow(rowptr, num_rows, block_rows, max_edges_per_block))
     if dropped:
         raise RuntimeError(
             f"segment_sum_sorted_csr: {dropped} edges exceed "

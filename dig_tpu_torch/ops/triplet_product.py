@@ -426,22 +426,26 @@ def _check_device(xg):
 
 
 def fused_triplet_product(xg, sbf, tbf, ws, wt, mask2d, K: int,
+                          tile_e: int = 128,
                           basis_grads: bool = True) -> torch.Tensor:
     """``out[e] = sum_k mask2d[e, k] * xg[e*K+k] * (sbf[e*K+k] @ ws) *
     (tbf[e*K+k] @ wt)`` (see the module docstring): ``xg [T, C]``,
     ``sbf [T, S1]``, ``tbf [T, S2]``, ``ws [S1, C]``, ``wt [S2, C]``,
     ``mask2d [E, K]``; ``[E, C]`` in ``xg``'s type. With ``basis_grads``
     differentiable to second order (energy+force training); without, the
-    basis cotangents are zeros and it is first order only."""
+    basis cotangents are zeros and it is first order only. ``tile_e``, the
+    TPU kernel's edge tile, is accepted in the JAX signature's place and
+    has no effect here."""
     _check_device(xg)
     return _TripletProduct.apply(xg, sbf, tbf, ws, wt, mask2d, int(K),
                                  bool(basis_grads))
 
 
-def fused_angle_product(xg, sbf, ws, mask2d, K: int,
+def fused_angle_product(xg, sbf, ws, mask2d, K: int, tile_e: int = 128,
                         basis_grads: bool = True) -> torch.Tensor:
     """DimeNet++'s variant without torsion: ``out[e] = sum_k mask2d[e, k]
-    * xg[e*K+k] * (sbf[e*K+k] @ ws)``."""
+    * xg[e*K+k] * (sbf[e*K+k] @ ws)`` (``tile_e`` as for
+    :func:`fused_triplet_product`)."""
     _check_device(xg)
     return _TripletProduct.apply(xg, sbf, None, ws, None, mask2d, int(K),
                                  bool(basis_grads))

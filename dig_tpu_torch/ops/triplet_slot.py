@@ -38,7 +38,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from . import _build
-from .basis import make_bessel_funcs, make_sph_funcs_full, make_sph_funcs_m0
+from .basis import packed_basis_rows
 
 KERNEL_CHANNELS = (32, 64, 128)   # C the kernels are compiled for
 
@@ -61,12 +61,8 @@ def basis_pt_k(num_spherical: int, num_radial: int, theta, phi, dk,
     """Packed basis table ``[K, R, E]`` from ``[K, E]`` per-triplet
     scalars (s-leading): the bessel rows of ``dk`` (l-major), Y_l^0(theta),
     then, with ``has_t``, Y_l^m(theta, phi)."""
-    rows = [f(dk) for row in make_bessel_funcs(num_spherical, num_radial)
-            for f in row]
-    rows += [f(theta) for f in make_sph_funcs_m0(num_spherical)]
-    if has_t:
-        rows += [f(theta, phi) for f in make_sph_funcs_full(num_spherical)]
-    return torch.stack(rows, dim=1)
+    return torch.stack(packed_basis_rows(num_spherical, num_radial, theta,
+                                         phi, dk, has_t), dim=1)
 
 
 def _round_to(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

@@ -15,8 +15,8 @@ member, so every derivative order is a gather over a reverse table
 (deterministic, free of atomics). Both members are exact only when the
 consumer's cotangent is zero at invalid slots; every consumer here masks.
 The flat geometry's own gathers (``pos[senders]``, ``pos[in-neighbours]``)
-stay plain gathers, as in the JAX package (``gather_rows``): their adjoint
-on the card is ``index_add_``, which is not bitwise repeatable.
+go through ``gather_rows``, whose adjoint is a sorted-CSR sum: bitwise
+repeatable on the card too.
 """
 from __future__ import annotations
 

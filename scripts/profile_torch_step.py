@@ -1,6 +1,6 @@
 """Where the time of one of the port's train steps goes, on one card.
 
-    python scripts/profile_torch_step.py [schnet_dense|spherenet|spherenet_force|schnet_force|spherenet_nk_force]
+    python scripts/profile_torch_step.py [schnet_dense|spherenet|spherenet_force|schnet_force|spherenet_nk_force|spherenet_pt_force]
 
 ``schnet_dense`` (the default) runs main path 1 of chip_smoke.py
 (SchNetDense 4 x 128, bf16, fused cfconv, buckets {16: 252, 24: 380,
@@ -16,7 +16,10 @@ examples/threedgraph/run_morse_surrogate.py --model schnet --forces);
 ``spherenet_nk_force`` runs main path 5a (SphereNet 4 x 128, n=3, k=6,
 bf16, on the unblocked [N, K] table with K=16, fused_triplet_product with
 basis gradients, energy+force through make_step_fns, MoleculeLoader
-batches of 96, Adam(5e-4), p = 100).
+batches of 96, Adam(5e-4), p = 100); ``spherenet_pt_force`` runs main
+path 6a (the same model, batches and step with ``pallas_fuse_basis``: the
+packed basis table built once per forward and fused_triplet_pt in every
+layer).
 Traces a few steady
 steps with torch.profiler and prints the
 step's host time, the device's busy and idle share, device time by
@@ -140,7 +143,7 @@ def schnet_force(dev, steps):
     return step, [next(it) for _ in range(steps)]
 
 
-def spherenet_nk_force(dev, steps):
+def spherenet_nk_force(dev, steps, pallas_fuse_basis=False):
     from dig_tpu_torch.datasets import MoleculeLoader, synthetic_molecules
     from dig_tpu_torch.models import SphereNet
     from dig_tpu_torch.train import make_step_fns
@@ -152,10 +155,15 @@ def spherenet_nk_force(dev, steps):
     model = SphereNet(cutoff=5.0, num_layers=4, hidden_channels=128,
                       num_spherical=3, num_radial=6, nk_degree=16,
                       block_size=0, compute_dtype=torch.bfloat16,
-                      pallas_triplet=True, device=dev)
+                      pallas_triplet=True,
+                      pallas_fuse_basis=pallas_fuse_basis, device=dev)
     opt = torch.optim.Adam(model.parameters(), lr=5e-4)
     step, _ = make_step_fns(model, opt, energy_and_force=True, p=100.0)
     return step, [next(it) for _ in range(steps)]
+
+
+def spherenet_pt_force(dev, steps):
+    return spherenet_nk_force(dev, steps, pallas_fuse_basis=True)
 
 
 def main():
@@ -165,7 +173,8 @@ def main():
     paths = {"schnet_dense": schnet_dense, "spherenet": spherenet,
              "spherenet_force": spherenet_force,
              "schnet_force": schnet_force,
-             "spherenet_nk_force": spherenet_nk_force}
+             "spherenet_nk_force": spherenet_nk_force,
+             "spherenet_pt_force": spherenet_pt_force}
     if which not in paths:
         sys.exit(f"unknown path {which!r}; one of {sorted(paths)}")
     if not torch.cuda.is_available():

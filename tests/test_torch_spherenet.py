@@ -167,12 +167,25 @@ def test_energy_and_force_raises(basis_grads, err):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (dict(pallas_triplet=True, pallas_fuse_basis=True), "fused_triplet_pt"),
     (dict(remat=True), "remat"),
 ])
 def test_unported_layouts_raise(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         TSphereNet(device="cpu", **{**KW, **flags})
+
+
+def test_fused_basis_without_pallas_slot_matches_jax():
+    """pallas_fuse_basis on the slot-aligned table without pallas_slot is
+    the packed-basis branch (fused_triplet_pt), as in the JAX model: its
+    energies against the JAX model's (interpret mode)."""
+    flags = dict(pallas_triplet=True, pallas_fuse_basis=True)
+    (jb, _), (tb, _) = _batches()
+    params = JSphereNet(**KW).init(jax.random.PRNGKey(0), jb)
+    want = np.asarray(JSphereNet(**KW, **flags).apply(params, jb))
+    tm = _port(TSphereNet, _flat(params["params"]), flags)
+    assert tm.pt_fused and not tm.slot_fused
+    np.testing.assert_allclose(tm(tb).detach().numpy(), want, rtol=1e-4,
+                               atol=1e-4)
 
 
 @pytest.mark.parametrize("flags", [None, SLOT], ids=["unfused", "slot"])

@@ -195,8 +195,14 @@ def test_force_training_refused_without_basis_grads():
 @pytest.mark.parametrize("flags", [
     dict(pallas_fuse_basis=True),
     dict(pallas_fuse_basis=True, pallas_slot=True)])
-def test_fused_basis_without_the_slot_kernel_raises(flags):
-    """pallas_fuse_basis on the unblocked table (or without pallas_slot) is
-    fused_triplet_pt, not ported yet."""
-    with pytest.raises(NotImplementedError, match="fused_triplet_pt"):
-        TSphereNet(device="cpu", **KW, **FUSED, **flags)
+def test_fused_basis_without_the_slot_kernel_is_the_pt_branch(flags):
+    """pallas_fuse_basis on the unblocked table (pallas_slot or not) is the
+    packed-basis branch, fused_triplet_pt, as in the JAX model: energies
+    against the JAX model's with the same flags (interpret mode)."""
+    (jb, _), (tb, _) = _batches("unblocked")
+    params = _params("SphereNet")
+    want = np.asarray(jax.jit(JSphereNet(**KW, **FUSED, **flags).apply)(
+        params, jb))
+    tm = _port(TSphereNet, _flat(params["params"]), **FUSED, **flags)
+    assert tm.pt_fused and not (tm.slot_fused or tm.product_fused)
+    _close(tm(tb).detach().numpy(), want, 1e-4)

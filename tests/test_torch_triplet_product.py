@@ -53,9 +53,9 @@ def _names(has_t):
 def _port(has_t, basis_grads=True):
     if has_t:
         return lambda xg, sbf, tbf, ws, wt, m2d: fused_triplet_product(
-            xg, sbf, tbf, ws, wt, m2d, K, basis_grads)
-    return lambda xg, sbf, ws, m2d: fused_angle_product(xg, sbf, ws, m2d, K,
-                                                        basis_grads)
+            xg, sbf, tbf, ws, wt, m2d, K, basis_grads=basis_grads)
+    return lambda xg, sbf, ws, m2d: fused_angle_product(
+        xg, sbf, ws, m2d, K, basis_grads=basis_grads)
 
 
 def _jax_ops(has_t, basis_grads=True):

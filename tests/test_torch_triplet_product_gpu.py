@@ -63,7 +63,8 @@ def _run(op, d, K, basis_grads, ct):
     keys = [k for k in ("xg", "sbf", "tbf", "ws", "wt") if d[k] is not None]
     xs = {k: d[k].clone().requires_grad_() for k in keys}
     args = [xs.get(k, d[k]) for k in ("xg", "sbf", "tbf", "ws", "wt")]
-    out = op.fused_triplet_product(*args, d["m2d"], K, basis_grads)
+    out = op.fused_triplet_product(*args, d["m2d"], K,
+                                   basis_grads=basis_grads)
     return out, dict(zip(keys, torch.autograd.grad(out, list(xs.values()),
                                                    ct)))
 
