@@ -6,8 +6,10 @@
 Phases, each printed as it runs; any failure exits non-zero:
   1. card: name, count, power limit (nvidia-smi)
   2. build: nvcc builds csrc/cfconv.cu, csrc/triplet_slot.cu,
-     csrc/segment_csr.cu, csrc/triplet_product.cu and csrc/triplet_pt.cu
-     for sm_90a, all at once; the -Xptxas -v reports
+     csrc/segment_csr.cu, csrc/triplet_product.cu, csrc/triplet_pt.cu and
+     csrc/triplet_slot_geom.cu (with and without torsion, each with its
+     generated basis-row header) for sm_90a, all at once; the -Xptxas -v
+     reports
   3. kernel vs plain: cfconv forward and all six gradients against the plain
      PyTorch version on the card, at the SchNetDense bucket shapes, in f32
      and bf16, need_dist_grad on and off; repeated backwards bitwise equal
@@ -31,7 +33,9 @@ Phases, each printed as it runs; any failure exits non-zero:
      against the unfused branch of the same weights; radius_blocked_dropped
      must be 0; one eval pass through ThreeDEvaluator
   8. times: step ms, edges/s; per-layer triplet_slot kernel ms beside the
-     bound and the plain version's ms
+     bound and the plain version's ms, the forward also beside the einsum
+     over the gathered x rows and sbf, tbf assembled outside the timed
+     call
   9. kernel vs plain: the second-order triplet_slot kernel (xb, ptb, wsb,
      wtb, ctb) against the plain double backward at the three bucket shapes
      of the force bench (pt of a real batch), has_t on and off, f32 and
@@ -118,6 +122,34 @@ Phases, each printed as it runs; any failure exits non-zero:
      shapes beside its byte bound, the plain version and, for the
      forward, the einsum over sbf and tbf assembled outside the timed
      call; both steps in ms and edges/s
+ 25. kernel vs plain: fused_triplet_slot_geom (the basis rows evaluated in
+     the kernel from theta, phi, d_kj / cutoff) at path 7a's shape, the
+     geometry of a real batch, has_t on and off, f32 and bf16: the
+     forward, the backward with dgeo and without, the second order with
+     u1 = u4 = u5 absent and all present; dgeo and geob exactly 0 at masked
+     triplets; repeated calls bitwise equal; the peak device memory of a
+     forward and backward below the pt chain's
+ 26. main path 7a: the geometry op in energy+force training: path 2's
+     batches with seeded forces, the port's SphereNet geometry, four
+     layers of seeded leaves at the flagship slot width (x [E, 64], ws,
+     wt), E_pred = sum of out . w_out, F = -dE_pred/dpos, loss |E_pred - y|
+     + 100 mean|F - F_ref|^2, Adam on the leaves, bf16; exactly 4 forward,
+     4 backward and 4 second-order geometry launches per step and no
+     triplet_slot launch; the first f32 step held against the pt chain
+     (basis_pt_k into the fused_triplet_slot kernels) and the plain
+     geometry op, bf16 against f32 by direction and size; finite forces
+ 27. main path 7b: segment_sum_sorted_csr_chunked on bench.py
+     bench_spmm_roofline's graph (synthetic_large_graph(60000, avg_deg
+     16), F = 128, the planner's chunk table) and on phase 12's skewed CSR, f32
+     and bf16: against its plain version and against the ported
+     segment_sum_sorted_csr (the same bits), repeated calls the same bits,
+     the VJP; spmm_csr on the same graph against its plain version; launch
+     counts
+ 28. times: the three geometry kernels per layer at path 7a's shape beside
+     their bounds, plain versions and the pt chain through autograd (the
+     forward also beside the einsum); path 7a's step; the chunked kernel at
+     path 7b's shape beside its bound, its plain version,
+     segment_csr_kernel, torch.segment_reduce and index_add_
 The card's name and power limit (nvidia-smi), then the kernels as JSON,
 are the two lines before the last; the last line is
 {"ok": true, "device": {...}}.
@@ -287,6 +319,35 @@ DP6_KW = dict(nk_degree=16, block_size=0)
 # the force term 1e-2, which a dropped or wrong position path (an O(1)
 # change) fails.
 DP6_STEP_TOL = {"f32": (1e-4, 1e-3, 1e-2), "bf16": (5e-2, None)}
+
+# Path 7a: fused_triplet_slot_geom (the basis evaluated in the kernel) in
+# force training at the flagship slot layer's width: path 2's batches (96
+# molecules in slots of 29, K = 16, n = 3, k = 6, torsion) with seeded
+# forces, the geometry of the port's SphereNet, four layers of seeded leaves
+# x [E, 64], ws [18, 64], wt [54, 64]; loss |E - y| + 100 mean|F - F_ref|^2,
+# Adam(5e-4) on the leaves, bf16.
+GA_STEPS, GA_WARMUP, GA_P, GA_LR = 5, 2, 100.0, 5e-4
+# kernel vs plain, largest error over the largest reference value per
+# tensor: (forward and backward, second order). f32: sums in another order;
+# the rows are the float32 roundings of the same float64 closed forms on
+# both sides. bf16: one bf16 step (2^-8) where a sum in another order or a
+# row one float32 step apart rounds an operand the other way.
+GA_TOL = {"f32": (1e-5, 1e-4), "bf16": (1e-2, 1e-2)}
+# first f32 step through the geometry kernels against the pt chain and the
+# plain geometry op of the same leaves: loss, first-order pieces (F and
+# dE/dleaves) and every leaf's gradient, each relative to its largest value
+# (the bounds of tests/test_pallas_triplet_slot.py:172-190)
+GA_STEP_TOL = (1e-4, 2e-4, 1e-3)
+# FP64 peak of one H100 SXM outside the tensor cores (NVIDIA data sheet)
+PEAK_FP64 = 34e12
+# Path 7b: the chunked sorted-CSR sum on bench.py bench_spmm_roofline's
+# graph (:560-571): synthetic_large_graph(60000, seed=0, avg_deg=16), F =
+# 128. Against segment_sum_sorted_csr over a full window: the same bits
+# (both add each row's edges in edge order). Against the plain version,
+# whose index_add_ adds with atomics in another order: 1e-6 of the largest
+# value on the bench graph (at most 38 edges a row), SEG_TOL (phase 12's bound)
+# on the skewed CSR, whose largest row sums 5,000 edges.
+CS_N, CS_F, CS_TOL = 60000, 128, 1e-6
 
 
 def log(*a):
@@ -962,6 +1023,14 @@ def phase_sn_times(torch, ts, inp):
             *k_args, A, K, cfg))
         plain_fwd = cuda_ms(torch, lambda: ts.fused_triplet_slot_reference(
             *args, A, K, cfg), iters=5, warmup=1)
+        lib = slot_library_fwd(torch, args, args[1], cfg, dt, A, K)
+        lib_err = rel_err(lib(), ts.fused_triplet_slot_reference(
+            *args, A, K, cfg))
+        if prec == "f32" and lib_err >= SN_TOL["f32"]:
+            fail(f"einsum slot forward: rel err {lib_err} against plain")
+        lib_ms = cuda_ms(torch, lib, iters=3, warmup=1)
+        del lib
+        torch.cuda.empty_cache()
         xs = [a.clone().requires_grad_(i != 1)        # pt: no grad, as on
               for i, a in enumerate(args[:4])]        # the main path
         want = [x for x in xs if x.requires_grad]
@@ -974,7 +1043,8 @@ def phase_sn_times(torch, ts, inp):
         rows.append({"kernel": "triplet_slot_fwd", "precision": prec,
                      "need_dpt": None, "ms": fwd_ms, "plain_ms": plain_fwd,
                      "bound_ms": b[0], "bound_by": b[1], "flops": b[2],
-                     "bytes": b[3]})
+                     "bytes": b[3], "library_ms": lib_ms,
+                     "library_err": lib_err})
         for need_dpt in (False, True):
             bwd_ms = cuda_ms(torch, lambda: ts.triplet_slot_backward_kernel(
                 *k_args, ct32, A, K, cfg, need_dpt))
@@ -983,7 +1053,7 @@ def phase_sn_times(torch, ts, inp):
                          "need_dpt": need_dpt, "ms": bwd_ms,
                          "plain_ms": plain_bwd if not need_dpt else None,
                          "bound_ms": b[0], "bound_by": b[1], "flops": b[2],
-                         "bytes": b[3]})
+                         "bytes": b[3], "library_ms": None})
     E = inp["x"].shape[0]
     w = inp["work"]
     log(f"  one layer's call at E={E}, K={K}, C={SN_C}: {w['triplets']} "
@@ -992,6 +1062,11 @@ def phase_sn_times(torch, ts, inp):
     for r in rows:
         plain = ("" if r["plain_ms"] is None
                  else f"; plain {r['plain_ms']:.3f} ms")
+        if r["library_ms"] is not None:
+            plain += (f"; einsum over the gathered x rows and sbf, tbf "
+                      f"assembled outside the timed call "
+                      f"{r['library_ms']:.3f} ms (rel err "
+                      f"{r['library_err']:.2e})")
         log(f"  {r['kernel']} {r['precision']} need_dpt={r['need_dpt']}: "
             f"{r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "
             f"{r['bound_by']}, {r['bound_ms'] / r['ms']:.3f} of it; "
@@ -2386,18 +2461,700 @@ def phase_pt_times(torch, tpt, inputs):
     return rows
 
 
-def build_all(_build, names):
-    """Build every CUDA source at once (one nvcc each); the seconds each
+# ---------------------------------------------------------------------------
+# Path 7a: fused_triplet_slot_geom, the basis evaluated in the kernel
+# ---------------------------------------------------------------------------
+
+def ga_batches(torch, dev, n):
+    """Path 7a: path 2's molecules and MoleculeLoader batches (96 in slots
+    of 29 atoms), with seeded forces drawn as the force bench draws them;
+    the first n batches."""
+    import numpy as np
+    from dig_tpu_torch.datasets import MoleculeLoader, synthetic_molecules
+    mols = synthetic_molecules(SN_G * (n + 1), seed=0, min_atoms=12,
+                               max_atoms=29, box=6.0)
+    rng = np.random.default_rng(0)
+    for m in mols:
+        m["force"] = rng.normal(size=m["pos"].shape).astype(np.float32)
+    it = iter(MoleculeLoader(mols, SN_G, slot_size=SN_KW["block_size"],
+                             shuffle=True, seed=0, device=dev))
+    return [b.replace_globals(energy=b.globals["y"][:, :1])
+            for b in (next(it) for _ in range(n))]
+
+
+def ga_operands(torch, model, batch, pos):
+    """The port's SphereNet geometry of ``pos`` (differentiable back to
+    it) as the geometry op takes it, geo [K, 3, E] = (theta, phi, d_kj /
+    cutoff) s-leading, and as the pt chain takes it, pt [K, R, E] built as
+    slot_operands builds it; the mask m2T and the ids lj."""
+    A, K = SN_KW["block_size"], SN_KW["nk_degree"]
+    geo = model.geometry(pos, batch, A)
+    pt, m2t, lj = model.slot_operands(geo, A)
+    E = m2t.shape[1]
+    smaj = lambda v: v.reshape(E, K).t()
+    g = torch.stack([smaj(geo.angle), smaj(geo.phi),
+                     smaj(geo.dist_kj) / SN_KW["cutoff"]], 1)
+    return g, pt, m2t, lj
+
+
+def ga_kernel_inputs(torch, dev, batch):
+    """geo, pt, m2T, lj of a real path-7a batch (float32) and seeded x,
+    ws, wt, output cotangent and second-order cotangents u1 (of dx), ug (of
+    dgeo), u4, u5 at the flagship widths; ``work`` counts the real
+    triplets, the distinct x rows they gather and the edges that own
+    one."""
+    model = sn_model(torch, dev, torch.float32, True)
+    with torch.no_grad():
+        geo, pt, m2t, lj = ga_operands(torch, model, batch,
+                                       batch.nodes["pos"])
+    n, k = SN_KW["num_spherical"], SN_KW["num_radial"]
+    A, K = SN_KW["block_size"], SN_KW["nk_degree"]
+    E = m2t.shape[1]
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    r = lambda *s: torch.randn(*s, generator=gen).to(dev)
+    real = m2t != 0
+    e = torch.arange(E, device=dev)
+    x_rows = ((e // (A * K)) * A + lj[0].long()) * K \
+        + torch.arange(K, device=dev)[:, None]
+    work = {"triplets": int(real.sum()),
+            "x_rows": int(torch.unique(x_rows[real]).numel()),
+            "edges": int(real.any(0).sum()),
+            "dk_min": float(geo[:, 2][real].min())}
+    return {"geo": geo, "pt": pt, "m2t": m2t, "lj": lj, "x": r(E, SN_C),
+            "ws": r(n * k, SN_C) * (n * k) ** -0.5,
+            "wt": r(n * n * k, SN_C) * (n * n * k) ** -0.5,
+            "ct": r(E, SN_C), "u1": r(E, SN_C), "ug": r(*geo.shape),
+            "u4": r(n * k, SN_C), "u5": r(n * n * k, SN_C), "work": work}
+
+
+def ga_args(torch, inp, has_t, dt):
+    """Operands of fused_triplet_slot_geom for one setting; (args, cfg).
+    Without torsion geo keeps (theta, d_kj / cutoff)."""
+    n, k = SN_KW["num_spherical"], SN_KW["num_radial"]
+    geo = inp["geo"] if has_t else inp["geo"][:, [0, 2]].contiguous()
+    wt = inp["wt"] if has_t else torch.zeros_like(inp["wt"][:1])
+    args = [inp["x"].to(dt), geo, inp["ws"].to(dt), wt.to(dt),
+            inp["m2t"].to(dt), inp["lj"]]
+    return args, (n, k, has_t)
+
+
+def ga_masked(ts, t, m2t, lj):
+    """The largest |value| of a [K, NG, E] geometry gradient at the masked
+    triplets (0 or lj outside the slot)."""
+    live = ts._live(m2t, lj, SN_KW["block_size"])
+    return float(t.float().abs().masked_fill(live[:, None, :], 0.0).max())
+
+
+def phase_ga_kernel_vs_plain(torch, ts, inp):
+    """The three geometry kernels against their plain versions at path
+    7a's shape (geo of a real batch), has_t on and off, f32 and bf16: the
+    forward; the backward with dgeo and without (the other gradients the
+    same bits); the second order with u1 = u4 = u5 absent as in force
+    training and with all present. dgeo and geob exactly 0 at masked
+    triplets; repeated calls the same bits. Then the peak device memory of
+    one forward and backward beside the pt chain's (the geometry op's must
+    be the lower). Returns the largest absolute errors in the main path's
+    setting (bf16, has_t)."""
+    A, K = SN_KW["block_size"], SN_KW["nk_degree"]
+    errs = {"fwd": 0.0, "bwd": 0.0, "bwd2": 0.0}
+    log(f"  E={inp['x'].shape[0]}, {inp['work']['triplets']} real triplets; "
+        f"shortest d_kj / cutoff {inp['work']['dk_min']:.4f}")
+    for has_t in (True, False):
+        for prec, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            tol1, tol2 = GA_TOL[prec]
+            args, cfg = ga_args(torch, inp, has_t, dt)
+            ct = inp["ct"].to(dt)
+            plain = lambda xs: ts.fused_triplet_slot_geom_reference(
+                *xs, A, K, cfg)
+            kern = lambda xs: ts.fused_triplet_slot_geom(*xs, A, K, cfg)
+            out_p, g_p = slot_grads(torch, plain, args, ct, True)
+            out_k, g_k = slot_grads(torch, kern, args, ct, True)
+            torch.cuda.synchronize()
+            line = [f"fwd {rel_err(out_k, out_p):.2e}"]
+            if out_k.dtype != dt or rel_err(out_k, out_p) >= tol1:
+                fail(f"geom forward has_t={has_t} {prec}: rel err "
+                     f"{rel_err(out_k, out_p)}")
+            for nm, a, b in zip(["dx", "dgeo", "dws", "dwt"], g_k, g_p):
+                if nm == "dwt" and not has_t:
+                    continue
+                e = rel_err(a, b)
+                line.append(f"{nm} {e:.2e}")
+                if a.dtype != b.dtype or not bool(torch.isfinite(a).all()) \
+                        or e >= tol1:
+                    fail(f"geom {nm} has_t={has_t} {prec}: rel err {e}")
+            masked = ga_masked(ts, g_k[1], args[4], args[5])
+            if masked != 0.0:
+                fail(f"geom dgeo at masked triplets {masked} (has_t={has_t}, "
+                     f"{prec})")
+            _, g_n = slot_grads(torch, kern, args, ct, False)
+            if not all(a is None or torch.equal(a, b)
+                       for a, b in zip(g_n, g_k)):
+                fail(f"geom gradients changed without dgeo (has_t={has_t}, "
+                     f"{prec})")
+            _, again = slot_grads(torch, kern, args, ct, True)
+            if not all(torch.equal(a, b) for a, b in zip(again, g_k)):
+                fail(f"geom backward not bitwise repeatable (has_t={has_t}, "
+                     f"{prec})")
+            k_args = ts._geom_kernel_inputs(*args, A, K, cfg)
+            ct32 = ct.float().contiguous()
+            for all_u in (False, True):
+                us = [inp["u1"].to(dt) if all_u else None, inp["ug"][:,
+                      [0, 1, 2] if has_t else [0, 2]].contiguous(),
+                      inp["u4"] if all_u else None,
+                      inp["u5"] if all_u and has_t else None]
+                got = ts.triplet_slot_geom_bwd2_kernel(*k_args, ct32, *us, A,
+                                                       K, cfg)
+                torch.cuda.synchronize()
+                want = ts.fused_triplet_slot_geom_bwd2_reference(
+                    *args, ct, *us, A, K, cfg)
+                for nm, a, w in zip(["xb", "geob", "wsb", "wtb", "ctb"], got,
+                                    want):
+                    if nm == "wtb" and not has_t:
+                        continue
+                    e = rel_err(a, w)
+                    line.append(f"{nm}{'*' if all_u else ''} {e:.2e}")
+                    if not bool(torch.isfinite(a).all()) or e >= tol2:
+                        fail(f"geom bwd2 {nm} has_t={has_t} {prec} all_u="
+                             f"{all_u}: rel err {e}")
+                    if has_t and prec == "bf16" and not all_u:
+                        errs["bwd2"] = max(errs["bwd2"],
+                                           float((a - w).abs().max()))
+                masked = ga_masked(ts, got[1], args[4], args[5])
+                if masked != 0.0:
+                    fail(f"geom geob at masked triplets {masked}")
+                again = ts.triplet_slot_geom_bwd2_kernel(*k_args, ct32, *us,
+                                                         A, K, cfg)
+                if not all(torch.equal(a, c) for a, c in zip(again, got)):
+                    fail(f"geom bwd2 not bitwise repeatable (has_t={has_t}, "
+                         f"{prec})")
+            log(f"  has_t={has_t} {prec}: rel err " + ", ".join(line)
+                + " (* u1, u4, u5 present); dgeo and geob 0 at masked "
+                "triplets; without dgeo the same bits; repeated calls the "
+                "same bits")
+            if has_t and prec == "bf16":
+                errs["fwd"] = float((out_k - out_p).detach().float().abs()
+                                    .max())
+                errs["bwd"] = max(float((a.float() - b.float()).abs().max())
+                                  for a, b in zip(g_k, g_p))
+    # peak extra device memory of one forward and backward, bf16, has_t
+    args, cfg = ga_args(torch, inp, True, torch.bfloat16)
+    ct = inp["ct"].to(torch.bfloat16)
+    n, k = cfg[0], cfg[1]
+
+    def geom_run(xs):
+        return ts.fused_triplet_slot_geom(*xs, A, K, cfg)
+
+    def pt_run(xs):
+        g = xs[1]
+        pt = ts.basis_pt_k(n, k, g[:, 0], g[:, 1], g[:, 2], True)
+        return ts.fused_triplet_slot(xs[0], pt.to(torch.bfloat16), *xs[2:],
+                                     A, K, cfg)
+    peaks = {}
+    for name, fn in (("geometry op", geom_run), ("pt chain", pt_run)):
+        xs = [a.clone().requires_grad_() for a in args[:4]]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = fn(xs + list(args[4:]))
+        grads = torch.autograd.grad(out, xs, ct)
+        torch.cuda.synchronize()
+        peaks[name] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        del out, grads, xs
+    log(f"  peak extra device memory of one forward and backward (bf16, "
+        f"has_t, with dgeo): geometry op {peaks['geometry op']:.1f} MiB, pt "
+        f"chain {peaks['pt chain']:.1f} MiB")
+    if not peaks["geometry op"] < peaks["pt chain"]:
+        fail(f"the geometry op's peak memory is not the lower: {peaks}")
+    log(f"  max abs err (bf16, has_t, u1 = u4 = u5 absent as on the main "
+        f"path): fwd {errs['fwd']:.3e} bwd {errs['bwd']:.3e} bwd2 "
+        f"{errs['bwd2']:.3e}")
+    return errs
+
+
+def ga_leaves(torch, dev, E):
+    """Four layers' seeded leaves x [E, 64], ws [18, 64], wt [54, 64]
+    (float32 master copies) and the readout vector w_out [64]."""
+    n, k = SN_KW["num_spherical"], SN_KW["num_radial"]
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    r = lambda *s: torch.randn(*s, generator=gen)
+    layers = [[r(E, SN_C), r(n * k, SN_C) * (n * k) ** -0.5,
+               r(n * n * k, SN_C) * (n * n * k) ** -0.5]
+              for _ in range(SN_KW["num_layers"])]
+    w_out = (r(SN_C) * 0.01 * SN_C ** -0.5).to(dev)   # forces of O(1)
+    return [[t.to(dev).requires_grad_() for t in l] for l in layers], w_out
+
+
+def ga_step(torch, ts, model, leaves, w_out, batch, dt, branch):
+    """One path-7a force step at the current leaves: E_pred = sum over
+    layers of out_l . w_out, summed over the edges; F = -dE_pred/dpos
+    (create_graph); loss = |E_pred - y| + GA_P mean|F - F_ref|^2 over the
+    real atoms (y: the batch's summed energy). The leaves' gradient is
+    sign(E_pred - y) dE_pred/dleaves, from the same first backward as F,
+    plus the force term's, the second order. ``branch``: "kernel" (the
+    geometry kernels), "plain" (its plain version) or "pt" (basis_pt_k
+    into the fused_triplet_slot kernels)."""
+    A, K = SN_KW["block_size"], SN_KW["nk_degree"]
+    cfg = (SN_KW["num_spherical"], SN_KW["num_radial"], True)
+    pos = batch.nodes["pos"].detach().clone().requires_grad_()
+    geo, pt, m2t, lj = ga_operands(torch, model, batch, pos)
+    m2t = m2t.to(dt)
+    flat = [t for layer in leaves for t in layer]
+    e_pred = 0.0
+    for x, ws, wt in leaves:
+        ops = (x.to(dt), ws.to(dt), wt.to(dt))
+        if branch == "kernel":
+            out = ts.fused_triplet_slot_geom(ops[0], geo, *ops[1:], m2t, lj,
+                                             A, K, cfg)
+        elif branch == "plain":
+            out = ts.fused_triplet_slot_geom_reference(ops[0], geo, *ops[1:],
+                                                       m2t, lj, A, K, cfg)
+        else:
+            out = ts.fused_triplet_slot(ops[0], pt.to(dt), *ops[1:], m2t, lj,
+                                        A, K, cfg)
+        e_pred = e_pred + (out.float() @ w_out).sum()
+    y = batch.globals["energy"][batch.graph_mask].sum()
+    first = torch.autograd.grad(e_pred, [pos] + flat, create_graph=True)
+    force = -first[0]
+    nm = batch.node_mask
+    f_loss = GA_P * ((force - batch.nodes["force"])[nm] ** 2).mean()
+    e_loss = (e_pred - y).abs()
+    second = torch.autograd.grad(f_loss, flat, allow_unused=True)
+    sign = torch.sign(e_pred - y).detach()
+    grads = [sign * a.detach() + (0.0 if b is None else b)
+             for a, b in zip(first[1:], second)]
+    return {"loss": float((e_loss + f_loss).detach()),
+            "e_loss": float(e_loss.detach()),
+            "f_loss": float(f_loss.detach()), "force": force.detach(),
+            "e_grads": [a.detach() for a in first[1:]], "grads": grads}
+
+
+def phase_ga_main_path(torch, ts, sc, dev, batches):
+    """Path 7a: the first step in f32 through the geometry kernels held
+    against the pt chain and the plain geometry op (loss 1e-4; F and
+    dE/dleaves 2e-4; every leaf's gradient 1e-3, each relative to its
+    largest value: tests/test_pallas_triplet_slot.py:172-190); bf16 against
+    f32 by direction and size; then Adam steps in bf16 with exactly 4
+    forward, 4 backward and 4 second-order geometry launches per step and
+    no triplet_slot or segment-sum launch; finite forces."""
+    model = sn_model(torch, dev, torch.float32, True)
+    E = SN_G * SN_KW["block_size"] * SN_KW["nk_degree"]
+    b0 = batches[0]
+    res = {}
+    for branch, dt in (("kernel", torch.float32), ("plain", torch.float32),
+                       ("pt", torch.float32), ("kernel_bf16",
+                                               torch.bfloat16)):
+        leaves, w_out = ga_leaves(torch, dev, E)
+        res[branch] = ga_step(torch, ts, model, leaves, w_out, b0, dt,
+                              branch.split("_")[0])
+        torch.cuda.empty_cache()
+    k = res["kernel"]
+    worst = {}
+    for ref in ("plain", "pt"):
+        r = res[ref]
+        loss_err = abs(k["loss"] - r["loss"]) / abs(r["loss"])
+        f_err = rel_err(k["force"], r["force"])
+        e_err = max(rel_err(a, b) for a, b in zip(k["e_grads"],
+                                                       r["e_grads"]))
+        g_err = max(rel_err(a, b) for a, b in zip(k["grads"],
+                                                       r["grads"]))
+        worst[ref] = (loss_err, f_err, e_err, g_err)
+        log(f"  first step f32, geometry kernels against the {ref} branch: "
+            f"loss {k['loss']:.7f} vs {r['loss']:.7f} (rel {loss_err:.2e}; "
+            f"energy term {k['e_loss']:.5f}, force term {k['f_loss']:.5f}); "
+            f"F rel err {f_err:.2e}, dE/dleaves worst {e_err:.2e}, worst "
+            f"leaf gradient {g_err:.2e}")
+        if not (loss_err < GA_STEP_TOL[0] and f_err < GA_STEP_TOL[1]
+                and e_err < GA_STEP_TOL[1] and g_err < GA_STEP_TOL[2]):
+            fail(f"path 7a first step against the {ref} branch: "
+                 f"{worst[ref]} (bounds {GA_STEP_TOL})")
+    names = [f"layer{l}.{n}" for l in range(SN_KW["num_layers"])
+             for n in ("x", "ws", "wt")]
+    a = agreement(torch, res["kernel_bf16"]["grads"], k["grads"], names)
+    log(f"  first step bf16 against f32 (geometry kernels): loss "
+        f"{res['kernel_bf16']['loss']:.5f} vs {k['loss']:.5f}; cosine "
+        f"{a['cos']:.4f} over all leaves, median leaf {a['median_cos']:.4f}; "
+        f"norm {a['norm']:.4f} x, per leaf {a['least'][0]:.4f} "
+        f"({a['least'][1]}) to {a['largest'][0]:.4f} ({a['largest'][1]})")
+    if (not a["cos"] >= SF_BF16_COS[0] or not a["median_cos"] >= SF_BF16_COS[1]
+            or not SF_BF16_NORM[0] <= a["least"][0]
+            or not a["largest"][0] <= SF_BF16_NORM[1]):
+        fail(f"path 7a bf16 gradient against f32: {a}")
+    del res
+    torch.cuda.empty_cache()
+    leaves, w_out = ga_leaves(torch, dev, E)
+    opt = torch.optim.Adam([t for layer in leaves for t in layer], lr=GA_LR)
+    ts.reset_launch_counts()
+    sc.reset_launch_counts()
+    losses, t_start = [], None
+    for s, b in enumerate(batches):
+        if s == GA_WARMUP:
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+        r = ga_step(torch, ts, model, leaves, w_out, b, torch.bfloat16,
+                    "kernel")
+        if not bool(torch.isfinite(r["force"]).all()):
+            fail(f"path 7a step {s}: non-finite forces")
+        for p, g in zip(opt.param_groups[0]["params"], r["grads"]):
+            p.grad = g
+        opt.step()
+        losses.append(r["loss"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t_start
+    launches = (ts.launches_geom_fwd, ts.launches_geom_bwd,
+                ts.launches_geom_bwd2)
+    want = SN_KW["num_layers"] * len(batches)
+    log(f"  {len(batches)} Adam steps (bf16), losses "
+        f"{[round(x, 4) for x in losses]}")
+    log(f"  geometry launches fwd {launches[0]} bwd {launches[1]} bwd2 "
+        f"{launches[2]} (layers x steps = {want} each); triplet_slot "
+        f"{ts.launches_fwd} {ts.launches_bwd} {ts.launches_bwd2}; segment "
+        f"sum {sc.launches}")
+    if launches != (want, want, want):
+        fail(f"path 7a geometry launches {launches} != {want} each")
+    if ts.launches_fwd or ts.launches_bwd or ts.launches_bwd2:
+        fail("path 7a launched triplet_slot kernels")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"path 7a non-finite loss {losses}")
+    step_ms = dt / (len(batches) - GA_WARMUP) * 1e3
+    log(f"  step {step_ms:.3f} ms (mean of {len(batches) - GA_WARMUP} "
+        f"steps)")
+    return {"launches": launches, "step_ms": step_ms, "losses": losses,
+            "first_step": worst, "bf16": a}
+
+
+def ga_bounds(args, inp, prec, kind, ops):
+    """Least time for one call's work at this data, the largest of three:
+    bytes (the geo column and the gathered x row of each real triplet; the
+    mask, the ids and the weights in full; out, or for the backward the
+    cotangent rows of the edges that own a triplet in and dx, dgeo, dws,
+    dwt out, for the second order also the u1 rows and ug columns in and
+    xb, geob, wsb, wtb, ctb out, in the types the function takes and
+    returns) over 3.35 TB/s; the float32 operations of the contraction
+    (sn_bounds' counts, and for the second order pt_bounds' 10 C NB + 20 C
+    per triplet) over 67 TF/s; and the float64 operations of the rows
+    (``ops``: sympy's count of the generated closed forms, a lower bound on
+    their work: the rows in the forward, the rows and their gradients in
+    the backward, three gradient evaluations and the Hessians in the second
+    order) at every real triplet over the 34 TF/s of the FP64 pipes
+    (NVIDIA's data sheet)."""
+    x, geo, ws, wt, m2t, lj = args
+    C, NG = x.shape[1], geo.shape[1]
+    NB = ws.shape[0] + (wt.shape[0] if wt.shape[0] > 1 else 0)
+    T, Er = inp["work"]["triplets"], inp["work"]["edges"]
+    el = lambda t: t.numel() * t.element_size()
+    w = el(ws) + el(wt)
+    rows = inp["work"]["x_rows"] * C * x.element_size() + T * NG * 4
+    small = el(m2t) + el(lj) + w
+    if kind == "fwd":
+        flops = T * (2 * C * NB + 3 * C + NB)
+        nbytes = rows + small + el(x)
+    elif kind == "bwd":
+        flops = T * (6 * C * NB + 7 * C + 3 * NB)
+        nbytes = rows + small + Er * C * x.element_size() + el(x) + \
+            el(geo) + w
+    else:
+        flops = T * (10 * C * NB + 20 * C + 10 * NB)
+        nbytes = (2 * rows + small + Er * C * 4 + el(x) + el(geo) + w
+                  + x.shape[0] * C * 4)
+    row_ops = {"fwd": ops["row"], "bwd": ops["row"] + ops["grad"],
+               "bwd2": 3 * ops["grad"] + ops["hess"]}[kind]
+    t_ops = flops / PEAK_FLOPS["f32"]
+    t_rows = T * row_ops / PEAK_FP64
+    t_bytes = nbytes / PEAK_BYTES
+    by = max((t_ops, "operations (f32)"), (t_rows, "operations (f64 rows)"),
+             (t_bytes, "bytes"))
+    return by[0] * 1e3, by[1], flops, nbytes
+
+
+def slot_library_fwd(torch, args, rows, cfg, dt, A, K):
+    """The one PyTorch call that computes the slot forward: nk_library_fwd's
+    einsum over the triplets, e-major, with the x rows gathered and sbf, tbf
+    formed from the rows [K, R, E] (pt_assembled) outside the timed call.
+    Timed only; the port never calls it."""
+    x, ws, wt, m2t, lj = args[0], args[2], args[3], args[4], args[5]
+    E, Kr, R = x.shape[0], rows.shape[0], rows.shape[1]
+    e = torch.arange(E, device=x.device)
+    ids = (((e // (A * K)) * A + lj[0].long()) * K)[:, None] \
+        + torch.arange(K, device=x.device)                    # [E, K]
+    sbf, tbf = pt_assembled(torch, [None, rows.permute(1, 2, 0).reshape(
+        R, E * Kr)], cfg)
+    em = lambda t: None if t is None else t.to(dt)
+    return nk_library_fwd(torch, [x[ids.reshape(-1)], em(sbf), em(tbf), ws,
+                                  wt if cfg[2] else None,
+                                  m2t.t().to(x.dtype)], K)
+
+
+def phase_ga_times(torch, ts, inp):
+    """One call of each geometry kernel per layer at path 7a's shape (the
+    bare launch on validated operands, as the force path runs it: dgeo
+    asked for, u1 = u4 = u5 absent) beside its bound, its plain version,
+    and the pt chain that computes the same function through autograd in
+    the same call (basis_pt_k and the fused_triplet_slot kernels: the
+    forward; the first backward from a kept graph; the second backward of
+    dgeo's cotangent from a kept first-order graph); the forward also
+    beside the einsum over sbf and tbf assembled outside the timed call."""
+    from dig_tpu_torch.ops.basis import basis_row_ops
+    A, K = SN_KW["block_size"], SN_KW["nk_degree"]
+    rows = []
+    for prec, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        args, cfg = ga_args(torch, inp, True, dt)
+        ops = basis_row_ops(*cfg)
+        k_args = ts._geom_kernel_inputs(*args, A, K, cfg)
+        ct = inp["ct"].to(dt)
+        ct32 = ct.float().contiguous()
+        ug = inp["ug"]
+        kern = {
+            "fwd": lambda: ts.triplet_slot_geom_forward_kernel(*k_args, A, K,
+                                                               cfg),
+            "bwd": lambda: ts.triplet_slot_geom_backward_kernel(
+                *k_args, ct32, A, K, cfg, True),
+            "bwd2": lambda: ts.triplet_slot_geom_bwd2_kernel(
+                *k_args, ct32, None, ug, None, None, A, K, cfg)}
+        plain = {
+            "fwd": lambda: ts.fused_triplet_slot_geom_reference(*args, A, K,
+                                                                cfg),
+            "bwd": lambda: ts.fused_triplet_slot_geom_bwd_reference(
+                *args, ct, A, K, cfg),
+            "bwd2": lambda: ts.fused_triplet_slot_geom_bwd2_reference(
+                *args, ct, None, ug, None, None, A, K, cfg)}
+        n, k = cfg[0], cfg[1]
+        xs = [a.clone().requires_grad_() for a in args[:4]]
+
+        def chain(xs):
+            g = xs[1]
+            pt = ts.basis_pt_k(n, k, g[:, 0], g[:, 1], g[:, 2], True)
+            return ts.fused_triplet_slot(xs[0], pt.to(dt), *xs[2:],
+                                         *args[4:], A, K, cfg)
+        with torch.no_grad():
+            chain_fwd = cuda_ms(torch, lambda: chain(args[:4]), iters=10)
+        out = chain(xs)
+        chain_bwd = cuda_ms(torch, lambda: torch.autograd.grad(
+            out, xs, ct, retain_graph=True), iters=10)
+        first = torch.autograd.grad(out, xs, ct, create_graph=True)
+        chain_bwd2 = cuda_ms(torch, lambda: torch.autograd.grad(
+            first[1], xs, ug, retain_graph=True, allow_unused=True), iters=10)
+        del out, first, xs
+        chain_ms = {"fwd": chain_fwd, "bwd": chain_bwd, "bwd2": chain_bwd2}
+        for kind in ("fwd", "bwd", "bwd2"):
+            ms = cuda_ms(torch, kern[kind])
+            p_ms = cuda_ms(torch, plain[kind], iters=3, warmup=1)
+            b = ga_bounds(args, inp, prec, kind, ops)
+            lib_ms = lib_err = None
+            if kind == "fwd":
+                lib = slot_library_fwd(torch, args, ts.geom_rows_pt(
+                    args[1], args[4], args[5], A, cfg), cfg, dt, A, K)
+                lib_err = rel_err(lib(), plain["fwd"]())
+                if prec == "f32" and lib_err >= NK_TOL["f32"]:
+                    fail(f"einsum geometry forward: rel err {lib_err} "
+                         f"against the plain forward")
+                lib_ms = cuda_ms(torch, lib, iters=3, warmup=1)
+                del lib
+                torch.cuda.empty_cache()
+            rows.append({"kernel": f"triplet_slot_geom_{kind}",
+                         "precision": prec, "ms": ms, "plain_ms": p_ms,
+                         "chain_ms": chain_ms[kind], "bound_ms": b[0],
+                         "bound_by": b[1], "flops": b[2], "bytes": b[3],
+                         "library_ms": lib_ms, "library_err": lib_err})
+    log(f"  one layer's call at E={inp['x'].shape[0]}, K={K}, C={SN_C}: "
+        f"{inp['work']['triplets']} real triplets; pt chain = basis_pt_k "
+        f"and the fused_triplet_slot kernels through autograd:")
+    for r in rows:
+        log(f"  {r['kernel']} {r['precision']}: {r['ms']:.4f} ms (bound "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']}, "
+            f"{r['bound_ms'] / r['ms']:.4f} of it; {r['flops'] / 1e9:.3f} "
+            f"GFLOP f32, {r['bytes'] / 1e6:.2f} MB); pt chain "
+            f"{r['chain_ms']:.4f} ms; plain {r['plain_ms']:.3f} ms"
+            + ("" if r["library_ms"] is None else
+               f"; einsum over sbf and tbf assembled outside the timed call "
+               f"{r['library_ms']:.3f} ms (rel err {r['library_err']:.2e})"))
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Path 7b: the chunked sorted-CSR segment sum and spmm_csr
+# ---------------------------------------------------------------------------
+
+def cs_graph(torch, dev):
+    """bench.py bench_spmm_roofline's graph (:560-571):
+    synthetic_large_graph(60000, seed=0, avg_deg=16), receivers sorted into
+    seg and rowptr, data [E, 128] f32 from default_rng(0); the senders in
+    the same order as spmm_csr's columns."""
+    import numpy as np
+    from dig_tpu_torch.lsgraph import synthetic_large_graph
+    g = synthetic_large_graph(CS_N, seed=0, avg_deg=16)
+    order = np.argsort(g["receivers"], kind="stable")
+    seg = g["receivers"][order].astype(np.int32)
+    E = len(seg)
+    rowptr = np.zeros(CS_N + 1, np.int32)
+    np.add.at(rowptr, seg + 1, 1)
+    rowptr = np.cumsum(rowptr).astype(np.int32)
+    data = np.random.default_rng(0).normal(size=(E, CS_F)).astype(np.float32)
+    return {"seg": torch.from_numpy(seg).to(dev),
+            "rowptr_np": rowptr, "rowptr": torch.from_numpy(rowptr).to(dev),
+            "col": torch.from_numpy(
+                g["senders"][order].astype(np.int32)).to(dev),
+            "data": torch.from_numpy(data).to(dev), "N": CS_N, "E": E,
+            "max_degree": int(np.diff(rowptr).max())}
+
+
+def cs_skewed(torch, dev):
+    """Phase 12's skewed CSR (one row holds a quarter of 20,000 edges, every
+    50th row empty, a -1 tail of 512) at F = 128, f32."""
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    N, E = 1000, 20000
+    rows = torch.randint(0, N, (E,), generator=gen)
+    rows = rows[rows % 50 != 7]
+    rows[: E // 4] = 123
+    seg = torch.sort(rows).values.to(torch.int32)
+    rowptr = torch.searchsorted(seg, torch.arange(N + 1, dtype=torch.int32),
+                                out_int32=True)
+    seg = torch.cat([seg, torch.full((512,), -1, dtype=torch.int32)])
+    data = torch.randn(seg.shape[0], CS_F, generator=gen)
+    return {"seg": seg.to(dev), "rowptr_np": rowptr.numpy(),
+            "rowptr": rowptr.to(dev), "data": data.to(dev), "N": N}
+
+
+def phase_cs_path(torch, sc, g, skew):
+    """Path 7b: the chunked sum against its plain version (CS_TOL on the
+    bench graph, SEG_TOL on the skewed CSR) and against the ported
+    segment_sum_sorted_csr over a full window (the same bits), f32 and
+    bf16 (float32 out); repeated calls the same bits; the VJP against the
+    plain one; spmm_csr with seeded values against its plain version; one
+    chunked launch per forward and none in its VJP."""
+    errs = {}
+    for name, c in (("bench graph", g), ("skewed", skew)):
+        for dt in (torch.float32, torch.bfloat16):
+            data, seg, rp, N = c["data"].to(dt), c["seg"], c["rowptr"], c["N"]
+            BN, EB, meta_np, _ = sc.choose_chunk_plan(c["rowptr_np"], N,
+                                                      data.shape[1], dt)
+            meta = torch.from_numpy(meta_np).to(data.device)
+            before = sc.launches_chunked
+            out = sc.segment_sum_sorted_csr_chunked(data, seg, meta, N, BN, EB)
+            torch.cuda.synchronize()
+            if sc.launches_chunked != before + 1:
+                fail(f"chunked sum {name}: {sc.launches_chunked - before} "
+                     f"launches")
+            want = sc.segment_sum_sorted_csr_chunked_reference(
+                data, seg, meta, N, BN, EB)
+            full = sc.segment_csr_launch(data.contiguous(), seg, rp, N)
+            e, same_full = rel_err(out, want), torch.equal(out, full)
+            tol = CS_TOL if name == "bench graph" else SEG_TOL
+            again = sc.segment_sum_sorted_csr_chunked(data, seg, meta, N, BN,
+                                                      EB)
+            same = torch.equal(again, out)
+            log(f"  {name} {str(dt)[6:]} N={N} E={data.shape[0]} "
+                f"F={data.shape[1]}: plan BN={BN} EB={EB}, "
+                f"{meta.shape[1]} chunks; rel err {e:.2e} against plain "
+                f"(held to {tol}); the same bits as segment_sum_sorted_csr: "
+                f"{same_full}; repeated call the same bits: {same}")
+            if out.dtype != torch.float32 or e >= tol or not same_full:
+                fail(f"chunked sum {name} {dt}: rel err {e}, the same bits "
+                     f"as segment_sum_sorted_csr: {same_full}")
+            if not same:
+                fail(f"chunked sum {name} {dt} not bitwise repeatable")
+            if name == "bench graph" and dt == torch.float32:
+                errs["fwd"] = float((out - want).abs().max())
+                gen = torch.Generator(device="cpu").manual_seed(8)
+                cw = torch.randn(N, data.shape[1], generator=gen).to(
+                    data.device)
+                res = []
+                for fn in (sc.segment_sum_sorted_csr_chunked,
+                           sc.segment_sum_sorted_csr_chunked_reference):
+                    d = data.clone().requires_grad_()
+                    (gd,) = torch.autograd.grad(
+                        (fn(d, seg, meta, N, BN, EB) * cw).sum(), d)
+                    res.append(gd)
+                e_vjp = rel_err(res[0], res[1])
+                log(f"    VJP (the row gather) rel err {e_vjp:.2e}")
+                if e_vjp >= CS_TOL:
+                    fail(f"chunked sum VJP: rel err {e_vjp}")
+    gen = torch.Generator(device="cpu").manual_seed(9)
+    val = torch.randn(g["E"], generator=gen).to(g["data"].device)
+    x = torch.randn(g["N"], CS_F, generator=gen).to(g["data"].device)
+    before = sc.launches
+    got = sc.spmm_csr(g["rowptr"], g["col"], val, x, g["N"],
+                      max_edges_per_block=sc.full_window(g["E"]))
+    torch.cuda.synchronize()
+    want = sc.segment_sum_sorted_csr_reference(
+        x[g["col"].long()] * val[:, None], g["seg"], g["rowptr"], g["N"])
+    e = rel_err(got, want)
+    log(f"  spmm_csr on the bench graph (seeded values, x [{g['N']}, "
+        f"{CS_F}]): rel err {e:.2e} against its plain version; "
+        f"{sc.launches - before} segment-sum launch")
+    if e >= CS_TOL or sc.launches - before != 1:
+        fail(f"spmm_csr: rel err {e}, {sc.launches - before} launches")
+    return errs
+
+
+def cs_bound(data, seg, N):
+    """Least time at this data: each counted edge row, its id and the
+    float32 output once (bytes; 0.157 ms for f32 at the bench graph), one
+    add per element of a counted row (f32 operations)."""
+    nnz = int((seg >= 0).sum())
+    F = data.shape[1]
+    nbytes = nnz * F * data.element_size() + 4 * nnz + 4 * N * F
+    t_bytes, t_ops = nbytes / PEAK_BYTES, nnz * F / PEAK_FLOPS["f32"]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes)
+
+
+def phase_cs_times(torch, sc, g):
+    """Per call at path 7b's shape (f32 and bf16; CUDA events): the bare
+    chunked launch beside its bound, its plain version, the ported
+    segment_csr_kernel on the same graph, torch.segment_reduce and
+    index_add_ (library_ms: the faster of the two)."""
+    rows = []
+    for dt in (torch.float32, torch.bfloat16):
+        data, seg, rp, N = g["data"].to(dt), g["seg"], g["rowptr"], g["N"]
+        BN, EB, meta_np, _ = sc.choose_chunk_plan(g["rowptr_np"], N,
+                                                  data.shape[1], dt)
+        meta = torch.from_numpy(meta_np).to(data.device)
+        ms = cuda_ms(torch, lambda: sc.segment_csr_chunked_launch(
+            data, seg, meta, N, BN, EB), iters=50)
+        plain = cuda_ms(
+            torch, lambda: sc.segment_sum_sorted_csr_chunked_reference(
+                data, seg, meta, N, BN, EB), iters=5, warmup=1)
+        csr = cuda_ms(torch, lambda: sc.segment_csr_launch(data, seg, rp, N),
+                      iters=50)
+        lib = {"index_add_": cuda_ms(torch, lambda: torch.zeros(
+            N, data.shape[1], dtype=dt, device=data.device).index_add_(
+                0, seg.long(), data), iters=20)}
+        try:
+            lib["segment_reduce"] = cuda_ms(torch, lambda: torch.segment_reduce(
+                data, "sum", offsets=rp.long(), axis=0), iters=20)
+        except RuntimeError as exc:          # a yardstick only, not the port
+            log(f"  torch.segment_reduce does not run here: "
+                f"{str(exc).splitlines()[0]}")
+        best = min(lib, key=lib.get)
+        b = cs_bound(data, seg, N)
+        rows.append({"dtype": str(dt)[6:], "BN": BN, "EB": EB,
+                     "chunks": meta.shape[1], "ms": ms, "plain_ms": plain,
+                     "csr_ms": csr, "library": lib, "library_ms": lib[best],
+                     "bound_ms": b[0], "bound_by": b[1], "bytes": b[2]})
+    for r in rows:
+        libs = ", ".join(f"{k} {v:.4f} ms" for k, v in r["library"].items())
+        log(f"  segment_sum_sorted_csr_chunked {r['dtype']} (BN={r['BN']}, "
+            f"EB={r['EB']}, {r['chunks']} chunks): {r['ms']:.4f} ms (bound "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']}, "
+            f"{r['bytes'] / 1e6:.2f} MB, {r['bound_ms'] / r['ms']:.3f} of "
+            f"it); segment_csr_kernel {r['csr_ms']:.4f} ms; plain "
+            f"{r['plain_ms']:.3f} ms; {libs}")
+    return rows
+
+
+def build_all(_build, builds):
+    """Build every CUDA source at once (one nvcc each): ``builds`` maps a
+    label to (source name, generated headers or None); the seconds each
     took and the whole."""
     from concurrent.futures import ThreadPoolExecutor
 
-    def one(name):
+    def one(spec):
         t = time.perf_counter()
-        _build.build(name)
+        _build.build(*spec)
         return time.perf_counter() - t
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(names)) as pool:
-        secs = dict(zip(names, pool.map(one, names)))
+    with ThreadPoolExecutor(len(builds)) as pool:
+        secs = dict(zip(builds, pool.map(one, builds.values())))
     return secs, time.perf_counter() - t0
 
 
@@ -2433,15 +3190,19 @@ def main():
         f"{torch.version.cuda}")
 
     log("== 2. build")
-    sources = ["cfconv", "triplet_slot", "segment_csr", "triplet_product",
-               "triplet_pt"]
-    secs, whole = build_all(_build, sources)
+    builds = {n: (n, None) for n in ("cfconv", "triplet_slot", "segment_csr",
+                                     "triplet_product", "triplet_pt")}
+    for has_t in (True, False):
+        cfg = (SN_KW["num_spherical"], SN_KW["num_radial"], has_t)
+        builds[f"triplet_slot_geom {ts.geom_library_spec(cfg)[0]}"] = (
+            "triplet_slot_geom", ts.geom_library_spec(cfg))
+    secs, whole = build_all(_build, builds)
     log(f"  nvcc sm_90a builds, one process per source, all at once: "
-        + ", ".join(f"{n} {secs[n]:.1f} s" for n in sources)
+        + ", ".join(f"{n} {secs[n]:.1f} s" for n in builds)
         + f"; {whole:.1f} s in all")
-    for src in sources:
-        log(f"  {src}.cu:")
-        for line in _build.build_report(src).splitlines():
+    for label, spec in builds.items():
+        log(f"  {label}:")
+        for line in _build.build_report(*spec).splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log("    " + line.strip())
 
@@ -2585,6 +3346,40 @@ def main():
         log(f"  path {path}: step {r['step_ms']:.3f} ms, "
             f"{r['edges_per_s']:.6g} edges/s (uncapped pairs), "
             f"{r['kept_edges_per_s']:.6g} (kept NK edges)")
+    del pt_inp
+    torch.cuda.empty_cache()
+
+    ga_b = ga_batches(torch, dev, GA_STEPS)
+    log("== 25. kernel vs plain: fused_triplet_slot_geom (path 7a's shape, "
+        "the geometry of a real batch)")
+    ga_inp = ga_kernel_inputs(torch, dev, ga_b[-1])
+    ga_errs = phase_ga_kernel_vs_plain(torch, ts, ga_inp)
+    torch.cuda.empty_cache()
+
+    log("== 26. main path 7a: the geometry op in energy+force training, 4 "
+        "layers at the flagship slot width (K=16, C=64, n=3, k=6, torsion), "
+        "batches of 96 in slots of 29, Adam(5e-4), bf16")
+    ga_res = phase_ga_main_path(torch, ts, sc, dev, ga_b)
+    del ga_b
+    torch.cuda.empty_cache()
+
+    log("== 27. main path 7b: the chunked sorted-CSR segment sum on "
+        "bench_spmm_roofline's graph (N=60000, avg_deg 16, F=128); "
+        "spmm_csr; kernel vs plain")
+    cs_g = cs_graph(torch, dev)
+    log(f"  E={cs_g['E']} edges, largest in-degree {cs_g['max_degree']}")
+    sc.reset_launch_counts()
+    cs_errs = phase_cs_path(torch, sc, cs_g, cs_skewed(torch, dev))
+    cs_launches = sc.launches_chunked
+    torch.cuda.empty_cache()
+
+    log("== 28. times: fused_triplet_slot_geom beside the pt chain; path 7a; "
+        "the chunked segment sum")
+    ga_rows = phase_ga_times(torch, ts, ga_inp)
+    log(f"  path 7a: step {ga_res['step_ms']:.3f} ms")
+    cs_rows = phase_cs_times(torch, sc, cs_g)
+    del ga_inp, cs_g
+    torch.cuda.empty_cache()
 
     def total(kernel, key):
         return sum(r[key] for r in rows if r["kernel"] == kernel
@@ -2621,7 +3416,7 @@ def main():
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": None})
+            "library_ms": r["library_ms"]})
     b_rows = [r for r in sf_rows if r["precision"] == "bf16"]
     kernels.append({
         "name": "triplet_slot_bwd2", "route": "cuda",
@@ -2666,6 +3461,35 @@ def main():
             "max_abs_err": pt_errs[kind], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    for kind in ("fwd", "bwd", "bwd2"):
+        r = next(r for r in ga_rows if r["kernel"] == f"triplet_slot_geom_"
+                 f"{kind}" and r["precision"] == "bf16")
+        kernels.append({
+            "name": f"triplet_slot_geom_{kind}", "route": "cuda",
+            "source": "dig_tpu_torch/csrc/triplet_slot_geom.cu",
+            "replaces": "dig_tpu/ops/pallas_triplet_slot.py:"
+                        + {"fwd": "565", "bwd": "588", "bwd2": "626"}[kind],
+            "launches": ga_res["launches"][("fwd", "bwd", "bwd2").index(
+                kind)],
+            "max_abs_err": ga_errs[kind], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    r = next(r for r in cs_rows if r["dtype"] == "float32")
+    kernels.append({
+        "name": "segment_sum_sorted_csr_chunked", "route": "cuda",
+        "source": "dig_tpu_torch/csrc/segment_csr.cu",
+        "replaces": "dig_tpu/ops/pallas_segment.py:325",
+        "launches": cs_launches, "max_abs_err": cs_errs["fwd"],
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    log("  (triplet_slot_geom_*: one bare launch = one layer of one path-7a "
+        "step, bf16, dgeo asked for, u1 = u4 = u5 absent; launches from path "
+        "7a's timed steps; the forward's library_ms is the einsum over the "
+        "gathered x rows and sbf, tbf assembled outside the timed call; no "
+        "PyTorch call returns the backward's or the second order's "
+        "cotangents, so theirs is null. segment_sum_sorted_csr_chunked: one "
+        "bare launch at path 7b's shape, f32; launches from path 7b's run; "
+        "library_ms the faster of index_add_ and segment_reduce)")
     log("  (triplet_pt_*: one bare launch = one layer of one path-6a step, "
         "bf16, dpt asked for, u4 = u5 absent; launches summed over the timed "
         "runs of paths 6a and 6b; the forward's library_ms is the einsum over "
@@ -2686,8 +3510,10 @@ def main():
         "one call = one layer of one energy step (main path 2), no "
         "geometry gradient; triplet_slot_bwd2: one call per bucket, summed "
         "over the 3 buckets = one layer of one force step (main path 3), "
-        "u4 = u5 absent; all bf16 as on the main paths; no PyTorch call "
-        "computes any of these functions, so library_ms is null)")
+        "u4 = u5 absent; all bf16 as on the main paths; the slot forward's "
+        "library_ms is the einsum over the gathered x rows and sbf, tbf "
+        "assembled outside the timed call; no PyTorch call computes cfconv "
+        "or returns the slot cotangents, so theirs is null)")
     log(f"  force path: step {sf_res['step_ms']:.3f} ms, "
         f"{sf_res['edges_per_s']:.6g} edges/s (uncapped pairs), "
         f"{sf_res['kept_edges_per_s']:.6g} (kept NK edges)")

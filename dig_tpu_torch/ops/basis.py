@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import functools
 import math
+import re
 from typing import Callable, List, Tuple
 
 import numpy as np
@@ -190,6 +191,137 @@ def packed_basis_rows(num_spherical: int, num_radial: int, theta, phi, dk,
     if has_t:
         rows += [f(theta, phi) for f in make_sph_funcs_full(num_spherical)]
     return rows
+
+
+@functools.lru_cache(maxsize=None)
+def _packed_row_jets(num_spherical: int, num_radial: int, has_t: bool):
+    """The sympy expressions behind :func:`packed_basis_rows`, in its row
+    order, in the symbols (theta, phi, x), each with its gradient
+    d/d(theta, phi, x) and its second derivatives (tt, tp, tx, pp, px,
+    xx): a list of (row, [3], [6])."""
+    rows = [e for row in bessel_basis_exprs(num_spherical, num_radial)
+            for e in row]
+    y0 = real_sph_harm_exprs(num_spherical, zero_m_only=True)
+    rows += [y0[l][0] for l in range(num_spherical)]
+    if has_t:
+        y = real_sph_harm_exprs(num_spherical, zero_m_only=False)
+        rows += [y[l][pos] for l in range(num_spherical)
+                 for pos in range(2 * l + 1)]
+    args = sym.symbols("theta phi x")
+    jets = []
+    for e in map(sym.sympify, rows):
+        d1 = [sym.diff(e, a) for a in args]
+        d2 = [sym.diff(e, args[i], args[j])
+              for i in range(3) for j in range(i, 3)]
+        jets.append((e, d1, d2))
+    return jets
+
+
+_LITERAL = re.compile(r"(?<![\w.])(\d+\.\d*(?:[eE][-+]?\d+)?|\d+[eE][-+]?\d+)")
+
+
+def _c_expr(e) -> str:
+    """``e`` as C++ in the real type ``R``: every floating literal wrapped
+    as ``R(...)`` (17 digits, so R = double keeps them exact and R = float
+    rounds them as a float literal would), small integer powers written as
+    products, sin / cos / sqrt through the header's overloads."""
+    from sympy.codegen.ast import float64, real
+    from sympy.codegen.rewriting import (create_expand_pow_optimization,
+                                         optimize)
+    expand = create_expand_pow_optimization(16, base_req=lambda b: True)
+    text = sym.ccode(optimize(e, [expand]), type_aliases={real: float64},
+                     user_functions={"sin": "gsin", "cos": "gcos",
+                                     "sqrt": "gsqrt"})
+    if "pow" in text:
+        raise ValueError(f"unexpanded power in the row code: {text}")
+    return _LITERAL.sub(r"R(\1)", text)
+
+
+def _c_case(r: int, exprs, out_names) -> List[str]:
+    """One ``case r:`` of a generated switch: the common subexpressions of
+    ``exprs`` as temporaries, then ``out_names[i] = exprs[i]``."""
+    subs, reduced = sym.cse(exprs, symbols=sym.numbered_symbols("t"))
+    lines = [f"    case {r}: {{"]
+    lines += [f"      const R {s} = {_c_expr(e)};" for s, e in subs]
+    lines += [f"      {o} = {_c_expr(e)};" for o, e in zip(out_names, reduced)]
+    lines += ["      break;", "    }"]
+    return lines
+
+
+@functools.lru_cache(maxsize=None)
+def basis_row_code(num_spherical: int, num_radial: int, has_t: bool) -> str:
+    """C++ source of the packed basis rows (:func:`packed_basis_rows`'s
+    order: Bessel l-major, Y_l^0, then with ``has_t`` Y_l^m) and of their
+    first and second derivatives in (theta, phi, x = d_kj / cutoff), for
+    the in-kernel basis of ``ops.triplet_slot.fused_triplet_slot_geom``.
+
+    Printed from the same sympy closed forms the torch rows are lambdified
+    from (derivatives by ``sym.diff``, common subexpressions by
+    ``sym.cse``, integer powers written as products), as code templated on
+    the real type R: the text compiles as CUDA device code (R = float in
+    the kernels) and as plain C++. It defines, in ``namespace geom_rows``,
+    ``ROWS`` and the functions ``row<R>(r, theta, phi, x)``,
+    ``row_grad<R>(r, ..., g)`` (the value, and g = d/d(theta, phi, x)) and
+    ``row_hess<R>(r, ..., h)`` (h = the second derivatives (tt, tp, tx,
+    pp, px, xx))."""
+    jets = _packed_row_jets(num_spherical, num_radial, has_t)
+    sig = "int r, R theta, R phi, R x"
+    val, grad, hess = [], [], []
+    for r, (e, d1, d2) in enumerate(jets):
+        val += _c_case(r, [e], ["v"])
+        grad += _c_case(r, [e] + d1, ["v", "g[0]", "g[1]", "g[2]"])
+        hess += _c_case(r, d2, [f"h[{i}]" for i in range(6)])
+    head = [
+        "// Generated by dig_tpu_torch/ops/basis.py (basis_row_code) from the",
+        "// sympy closed forms of the packed basis rows: num_spherical="
+        f"{num_spherical},",
+        f"// num_radial={num_radial}, has_t={int(has_t)}. Do not edit.",
+        "#pragma once",
+        "#include <math.h>",
+        "#ifdef __CUDACC__",
+        "#define GEOM_ROW_FN __host__ __device__ inline",
+        "#else",
+        "#define GEOM_ROW_FN inline",
+        "#endif",
+        "namespace geom_rows {",
+        f"constexpr int NUM_SPHERICAL = {num_spherical};",
+        f"constexpr int NUM_RADIAL = {num_radial};",
+        f"constexpr int HAS_T = {int(has_t)};",
+        f"constexpr int ROWS = {len(jets)};",
+        "GEOM_ROW_FN float gsin(float v) { return sinf(v); }",
+        "GEOM_ROW_FN double gsin(double v) { return sin(v); }",
+        "GEOM_ROW_FN float gcos(float v) { return cosf(v); }",
+        "GEOM_ROW_FN double gcos(double v) { return cos(v); }",
+        "GEOM_ROW_FN float gsqrt(float v) { return sqrtf(v); }",
+        "GEOM_ROW_FN double gsqrt(double v) { return sqrt(v); }",
+    ]
+    tmpl = "template <typename R>"
+    body = (
+        [tmpl, f"GEOM_ROW_FN R row({sig}) {{", "  R v = R(0);",
+         "  switch (r) {"] + val + ["  }", "  return v;", "}"]
+        + [tmpl, f"GEOM_ROW_FN R row_grad({sig}, R* g) {{", "  R v = R(0);",
+           "  g[0] = g[1] = g[2] = R(0);", "  switch (r) {"]
+        + grad + ["  }", "  return v;", "}"]
+        + [tmpl, f"GEOM_ROW_FN void row_hess({sig}, R* h) {{",
+           "  for (int i = 0; i < 6; ++i) h[i] = R(0);", "  switch (r) {"]
+        + hess + ["  }", "}", "}  // namespace geom_rows", ""])
+    return "\n".join(head + body)
+
+
+@functools.lru_cache(maxsize=None)
+def basis_row_ops(num_spherical: int, num_radial: int, has_t: bool):
+    """Operations of :func:`basis_row_code`'s functions summed over the
+    rows, as sympy counts them after common subexpressions (a sine, a
+    division or a product each one): ``{"row": .., "grad": ..,
+    "hess": ..}``. A lower bound on the work of one evaluation of all
+    rows, for the kernels' bounds."""
+    count = {"row": 0, "grad": 0, "hess": 0}
+    for e, d1, d2 in _packed_row_jets(num_spherical, num_radial, has_t):
+        for key, exprs in (("row", [e]), ("grad", [e] + d1), ("hess", d2)):
+            subs, reduced = sym.cse(exprs)
+            count[key] += int(sum(sym.count_ops(t) for _, t in subs)
+                              + sum(sym.count_ops(t) for t in reduced))
+    return count
 
 
 def bessel_table(num_spherical: int, num_radial: int, x: torch.Tensor):

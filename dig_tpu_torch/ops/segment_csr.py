@@ -1,6 +1,7 @@
 """Sorted-CSR segment sum: the flat layout's edge->node aggregation. Port of
-``segment_sum_sorted_csr`` and ``csr_block_overflow`` of
-``dig_tpu/ops/pallas_segment.py``.
+``segment_sum_sorted_csr``, ``csr_block_overflow``,
+``segment_sum_sorted_csr_chunked`` (with ``plan_chunks`` and
+``choose_chunk_plan``) and ``spmm_csr`` of ``dig_tpu/ops/pallas_segment.py``.
 
     out[r] = sum of data[e] over e in [rowptr[r], rowptr[r+1]) with seg[e] == r
 
@@ -31,23 +32,37 @@ aggregation is a gather or a CSR sum: no scatter-add, and every sum the
 kernel takes is bit-repeatable. Both members are exact when the ids are
 sorted and ``rowptr`` is their row pointer (what ``segment_sum_sorted``
 builds).
+
+The chunked sum (:func:`segment_sum_sorted_csr_chunked`) takes the chunk
+table ``meta [3, C]`` of :func:`plan_chunks` in place of ``rowptr``: each
+block of ``block_rows`` rows sums the edges of its windows of
+``chunk_edges`` edges whose id falls in the block, and the windows tile the
+block's edges, so nothing is dropped. On a CUDA tensor it launches
+``segment_csr_chunked_kernel`` of the same source (a block per row block,
+rows summed in edge order; ``launches_chunked`` counts them) or raises; on
+a CPU tensor its plain version. Its VJP is the row gather of ``_ssc_bwd``
+(:func:`row_gather`). :func:`spmm_csr` is ``x[col] * val`` summed per CSR
+row through :func:`segment_sum_sorted_csr`.
 """
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import _build
 
 launches = 0
+launches_chunked = 0
 
 _SHAPES = "negative size"
 
 
 def reset_launch_counts() -> None:
-    global launches
+    global launches, launches_chunked
     launches = 0
+    launches_chunked = 0
 
 
 def _round_up(x: int, m: int) -> int:
@@ -111,6 +126,8 @@ def _library() -> ctypes.CDLL:
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.segment_csr_fwd.argtypes = [P, P, P, P, I, I, I, I, P]
         lib.segment_csr_fwd.restype = I
+        lib.segment_csr_chunked_fwd.argtypes = [P, P, P, P] + [I] * 7 + [P]
+        lib.segment_csr_chunked_fwd.restype = I
         lib._argtypes_set = True
     return lib
 
@@ -221,3 +238,177 @@ def segment_sum_sorted_csr(data: torch.Tensor, seg_ids: torch.Tensor,
     Differentiable to any order (see the module docstring)."""
     return _SegmentSumSortedCSR.apply(data, seg_ids, rowptr, num_rows,
                                       block_rows, max_edges_per_block)
+
+
+# ---------------------------------------------------------------------------
+# the chunked sum
+# ---------------------------------------------------------------------------
+
+def plan_chunks(rowptr, num_rows: int, block_rows: int,
+                chunk_edges: int) -> np.ndarray:
+    """Host-side chunk table for :func:`segment_sum_sorted_csr_chunked`.
+
+    Returns int32 ``meta [3, C]``: row 0 = 128-aligned edge window starts,
+    row 1 = output row-block index, row 2 = 1 on a block's first chunk.
+    Every row block gets >= 1 chunk (so every output row is written), and
+    the chunks tile each block's full extent: no edge is dropped.
+    """
+    rp = np.asarray(rowptr, np.int64)
+    BN, EB = block_rows, chunk_edges
+    assert EB % 128 == 0
+    N_pad = _round_up(num_rows, BN)
+    rp = np.pad(rp, (0, N_pad + 1 - rp.shape[0]), mode="edge")
+    starts = rp[::BN][:-1]
+    ends = rp[::BN][1:]
+    start_al = (starts // 128) * 128
+    need = ends - start_al
+    n_chunks = np.maximum(1, -(-need // EB))
+    blocks = np.repeat(np.arange(len(starts)), n_chunks)
+    within = np.arange(len(blocks)) - np.repeat(
+        np.cumsum(n_chunks) - n_chunks, n_chunks)
+    return np.stack([
+        (start_al[blocks] + within * EB),
+        blocks,
+        (within == 0).astype(np.int64),
+    ]).astype(np.int32)
+
+
+def choose_chunk_plan(rowptr, num_rows: int, feat_dim: int,
+                      dtype=torch.float32):
+    """Deterministic ``(block_rows, chunk_edges, meta, bytes)`` from rowptr
+    statistics, the JAX package's choice: each candidate is modelled as
+    max(DMA time, one-hot matmul time) at its nominal TPU rates (the
+    constants only set the crossover, so the choice is the same on every
+    machine); ``bytes`` is the modelled window traffic."""
+    DMA_BPS, MM_FLOPS = 130e9, 60e12
+    passes = 3 if dtype == torch.float32 else 1
+    esize = 4 if dtype == torch.float32 else 2
+    best = None
+    for BN in (64, 128, 256, 512):
+        for EB in (512, 768, 1024):
+            meta = plan_chunks(rowptr, num_rows, BN, EB)
+            C = meta.shape[1]
+            dma = C * EB * (feat_dim * esize + 4) \
+                + _round_up(num_rows, BN) * feat_dim * 4
+            mm = C * 2 * BN * EB * feat_dim * passes
+            t = max(dma / DMA_BPS, mm / MM_FLOPS)
+            if best is None or t < best[0]:
+                best = (t, BN, EB, meta, dma)
+    return best[1], best[2], best[3], best[4]
+
+
+def segment_sum_sorted_csr_chunked_reference(data, seg_ids, meta,
+                                             num_rows: int,
+                                             block_rows: int = 256,
+                                             chunk_edges: int = 512):
+    """Plain version of the chunked sum, with the TPU kernel's membership
+    rule: edge e counts for row r = seg[e] when e lies in a window
+    ``[meta[0][c], meta[0][c] + chunk_edges)`` of a chunk c of r's row
+    block (``meta[1][c] == r // block_rows``) and r < num_rows. Sums in
+    float32."""
+    E, F = data.shape
+    m = torch.as_tensor(meta, device=data.device).long()
+    e = m[0][:, None] + torch.arange(chunk_edges, device=data.device)
+    inb = (e >= 0) & (e < E)
+    es = torch.where(inb, e, 0)
+    s = seg_ids.long()[es]
+    base = m[1][:, None] * block_rows
+    take = inb & (s >= base) & (s < base + block_rows) & (s < num_rows)
+    out = torch.zeros((num_rows, F), dtype=torch.float32, device=data.device)
+    return out.index_add_(0, s[take], data[es[take]].float())
+
+
+def segment_csr_chunked_launch(data, seg, meta, num_rows, block_rows,
+                               chunk_edges):
+    """Check CUDA inputs and launch the chunked kernel: contiguous ``data
+    [E, F]`` (float32 or bf16), int32 ``seg [E]`` and ``meta [3, C]`` (a
+    numpy table is copied to the card); ``[num_rows, F]`` float32."""
+    global launches_chunked
+    if data.ndim != 2:
+        raise ValueError(f"segment_sum_sorted_csr_chunked: data must be "
+                         f"[E, F], got shape {tuple(data.shape)}")
+    if data.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"segment_sum_sorted_csr_chunked kernel takes "
+                        f"float32 or bfloat16 data, got {data.dtype}")
+    E, F = data.shape
+    meta = torch.as_tensor(meta, dtype=torch.int32, device=data.device)
+    if seg.device != data.device or tuple(seg.shape) != (E,):
+        raise ValueError(f"segment_sum_sorted_csr_chunked: seg_ids "
+                         f"{tuple(seg.shape)} on {seg.device}, expected "
+                         f"({E},) on {data.device}")
+    if meta.ndim != 2 or meta.shape[0] != 3:
+        raise ValueError(f"segment_sum_sorted_csr_chunked: meta must be "
+                         f"[3, C], got {tuple(meta.shape)}")
+    data = data.contiguous()
+    seg = seg.to(torch.int32).contiguous()
+    meta = meta.contiguous()
+    out = torch.empty((num_rows, F), dtype=torch.float32, device=data.device)
+    rc = _library().segment_csr_chunked_fwd(
+        *map(_build.ptr, (data, seg, meta, out)), E, F, num_rows,
+        meta.shape[1], block_rows, chunk_edges,
+        int(data.dtype == torch.bfloat16), _build.stream(data.device))
+    _build.check(rc, "segment_sum_sorted_csr_chunked kernel", _SHAPES)
+    launches_chunked += 1
+    return out
+
+
+class _SegmentSumChunked(torch.autograd.Function):
+    """``data [E, F] -> [num_rows, F]`` float32 by the chunk table. Its
+    backward is the row gather ``ct[seg]`` (zeros at id -1), cast to
+    ``data``'s type: plain PyTorch, as the JAX ``_ssc_bwd`` is a plain
+    gather."""
+
+    @staticmethod
+    def forward(ctx, data, seg_ids, meta, num_rows, block_rows, chunk_edges):
+        ctx.save_for_backward(seg_ids)
+        ctx.meta = (num_rows, data.dtype)
+        if data.is_cuda:
+            return segment_csr_chunked_launch(data, seg_ids, meta, num_rows,
+                                              block_rows, chunk_edges)
+        if data.device.type != "cpu":
+            raise ValueError(f"segment_sum_sorted_csr_chunked runs on CUDA "
+                             f"or the CPU, not {data.device}")
+        return segment_sum_sorted_csr_chunked_reference(
+            data, seg_ids, meta, num_rows, block_rows, chunk_edges)
+
+    @staticmethod
+    def backward(ctx, ct):
+        (seg_ids,) = ctx.saved_tensors
+        num_rows, dtype = ctx.meta
+        return (row_gather(ct, seg_ids, num_rows).to(dtype), None, None,
+                None, None, None)
+
+
+def segment_sum_sorted_csr_chunked(data: torch.Tensor, seg_ids: torch.Tensor,
+                                   meta, num_rows: int,
+                                   block_rows: int = 256,
+                                   chunk_edges: int = 512) -> torch.Tensor:
+    """Chunked sorted-CSR segment sum: data [E, F], seg_ids [E] (ascending;
+    -1 for padding), ``meta`` from :func:`plan_chunks` at the same
+    ``block_rows`` and ``chunk_edges`` -> [num_rows, F] float32. Unlike
+    :func:`segment_sum_sorted_csr` there is no overflow: the chunks tile
+    every block's edges."""
+    return _SegmentSumChunked.apply(data, seg_ids, meta, num_rows,
+                                    block_rows, chunk_edges)
+
+
+def spmm_csr(rowptr: torch.Tensor, col: torch.Tensor, val, x: torch.Tensor,
+             num_rows: int, *, block_rows: int = 32,
+             max_edges_per_block: int = 1024) -> torch.Tensor:
+    """CSR sparse @ dense: ``out[i] = sum over e in row i of val[e] *
+    x[col[e]]`` -> ``[num_rows, F]`` float32. The gather ``x[col]`` goes
+    through ``ops.segment.gather_rows`` (its adjoint is a sorted-CSR sum,
+    not ``index_add_``), the reduction through
+    :func:`segment_sum_sorted_csr`. Edges past ``rowptr[-1]`` (static-shape
+    padding, ``len(col) > rowptr[-1]``) get id -1 and add nothing."""
+    from .segment import gather_rows
+    E = col.shape[0]
+    rp = rowptr.long()
+    e = torch.arange(E, device=col.device)
+    seg = torch.searchsorted(rp[1:], e, right=True)
+    seg = torch.where((e >= rp[0]) & (e < rp[-1]), seg, -1).to(torch.int32)
+    data = gather_rows(x, col)
+    if val is not None:
+        data = data * val[:, None]
+    return segment_sum_sorted_csr(data, seg, rowptr, num_rows, block_rows,
+                                  max_edges_per_block)

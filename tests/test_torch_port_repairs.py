@@ -34,8 +34,8 @@ from dig_tpu_torch.ops.triplet_product import (fused_angle_product,
                                                fused_triplet_product)
 
 # JAX names the port has not ported yet (ROADMAP queue 1 items 1 and 7,
-# queue 2 item 7 for the chunked CSR sum, and the periodic radius graph of
-# queue 1 item 10); the port's own names beside the reference's
+# and the periodic radius graph of queue 1 item 10; every TPU kernel is
+# ported); the port's own names beside the reference's
 TO_PORT = {"dig_tpu": {"Config"},
            "dig_tpu.ops": {"segment_mean", "segment_max", "segment_min",
                            "segment_softmax", "segment_normalize",
