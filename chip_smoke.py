@@ -54,7 +54,9 @@ Phases, each printed as it runs; any failure exits non-zero:
      radius_blocked_dropped must be 0; then one short
      Run3D(energy_and_force=True, slot_size=29) epoch
  11. times: force step ms, edges/s; per-layer, per-bucket second-order
-     kernel ms beside its bound and the plain version's ms
+     kernel ms beside its bound and the plain version's ms, split by
+     kernel (slot_jvp_kernel, slot_bwd2_kernel, sum_partials_kernel;
+     torch.profiler)
  12. kernel vs plain: the sorted-CSR segment sum at the two flat paths'
      shapes (receivers of real batches), f32 and bf16, and on a skewed
      random CSR; repeated calls bitwise equal; the closed autograd pair's
@@ -144,11 +146,15 @@ Phases, each printed as it runs; any failure exits non-zero:
      and bf16: against its plain version and against the ported
      segment_sum_sorted_csr (the same bits), repeated calls the same bits,
      the VJP; spmm_csr on the same graph against its plain version; launch
-     counts
+     counts (launches_chunked counts calls: one per forward, each running
+     the span pass and the row sums)
  28. times: the three geometry kernels per layer at path 7a's shape beside
      their bounds, plain versions and the pt chain through autograd (the
-     forward also beside the einsum); path 7a's step; the chunked kernel at
-     path 7b's shape beside its bound, its plain version,
+     forward also beside the einsum; the second order split by kernel,
+     the split taken after phase 11's);
+     path 7a's step; phase 11's triplet_slot second order at the three
+     bucket shapes, split by kernel; the chunked sum (span pass and row
+     sums) at path 7b's shape beside its bound, its plain version,
      segment_csr_kernel, torch.segment_reduce and index_add_
 The card's name and power limit (nvidia-smi), then the kernels as JSON,
 are the two lines before the last; the last line is
@@ -402,6 +408,29 @@ def device_ms(torch, fn, iters=50, warmup=3, spin_cycles=50_000_000):
     if not ahead:
         fail("device_ms: the spin ended before the calls were queued")
     return start.elapsed_time(end) / iters
+
+
+def kernel_split(torch, fn, names, iters=5):
+    """Device ms per call of each kernel named in ``names`` that ``fn``
+    launches, from torch.profiler's device events (after one warm call)."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(names, 0.0)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = next((n for n in names if n in e.name), None)
+            if name is not None:
+                out[name] += e.time_range.elapsed_us() / 1e3 / iters
+    return out
+
+
+SECOND_ORDER_KERNELS = ("slot_jvp_kernel", "slot_bwd2_kernel",
+                        "sum_partials_kernel")
 
 
 def rel_err(a, b):
@@ -1319,14 +1348,16 @@ def phase_sf_times(torch, ts, inputs):
             args, ct, us, cfg = bwd2_args(torch, inp, True, dt, False)
             k_args = ts._kernel_inputs(*args, A, K, cfg)
             ct32 = ct.float().contiguous()
-            ms = cuda_ms(torch, lambda: ts.triplet_slot_bwd2_kernel(
-                *k_args, ct32, *us, A, K, cfg))
+            kern = lambda: ts.triplet_slot_bwd2_kernel(*k_args, ct32, *us, A,
+                                                       K, cfg)
+            ms = cuda_ms(torch, kern)
+            split = kernel_split(torch, kern, SECOND_ORDER_KERNELS)
             plain = cuda_ms(torch, lambda: ts.fused_triplet_slot_bwd2_reference(
                 *args, ct, *us, A, K, cfg), iters=3, warmup=1)
             b = sf_bwd2_bounds(args, ct, inp["work"], prec)
             rows.append({"kernel": "triplet_slot_bwd2", "A": A,
                          "E": args[0].shape[0], "precision": prec, "ms": ms,
-                         "plain_ms": plain, "bound_ms": b[0],
+                         "split": split, "plain_ms": plain, "bound_ms": b[0],
                          "bound_by": b[1], "flops": b[2], "bytes": b[3],
                          "triplets": inp["work"]["triplets"]})
     for r in rows:
@@ -1334,8 +1365,38 @@ def phase_sf_times(torch, ts, inputs):
             f"({r['triplets']} real triplets): {r['ms']:.4f} ms (bound "
             f"{r['bound_ms']:.4f} ms by {r['bound_by']}, "
             f"{r['bound_ms'] / r['ms']:.4f} of it; {r['flops'] / 1e9:.3f} "
-            f"GFLOP, {r['bytes'] / 1e6:.2f} MB; plain {r['plain_ms']:.3f} ms)")
+            f"GFLOP, {r['bytes'] / 1e6:.2f} MB; plain {r['plain_ms']:.3f} ms)"
+            f"; {split_text(r['split'])}")
     return rows
+
+
+def split_text(split):
+    """A second order's per-kernel device ms as one phrase."""
+    if not any(split.values()):
+        return "by kernel: not measured (torch.profiler recorded no device time)"
+    return "by kernel (torch.profiler) " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in split.items())
+
+
+def geom_bwd2_split(torch, ts, dev):
+    """The geometry second order's device ms by kernel at path 7a's shape
+    (phase 25's inputs, bf16 and f32, u1 = u4 = u5 absent), taken right
+    after phase 11's splits: in a process that has run much device work
+    since its first profiling window torch.profiler drops device records
+    (a split taken at phase 28 read 0), so every split is taken in one
+    stretch and phase 28 prints this one."""
+    A, K = SN_KW["block_size"], SN_KW["nk_degree"]
+    inp = ga_kernel_inputs(torch, dev, ga_batches(torch, dev, GA_STEPS)[-1])
+    splits = {}
+    for prec, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        args, cfg = ga_args(torch, inp, True, dt)
+        k_args = ts._geom_kernel_inputs(*args, A, K, cfg)
+        ct32 = inp["ct"].to(dt).float().contiguous()
+        splits[prec] = kernel_split(
+            torch, lambda: ts.triplet_slot_geom_bwd2_kernel(
+                *k_args, ct32, None, inp["ug"], None, None, A, K, cfg),
+            SECOND_ORDER_KERNELS)
+    return splits
 
 
 # ---------------------------------------------------------------------------
@@ -2834,9 +2895,9 @@ def ga_bounds(args, inp, prec, kind, ops):
     per triplet) over 67 TF/s; and the float64 operations of the rows
     (``ops``: sympy's count of the generated closed forms, a lower bound on
     their work: the rows in the forward, the rows and their gradients in
-    the backward, three gradient evaluations and the Hessians in the second
-    order) at every real triplet over the 34 TF/s of the FP64 pipes
-    (NVIDIA's data sheet)."""
+    the backward, one fused jet (rows, gradients and second derivatives)
+    in the second order) at every real triplet over the 34 TF/s of the
+    FP64 pipes (NVIDIA's data sheet)."""
     x, geo, ws, wt, m2t, lj = args
     C, NG = x.shape[1], geo.shape[1]
     NB = ws.shape[0] + (wt.shape[0] if wt.shape[0] > 1 else 0)
@@ -2857,7 +2918,7 @@ def ga_bounds(args, inp, prec, kind, ops):
         nbytes = (2 * rows + small + Er * C * 4 + el(x) + el(geo) + w
                   + x.shape[0] * C * 4)
     row_ops = {"fwd": ops["row"], "bwd": ops["row"] + ops["grad"],
-               "bwd2": 3 * ops["grad"] + ops["hess"]}[kind]
+               "bwd2": ops["jet"]}[kind]
     t_ops = flops / PEAK_FLOPS["f32"]
     t_rows = T * row_ops / PEAK_FP64
     t_bytes = nbytes / PEAK_BYTES
@@ -2884,7 +2945,7 @@ def slot_library_fwd(torch, args, rows, cfg, dt, A, K):
                                   m2t.t().to(x.dtype)], K)
 
 
-def phase_ga_times(torch, ts, inp):
+def phase_ga_times(torch, ts, inp, splits):
     """One call of each geometry kernel per layer at path 7a's shape (the
     bare launch on validated operands, as the force path runs it: dgeo
     asked for, u1 = u4 = u5 absent) beside its bound, its plain version,
@@ -2892,7 +2953,9 @@ def phase_ga_times(torch, ts, inp):
     the same call (basis_pt_k and the fused_triplet_slot kernels: the
     forward; the first backward from a kept graph; the second backward of
     dgeo's cotangent from a kept first-order graph); the forward also
-    beside the einsum over sbf and tbf assembled outside the timed call."""
+    beside the einsum over sbf and tbf assembled outside the timed call;
+    the second order beside its split by kernel (``splits``, taken by
+    geom_bwd2_split)."""
     from dig_tpu_torch.ops.basis import basis_row_ops
     A, K = SN_KW["block_size"], SN_KW["nk_degree"]
     rows = []
@@ -2937,6 +3000,7 @@ def phase_ga_times(torch, ts, inp):
         chain_ms = {"fwd": chain_fwd, "bwd": chain_bwd, "bwd2": chain_bwd2}
         for kind in ("fwd", "bwd", "bwd2"):
             ms = cuda_ms(torch, kern[kind])
+            split = splits[prec] if kind == "bwd2" else None
             p_ms = cuda_ms(torch, plain[kind], iters=3, warmup=1)
             b = ga_bounds(args, inp, prec, kind, ops)
             lib_ms = lib_err = None
@@ -2951,7 +3015,8 @@ def phase_ga_times(torch, ts, inp):
                 del lib
                 torch.cuda.empty_cache()
             rows.append({"kernel": f"triplet_slot_geom_{kind}",
-                         "precision": prec, "ms": ms, "plain_ms": p_ms,
+                         "precision": prec, "ms": ms, "split": split,
+                         "plain_ms": p_ms,
                          "chain_ms": chain_ms[kind], "bound_ms": b[0],
                          "bound_by": b[1], "flops": b[2], "bytes": b[3],
                          "library_ms": lib_ms, "library_err": lib_err})
@@ -2966,7 +3031,8 @@ def phase_ga_times(torch, ts, inp):
             f"{r['chain_ms']:.4f} ms; plain {r['plain_ms']:.3f} ms"
             + ("" if r["library_ms"] is None else
                f"; einsum over sbf and tbf assembled outside the timed call "
-               f"{r['library_ms']:.3f} ms (rel err {r['library_err']:.2e})"))
+               f"{r['library_ms']:.3f} ms (rel err {r['library_err']:.2e})")
+            + ("" if r["split"] is None else f"; {split_text(r['split'])}"))
     return rows
 
 
@@ -3254,6 +3320,8 @@ def main():
     sf_rows = phase_sf_times(torch, ts, sf_inp)
     del sf_b, sf_inp
     torch.cuda.empty_cache()
+    ga_splits = geom_bwd2_split(torch, ts, dev)
+    torch.cuda.empty_cache()
 
     fs_b = fs_batches(torch, dev, FS_STEPS + 1)
     sp_b = sp_batches(torch, dev, SP_STEPS + 1)
@@ -3375,8 +3443,11 @@ def main():
 
     log("== 28. times: fused_triplet_slot_geom beside the pt chain; path 7a; "
         "the chunked segment sum")
-    ga_rows = phase_ga_times(torch, ts, ga_inp)
+    ga_rows = phase_ga_times(torch, ts, ga_inp, ga_splits)
     log(f"  path 7a: step {ga_res['step_ms']:.3f} ms")
+    for r in sf_rows:
+        log(f"  (phase 11) triplet_slot_bwd2 A={r['A']} {r['precision']}: "
+            f"{r['ms']:.4f} ms; {split_text(r['split'])}")
     cs_rows = phase_cs_times(torch, sc, cs_g)
     del ga_inp, cs_g
     torch.cuda.empty_cache()

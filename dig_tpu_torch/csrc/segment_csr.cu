@@ -37,9 +37,8 @@
 // rowptr and drops nothing; the wrapper checks that csr_block_overflow is 0,
 // so the two compute the same sum.
 //
-// The chunked sum, segment_csr_chunked_kernel, replaces _ssc_fwd
-// (pl.pallas_call at :325, _chunk_kernel at :195), the kernel of
-// segment_sum_sorted_csr_chunked:
+// The chunked sum replaces _ssc_fwd (pl.pallas_call at :325, _chunk_kernel
+// at :195), the kernel of segment_sum_sorted_csr_chunked:
 //
 //   out[r, :] = sum of data[e, :] over the edges e of row block b = r / BN's
 //               windows [meta[0][c], meta[0][c] + EB) with seg[e] == r
@@ -51,17 +50,25 @@
 // 3.35 TB/s (0.157 ms for f32 at E = 960,000, F = 128, N = 60,000).
 //  - On the TPU, consecutive chunks of one row block accumulate into one
 //    output tile that stays in VMEM across the sequential grid. Here blocks
-//    run in parallel and in no order, so one CUDA block takes a whole row
-//    block: the block of its first chunk walks the block's chunks in order,
-//    the blocks of the other chunks exit at once.
-//  - It reads the ids of its windows once to find, per row, the first and
-//    last edge that carries the row's id (no atomics: each warp owns its
-//    rows), then sums each row in edge order as the segment sum does, and
-//    writes each of its rows once, zeros for an empty one, nothing past N.
-//  - Windows may run past the last edge by up to 2 EB (JAX pads data by 2 EB
-//    for its DMA); here a bounds check takes the padding's place, and ids
-//    outside the row block or -1 add nothing. No atomics: the same bits on
-//    every call.
+//    run in parallel and in no order, and nothing carries from one to the
+//    next, so the sum takes two passes, both as wide as the card:
+//  - segment_csr_span_kernel: a block per chunk, a thread per window
+//    position (eight loads in flight a thread), finds for the ids of its
+//    chunk's row block where each row's run of edges starts and ends among
+//    its warp's 32 edges (neighbours' ids by shuffle), and the run's ends
+//    alone go to the span [2, N] by integer atomicMax: the complement of
+//    the row's first edge and its last edge + 1. Integer maxima do not
+//    depend on their order, so the span is the same on every call. Ids of
+//    -1, ids outside the chunk's row block or at or past N, and window
+//    positions past E (windows may run past the last edge by up to 2 EB:
+//    JAX pads data by 2 EB for its DMA) are skipped. One memset on the
+//    stream clears the span first (0x80808080, below any value written).
+//  - Then segment_csr_kernel, the segment sum's own row loop, over
+//    [~span[0][r], span[1][r]) in place of [rowptr[r], rowptr[r+1]): one
+//    warp per row, the seg == r filter kept, each row's edges summed in
+//    edge order, so the same bits as the segment sum; a row no window
+//    holds has an empty range and is written as zeros; rows at or past N
+//    are never written. No float atomics.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -70,8 +77,6 @@ namespace {
 
 constexpr int WARPS = 8;         // rows per block of 256 threads
 constexpr int UNROLL = 4;        // edges whose loads are in flight at once
-constexpr int CHUNK_UNROLL = 8;  // the same in the chunked sum, whose warps
-                                 // sum many rows one after the other
 
 // VEC consecutive values at p, as float32.
 template <int VEC>
@@ -137,135 +142,103 @@ __device__ __forceinline__ void row_sum(const T* __restrict__ data, const int* _
   }
 }
 
-template <typename T, int VEC>
+// out[r, :] = the sum over e in [max(lo[r], 0), min(hi[r], E)) with
+// seg[e] == r (lo[r] read as ~lo[r] when NOT_LO): the segment sum with
+// lo = rowptr, hi = rowptr + 1, and the chunked sum's row sums over its
+// span.
+template <typename T, int VEC, bool NOT_LO>
 __global__ void __launch_bounds__(WARPS * 32)
 segment_csr_kernel(const T* __restrict__ data, const int* __restrict__ seg,
-                   const int* __restrict__ rowptr, float* __restrict__ out,
-                   int E, int F, int N) {
+                   const int* __restrict__ lo, const int* __restrict__ hi,
+                   float* __restrict__ out, int E, int F, int N) {
   const int lane = threadIdx.x & 31;
   const int r = blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (r >= N) return;
-  const int lo = max(rowptr[r], 0);
-  const int hi = min(rowptr[r + 1], E);
-  row_sum<T, VEC, UNROLL>(data, seg, out, r, lo, hi, F, lane);
+  const int l = NOT_LO ? ~lo[r] : lo[r];
+  row_sum<T, VEC, UNROLL>(data, seg, out, r, max(l, 0), min(hi[r], E), F, lane);
 }
 
-// The chunked sum: block c works only if chunk c is the first of its row
-// block (meta[2][c] == 1). It walks that block's chunks (consecutive in
-// meta, windows tiling [meta[0][c], meta[0][last] + EB), clipped to E) twice.
-// First each of its W warps, for the rows it owns (local row % W == warp),
-// notes the first and the last window edge that carries the row's id,
-// reading 128 ids per step; warps own disjoint rows and scan in edge order,
-// so no two threads write one entry. Then each warp sums each of its rows
-// over [first, last] in edge order (row_sum, CHUNK_UNROLL edges in flight)
-// and writes it once, zeros for a row with no edge; rows at or past N are
-// not written.
-template <typename T, int VEC, int W>
-__global__ void __launch_bounds__(W * 32)
-segment_csr_chunked_kernel(const T* __restrict__ data, const int* __restrict__ seg,
-                           const int* __restrict__ meta, float* __restrict__ out, int E,
-                           int F, int N, int C, int BN, int EB) {
-  extern __shared__ int span[];  // first [BN], last [BN]
-  const int c0 = blockIdx.x;
-  if (meta[2 * C + c0] != 1) return;
-  const int b = meta[C + c0];
-  int c1 = c0 + 1;
-  while (c1 < C && meta[2 * C + c1] == 0 && meta[C + c1] == b) ++c1;
-  const int lo = max(meta[c0], 0);
-  const int hi = min(meta[c1 - 1] + EB, E);
-  const int base = b * BN;
-  int* first = span;
-  int* last = span + BN;
-  for (int i = threadIdx.x; i < BN; i += W * 32) {
-    first[i] = -1;
-    last[i] = -1;
-  }
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int e0 = lo; e0 < hi; e0 += 128) {
-    int v[4];
+constexpr int SPAN_BATCH = 8;  // window pieces of 128 whose ids are loaded at once
+
+// The span pass of the chunked sum: block c reads chunk c's window, 128 ids
+// a step, SPAN_BATCH steps' loads in flight (a warp's 32 ids never span two
+// chunks). A run is a maximal set of neighbouring lanes holding one id of
+// the chunk's row block; its first lane raises nlo[r] to the complement of
+// its edge and its last lane raises hi[r] to its edge + 1 (integer
+// atomicMax), so ~nlo[r] ends as the first edge of r and hi[r] as its last
+// edge + 1 over all windows of r's block; both stay 0x80808080 (negative)
+// for a row no window holds, which then has ~nlo[r] > hi[r].
+__global__ void __launch_bounds__(128)
+segment_csr_span_kernel(const int* __restrict__ seg, const int* __restrict__ meta,
+                        int* __restrict__ nlo, int* __restrict__ hi, int E, int N, int C, int BN,
+                        int EB) {
+  const int c = blockIdx.x;
+  const int w0 = meta[c], base = meta[C + c] * BN;
+  const int lane = threadIdx.x & 31;
+  for (int j0 = 0; j0 < EB; j0 += 128 * SPAN_BATCH) {
+    int id[SPAN_BATCH];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int e = e0 + 32 * j + lane;
-      v[j] = e < hi ? __ldg(seg + e) - base : -1;
+    for (int k = 0; k < SPAN_BATCH; ++k) {
+      const int j = j0 + 128 * k + threadIdx.x;
+      const long long e = (long long)w0 + j;  // any window start in meta
+      const int v = j < EB && e >= 0 && e < E ? __ldg(seg + e) : -1;
+      id[k] = v >= base && v < base + BN && v < N ? v : -1;
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      unsigned mine = __ballot_sync(0xffffffffu, v[j] >= 0 && v[j] < BN && v[j] % W == warp);
-      while (mine != 0u) {
-        const int l = __ffs(mine) - 1;
-        mine &= mine - 1u;
-        const int vl = __shfl_sync(0xffffffffu, v[j], l);
-        if (lane == 0) {
-          if (first[vl] < 0) first[vl] = e0 + 32 * j + l;
-          last[vl] = e0 + 32 * j + l;
-        }
-      }
+    for (int k = 0; k < SPAN_BATCH; ++k) {
+      const int prev = __shfl_up_sync(0xffffffffu, id[k], 1);
+      const int next = __shfl_down_sync(0xffffffffu, id[k], 1);
+      if (id[k] < 0) continue;
+      const int e = w0 + j0 + 128 * k + threadIdx.x;  // in [0, E): an id was read there
+      if (lane == 0 || prev != id[k]) atomicMax(nlo + id[k], ~e);
+      if (lane == 31 || next != id[k]) atomicMax(hi + id[k], e + 1);
     }
   }
-  __syncwarp();
-  for (int v = warp; v < BN && base + v < N; v += W) {
-    const int f = first[v];
-    row_sum<T, VEC, CHUNK_UNROLL>(data, seg, out, base + v, f < 0 ? 0 : f,
-                                  f < 0 ? 0 : last[v] + 1, F, lane);
-  }
+}
+
+// 4-wide loads need F % 4 == 0 and 4-value alignment of the rows (the
+// output comes from torch.empty, which aligns to far more than 16 bytes)
+template <typename T>
+bool vec4_ok(const T* data, const float* out, int F) {
+  return F % 4 == 0 && reinterpret_cast<uintptr_t>(data) % (4 * sizeof(T)) == 0 &&
+         reinterpret_cast<uintptr_t>(out) % 16 == 0;
 }
 
 template <typename T>
 int launch_csr(const T* data, const int* seg, const int* rowptr, float* out,
                int E, int F, int N, cudaStream_t strm) {
   const int grid = (N + WARPS - 1) / WARPS;
-  // 4-wide loads need F % 4 == 0 and 4-value alignment of the rows (the
-  // output comes from torch.empty, which aligns to far more than 16 bytes)
-  const bool vec4 = F % 4 == 0 && reinterpret_cast<uintptr_t>(data) % (4 * sizeof(T)) == 0 &&
-                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  if (vec4) {
-    segment_csr_kernel<T, 4><<<grid, WARPS * 32, 0, strm>>>(data, seg, rowptr, out, E, F, N);
+  if (vec4_ok(data, out, F)) {
+    segment_csr_kernel<T, 4, false><<<grid, WARPS * 32, 0, strm>>>(data, seg, rowptr, rowptr + 1,
+                                                                   out, E, F, N);
   } else {
-    segment_csr_kernel<T, 1><<<grid, WARPS * 32, 0, strm>>>(data, seg, rowptr, out, E, F, N);
+    segment_csr_kernel<T, 1, false><<<grid, WARPS * 32, 0, strm>>>(data, seg, rowptr, rowptr + 1,
+                                                                   out, E, F, N);
   }
   return cudaGetLastError();
-}
-
-template <typename T, int VEC, int W>
-int launch_chunked_w(const T* data, const int* seg, const int* meta, float* out, int E, int F,
-                     int N, int C, int BN, int EB, size_t smem, cudaStream_t strm) {
-  auto kernel = segment_csr_chunked_kernel<T, VEC, W>;
-  int rc = check_smem(smem);
-  if (rc != 0) return rc;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-  if (e != cudaSuccess) return e;
-  kernel<<<C, W * 32, smem, strm>>>(data, seg, meta, out, E, F, N, C, BN, EB);
-  return cudaGetLastError();
-}
-
-// A row block is one CUDA block, so the warps of a block set how many rows
-// are summed at once: 32 warps when the row blocks are no more than the
-// SMs, else 16 (two blocks of 512 threads fit an SM, and a third of
-// 1024 would not).
-template <typename T, int VEC>
-int launch_chunked_v(const T* data, const int* seg, const int* meta, float* out, int E, int F,
-                     int N, int C, int BN, int EB, size_t smem, cudaStream_t strm) {
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return e;
-  if ((N + BN - 1) / BN <= sms) {
-    return launch_chunked_w<T, VEC, 32>(data, seg, meta, out, E, F, N, C, BN, EB, smem, strm);
-  }
-  return launch_chunked_w<T, VEC, 16>(data, seg, meta, out, E, F, N, C, BN, EB, smem, strm);
 }
 
 template <typename T>
-int launch_chunked(const T* data, const int* seg, const int* meta, float* out, int E, int F,
-                   int N, int C, int BN, int EB, cudaStream_t strm) {
-  const size_t smem = 2 * (size_t)BN * sizeof(int);
-  const bool vec4 = F % 4 == 0 && reinterpret_cast<uintptr_t>(data) % (4 * sizeof(T)) == 0 &&
-                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  if (vec4) return launch_chunked_v<T, 4>(data, seg, meta, out, E, F, N, C, BN, EB, smem, strm);
-  return launch_chunked_v<T, 1>(data, seg, meta, out, E, F, N, C, BN, EB, smem, strm);
+int launch_chunked(const T* data, const int* seg, const int* meta, int* span, float* out,
+                   int E, int F, int N, int C, int BN, int EB, cudaStream_t strm) {
+  int* nlo = span;
+  int* hi = span + N;
+  cudaError_t e = cudaMemsetAsync(span, 0x80, 2 * (size_t)N * sizeof(int), strm);
+  if (e != cudaSuccess) return e;
+  if (C > 0) {
+    segment_csr_span_kernel<<<C, 128, 0, strm>>>(seg, meta, nlo, hi, E, N, C, BN, EB);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  const int grid = (N + WARPS - 1) / WARPS;
+  if (vec4_ok(data, out, F)) {
+    segment_csr_kernel<T, 4, true><<<grid, WARPS * 32, 0, strm>>>(data, seg, nlo, hi, out, E, F,
+                                                                  N);
+  } else {
+    segment_csr_kernel<T, 1, true><<<grid, WARPS * 32, 0, strm>>>(data, seg, nlo, hi, out, E, F,
+                                                                  N);
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -285,19 +258,24 @@ int segment_csr_fwd(const void* data, const int* seg, const int* rowptr, float* 
 }
 
 // The chunked sum: meta int32 [3, C] (window starts, row blocks, first-chunk
-// flags, as plan_chunks lays them out). 0 on success, a cudaError_t, or
-// ERR_SHAPE / ERR_SMEM.
-int segment_csr_chunked_fwd(const void* data, const int* seg, const int* meta, float* out,
-                            int E, int F, int N, int C, int BN, int EB, int bf16,
+// flags, as plan_chunks lays them out; EB a multiple of 128); span int32
+// [N, 2] scratch. Clears span, then launches the span pass and the row sums
+// on the stream. 0 on success, a cudaError_t, or ERR_SHAPE.
+int segment_csr_chunked_fwd(const void* data, const int* seg, const int* meta, int* span,
+                            float* out, int E, int F, int N, int C, int BN, int EB, int bf16,
                             void* stream) {
-  if (E < 0 || F < 0 || N < 0 || C < 0 || BN <= 0 || EB <= 0) return ERR_SHAPE;
-  if (N == 0 || F == 0 || C == 0) return 0;
+  // EB bounded so that the span pass's window positions fit an int
+  if (E < 0 || F < 0 || N < 0 || C < 0 || BN <= 0 || EB <= 0 || EB % 128 != 0 ||
+      EB > 0x7fffffff - 128 * SPAN_BATCH)
+    return ERR_SHAPE;
+  if (N == 0 || F == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
-    return launch_chunked(static_cast<const __nv_bfloat16*>(data), seg, meta, out, E, F, N, C,
-                          BN, EB, s);
+    return launch_chunked(static_cast<const __nv_bfloat16*>(data), seg, meta, span, out, E, F,
+                          N, C, BN, EB, s);
   }
-  return launch_chunked(static_cast<const float*>(data), seg, meta, out, E, F, N, C, BN, EB, s);
+  return launch_chunked(static_cast<const float*>(data), seg, meta, span, out, E, F, N, C, BN,
+                        EB, s);
 }
 
 }  // extern "C"

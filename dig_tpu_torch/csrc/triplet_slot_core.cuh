@@ -12,16 +12,25 @@
 //   slot(e) = e / (A*K); bt, y0, yt = rows [0,nk), [nk,nk+n), [nk+n,R) of
 //   the chunk's rows ptc; nk = n*k, ntk = n*n*k, R = nk + n (+ n*n with has_t).
 //
-// A row source Rows provides, for one chunk of ET edges and one s:
-//   Rows::load(p, s, e0, cnt, ptc, m2c, ljc, u2c, rs): the rows ptc [R][ET]
-//     in float32 (zero past cnt), the mask m2c [ET] (0 where lj is outside
-//     [0, A)), the ids ljc [ET] and, when u2c is not null, the rows' tangent
-//     u2c [R][ET] (the cotangent of the rows' gradient in the second order);
+// A row source Rows provides, for one chunk of up to ET triplets (position
+// ec of the chunk is triplet ids[ec] = s E + e, or (s, e0 + ec) when ids is
+// null):
+//   Rows::load<MODE>(p, s, e0, ids, cnt, ptc, m2c, ljc, u2c, rs): the rows
+//     ptc [R][ET] in float32 (zero past cnt), the mask m2c [ET] (0 where lj
+//     is outside [0, A)), the ids ljc [ET] and, unless MODE is ROWS_VALUE,
+//     the rows' tangent u2c [R][ET] (the cotangent of the rows' gradient in
+//     the second order); ROWS_JET also keeps in rs what write_ptb needs;
 //   Rows::write_dpt(p, s, e0, cnt, dbas, ptc, m2c, rs): the backward's
 //     output from the cotangent dbas [ET][NB] of (sbf | tbf);
-//   Rows::write_ptb(p, s, e0, cnt, bas, dbas, ptc, u2c, m2c, rs): the second
-//     order's output from the cotangents bas of (a | b) and dbas of (da | db).
-// rs is RS floats of shared scratch for the row source.
+//   Rows::write_ptb(p, s, ids, cnt, bas, dbas, ptc, u2c, m2c, rs, spare): the
+//     second order's output from the cotangents bas of (a | b) and dbas of
+//     (da | db); spare is max(5 ET C, Rows::spare(p)) floats of dead shared
+//     memory;
+//   Rows::scratch(p, MODE): the floats of rs (shared scratch) it uses;
+//   Rows::spare(p): the floats of spare that write_ptb uses;
+//   Rows::GEO: whether the rows' cotangent goes to dgeo [K, NG, E] (else
+//     to dpt [K, R, E]); Rows::BWD2_THREADS: the threads of a second-order
+//     block.
 #pragma once
 
 #include <stdint.h>
@@ -30,9 +39,25 @@
 
 namespace {
 
-constexpr int NT = 256;     // threads per block
-constexpr int ET = 32;      // edges per chunk
-constexpr int RS = 8 * ET;  // floats of shared scratch for the row source
+constexpr int NT = 256;     // threads per block (slot_bwd2_kernel: Rows::BWD2_THREADS)
+constexpr int ET = 32;      // edges per chunk: a warp's lanes (the second order's ballots)
+
+// what Rows::load evaluates: the rows; the rows and their tangent; the
+// rows, their tangent and what the second order's write_ptb needs
+enum RowsMode { ROWS_VALUE, ROWS_TANGENT, ROWS_JET };
+
+// The (s, e) of chunk position ec: ids[ec] = s E + e (a triplet), or
+// (s, e0 + ec) when ids is null.
+__device__ __forceinline__ void triplet_at(int E, int s, int e0, const int* ids, int ec, int& ts,
+                                           int& te) {
+  if (ids == nullptr) {
+    ts = s;
+    te = e0 + ec;
+  } else {
+    ts = ids[ec] / E;
+    te = ids[ec] - ts * E;
+  }
+}
 
 template <typename T>
 constexpr bool IS_BF16 = sizeof(T) == 2;
@@ -67,15 +92,15 @@ struct Params {
 // gradient) are both free of bank conflicts.
 template <int C, typename T>
 __device__ void load_weights(const Params<T>& p, float* ws_s, float* wt_s) {
-  for (int x = threadIdx.x; x < p.nk * C; x += NT) ws_s[(x / C) * (C + 1) + x % C] = p.ws[x];
-  for (int x = threadIdx.x; x < p.ntk * C; x += NT) wt_s[(x / C) * (C + 1) + x % C] = p.wt[x];
+  for (int x = threadIdx.x; x < p.nk * C; x += blockDim.x) ws_s[(x / C) * (C + 1) + x % C] = p.ws[x];
+  for (int x = threadIdx.x; x < p.ntk * C; x += blockDim.x) wt_s[(x / C) * (C + 1) + x % C] = p.wt[x];
 }
 
 // bas [ET][NB]: sbf (rows < nk) then tbf, rounded to T.
 template <typename T>
 __device__ void form_basis(const Params<T>& p, const float* ptc, float* bas) {
   const int nk = p.nk, k = p.k;
-  for (int x = threadIdx.x; x < ET * p.NB; x += NT) {
+  for (int x = threadIdx.x; x < ET * p.NB; x += blockDim.x) {
     const int ec = x / p.NB, r = x % p.NB;
     float v;
     if (r < nk) {
@@ -108,7 +133,7 @@ template <typename T>
 __device__ void form_tangent(const Params<T>& p, const float* ptc, const float* u2c,
                              float* dbas) {
   const int nk = p.nk, k = p.k;
-  for (int x = threadIdx.x; x < ET * p.NB; x += NT) {
+  for (int x = threadIdx.x; x < ET * p.NB; x += blockDim.x) {
     const int ec = x / p.NB, r = x % p.NB;
     int b, y;  // the bt row and the y0 / yt row of this product
     if (r < nk) {
@@ -123,24 +148,69 @@ __device__ void form_tangent(const Params<T>& p, const float* ptc, const float* 
   }
 }
 
-// dsv = da @ ws[:, c] + a @ u4[:, c], dtv = db @ wt[:, c] + b @ u5[:, c]
-// (dtv = 0 without torsion); u4 / u5 terms only when given.
-template <int C, typename T>
-__device__ __forceinline__ void tangent_products(const Params<T>& p, const float* b,
-                                                 const float* db, const float* ws_s,
-                                                 const float* wt_s, int c, float& dsv,
-                                                 float& dtv) {
-  const int nk = p.nk, ntk = p.ntk;
-  dsv = 0.f;
-  for (int r = 0; r < nk; ++r) dsv = fmaf(db[r], ws_s[r * (C + 1) + c], dsv);
-  if (p.u4 != nullptr)
-    for (int r = 0; r < nk; ++r) dsv = fmaf(b[r], __ldg(p.u4 + r * C + c), dsv);
-  dtv = 0.f;
-  if (ntk > 0) {
-    for (int i = 0; i < ntk; ++i) dtv = fmaf(db[nk + i], wt_s[i * (C + 1) + c], dtv);
-    if (p.u5 != nullptr)
-      for (int i = 0; i < ntk; ++i) dtv = fmaf(b[nk + i], __ldg(p.u5 + i * C + c), dtv);
+// sv, tv of the chunk positions eg + EG q, q < nq, at channel c (the
+// chains of basis_products) and their tangents dsv = da @ ws[:, c] + a @
+// u4[:, c], dtv = db @ wt[:, c] + b @ u5[:, c] (dtv = 0 without torsion;
+// the u4 / u5 terms only when given), as a register tile: each weight is
+// loaded once for the thread's positions.
+template <int C, int EG, int EPT, typename T>
+__device__ __forceinline__ void tiled_products(const Params<T>& p, const float* bas,
+                                               const float* dbas, const float* ws_s,
+                                               const float* wt_s, int c, int eg, int nq,
+                                               float (&sv)[EPT], float (&tv)[EPT],
+                                               float (&dsv)[EPT], float (&dtv)[EPT]) {
+  const int nk = p.nk, ntk = p.ntk, NB = p.NB;
+#pragma unroll
+  for (int q = 0; q < EPT; ++q) {
+    sv[q] = dsv[q] = dtv[q] = 0.f;
+    tv[q] = ntk > 0 ? 0.f : 1.f;
   }
+  const float* b0 = bas + eg * NB;
+  const float* d0 = dbas + eg * NB;
+  for (int r = 0; r < nk; ++r) {
+    const float w = ws_s[r * (C + 1) + c];
+#pragma unroll
+    for (int q = 0; q < EPT; ++q) {
+      if (q < nq) {
+        sv[q] = fmaf(b0[q * EG * NB + r], w, sv[q]);
+        dsv[q] = fmaf(d0[q * EG * NB + r], w, dsv[q]);
+      }
+    }
+  }
+  if (p.u4 != nullptr) {
+    for (int r = 0; r < nk; ++r) {
+      const float u = __ldg(p.u4 + r * C + c);
+#pragma unroll
+      for (int q = 0; q < EPT; ++q)
+        if (q < nq) dsv[q] = fmaf(b0[q * EG * NB + r], u, dsv[q]);
+    }
+  }
+  for (int i = 0; i < ntk; ++i) {
+    const float w = wt_s[i * (C + 1) + c];
+#pragma unroll
+    for (int q = 0; q < EPT; ++q) {
+      if (q < nq) {
+        tv[q] = fmaf(b0[q * EG * NB + nk + i], w, tv[q]);
+        dtv[q] = fmaf(d0[q * EG * NB + nk + i], w, dtv[q]);
+      }
+    }
+  }
+  if (ntk > 0 && p.u5 != nullptr) {
+    for (int i = 0; i < ntk; ++i) {
+      const float u = __ldg(p.u5 + i * C + c);
+#pragma unroll
+      for (int q = 0; q < EPT; ++q)
+        if (q < nq) dtv[q] = fmaf(b0[q * EG * NB + nk + i], u, dtv[q]);
+    }
+  }
+}
+
+// Floats of slot_jvp_kernel's stage: the chunk's rows, their tangent and
+// sbf / tbf, then the four [ET][C] factors of its terms over the same place.
+template <typename T>
+__host__ __device__ inline int jvp_stage(const Params<T>& p, int C) {
+  const int rows = 2 * p.R * ET + 2 * ET * p.NB;
+  return rows > 4 * ET * C ? rows : 4 * ET * C;
 }
 
 // The adjoint of forming sbf / tbf from the rows in src: given the
@@ -167,31 +237,44 @@ __device__ __forceinline__ float basis_adjoint(const Params<T>& p, const float* 
   return v;
 }
 
-// The packed table as the row source: pt[s, :, e0:e0+cnt] (and u2's) read
-// as they are; dpt and ptb written row by row.
+// The packed table as the row source: pt[s, :, e] (and u2's) read as they
+// are; dpt and ptb written row by row.
 struct PtRows {
+  static constexpr bool GEO = false;
+  static constexpr int BWD2_THREADS = 256;
+
   template <typename T>
-  static __device__ void load(const Params<T>& p, int s, int e0, int cnt, float* ptc,
-                              float* m2c, int* ljc, float* u2c, float*) {
-    for (int x = threadIdx.x; x < p.R * ET; x += NT) {
+  static int scratch(const Params<T>&, int) { return 0; }
+  template <typename T>
+  static __host__ __device__ int spare(const Params<T>&) { return 0; }
+
+  template <int MODE, typename T>
+  static __device__ void load(const Params<T>& p, int s, int e0, const int* ids, int cnt,
+                              float* ptc, float* m2c, int* ljc, float* u2c, float*) {
+    for (int x = threadIdx.x; x < p.R * ET; x += blockDim.x) {
       const int r = x / ET, ec = x % ET;
-      ptc[x] = ec < cnt ? ld(p.pt + ((size_t)s * p.R + r) * p.E + e0 + ec) : 0.f;
+      float v = 0.f, u = 0.f;
+      if (ec < cnt) {
+        int ts, te;
+        triplet_at(p.E, s, e0, ids, ec, ts, te);
+        const size_t at = ((size_t)ts * p.R + r) * p.E + te;
+        v = ld(p.pt + at);
+        if (MODE != ROWS_VALUE && p.u2 != nullptr) u = ld(p.u2 + at);
+      }
+      ptc[x] = v;
+      if constexpr (MODE != ROWS_VALUE) u2c[x] = u;
     }
-    for (int ec = threadIdx.x; ec < ET; ec += NT) {
+    for (int ec = threadIdx.x; ec < ET; ec += blockDim.x) {
       float m = 0.f;
       int j = 0;
       if (ec < cnt) {
-        j = p.lj[e0 + ec];
-        m = (j >= 0 && j < p.A) ? ld(p.m2T + (size_t)s * p.E + e0 + ec) : 0.f;
+        int ts, te;
+        triplet_at(p.E, s, e0, ids, ec, ts, te);
+        j = p.lj[te];
+        m = (j >= 0 && j < p.A) ? ld(p.m2T + (size_t)ts * p.E + te) : 0.f;
       }
       m2c[ec] = m;
       ljc[ec] = m != 0.f ? j : 0;
-    }
-    if (u2c == nullptr) return;
-    for (int x = threadIdx.x; x < p.R * ET; x += NT) {
-      const int r = x / ET, ec = x % ET;
-      u2c[x] = (p.u2 != nullptr && ec < cnt) ? ld(p.u2 + ((size_t)s * p.R + r) * p.E + e0 + ec)
-                                             : 0.f;
     }
   }
 
@@ -206,13 +289,13 @@ struct PtRows {
   }
 
   template <typename T>
-  static __device__ void write_ptb(const Params<T>& p, int s, int e0, int cnt, const float* bas,
-                                   const float* dbas, const float* ptc, const float* u2c,
-                                   const float*, const float*) {
-    for (int x = threadIdx.x; x < p.R * ET; x += NT) {
+  static __device__ void write_ptb(const Params<T>& p, int s, const int* ids, int cnt,
+                                   const float* bas, const float* dbas, const float* ptc,
+                                   const float* u2c, const float*, const float*, float*) {
+    for (int x = threadIdx.x; x < p.R * ET; x += blockDim.x) {
       const int r = x / ET, ec = x % ET;
       if (ec >= cnt) continue;
-      p.dpt[((size_t)s * p.R + r) * p.E + e0 + ec] =
+      p.dpt[((size_t)s * p.R + r) * p.E + ids[ec] - s * p.E] =
           basis_adjoint(p, bas + ec * p.NB, ptc, r, ec) + basis_adjoint(p, dbas + ec * p.NB, u2c, r, ec);
     }
   }
@@ -229,7 +312,7 @@ __global__ void __launch_bounds__(NT) slot_fwd_kernel(Params<T> p) {
   float* bas = ptc + p.R * ET;                  // [ET][NB]
   float* m2c = bas + ET * p.NB;                 // [ET]
   int* ljc = reinterpret_cast<int*>(m2c + ET);  // [ET]
-  float* rs = reinterpret_cast<float*>(ljc + ET);  // [RS]
+  float* rs = reinterpret_cast<float*>(ljc + ET);  // [Rows::scratch]
 
   const int tid = threadIdx.x, c = tid % C, eg = tid / C;
   const int e0 = blockIdx.x * ET;
@@ -243,7 +326,7 @@ __global__ void __launch_bounds__(NT) slot_fwd_kernel(Params<T> p) {
 
   for (int s = 0; s < p.K; ++s) {
     __syncthreads();
-    Rows::load(p, s, e0, cnt, ptc, m2c, ljc, nullptr, rs);
+    Rows::template load<ROWS_VALUE>(p, s, e0, nullptr, cnt, ptc, m2c, ljc, nullptr, rs);
     __syncthreads();
     form_basis(p, ptc, bas);
     __syncthreads();
@@ -286,7 +369,7 @@ __global__ void __launch_bounds__(NT) slot_bwd_kernel(Params<T> p) {
   float* dbas = dxg + ET * C;                   // [ET][NB] (DPT only)
   float* m2c = dbas + (DPT ? ET * NB : 0);      // [ET]
   int* ljc = reinterpret_cast<int*>(m2c + ET);  // [ET]
-  float* rs = reinterpret_cast<float*>(ljc + ET);  // [RS]
+  float* rs = reinterpret_cast<float*>(ljc + ET);  // [Rows::scratch]
 
   const int tid = threadIdx.x, c = tid % C, eg = tid / C;
   const int g = blockIdx.x / K, s = blockIdx.x % K;
@@ -299,7 +382,7 @@ __global__ void __launch_bounds__(NT) slot_bwd_kernel(Params<T> p) {
     const int cnt = min(ET, SE - c0);
     const int e0 = base + c0;
     __syncthreads();
-    Rows::load(p, s, e0, cnt, ptc, m2c, ljc, nullptr, rs);
+    Rows::template load<ROWS_VALUE>(p, s, e0, nullptr, cnt, ptc, m2c, ljc, nullptr, rs);
     __syncthreads();
     form_basis(p, ptc, bas);
     __syncthreads();
@@ -367,61 +450,119 @@ __global__ void __launch_bounds__(NT) slot_bwd_kernel(Params<T> p) {
 }
 
 // Second order, part 1: ctb[e] = sum_s m (dg sv tv + g dsv tv + g sv dtv),
-// the forward's linearisation along (u1, u2, u4, u5), in the forward's
-// layout (32 edges a block, s in a loop, f32 registers).
+// the forward's linearisation along (u1, u2, u4, u5). A block owns 32
+// edges (ctb's rows) and first lists their real triplets s-major (a ballot
+// per s), then walks the list 32 triplets at a time: the rows, sbf / tbf
+// and the products only where m2T is set. Each triplet's factors go to
+// shared memory (over the chunk's dead rows) and its term is added to its
+// edge's sum by the thread owning that (edge, channel), in list order:
+// each edge's terms in s order, as the walk over s added them, and as
+// acc + fma(Y, dtv, X tv) with X = fma(dg, sv, g dsv), Y = g sv, the
+// rounding the walk's acc += X tv + Y dtv compiled to (its ctb bits).
 template <typename T, int C, typename Rows>
 __global__ void __launch_bounds__(NT) slot_jvp_kernel(Params<T> p) {
   constexpr int EG = NT / C;
   constexpr int EPT = ET / EG;
   extern __shared__ __align__(16) float smem[];
+  const int K = p.K;
   float* ws_s = smem;                           // [nk][C+1]
   float* wt_s = ws_s + p.nk * (C + 1);          // [ntk][C+1]
   float* ptc = wt_s + p.ntk * (C + 1);          // [R][ET]
   float* u2c = ptc + p.R * ET;                  // [R][ET]
   float* bas = u2c + p.R * ET;                  // [ET][NB]
   float* dbas = bas + ET * p.NB;                // [ET][NB]
-  float* m2c = dbas + ET * p.NB;                // [ET]
+  float* fx = ptc;                              // [ET][C] X, then Y, tv, dtv over the
+  float* fy = fx + ET * C;                      // rows' region once the products are
+  float* ftv = fy + ET * C;                     // formed (jvp_stage floats in all)
+  float* fdtv = ftv + ET * C;
+  float* acc = ptc + jvp_stage(p, C);           // [ET][C] ctb of the block's edges
+  float* m2c = acc + ET * C;                    // [ET]
   int* ljc = reinterpret_cast<int*>(m2c + ET);  // [ET]
-  float* rs = reinterpret_cast<float*>(ljc + ET);  // [RS]
+  int* eb = ljc + ET;                           // [ET] the chunk's edges - e0
+  unsigned* smask = reinterpret_cast<unsigned*>(eb + ET);  // [K] real edges of each s
+  int* pairs = reinterpret_cast<int*>(smask + K);          // [K * ET] s E + e, s-major
+  float* rs = reinterpret_cast<float*>(pairs + K * ET);    // [Rows::scratch]
 
   const int tid = threadIdx.x, c = tid % C, eg = tid / C;
+  const int lane = tid & 31, warp = tid >> 5;
   const int e0 = blockIdx.x * ET;
-  const int cnt = min(ET, p.E - e0);
-  const int SE = p.A * p.K;
+  const int ne = min(ET, p.E - e0);
+  const int SE = p.A * K;
   load_weights<C>(p, ws_s, wt_s);
+  for (int x = tid; x < ET * C; x += NT) acc[x] = 0.f;
+  for (int s = warp; s < K; s += NT / 32) {
+    bool real = false;
+    if (lane < ne) {
+      const int j = p.lj[e0 + lane];
+      real = j >= 0 && j < p.A && ld(p.m2T + (size_t)s * p.E + e0 + lane) != 0.f;
+    }
+    const unsigned mask = __ballot_sync(0xffffffffu, real);
+    if (lane == 0) smask[s] = mask;
+  }
+  __syncthreads();
+  int nl = 0;
+  for (int s = 0; s < K; ++s) nl += __popc(smask[s]);
+  for (int s = warp; s < K; s += NT / 32) {
+    int at = 0;
+    for (int s2 = 0; s2 < s; ++s2) at += __popc(smask[s2]);
+    const unsigned mask = smask[s];
+    if ((mask >> lane) & 1u) pairs[at + __popc(mask & ((1u << lane) - 1u))] = s * p.E + e0 + lane;
+  }
 
-  float acc[EPT];
-#pragma unroll
-  for (int q = 0; q < EPT; ++q) acc[q] = 0.f;
-
-  for (int s = 0; s < p.K; ++s) {
+  for (int c0 = 0; c0 < nl; c0 += ET) {
+    const int cnt = min(ET, nl - c0);
+    const int* ids = pairs + c0;
     __syncthreads();
-    Rows::load(p, s, e0, cnt, ptc, m2c, ljc, u2c, rs);
+    Rows::template load<ROWS_TANGENT>(p, 0, 0, ids, cnt, ptc, m2c, ljc, u2c, rs);
     __syncthreads();
     form_basis(p, ptc, bas);
     form_tangent(p, ptc, u2c, dbas);
     __syncthreads();
+    {
+      float sv[EPT], tv[EPT], dsv[EPT], dtv[EPT], X[EPT], Y[EPT];
+      const int nq = min(EPT, (cnt - eg + EG - 1) / EG);
+      tiled_products<C, EG, EPT>(p, bas, dbas, ws_s, wt_s, c, eg, nq, sv, tv, dsv, dtv);
 #pragma unroll
-    for (int q = 0; q < EPT; ++q) {
-      const int ec = eg + EG * q;
-      const float m = m2c[ec];
-      if (m != 0.f) {
-        const int e = e0 + ec;
-        const size_t row = ((size_t)(e / SE) * p.A + ljc[ec]) * p.K + s;
-        float sv, tv, dsv, dtv;
-        basis_products<C>(bas + ec * p.NB, ws_s, wt_s, p.nk, p.ntk, c, sv, tv);
-        tangent_products<C>(p, bas + ec * p.NB, dbas + ec * p.NB, ws_s, wt_s, c, dsv, dtv);
-        const float gv = m * rnd<IS_BF16<T>>(ld(p.x + row * C + c));
-        const float dg = p.u1 != nullptr ? m * ld(p.u1 + row * C + c) : 0.f;
-        acc[q] += fmaf(dg, sv, gv * dsv) * tv + (gv * sv) * dtv;
+      for (int q = 0; q < EPT; ++q) {
+        X[q] = Y[q] = 0.f;
+        if (q < nq) {
+          const int ec = eg + EG * q;
+          int s, e;
+          triplet_at(p.E, 0, 0, ids, ec, s, e);
+          const float m = m2c[ec];
+          const size_t row = ((size_t)(e / SE) * p.A + ljc[ec]) * K + s;
+          const float gv = m * rnd<IS_BF16<T>>(ld(p.x + row * C + c));
+          const float dg = p.u1 != nullptr ? m * ld(p.u1 + row * C + c) : 0.f;
+          X[q] = fmaf(dg, sv[q], gv * dsv[q]);
+          Y[q] = gv * sv[q];
+          if (c == 0) eb[ec] = e - e0;
+        }
+      }
+      __syncthreads();  // the rows' region is dead: the factors go there
+#pragma unroll
+      for (int q = 0; q < EPT; ++q) {
+        if (q < nq) {
+          const int at = (eg + EG * q) * C + c;
+          fx[at] = X[q];
+          fy[at] = Y[q];
+          ftv[at] = tv[q];
+          fdtv[at] = dtv[q];
+        }
+      }
+    }
+    __syncthreads();
+    // thread (c, eg) owns the edges b with b % EG == eg
+    for (int ec = 0; ec < cnt; ++ec) {
+      const int b = eb[ec];
+      if (b % EG == eg) {
+        const int at = ec * C + c;
+        acc[b * C + c] =
+            __fadd_rn(acc[b * C + c], fmaf(fy[at], fdtv[at], __fmul_rn(fx[at], ftv[at])));
       }
     }
   }
-#pragma unroll
-  for (int q = 0; q < EPT; ++q) {
-    const int ec = eg + EG * q;
-    if (ec < cnt) p.ctb[(size_t)(e0 + ec) * C + c] = acc[q];
-  }
+  __syncthreads();
+  for (int x = tid; x < ne * C; x += NT) p.ctb[(size_t)e0 * C + x] = acc[x];
 }
 
 // Second order, part 2: xb, the rows' cotangent and the wsb / wtb partials,
@@ -429,12 +570,39 @@ __global__ void __launch_bounds__(NT) slot_jvp_kernel(Params<T> p) {
 // with go = ct m: Psv = go (dg tv + g dtv) and Ptv = go (dg sv + g dsv) are
 // the cotangents of sv and tv, Qsv = go g tv and Qtv = go g sv those of dsv
 // and dtv, and xg = go (dsv tv + sv dtv) that of the gathered x row.
+//
+// The block first lists its real triplets' edges in edge order (a ballot a
+// warp; the rows' cotangent of every other edge is written as zeros) and
+// walks them in chunks of ET: every edge of a chunk is real, so the rows,
+// the products and the cotangents are formed only where they count. Every
+// sum still runs in edge order over the real edges, as the masked walk over
+// all edges added them, so the outputs do not depend on the chunking.
+// Register tiles: each thread's sv, tv, dsv, dtv over its EPT edges (a
+// weight loaded once for all of them); the wsb | wtb entries a thread owns
+// (its channel, rows eg + EG i) WT at a time, P and Q loaded once an edge;
+// the (a | b) cotangents as TE edges x TR rows, P, Q and the weights loaded
+// once a channel. No entry's chain of fmaf changes.
+// The floats from Psv to m2c in slot_bwd2_kernel: P, Q and xg, or what
+// Rows::write_ptb puts there once they are dead, whichever is more.
+template <typename Rows, int C, typename T>
+__host__ __device__ int bwd2_spare(const Params<T>& p) {
+  const int pq = 5 * ET * C, w = Rows::spare(p);
+  return pq > w ? pq : w;
+}
+
 template <typename T, int C, typename Rows>
-__global__ void __launch_bounds__(NT) slot_bwd2_kernel(Params<T> p) {
-  constexpr int EG = NT / C;
+__global__ void __launch_bounds__(Rows::BWD2_THREADS, 512 / Rows::BWD2_THREADS)
+slot_bwd2_kernel(Params<T> p) {
+  constexpr int NTB = Rows::BWD2_THREADS;
+  constexpr int EG = NTB / C;
   constexpr int EPT = ET / EG;
+  static_assert(NTB % C == 0 && ET % EG == 0, "channels must tile the block and the chunk");
+  constexpr int WT = 9;          // wsb | wtb rows of a register tile
+  constexpr int TE = 4, TR = 3;  // (a | b) cotangent tile: edges x rows (TR odd: no bank
+                                 // conflicts on the weights' C + 1 stride)
   extern __shared__ __align__(16) float smem[];
   const int nk = p.nk, ntk = p.ntk, NB = p.NB, A = p.A, K = p.K;
+  const int SE = A * K;
   float* ws_s = smem;                           // [nk][C+1]
   float* wt_s = ws_s + nk * (C + 1);            // [ntk][C+1]
   float* dW_s = wt_s + ntk * (C + 1);           // [NB][C] wsb | wtb sums
@@ -448,107 +616,198 @@ __global__ void __launch_bounds__(NT) slot_bwd2_kernel(Params<T> p) {
   float* Qsv = Ptv + ET * C;                    // [ET][C]
   float* Qtv = Qsv + ET * C;                    // [ET][C]
   float* xg = Qtv + ET * C;                     // [ET][C]
-  float* m2c = xg + ET * C;                     // [ET]
+  float* m2c = Psv + bwd2_spare<Rows, C>(p);    // [ET]
   int* ljc = reinterpret_cast<int*>(m2c + ET);  // [ET]
-  float* rs = reinterpret_cast<float*>(ljc + ET);  // [RS]
+  int* live = ljc + ET;                         // [SE] the real triplets, s E + e
+  int* wcnt = live + SE;                        // [NTB / 32]
+  float* rs = reinterpret_cast<float*>(wcnt + NTB / 32);  // [Rows::scratch]
 
   const int tid = threadIdx.x, c = tid % C, eg = tid / C;
+  const int lane = tid & 31, warp = tid >> 5;
   const int g = blockIdx.x / K, s = blockIdx.x % K;
-  const int SE = A * K, base = g * SE;
+  const int base = g * SE;
   load_weights<C>(p, ws_s, wt_s);
-  for (int x = tid; x < NB * C; x += NT) dW_s[x] = 0.f;
-  for (int x = tid; x < A * C; x += NT) dx_s[x] = 0.f;
+  for (int x = tid; x < NB * C; x += NTB) dW_s[x] = 0.f;
+  for (int x = tid; x < A * C; x += NTB) dx_s[x] = 0.f;
 
-  for (int c0 = 0; c0 < SE; c0 += ET) {
-    const int cnt = min(ET, SE - c0);
-    const int e0 = base + c0;
+  // the real triplets (lj inside the slot, m2T set), in edge order; the
+  // rows' cotangent of the others is 0
+  float* rows_out = Rows::GEO ? p.dgeo : p.dpt;
+  const int nout = Rows::GEO ? p.NG : p.R;
+  int nl = 0;
+  for (int b0 = 0; b0 < SE; b0 += NTB) {
+    const int e = base + b0 + tid;
+    bool real = false;
+    if (b0 + tid < SE) {
+      const int j = p.lj[e];
+      real = j >= 0 && j < A && ld(p.m2T + (size_t)s * p.E + e) != 0.f;
+      if (!real) {
+        for (int i = 0; i < nout; ++i) rows_out[((size_t)s * nout + i) * p.E + e] = 0.f;
+      }
+    }
+    const unsigned mask = __ballot_sync(0xffffffffu, real);
+    if (lane == 0) wcnt[warp] = __popc(mask);
     __syncthreads();
-    Rows::load(p, s, e0, cnt, ptc, m2c, ljc, u2c, rs);
+    int at = nl;
+    for (int w = 0; w < NTB / 32; ++w) {
+      if (w < warp) at += wcnt[w];
+      nl += wcnt[w];
+    }
+    if (real) live[at + __popc(mask & ((1u << lane) - 1u))] = s * p.E + e;
+    __syncthreads();
+  }
+
+  for (int c0 = 0; c0 < nl; c0 += ET) {
+    const int cnt = min(ET, nl - c0);
+    const int* ids = live + c0;
+    __syncthreads();
+    Rows::template load<ROWS_JET>(p, s, 0, ids, cnt, ptc, m2c, ljc, u2c, rs);
     __syncthreads();
     form_basis(p, ptc, bas);
     form_tangent(p, ptc, u2c, dbas);
     __syncthreads();
+    {
+      float sv[EPT], tv[EPT], dsv[EPT], dtv[EPT];
+      const int nq = min(EPT, (cnt - eg + EG - 1) / EG);  // the thread's edges in the chunk
+      tiled_products<C, EG, EPT>(p, bas, dbas, ws_s, wt_s, c, eg, nq, sv, tv, dsv, dtv);
 #pragma unroll
-    for (int q = 0; q < EPT; ++q) {
-      const int ec = eg + EG * q;
-      const float m = m2c[ec];
-      float ps = 0.f, pt = 0.f, qs = 0.f, qt = 0.f, xv = 0.f;
-      if (m != 0.f) {
-        const size_t row = ((size_t)g * A + ljc[ec]) * K + s;
-        float sv, tv, dsv, dtv;
-        basis_products<C>(bas + ec * NB, ws_s, wt_s, nk, ntk, c, sv, tv);
-        tangent_products<C>(p, bas + ec * NB, dbas + ec * NB, ws_s, wt_s, c, dsv, dtv);
-        const float gv = rnd<IS_BF16<T>>(ld(p.x + row * C + c));
-        const float dg = p.u1 != nullptr ? ld(p.u1 + row * C + c) : 0.f;
-        const float go = p.ct[(size_t)(e0 + ec) * C + c] * m;
-        qs = go * (gv * tv);
-        qt = go * (gv * sv);
-        ps = go * fmaf(dg, tv, gv * dtv);
-        pt = go * fmaf(dg, sv, gv * dsv);
-        xv = go * fmaf(dsv, tv, sv * dtv);
-      }
-      Psv[ec * C + c] = ps;
-      Ptv[ec * C + c] = pt;
-      Qsv[ec * C + c] = qs;
-      Qtv[ec * C + c] = qt;
-      xg[ec * C + c] = xv;
-    }
-    __syncthreads();
-    // wsb | wtb: each (row, c) entry owned by one thread, edge order
-    for (int x = tid; x < NB * C; x += NT) {
-      const int r = x / C, cc = x % C;
-      const float* P = r < nk ? Psv : Ptv;
-      const float* Q = r < nk ? Qsv : Qtv;
-      float acc = dW_s[x];
-      for (int ec = 0; ec < cnt; ++ec) {
-        if (m2c[ec] != 0.f) {
-          acc = fmaf(bas[ec * NB + r], P[ec * C + cc], acc);
-          acc = fmaf(dbas[ec * NB + r], Q[ec * C + cc], acc);
+      for (int q = 0; q < EPT; ++q) {
+        if (q < nq) {
+          const int ec = eg + EG * q;
+          const size_t row = ((size_t)g * A + ljc[ec]) * K + s;
+          const float gv = rnd<IS_BF16<T>>(ld(p.x + row * C + c));
+          const float dg = p.u1 != nullptr ? ld(p.u1 + row * C + c) : 0.f;
+          const float go = p.ct[(size_t)(ids[ec] - s * p.E) * C + c] * m2c[ec];
+          Qsv[ec * C + c] = go * (gv * tv[q]);
+          Qtv[ec * C + c] = go * (gv * sv[q]);
+          Psv[ec * C + c] = go * fmaf(dg, tv[q], gv * dtv[q]);
+          Ptv[ec * C + c] = go * fmaf(dg, sv[q], gv * dsv[q]);
+          xg[ec * C + c] = go * fmaf(dsv[q], tv[q], sv[q] * dtv[q]);
         }
       }
-      dW_s[x] = acc;
+    }
+    __syncthreads();
+    // wsb | wtb: the thread's entries (rows eg + EG i, channel c), WT rows
+    // in registers at a time, each in edge order
+    for (int i0 = 0; i0 * EG + eg < NB; i0 += WT) {
+      float acc[WT];
+#pragma unroll
+      for (int t = 0; t < WT; ++t) {
+        const int r = eg + EG * (i0 + t);
+        acc[t] = r < NB ? dW_s[r * C + c] : 0.f;
+      }
+      for (int ec = 0; ec < cnt; ++ec) {
+        const float ps = Psv[ec * C + c], pt = Ptv[ec * C + c];
+        const float qs = Qsv[ec * C + c], qt = Qtv[ec * C + c];
+        const float* b = bas + ec * NB;
+        const float* d = dbas + ec * NB;
+#pragma unroll
+        for (int t = 0; t < WT; ++t) {
+          const int r = eg + EG * (i0 + t);
+          if (r < NB) {
+            const bool sr = r < nk;
+            acc[t] = fmaf(b[r], sr ? ps : pt, acc[t]);
+            acc[t] = fmaf(d[r], sr ? qs : qt, acc[t]);
+          }
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < WT; ++t) {
+        const int r = eg + EG * (i0 + t);
+        if (r < NB) dW_s[r * C + c] = acc[t];
+      }
     }
     // xb rows (j, s): thread (c, jg) owns the rows j with j % EG == jg
     for (int ec = 0; ec < cnt; ++ec) {
       const int j = ljc[ec];
-      if (m2c[ec] != 0.f && j % EG == eg) dx_s[j * C + c] += xg[ec * C + c];
+      if (j % EG == eg) dx_s[j * C + c] += xg[ec * C + c];
     }
     __syncthreads();
     // cotangents of (a | b) -> bas and of (da | db) -> dbas:
-    // d(a|b) = P @ w^T + Q @ u^T, d(da|db) = Q @ w^T
-    for (int x = tid; x < ET * NB; x += NT) {
-      const int ec = x / NB, r = x % NB;
-      float gt = 0.f, gd = 0.f;
-      if (m2c[ec] != 0.f) {
-        const bool sr = r < nk;
-        const float* P = (sr ? Psv : Ptv) + ec * C;
-        const float* Q = (sr ? Qsv : Qtv) + ec * C;
-        const float* w = sr ? ws_s + r * (C + 1) : wt_s + (r - nk) * (C + 1);
+    // d(a|b) = P @ w^T + Q @ u^T, d(da|db) = Q @ w^T; tiles of TE edges x
+    // TR rows, rows of one tile all of sbf's or all of tbf's
+    {
+      const int rts = (nk + TR - 1) / TR;
+      const int rtl = rts + (ntk + TR - 1) / TR;
+      const int etl = (cnt + TE - 1) / TE;
+      for (int t = tid; t < etl * rtl; t += NTB) {
+        const int et = t / rtl, rt = t % rtl;
+        const bool sr = rt < rts;
+        const int r0 = sr ? rt * TR : nk + (rt - rts) * TR;
+        const int r1 = sr ? nk : NB;
+        const float* P = sr ? Psv : Ptv;
+        const float* Q = sr ? Qsv : Qtv;
+        const float* w[TR];
+        int ecs[TE];
+#pragma unroll
+        for (int i = 0; i < TR; ++i) w[i] = ws_s + min(r0 + i, r1 - 1) * (C + 1);
+#pragma unroll
+        for (int e = 0; e < TE; ++e) ecs[e] = min(et * TE + e, cnt - 1) * C;
+        float gt[TE][TR], gd[TE][TR];
+#pragma unroll
+        for (int e = 0; e < TE; ++e)
+#pragma unroll
+          for (int i = 0; i < TR; ++i) gt[e][i] = gd[e][i] = 0.f;
         for (int cc = 0; cc < C; ++cc) {
-          gt = fmaf(P[cc], w[cc], gt);
-          gd = fmaf(Q[cc], w[cc], gd);
+          float pv[TE], qv[TE], wv[TR];
+#pragma unroll
+          for (int e = 0; e < TE; ++e) {
+            pv[e] = P[ecs[e] + cc];
+            qv[e] = Q[ecs[e] + cc];
+          }
+#pragma unroll
+          for (int i = 0; i < TR; ++i) wv[i] = w[i][cc];
+#pragma unroll
+          for (int e = 0; e < TE; ++e)
+#pragma unroll
+            for (int i = 0; i < TR; ++i) {
+              gt[e][i] = fmaf(pv[e], wv[i], gt[e][i]);
+              gd[e][i] = fmaf(qv[e], wv[i], gd[e][i]);
+            }
         }
         const float* u = sr ? p.u4 : p.u5;
         if (u != nullptr) {
-          const float* ur = u + (size_t)(sr ? r : r - nk) * C;
-          for (int cc = 0; cc < C; ++cc) gt = fmaf(Q[cc], __ldg(ur + cc), gt);
+          const float* ur[TR];
+#pragma unroll
+          for (int i = 0; i < TR; ++i) ur[i] = u + (size_t)(min(r0 + i, r1 - 1) - (sr ? 0 : nk)) * C;
+          for (int cc = 0; cc < C; ++cc) {
+            float qv[TE], uv[TR];
+#pragma unroll
+            for (int e = 0; e < TE; ++e) qv[e] = Q[ecs[e] + cc];
+#pragma unroll
+            for (int i = 0; i < TR; ++i) uv[i] = __ldg(ur[i] + cc);
+#pragma unroll
+            for (int e = 0; e < TE; ++e)
+#pragma unroll
+              for (int i = 0; i < TR; ++i) gt[e][i] = fmaf(qv[e], uv[i], gt[e][i]);
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < TE; ++e) {
+          const int ec = et * TE + e;
+          if (ec >= cnt) continue;
+#pragma unroll
+          for (int i = 0; i < TR; ++i) {
+            if (r0 + i < r1) {
+              bas[ec * NB + r0 + i] = gt[e][i];
+              dbas[ec * NB + r0 + i] = gd[e][i];
+            }
+          }
         }
       }
-      bas[x] = gt;
-      dbas[x] = gd;
     }
     __syncthreads();
     // the rows' cotangent through the products: from (a | b) against the
-    // rows, (da | db) against their tangent
-    Rows::write_ptb(p, s, e0, cnt, bas, dbas, ptc, u2c, m2c, rs);
+    // rows, (da | db) against their tangent (P, Q and xg are dead: spare)
+    Rows::write_ptb(p, s, ids, cnt, bas, dbas, ptc, u2c, m2c, rs, Psv);
   }
   __syncthreads();
-  for (int x = tid; x < A * C; x += NT) {
+  for (int x = tid; x < A * C; x += NTB) {
     const int j = x / C, cc = x % C;
     p.dx[(((size_t)g * A + j) * K + s) * C + cc] = dx_s[x];
   }
   float* part = p.partial + (size_t)blockIdx.x * NB * C;
-  for (int x = tid; x < NB * C; x += NT) part[x] = dW_s[x];
+  for (int x = tid; x < NB * C; x += NTB) part[x] = dW_s[x];
 }
 
 template <typename T>
@@ -571,7 +830,8 @@ Params<T> make_params(const void* x, const void* m2T, const float* ws, const flo
 
 template <typename Rows, typename T, int C>
 int fwd_t(Params<T> p, cudaStream_t strm) {
-  const size_t smem = ((size_t)(p.nk + p.ntk) * (C + 1) + p.R * ET + ET * p.NB + 2 * ET + RS) *
+  const size_t smem = ((size_t)(p.nk + p.ntk) * (C + 1) + p.R * ET + ET * p.NB + 2 * ET +
+                       Rows::scratch(p, ROWS_VALUE)) *
                       sizeof(float);
   const int grid = (p.E + ET - 1) / ET;
   return launch(slot_fwd_kernel<T, C, Rows>, grid, NT, smem, strm, p);
@@ -581,7 +841,7 @@ template <typename Rows, typename T, int C>
 int bwd_t(Params<T> p, int need_rows, int blocks, cudaStream_t strm) {
   const size_t floats = (size_t)(p.nk + p.ntk) * (C + 1) + (size_t)p.NB * C +
                         (size_t)p.A * C + p.R * ET + ET * p.NB + 3 * ET * C +
-                        (need_rows ? ET * p.NB : 0) + 2 * ET + RS;
+                        (need_rows ? ET * p.NB : 0) + 2 * ET + Rows::scratch(p, ROWS_VALUE);
   const size_t smem = floats * sizeof(float);
   if (need_rows) return launch(slot_bwd_kernel<T, C, true, Rows>, blocks, NT, smem, strm, p);
   return launch(slot_bwd_kernel<T, C, false, Rows>, blocks, NT, smem, strm, p);
@@ -589,15 +849,17 @@ int bwd_t(Params<T> p, int need_rows, int blocks, cudaStream_t strm) {
 
 template <typename Rows, typename T, int C>
 int bwd2_t(Params<T> p, int blocks, cudaStream_t strm) {
-  const size_t jvp =
-      ((size_t)(p.nk + p.ntk) * (C + 1) + 2 * p.R * ET + 2 * ET * p.NB + 2 * ET + RS) *
-      sizeof(float);
+  const size_t jvp = ((size_t)(p.nk + p.ntk) * (C + 1) + jvp_stage(p, C) + ET * C + 3 * ET +
+                      (size_t)p.K * (ET + 1) + Rows::scratch(p, ROWS_TANGENT)) *
+                     sizeof(float);
   int rc = launch(slot_jvp_kernel<T, C, Rows>, (p.E + ET - 1) / ET, NT, jvp, strm, p);
   if (rc != 0) return rc;
   const size_t floats = (size_t)(p.nk + p.ntk) * (C + 1) + (size_t)p.NB * C +
-                        (size_t)p.A * C + 2 * p.R * ET + 2 * ET * p.NB + 5 * ET * C + 2 * ET +
-                        RS;
-  return launch(slot_bwd2_kernel<T, C, Rows>, blocks, NT, floats * sizeof(float), strm, p);
+                        (size_t)p.A * C + 2 * p.R * ET + 2 * ET * p.NB +
+                        bwd2_spare<Rows, C>(p) + 2 * ET +
+                        (size_t)p.A * p.K + Rows::BWD2_THREADS / 32 + Rows::scratch(p, ROWS_JET);
+  return launch(slot_bwd2_kernel<T, C, Rows>, blocks, Rows::BWD2_THREADS, floats * sizeof(float),
+                strm, p);
 }
 
 template <typename Rows, typename T>

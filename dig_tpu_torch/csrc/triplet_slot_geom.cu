@@ -60,11 +60,21 @@
 //    rows (and, where the second order needs it, their tangent J ug)
 //    evaluated once per (row, edge) by one thread, a warp sharing one row,
 //    so the generated switch over rows never diverges within a warp.
-//  - dgeo and geob: one thread per (geometry variable, edge) walks only the
-//    rows that depend on its variable (x: the Bessel rows; theta: the
+//  - dgeo: one thread per (geometry variable, edge) walks only the rows
+//    that depend on its variable (x: the Bessel rows; theta: the
 //    harmonics; phi: the Y_l^m rows) in row order, recomputing the rows'
 //    cotangent from the chunk's basis cotangents in shared memory; a fixed
 //    order, no atomics, so two calls give the same bits.
+//  - geob (the second order; 512 threads a block, the real triplets' edges
+//    only, see slot_bwd2_kernel): each (row, edge) is evaluated once, by
+//    row_jet (the value, gradient and second derivatives from one set of
+//    common subexpressions), when the chunk's rows are loaded; the row's
+//    derivatives and (H ug) along its variables stay in shared memory. At
+//    the end of the chunk the rows' cotangent ptb_r and the first-order
+//    dpt_r are formed for every (row, edge) across the block, then one
+//    thread per (geometry variable, edge) sums d row_r / dv ptb_r + dpt_r
+//    (H_r ug)_v over its variable's rows in row order: no serial
+//    evaluation of the rows, no atomics, the same bits on every call.
 //  - dx, dws, dwt and the second order's xb, wsb, wtb, ctb: the slot
 //    kernels' own sums (a block per (slot, s), per-block weight partials
 //    summed by sum_partials_kernel in a fixed order).
@@ -92,27 +102,52 @@ __device__ __forceinline__ int var_of(const Params<T>& p, int gi) {
   return gi == p.NG - 1 ? 2 : gi;
 }
 
+// (H ug)_v for the second derivatives h = (tt, tp, tx, pp, px, xx).
+__device__ __forceinline__ double hess_dot(const double* h, int v, double u0, double u1,
+                                           double u2) {
+  return v == 0   ? h[0] * u0 + h[1] * u1 + h[2] * u2
+         : v == 1 ? h[1] * u0 + h[3] * u1 + h[4] * u2
+                  : h[2] * u0 + h[4] * u1 + h[5] * u2;
+}
+
 // The geometry as the row source. rs holds the chunk's (theta, phi, x')
-// [3][ET] and ug [3][ET] (zero when absent or masked).
+// [3][ET] and ug [3][ET] (zero when absent or masked); in ROWS_JET mode
+// also, per (row, edge), the row's derivative and (H ug) along its first
+// variable (x for the Bessel rows, theta for the harmonics), jv and hv
+// [R][ET], and along phi for the Y_l^m rows, jp and hp [n^2][ET]: the
+// second order's write_ptb reads them instead of evaluating the rows again.
 struct GeomRows {
+  static constexpr bool GEO = true;
+  static constexpr int BWD2_THREADS = 512;
+
   template <typename T>
-  static __device__ void load(const Params<T>& p, int s, int e0, int cnt, float* ptc,
-                              float* m2c, int* ljc, float* u2c, float* rs) {
+  static int scratch(const Params<T>& p, int mode) {
+    const int nyl = p.has_t ? p.n * p.n : 0;
+    return 6 * ET + (mode == ROWS_JET ? 2 * (p.R + nyl) * ET : 0);
+  }
+  // write_ptb's ptb and dpt [R][ET] each
+  template <typename T>
+  static __host__ __device__ int spare(const Params<T>& p) { return 2 * p.R * ET; }
+
+  template <int MODE, typename T>
+  static __device__ void load(const Params<T>& p, int s, int e0, const int* ids, int cnt,
+                              float* ptc, float* m2c, int* ljc, float* u2c, float* rs) {
     float* gv = rs;            // [3][ET]
     float* uv = rs + 3 * ET;   // [3][ET]
-    for (int ec = threadIdx.x; ec < ET; ec += NT) {
+    for (int ec = threadIdx.x; ec < ET; ec += blockDim.x) {
       float m = 0.f;
       int j = 0;
       float g[3] = {0.f, 0.f, 1.f}, u[3] = {0.f, 0.f, 0.f};
       if (ec < cnt) {
-        const int e = e0 + ec;
+        int ts, e;
+        triplet_at(p.E, s, e0, ids, ec, ts, e);
         j = p.lj[e];
-        m = (j >= 0 && j < p.A) ? ld(p.m2T + (size_t)s * p.E + e) : 0.f;
+        m = (j >= 0 && j < p.A) ? ld(p.m2T + (size_t)ts * p.E + e) : 0.f;
         for (int gi = 0; gi < p.NG; ++gi) {
           const int v = var_of(p, gi);
-          const size_t at = ((size_t)s * p.NG + gi) * p.E + e;
+          const size_t at = ((size_t)ts * p.NG + gi) * p.E + e;
           if (v != 2 || m != 0.f) g[v] = p.geo[at];
-          if (u2c != nullptr && p.ug != nullptr && m != 0.f) u[v] = p.ug[at];
+          if (MODE != ROWS_VALUE && p.ug != nullptr && m != 0.f) u[v] = p.ug[at];
         }
       }
       m2c[ec] = m;
@@ -123,21 +158,38 @@ struct GeomRows {
       }
     }
     __syncthreads();
-    for (int x = threadIdx.x; x < p.R * ET; x += NT) {
+    const int nk = p.nk, ny = p.nk + p.n;  // the Y_l^m rows start at ny
+    float* jv = rs + 6 * ET;
+    float* hv = jv + p.R * ET;
+    float* jp = hv + p.R * ET;
+    float* hp = jp + (p.R - ny) * ET;
+    for (int x = threadIdx.x; x < p.R * ET; x += blockDim.x) {
       const int r = x / ET, ec = x % ET;
       float val = 0.f, tg = 0.f;
       if (ec < cnt) {
         const double th = gv[ec], ph = gv[ET + ec], xx = gv[2 * ET + ec];
-        if (u2c != nullptr) {
+        const double u0 = uv[ec], u1 = uv[ET + ec], u2 = uv[2 * ET + ec];
+        if constexpr (MODE == ROWS_VALUE) {
+          val = (float)geom_rows::row<double>(r, th, ph, xx);
+        } else if constexpr (MODE == ROWS_TANGENT) {
           double g[3];
           val = (float)geom_rows::row_grad<double>(r, th, ph, xx, g);
-          tg = (float)(g[0] * uv[ec] + g[1] * uv[ET + ec] + g[2] * uv[2 * ET + ec]);
+          tg = (float)(g[0] * u0 + g[1] * u1 + g[2] * u2);
         } else {
-          val = (float)geom_rows::row<double>(r, th, ph, xx);
+          double g[3], h[6];
+          val = (float)geom_rows::row_jet<double>(r, th, ph, xx, g, h);
+          tg = (float)(g[0] * u0 + g[1] * u1 + g[2] * u2);
+          const int v = r < nk ? 2 : 0;
+          jv[x] = (float)g[v];
+          hv[x] = (float)hess_dot(h, v, u0, u1, u2);
+          if (r >= ny) {
+            jp[x - ny * ET] = (float)g[1];
+            hp[x - ny * ET] = (float)hess_dot(h, 1, u0, u1, u2);
+          }
         }
       }
       ptc[x] = val;
-      if (u2c != nullptr) u2c[x] = tg;
+      if constexpr (MODE != ROWS_VALUE) u2c[x] = tg;
     }
   }
 
@@ -165,41 +217,49 @@ struct GeomRows {
     }
   }
 
-  // geob[s, gi, e] = sum over the rows r of gi's variable v of
-  // d row_r / dv * ptb_r + dpt_r * (H_r ug)_v, with ptb_r the rows'
+  // geob[s, gi, e] = sum over the rows r of gi's variable v, in row order,
+  // of d row_r / dv * ptb_r + dpt_r * (H_r ug)_v, with ptb_r the rows'
   // cotangent (from (a | b) against the rows, (da | db) against their
   // tangent J ug) and dpt_r the first-order one (from (da | db)'s cotangent,
-  // which is the backward's basis cotangent, against the rows).
+  // which is the backward's basis cotangent, against the rows). ptb_r and
+  // dpt_r are formed first for every (row, edge) across the block, into
+  // spare; the derivatives come from load's jets. Every edge of the chunk
+  // is a real triplet's.
   template <typename T>
-  static __device__ void write_ptb(const Params<T>& p, int s, int e0, int cnt, const float* bas,
-                                   const float* dbas, const float* ptc, const float* u2c,
-                                   const float* m2c, const float* rs) {
-    for (int x = threadIdx.x; x < p.NG * ET; x += NT) {
+  static __device__ void write_ptb(const Params<T>& p, int s, const int* ids, int cnt,
+                                   const float* bas, const float* dbas, const float* ptc,
+                                   const float* u2c, const float*, const float* rs,
+                                   float* spare) {
+    float* pb = spare;                // [R][ET] ptb
+    float* dp = spare + p.R * ET;     // [R][ET] dpt
+    for (int x = threadIdx.x; x < p.R * ET; x += blockDim.x) {
+      const int r = x / ET, ec = x % ET;
+      if (ec >= cnt) continue;
+      const float* bd = dbas + ec * p.NB;
+      pb[x] = basis_adjoint(p, bas + ec * p.NB, ptc, r, ec) + basis_adjoint(p, bd, u2c, r, ec);
+      dp[x] = basis_adjoint(p, bd, ptc, r, ec);
+    }
+    __syncthreads();
+    const int ny = p.nk + p.n;
+    const float* jv = rs + 6 * ET;
+    const float* hv = jv + p.R * ET;
+    const float* jp = hv + p.R * ET;
+    const float* hp = jp + (p.R - ny) * ET;
+    for (int x = threadIdx.x; x < p.NG * ET; x += blockDim.x) {
       const int gi = x / ET, ec = x % ET;
       if (ec >= cnt) continue;
       const int v = var_of(p, gi);
+      int r0, r1;
+      rows_of(p, v, r0, r1);
+      // phi's derivatives are kept for the Y_l^m rows only
+      const float* J = v == 1 ? jp - ny * ET : jv;
+      const float* H = v == 1 ? hp - ny * ET : hv;
       float acc = 0.f;
-      if (m2c[ec] != 0.f) {
-        const double th = rs[ec], ph = rs[ET + ec], xx = rs[2 * ET + ec];
-        const float* u = rs + 3 * ET;
-        const double u0 = u[ec], u1 = u[ET + ec], u2 = u[2 * ET + ec];
-        int r0, r1;
-        rows_of(p, v, r0, r1);
-        for (int r = r0; r < r1; ++r) {
-          double g[3], h[6];  // h: (tt, tp, tx, pp, px, xx)
-          geom_rows::row_grad<double>(r, th, ph, xx, g);
-          geom_rows::row_hess<double>(r, th, ph, xx, h);
-          const float* bd = dbas + ec * p.NB;
-          const float ptb =
-              basis_adjoint(p, bas + ec * p.NB, ptc, r, ec) + basis_adjoint(p, bd, u2c, r, ec);
-          const float dpt = basis_adjoint(p, bd, ptc, r, ec);
-          const double hu = v == 0   ? h[0] * u0 + h[1] * u1 + h[2] * u2
-                            : v == 1 ? h[1] * u0 + h[3] * u1 + h[4] * u2
-                                     : h[2] * u0 + h[4] * u1 + h[5] * u2;
-          acc = fmaf((float)g[v], ptb, fmaf(dpt, (float)hu, acc));
-        }
+      for (int r = r0; r < r1; ++r) {
+        const int at = r * ET + ec;
+        acc = fmaf(J[at], pb[at], fmaf(dp[at], H[at], acc));
       }
-      p.dgeo[((size_t)s * p.NG + gi) * p.E + e0 + ec] = acc;
+      p.dgeo[((size_t)s * p.NG + gi) * p.E + ids[ec] - s * p.E] = acc;
     }
   }
 };

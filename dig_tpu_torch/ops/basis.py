@@ -262,15 +262,18 @@ def basis_row_code(num_spherical: int, num_radial: int, has_t: bool) -> str:
     the kernels) and as plain C++. It defines, in ``namespace geom_rows``,
     ``ROWS`` and the functions ``row<R>(r, theta, phi, x)``,
     ``row_grad<R>(r, ..., g)`` (the value, and g = d/d(theta, phi, x)) and
-    ``row_hess<R>(r, ..., h)`` (h = the second derivatives (tt, tp, tx,
-    pp, px, xx))."""
+    ``row_jet<R>(r, ..., g, h)`` (the value, g and h = the second
+    derivatives (tt, tp, tx, pp, px, xx) from one set of common
+    subexpressions: the second order's one evaluation of a row)."""
     jets = _packed_row_jets(num_spherical, num_radial, has_t)
     sig = "int r, R theta, R phi, R x"
-    val, grad, hess = [], [], []
+    val, grad, jet = [], [], []
+    g_names = ["g[0]", "g[1]", "g[2]"]
+    h_names = [f"h[{i}]" for i in range(6)]
     for r, (e, d1, d2) in enumerate(jets):
         val += _c_case(r, [e], ["v"])
-        grad += _c_case(r, [e] + d1, ["v", "g[0]", "g[1]", "g[2]"])
-        hess += _c_case(r, d2, [f"h[{i}]" for i in range(6)])
+        grad += _c_case(r, [e] + d1, ["v"] + g_names)
+        jet += _c_case(r, [e] + d1 + d2, ["v"] + g_names + h_names)
     head = [
         "// Generated by dig_tpu_torch/ops/basis.py (basis_row_code) from the",
         "// sympy closed forms of the packed basis rows: num_spherical="
@@ -302,9 +305,10 @@ def basis_row_code(num_spherical: int, num_radial: int, has_t: bool) -> str:
         + [tmpl, f"GEOM_ROW_FN R row_grad({sig}, R* g) {{", "  R v = R(0);",
            "  g[0] = g[1] = g[2] = R(0);", "  switch (r) {"]
         + grad + ["  }", "  return v;", "}"]
-        + [tmpl, f"GEOM_ROW_FN void row_hess({sig}, R* h) {{",
+        + [tmpl, f"GEOM_ROW_FN R row_jet({sig}, R* g, R* h) {{",
+           "  R v = R(0);", "  g[0] = g[1] = g[2] = R(0);",
            "  for (int i = 0; i < 6; ++i) h[i] = R(0);", "  switch (r) {"]
-        + hess + ["  }", "}", "}  // namespace geom_rows", ""])
+        + jet + ["  }", "  return v;", "}", "}  // namespace geom_rows", ""])
     return "\n".join(head + body)
 
 
@@ -312,12 +316,13 @@ def basis_row_code(num_spherical: int, num_radial: int, has_t: bool) -> str:
 def basis_row_ops(num_spherical: int, num_radial: int, has_t: bool):
     """Operations of :func:`basis_row_code`'s functions summed over the
     rows, as sympy counts them after common subexpressions (a sine, a
-    division or a product each one): ``{"row": .., "grad": ..,
-    "hess": ..}``. A lower bound on the work of one evaluation of all
-    rows, for the kernels' bounds."""
-    count = {"row": 0, "grad": 0, "hess": 0}
+    division or a product each one): ``{"row": .., "grad": .., "jet":
+    ..}``. A lower bound on the work of one evaluation of all rows, for the
+    kernels' bounds."""
+    count = {"row": 0, "grad": 0, "jet": 0}
     for e, d1, d2 in _packed_row_jets(num_spherical, num_radial, has_t):
-        for key, exprs in (("row", [e]), ("grad", [e] + d1), ("hess", d2)):
+        for key, exprs in (("row", [e]), ("grad", [e] + d1),
+                           ("jet", [e] + d1 + d2)):
             subs, reduced = sym.cse(exprs)
             count[key] += int(sum(sym.count_ops(t) for _, t in subs)
                               + sum(sym.count_ops(t) for t in reduced))

@@ -37,10 +37,13 @@ The chunked sum (:func:`segment_sum_sorted_csr_chunked`) takes the chunk
 table ``meta [3, C]`` of :func:`plan_chunks` in place of ``rowptr``: each
 block of ``block_rows`` rows sums the edges of its windows of
 ``chunk_edges`` edges whose id falls in the block, and the windows tile the
-block's edges, so nothing is dropped. On a CUDA tensor it launches
-``segment_csr_chunked_kernel`` of the same source (a block per row block,
-rows summed in edge order; ``launches_chunked`` counts them) or raises; on
-a CPU tensor its plain version. Its VJP is the row gather of ``_ssc_bwd``
+block's edges, so nothing is dropped. On a CUDA tensor it runs two kernels
+of the same source, or raises: ``segment_csr_span_kernel`` finds each
+row's first and last window edge (integer atomic minima and maxima, a
+thread per window position), then ``segment_csr_kernel``, the segment
+sum's own kernel, sums each row over that span in edge order (a warp per
+row); ``launches_chunked`` counts calls, one per sum. On a CPU tensor it runs
+its plain version. Its VJP is the row gather of ``_ssc_bwd``
 (:func:`row_gather`). :func:`spmm_csr` is ``x[col] * val`` summed per CSR
 row through :func:`segment_sum_sorted_csr`.
 """
@@ -126,7 +129,7 @@ def _library() -> ctypes.CDLL:
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.segment_csr_fwd.argtypes = [P, P, P, P, I, I, I, I, P]
         lib.segment_csr_fwd.restype = I
-        lib.segment_csr_chunked_fwd.argtypes = [P, P, P, P] + [I] * 7 + [P]
+        lib.segment_csr_chunked_fwd.argtypes = [P] * 5 + [I] * 7 + [P]
         lib.segment_csr_chunked_fwd.restype = I
         lib._argtypes_set = True
     return lib
@@ -320,9 +323,12 @@ def segment_sum_sorted_csr_chunked_reference(data, seg_ids, meta,
 
 def segment_csr_chunked_launch(data, seg, meta, num_rows, block_rows,
                                chunk_edges):
-    """Check CUDA inputs and launch the chunked kernel: contiguous ``data
+    """Check CUDA inputs and launch the chunked sum: contiguous ``data
     [E, F]`` (float32 or bf16), int32 ``seg [E]`` and ``meta [3, C]`` (a
-    numpy table is copied to the card); ``[num_rows, F]`` float32."""
+    numpy table is copied to the card); ``[num_rows, F]`` float32. One
+    call runs two kernels on the stream (the span pass into an int32
+    ``[2, num_rows]`` scratch, then the row sums) and counts once in
+    ``launches_chunked``."""
     global launches_chunked
     if data.ndim != 2:
         raise ValueError(f"segment_sum_sorted_csr_chunked: data must be "
@@ -343,8 +349,9 @@ def segment_csr_chunked_launch(data, seg, meta, num_rows, block_rows,
     seg = seg.to(torch.int32).contiguous()
     meta = meta.contiguous()
     out = torch.empty((num_rows, F), dtype=torch.float32, device=data.device)
+    span = torch.empty((2, num_rows), dtype=torch.int32, device=data.device)
     rc = _library().segment_csr_chunked_fwd(
-        *map(_build.ptr, (data, seg, meta, out)), E, F, num_rows,
+        *map(_build.ptr, (data, seg, meta, span, out)), E, F, num_rows,
         meta.shape[1], block_rows, chunk_edges,
         int(data.dtype == torch.bfloat16), _build.stream(data.device))
     _build.check(rc, "segment_sum_sorted_csr_chunked kernel", _SHAPES)

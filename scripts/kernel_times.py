@@ -1,0 +1,170 @@
+"""Time the kernels of the slot second order and of the chunked CSR sum on
+one card, per call and per kernel, at chip_smoke.py's shapes, and hash
+their outputs.
+
+    python scripts/kernel_times.py [--root DIR] [--out FILE]
+
+``--root`` names the checkout whose ``dig_tpu_torch`` is timed (default:
+this one), so that two versions of the kernels can be timed in turns in
+one call, on one card, on the same inputs: chip_smoke.py's own (path 7a's
+batch and seeded operands, the force bench's three bucket batches, path
+7b's graph), made by this checkout's chip_smoke.py. The root's libraries
+are built first, one nvcc each, all at once.
+
+What it times, with CUDA events over repeated bare launches (bf16 and f32):
+the geometry forward, backward (dgeo asked for) and second order at path
+7a's shape (u1 = u4 = u5 absent, as in force training); the triplet_slot
+second order at the three bucket shapes; the chunked sum at path 7b's
+shape beside segment_csr_kernel and torch.segment_reduce. Each second
+order and the chunked sum is also split into its kernels by
+chip_smoke.kernel_split (torch.profiler's device events).
+
+Before the times, one object per kernel call with a hash of each output's
+bytes (the second orders also with u1 = u4 = u5 present), so that two
+checkouts' outputs can be compared bit for bit without moving them off the
+card. Prints one JSON object per hash or timing, and appends them all to
+``--out``.
+"""
+from __future__ import annotations
+
+import argparse
+import hashlib
+import importlib.util
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+HERE = Path(__file__).resolve().parent.parent
+SPLIT = ("slot_jvp_kernel", "slot_bwd2_kernel", "sum_partials_kernel",
+         "segment_csr_span_kernel", "segment_csr_chunked_kernel",
+         "segment_csr_kernel", "Memset")
+
+
+def load_smoke():
+    """This checkout's chip_smoke.py as a module (it makes the inputs)."""
+    spec = importlib.util.spec_from_file_location("smoke_inputs",
+                                                  HERE / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def digest(t):
+    """A hash of a tensor's bytes (any dtype, bf16 too)."""
+    return None if t is None else hashlib.sha256(
+        t.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes()
+    ).hexdigest()[:16]
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=str(HERE))
+    ap.add_argument("--out", default="")
+    a = ap.parse_args()
+    root = Path(a.root).resolve()
+    sys.path.insert(0, str(root))
+    if not torch.cuda.is_available():
+        sys.exit("needs a CUDA card")
+    from dig_tpu_torch.ops import _build
+    from dig_tpu_torch.ops import segment_csr as sc
+    from dig_tpu_torch.ops import triplet_slot as ts
+    smoke = load_smoke()
+    cfg = (smoke.SN_KW["num_spherical"], smoke.SN_KW["num_radial"], True)
+    smoke.build_all(_build, {"triplet_slot": ("triplet_slot", None),
+                             "segment_csr": ("segment_csr", None),
+                             "triplet_slot_geom": ("triplet_slot_geom",
+                                                   ts.geom_library_spec(cfg))})
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    A, K = smoke.SN_KW["block_size"], smoke.SN_KW["nk_degree"]
+    results = []
+
+    def emit(**row):
+        row.update(card=card, root=str(root))
+        results.append(row)
+        print(json.dumps(row), flush=True)
+
+    # (op, precision) -> a kernel call; hashed besides, with the outputs of
+    # ``extra`` (the second orders with every cotangent present)
+    ops, extra = {}, {}
+    batch = smoke.ga_batches(torch, dev, smoke.GA_STEPS)[-1]
+    inp = smoke.ga_kernel_inputs(torch, dev, batch)
+    for prec, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        args, gcfg = smoke.ga_args(torch, inp, True, dt)
+        k_args = ts._geom_kernel_inputs(*args, A, K, gcfg)
+        ct32 = inp["ct"].to(dt).float().contiguous()
+        ug = inp["ug"]
+        ops[("geom_fwd", prec)] = (
+            lambda k_args=k_args, g=gcfg:
+            ts.triplet_slot_geom_forward_kernel(*k_args, A, K, g))
+        ops[("geom_bwd", prec)] = (
+            lambda k_args=k_args, ct32=ct32, g=gcfg:
+            ts.triplet_slot_geom_backward_kernel(*k_args, ct32, A, K, g,
+                                                 True))
+        ops[("geom_bwd2", prec)] = (
+            lambda k_args=k_args, ct32=ct32, g=gcfg:
+            ts.triplet_slot_geom_bwd2_kernel(*k_args, ct32, None, ug, None,
+                                             None, A, K, g))
+        extra[("geom_bwd2_all_u", prec)] = (
+            lambda k_args=k_args, ct32=ct32, g=gcfg, dt=dt:
+            ts.triplet_slot_geom_bwd2_kernel(*k_args, ct32, inp["u1"].to(dt),
+                                             ug, inp["u4"], inp["u5"], A, K,
+                                             g))
+    batch = smoke.sf_batches(torch, dev, smoke.SF_STEPS + 1)[-1]
+    for Ab, b in batch.items():
+        binp = smoke.sn_kernel_inputs(torch, dev, b, Ab)
+        for prec, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            args, ct, us, scfg = smoke.bwd2_args(torch, binp, True, dt, False)
+            k_args = ts._kernel_inputs(*args, Ab, K, scfg)
+            ct32 = ct.float().contiguous()
+            ops[(f"slot_bwd2_A{Ab}", prec)] = (
+                lambda k_args=k_args, ct32=ct32, us=us, Ab=Ab, g=scfg:
+                ts.triplet_slot_bwd2_kernel(*k_args, ct32, *us, Ab, K, g))
+            _, _, us_all, _ = smoke.bwd2_args(torch, binp, True, dt, True)
+            extra[(f"slot_bwd2_A{Ab}_all_u", prec)] = (
+                lambda k_args=k_args, ct32=ct32, us=us_all, Ab=Ab, g=scfg:
+                ts.triplet_slot_bwd2_kernel(*k_args, ct32, *us, Ab, K, g))
+    g = smoke.cs_graph(torch, dev)
+    library = {}
+    for prec, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        data, seg, rp, N = g["data"].to(dt), g["seg"], g["rowptr"], g["N"]
+        BN, EB, meta_np, _ = sc.choose_chunk_plan(g["rowptr_np"], N,
+                                                  data.shape[1], dt)
+        meta = torch.from_numpy(meta_np).to(dev)
+        ops[("chunked", prec)] = (
+            lambda data=data, seg=seg, meta=meta, N=N, BN=BN, EB=EB:
+            sc.segment_csr_chunked_launch(data, seg, meta, N, BN, EB))
+        ops[("csr", prec)] = (lambda data=data, seg=seg, rp=rp, N=N:
+                              sc.segment_csr_launch(data, seg, rp, N))
+        library[("segment_reduce", prec)] = (
+            lambda data=data, rp=rp: torch.segment_reduce(
+                data, "sum", offsets=rp.long(), axis=0))
+
+    for (op, prec), fn in list(ops.items()) + list(extra.items()):
+        outs = fn()
+        torch.cuda.synchronize()
+        outs = outs if isinstance(outs, (tuple, list)) else [outs]
+        emit(op=op, precision=prec, hashes=[digest(t) for t in outs])
+    for (op, prec), fn in list(ops.items()) + list(library.items()):
+        ms = smoke.cuda_ms(torch, fn, iters=50 if op in (
+            "chunked", "csr", "segment_reduce") else 20)
+        split = smoke.kernel_split(torch, fn, SPLIT) if "bwd2" in op or \
+            op == "chunked" else {}
+        emit(op=op, precision=prec, ms=ms,
+             kernels={k: v for k, v in split.items() if v > 0})
+    if a.out:
+        Path(a.out).parent.mkdir(parents=True, exist_ok=True)
+        with open(a.out, "a") as f:
+            for r in results:
+                f.write(json.dumps(r) + "\n")
+
+
+if __name__ == "__main__":
+    main()

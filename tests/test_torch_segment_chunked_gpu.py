@@ -121,3 +121,55 @@ def test_chunked_vjp_and_spmm():
     want = sc.segment_sum_sorted_csr_reference(x[col.long()] * val[:, None],
                                                seg7, rowptr7, N7)
     assert _rel(got, want) < 1e-5
+
+
+def _structured(case, seed=3):
+    """Sorted ids with a random in-degree of 0-8 per row and a tail of
+    padding, shaped by ``case``: (seg, rowptr, N, BN, EB)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    N, BN, EB = {"ragged": (1000, 64, 128), "long_row": (700, 64, 128),
+                 "holes": (900, 128, 256), "many_blocks": (20000, 64, 256),
+                 "few_blocks": (1000, 256, 512)}[case]
+    deg = torch.randint(0, 9, (N,), generator=g)
+    if case == "long_row":
+        deg[300] = 600                    # one row over five windows
+    seg = torch.repeat_interleave(torch.arange(N), deg).to(torch.int32)
+    rowptr = torch.cat([torch.zeros(1, dtype=torch.int64),
+                        torch.cumsum(deg, 0)]).to(torch.int32)
+    tail = torch.full((300,), -1, dtype=torch.int32)
+    if case == "holes":
+        # -1 holes among the real ids (rowptr unchanged) and padding ids
+        # at and past N in the tail: none of them adds
+        seg[torch.rand(seg.shape[0], generator=g) < 0.1] = -1
+        tail[::3] = N
+        tail[1::3] = N + 17
+    return torch.cat([seg, tail]), rowptr, N, BN, EB
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["ragged", "long_row", "holes",
+                                  "many_blocks", "few_blocks"])
+def test_chunked_windows_and_ids(case, dtype):
+    """Row blocks whose first window starts in the previous block's edges
+    (128-aligned starts), a row over several windows, -1 holes and ids at
+    or past N, N not a multiple of BN, more row blocks than SMs (313) and
+    fewer (4): integer-valued data sums exactly in any order, so the kernel
+    must give the plain version's bits and segment_csr_kernel's."""
+    from dig_tpu_torch.ops import segment_csr as sc
+    dev = _device()
+    seg, rowptr, N, BN, EB = _structured(case)
+    meta = torch.from_numpy(sc.plan_chunks(rowptr.numpy(), N, BN, EB)).to(dev)
+    g = torch.Generator(device="cpu").manual_seed(4)
+    data = torch.randint(-8, 9, (seg.shape[0], 48), generator=g).to(dev, dtype)
+    seg, rowptr = seg.to(dev), rowptr.to(dev)
+    before = sc.launches_chunked
+    out = sc.segment_sum_sorted_csr_chunked(data, seg, meta, N, BN, EB)
+    torch.cuda.synchronize()
+    assert sc.launches_chunked == before + 1
+    want = sc.segment_sum_sorted_csr_chunked_reference(data, seg, meta, N,
+                                                       BN, EB)
+    assert float(want.abs().max()) > 0
+    assert torch.equal(out, want)
+    assert torch.equal(out, sc.segment_csr_launch(data, seg, rowptr, N))
+    assert torch.equal(sc.segment_sum_sorted_csr_chunked(data, seg, meta, N,
+                                                         BN, EB), out)

@@ -12,9 +12,10 @@ kernel bodies' trace-time vjp). Against the port's pt chain (basis_pt_k
 into fused_triplet_slot, the same closed forms differentiated by the same
 autograd): 1e-5, 1e-5 and 1e-4.
 
-The generated row code (ops/basis.py basis_row_code) is compiled with g++
-as plain C++ in double and held to torch autograd of packed_basis_rows in
-double at 1e-6 of the largest value of each derivative order: a wrong
+The generated row code (ops/basis.py basis_row_code: the row and
+gradient functions, and the fused jet that also gives the second
+derivatives) is compiled with g++ as plain C++ in double and held to torch
+autograd of packed_basis_rows in double at 1e-6 of the largest value of each derivative order: a wrong
 derivative is an O(1) error, while both sides evaluate the same closed
 forms. The same text in float is held to the float64 values at 1e-4, at
 d_kj / cutoff in [0.3, 1], where the closed forms do not cancel.
@@ -167,10 +168,10 @@ extern "C" void eval_rows(int npts, const F* th, const F* ph, const F* x,
                           F* val, F* grad, F* hess) {
   for (int i = 0; i < npts; ++i)
     for (int r = 0; r < geom_rows::ROWS; ++r) {
-      F g[3], h[6];
+      F g[3], gj[3], h[6];
       const F v = geom_rows::row<F>(r, th[i], ph[i], x[i]);
       geom_rows::row_grad<F>(r, th[i], ph[i], x[i], g);
-      geom_rows::row_hess<F>(r, th[i], ph[i], x[i], h);
+      geom_rows::row_jet<F>(r, th[i], ph[i], x[i], gj, h);
       val[r * npts + i] = v;
       for (int j = 0; j < 3; ++j) grad[(r * 3 + j) * npts + i] = g[j];
       for (int j = 0; j < 6; ++j) hess[(r * 6 + j) * npts + i] = h[j];
@@ -178,13 +179,29 @@ extern "C" void eval_rows(int npts, const F* th, const F* ph, const F* x,
 }
 '''
 
+# the fused jet: value, gradient and second derivatives from one call
+_EVAL_JET_SRC = r'''
+#include "geom_rows.cuh"
+typedef REAL F;
+extern "C" void eval_rows(int npts, const F* th, const F* ph, const F* x,
+                          F* val, F* grad, F* hess) {
+  for (int i = 0; i < npts; ++i)
+    for (int r = 0; r < geom_rows::ROWS; ++r) {
+      F g[3], h[6];
+      val[r * npts + i] = geom_rows::row_jet<F>(r, th[i], ph[i], x[i], g, h);
+      for (int j = 0; j < 3; ++j) grad[(r * 3 + j) * npts + i] = g[j];
+      for (int j = 0; j < 6; ++j) hess[(r * 6 + j) * npts + i] = h[j];
+    }
+}
+'''
 
-def _compiled_rows(tmp_path, cfg, real):
+
+def _compiled_rows(tmp_path, cfg, real, src=_EVAL_SRC):
     code = basis_row_code(*cfg)
     d = tmp_path / f"{real}_{cfg[0]}_{cfg[1]}_{int(cfg[2])}"
     d.mkdir()
     (d / "geom_rows.cuh").write_text(code)
-    (d / "eval_rows.cpp").write_text(_EVAL_SRC)
+    (d / "eval_rows.cpp").write_text(src)
     lib = d / "rows.so"
     subprocess.run(["g++", "-O2", "-shared", "-fPIC", f"-DREAL={real}",
                     "-I", str(d), "-o", str(lib), str(d / "eval_rows.cpp")],
@@ -219,9 +236,9 @@ def _autograd_rows(cfg, th, ph, x):
     return val, grad, hess
 
 
-@pytest.mark.parametrize("cfg", [(3, 2, True), (3, 6, False)],
-                         ids=["n3k2_torsion", "n3k6"])
-def test_generated_row_code_matches_autograd(tmp_path, cfg):
+def _check_row_code(tmp_path, cfg, src):
+    """The generated rows through ``src`` (g++, double and float) against
+    autograd of packed_basis_rows in double."""
     if shutil.which("g++") is None:
         pytest.skip("g++ is not installed: the generated code is checked "
                     "as plain C++ with it")
@@ -239,9 +256,23 @@ def test_generated_row_code_matches_autograd(tmp_path, cfg):
         n = int(sel.sum())
         outs = [np.zeros((R, n), np_t), np.zeros((R, 3, n), np_t),
                 np.zeros((R, 6, n), np_t)]
-        lib = _compiled_rows(tmp_path, cfg, real)
+        lib = _compiled_rows(tmp_path, cfg, real, src)
         ptr = lambda a: a.ctypes.data_as(ctypes.c_void_p)
         lib.eval_rows(ctypes.c_int(n), *map(ptr, ins + outs))
         for name, a, b in zip(["rows", "gradients", "second derivatives"],
                               outs, want):
             assert _rel(a, b[..., sel]) < tol, (real, name)
+
+
+@pytest.mark.parametrize("cfg", [(3, 2, True), (3, 6, False)],
+                         ids=["n3k2_torsion", "n3k6"])
+def test_generated_row_code_matches_autograd(tmp_path, cfg):
+    _check_row_code(tmp_path, cfg, _EVAL_SRC)
+
+
+@pytest.mark.parametrize("cfg", [(3, 2, True), (3, 6, False), (3, 6, True)],
+                         ids=["n3k2_torsion", "n3k6", "n3k6_torsion"])
+def test_generated_row_jet_matches_autograd(tmp_path, cfg):
+    """row_jet, the second order's fused evaluation (one set of common
+    subexpressions for the value, gradient and second derivatives)."""
+    _check_row_code(tmp_path, cfg, _EVAL_JET_SRC)

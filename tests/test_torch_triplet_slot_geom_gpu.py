@@ -177,3 +177,61 @@ def test_channels_and_unsupported_width():
     args, _, _, (A, K, cfg) = _inputs(dev, torch.float32, 5, 4, 3, 24, True)
     with pytest.raises(ValueError, match="C in"):
         ts.fused_triplet_slot_geom(*args, A, K, cfg)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_second_order_repeatable_and_zero_at_masked(dtype):
+    """Path 7a's shape with some senders outside the slot and every
+    cotangent present: three calls give the same bits, geob is exactly 0
+    at every masked triplet (m2T = 0 or lj outside [0, A)), and the outputs
+    hold to the plain version."""
+    from dig_tpu_torch.ops import triplet_slot as ts
+    dev = _device()
+    args, ct, us, (A, K, cfg) = _inputs(dev, dtype, *SHAPES["path7a"], True)
+    g = torch.Generator(device="cpu").manual_seed(3)
+    lj = args[5].clone()
+    out = torch.rand(lj.shape, generator=g).to(dev) < 0.1
+    lj[out] = torch.where(torch.rand(lj.shape, generator=g).to(dev)[out]
+                          < 0.5, -1, A + 2).to(lj.dtype)
+    args = args[:5] + [lj]
+    k_args = ts._geom_kernel_inputs(*args, A, K, cfg)
+    ct32 = ct.float().contiguous()
+    runs = [ts.triplet_slot_geom_bwd2_kernel(*k_args, ct32, *us, A, K, cfg)
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    for again in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(again, runs[0]))
+    live = (args[4] != 0) & ((lj[0] >= 0) & (lj[0] < A))[None, :]
+    geob = runs[0][1]
+    assert float(geob.abs().masked_fill(live[:, None, :], 0.0).max()) == 0.0
+    want = ts.fused_triplet_slot_geom_bwd2_reference(*args, ct, *us, A, K,
+                                                     cfg)
+    for name, a, b in zip(NAMES2, runs[0], want):
+        assert _rel(a, b) < TOL[dtype][1], name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_second_order_many_rows_few_channels(dtype):
+    """C = 32 with more rows than the second order's product buffers hold
+    twice over (n = 3, k = 27, no torsion: R = 84, 2 R > 5 C): write_ptb's
+    ptb and dpt get room of their own. Against the plain version, geob 0 at
+    masked triplets, the same bits on a second call."""
+    from dig_tpu_torch.ops import triplet_slot as ts
+    dev = _device()
+    args, ct, us, (A, K, cfg) = _inputs(dev, dtype, *SHAPES["small"], False,
+                                        n=3, k=27)
+    k_args = ts._geom_kernel_inputs(*args, A, K, cfg)
+    ct32 = ct.float().contiguous()
+    for present in ([None, us[1], None, None], us):
+        got = ts.triplet_slot_geom_bwd2_kernel(*k_args, ct32, *present, A, K,
+                                               cfg)
+        want = ts.fused_triplet_slot_geom_bwd2_reference(*args, ct, *present,
+                                                         A, K, cfg)
+        for name, a, b in zip(NAMES2, got, want):
+            assert torch.isfinite(a).all(), name
+            if name != "wtb":
+                assert _rel(a, b) < TOL[dtype][1], name
+        assert _masked(got[1], args[4]) == 0.0
+        again = ts.triplet_slot_geom_bwd2_kernel(*k_args, ct32, *present, A,
+                                                 K, cfg)
+        assert all(torch.equal(a, b) for a, b in zip(again, got))

@@ -176,3 +176,36 @@ def test_double_backward_through_the_tower(dtype):
         assert a.dtype == b.dtype == dtype, name
         assert float(b.abs().max()) > 0, name
         assert _rel(a, b) < TOL[dtype], name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("A", [16, 24, 29])
+def test_bwd2_repeatable_and_zero_at_masked(A, dtype):
+    """At the force bench's slot sizes, with torsion and every cotangent
+    present, some senders outside the slot: three calls give the same bits,
+    and ptb is exactly 0 at every masked triplet (m2T = 0 or lj outside
+    [0, A)), whose rows the kernel never visits."""
+    from dig_tpu_torch.ops import triplet_slot as ts
+    dev = _device()
+    args, ct, (A, K, cfg) = _inputs(dev, dtype, A, 16, 4, 64, 3, 6, True)
+    g = torch.Generator(device="cpu").manual_seed(3)
+    lj = args[5].clone()
+    out = torch.rand(lj.shape, generator=g).to(dev) < 0.1
+    lj[out] = torch.where(torch.rand(lj.shape, generator=g).to(dev)[out]
+                          < 0.5, -1, A + 2).to(lj.dtype)
+    args = args[:5] + [lj]
+    us = _cotangents(dev, dtype, args)
+    k_args = ts._kernel_inputs(*args, A, K, cfg)
+    ct32 = ct.float().contiguous()
+    runs = [ts.triplet_slot_bwd2_kernel(*k_args, ct32, *us, A, K, cfg)
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    for again in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(again, runs[0]))
+    live = (args[4] != 0) & ((lj[0] >= 0) & (lj[0] < A))[None, :]
+    ptb = runs[0][1]
+    assert float(ptb.abs().masked_fill(live[:, None, :], 0.0).max()) == 0.0
+    assert float(ptb.abs().max()) > 0
+    want = ts.fused_triplet_slot_bwd2_reference(*args, ct, *us, A, K, cfg)
+    for name, a, b in zip(NAMES2, runs[0], want):
+        assert _rel(a, b) < 1e-4, name
