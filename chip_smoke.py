@@ -45,7 +45,8 @@ Phases, each printed as it runs; any failure exits non-zero:
      bench_spherenet_force: 4 x 128, n=3, k=6, K=16, bf16, slot kernel,
      BucketedMoleculeLoader slots {16: 27, 24: 43, 29: 26}, loss
      |E-y| + 100 |F_pred-F| per real graph, Adam) through
-     make_bucketed_step_fns; per step 12 forward, 24 backward and 12
+     make_bucketed_step_fns; per step 12 forward, 24 backward (12 with
+     dpt: the inner create_graph pass; the outer pass needs none) and 12
      second-order triplet_slot launches and 18 segment sums (readouts and
      embedding gathers); the first step's loss and
      gradients held against the unfused branch (f32), and the bf16
@@ -56,7 +57,7 @@ Phases, each printed as it runs; any failure exits non-zero:
  11. times: force step ms, edges/s; per-layer, per-bucket second-order
      kernel ms beside its bound and the plain version's ms, split by
      kernel (slot_jvp_kernel, slot_bwd2_kernel, sum_partials_kernel;
-     torch.profiler)
+     torch.profiler); the backward at each bucket with dpt and without
  12. kernel vs plain: the sorted-CSR segment sum at the two flat paths'
      shapes (receivers of real batches), f32 and bf16, and on a skewed
      random CSR; repeated calls bitwise equal; the closed autograd pair's
@@ -110,9 +111,10 @@ Phases, each printed as it runs; any failure exits non-zero:
  21. main path 6a: SphereNet energy+force on the unblocked NK layout with
      the packed basis (path 5a's widths and batches, pallas_triplet and
      pallas_fuse_basis: basis_pt once per forward, fused_triplet_pt in
-     every layer) through make_step_fns; per step 4 forward, 8 backward and
-     4 second-order triplet_pt launches, no triplet_product launch, 6
-     segment sums; the first step held against the unfused branch
+     every layer) through make_step_fns; per step 4 forward, 8 backward (4
+     with dpt: the inner create_graph pass) and 4 second-order triplet_pt
+     launches, no triplet_product launch, 6 segment sums; the first step
+     held against the unfused branch
      (f32 1e-4 / 1e-3, bf16 by direction and size); finite forces
  22. main path 6b: DimeNet++ at its published widths (n=7, k=6, out_emb
      256), energy+force on the same table through fused_triplet_pt without
@@ -121,7 +123,8 @@ Phases, each printed as it runs; any failure exits non-zero:
      state, each in two fresh processes (chip_smoke.py --repeat-step PATH
      OUT), gives the same bits for the loss and every parameter after Adam
  24. times: each triplet_pt kernel per layer at paths 6a's and 6b's
-     shapes beside its byte bound, the plain version and, for the
+     shapes (the backward with dpt and without) beside its byte bound,
+     the plain version and, for the
      forward, the einsum over sbf and tbf assembled outside the timed
      call; both steps in ms and edges/s
  25. kernel vs plain: fused_triplet_slot_geom (the basis rows evaluated in
@@ -136,7 +139,8 @@ Phases, each printed as it runs; any failure exits non-zero:
      layers of seeded leaves at the flagship slot width (x [E, 64], ws,
      wt), E_pred = sum of out . w_out, F = -dE_pred/dpos, loss |E_pred - y|
      + 100 mean|F - F_ref|^2, Adam on the leaves, bf16; exactly 4 forward,
-     4 backward and 4 second-order geometry launches per step and no
+     4 backward (all with dgeo: one first-order pass takes F and
+     dE/dleaves) and 4 second-order geometry launches per step and no
      triplet_slot launch; the first f32 step held against the pt chain
      (basis_pt_k into the fused_triplet_slot kernels) and the plain
      geometry op, bf16 against f32 by direction and size; finite forces
@@ -148,7 +152,8 @@ Phases, each printed as it runs; any failure exits non-zero:
      the VJP; spmm_csr on the same graph against its plain version; launch
      counts (launches_chunked counts calls: one per forward, each running
      the span pass and the row sums)
- 28. times: the three geometry kernels per layer at path 7a's shape beside
+ 28. times: the three geometry kernels per layer at path 7a's shape (the
+     backward with dgeo and without) beside
      their bounds, plain versions and the pt chain through autograd (the
      forward also beside the einsum; the second order split by kernel,
      the split taken after phase 11's);
@@ -1232,6 +1237,7 @@ def phase_sf_main_path(torch, cf, ts, sc, dev, batches):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t_start
     launches = (ts.launches_fwd, ts.launches_bwd, ts.launches_bwd2)
+    with_dpt = ts.launches_bwd_dpt
     losses = [float(x) for x in losses]
     calls = SN_KW["num_layers"] * len(SF_SLOTS) * len(batches)
     want = (calls, 2 * calls, calls)
@@ -1241,7 +1247,10 @@ def phase_sf_main_path(torch, cf, ts, sc, dev, batches):
     log(f"  {len(batches)} Adam steps, losses {[round(x, 4) for x in losses]}")
     log(f"  triplet_slot launches fwd {launches[0]} bwd {launches[1]} bwd2 "
         f"{launches[2]} (layers x buckets x steps = {calls}: the backward "
-        f"once with dpt under create_graph and once in the outer pass); "
+        f"once with dpt under create_graph and once in the outer pass, "
+        f"which needs no dpt); backward launches with dpt {with_dpt}, "
+        f"without {launches[1] - with_dpt} (per step "
+        f"{with_dpt // len(batches)} of {launches[1] // len(batches)}); "
         f"segment sum {seg} ((layers + 2) x buckets x steps: the readouts, "
         f"the embedding gather's adjoint); "
         f"cfconv {cf.launches_fwd} {cf.launches_bwd}")
@@ -1249,6 +1258,9 @@ def phase_sf_main_path(torch, cf, ts, sc, dev, batches):
         fail("non-finite force-training loss")
     if launches != want:
         fail(f"triplet_slot launch counts {launches} != {want}")
+    if with_dpt != calls:
+        fail(f"triplet_slot backward launches with dpt {with_dpt} != "
+             f"{calls} (the inner pass's only)")
     out = eval_step(batches[0])
     preds, trues = [], []
     for A, o in out.items():
@@ -1276,7 +1288,8 @@ def phase_sf_main_path(torch, cf, ts, sc, dev, batches):
         f"{kept / dt:.6g} edges/s counting the {kept / timed:.0f} NK edges "
         f"kept per step")
     return {"launches_fwd": launches[0], "launches_bwd": launches[1],
-            "launches_bwd2": launches[2], "steps": len(batches),
+            "launches_bwd2": launches[2], "launches_bwd_dpt": with_dpt,
+            "steps": len(batches),
             "losses": losses, "step_ms": step_ms, "edges_per_s": pairs / dt,
             "kept_edges_per_s": kept / dt, "pairs_per_step": pairs / timed,
             "kept_per_step": kept / timed, "first_step": step_errs,
@@ -1360,13 +1373,28 @@ def phase_sf_times(torch, ts, inputs):
                          "split": split, "plain_ms": plain, "bound_ms": b[0],
                          "bound_by": b[1], "flops": b[2], "bytes": b[3],
                          "triplets": inp["work"]["triplets"]})
+            # the backward at the bucket, as the force step runs it: with
+            # dpt in the inner pass, without in the outer
+            for need_dpt in (True, False):
+                ms = cuda_ms(torch, lambda: ts.triplet_slot_backward_kernel(
+                    *k_args, ct32, A, K, cfg, need_dpt))
+                plain = cuda_ms(torch, lambda: ts.fused_triplet_slot_bwd_reference(
+                    *args, ct, A, K, cfg, need_dpt), iters=3, warmup=1)
+                b = sn_bounds(args, inp["work"], prec, "bwd", need_dpt)
+                rows.append({"kernel": "triplet_slot_bwd", "A": A,
+                             "E": args[0].shape[0], "precision": prec,
+                             "need_dpt": need_dpt, "ms": ms, "split": None,
+                             "plain_ms": plain, "bound_ms": b[0],
+                             "bound_by": b[1], "flops": b[2], "bytes": b[3],
+                             "triplets": inp["work"]["triplets"]})
     for r in rows:
-        log(f"  triplet_slot_bwd2 A={r['A']} E={r['E']} {r['precision']} "
+        dpt = "" if r["split"] is not None else f" need_dpt={r['need_dpt']}"
+        log(f"  {r['kernel']} A={r['A']} E={r['E']} {r['precision']}{dpt} "
             f"({r['triplets']} real triplets): {r['ms']:.4f} ms (bound "
             f"{r['bound_ms']:.4f} ms by {r['bound_by']}, "
             f"{r['bound_ms'] / r['ms']:.4f} of it; {r['flops'] / 1e9:.3f} "
             f"GFLOP, {r['bytes'] / 1e6:.2f} MB; plain {r['plain_ms']:.3f} ms)"
-            f"; {split_text(r['split'])}")
+            + ("" if r["split"] is None else f"; {split_text(r['split'])}"))
     return rows
 
 
@@ -2034,6 +2062,15 @@ def phase_nk_main_path(torch, cf, ts, sc, tp, tpt, dev, batches, path):
         fail(f"path {path}: non-finite loss")
     if launches != want:
         fail(f"path {path}: {op_name} launches {launches} != {want}")
+    if path in PT_PATHS:
+        with_dpt = tpt.launches_bwd_dpt
+        log(f"  triplet_pt backward launches with dpt {with_dpt}, without "
+            f"{launches[1] - with_dpt} (per step {with_dpt // n} of "
+            f"{launches[1] // n}: the inner create_graph pass needs dpt, the "
+            f"outer pass does not)")
+        if with_dpt != L * n:
+            fail(f"path {path}: triplet_pt backward launches with dpt "
+                 f"{with_dpt} != {L * n} (the inner pass's only)")
     out = eval_step(batches[0])
     m = out["graph_mask"]
     mae = ThreeDEvaluator().eval({"y_pred": out["y_pred"][m],
@@ -2398,7 +2435,7 @@ def phase_repeat(torch):
                 fail(f"path {path}: two identical steps differ")
 
 
-def pt_bounds(args, inp, prec, kind, all_u=False):
+def pt_bounds(args, inp, prec, kind, all_u=False, need_dpt=True):
     """Least time for one call's work at this data: real triplets only
     (a masked one contributes exactly zero). Bytes, in the types the
     function takes and returns (as the JAX _run_fwd/_run_bwd/_run_bwd2
@@ -2409,9 +2446,11 @@ def pt_bounds(args, inp, prec, kind, all_u=False):
     cotangents (ctb [E, C] in ct's type) in full out. Operations per real
     triplet, NB = nk + ntk assembled basis rows: forward NB products for
     the assembly, 2 C NB for the basis products and 3 C; backward (with
-    dpt, as on the force paths) the assembly and the products again, the
-    weight gradients (2 C NB), 6 C, and the basis cotangents (2 C NB) with
-    their adjoint through the assembly (about 3 NB); second order 10 C NB
+    dpt, as in the force paths' inner pass) the assembly and the products
+    again, the weight gradients (2 C NB), 6 C, and the basis cotangents
+    (2 C NB) with their adjoint through the assembly (about 3 NB), without
+    dpt (the outer pass) neither the cotangents nor dpt out; second order
+    10 C NB
     (sv, tv; dsv, dtv; the weight gradients; the basis cotangents) and
     20 C, about 10 NB for the assembly, its tangent and adjoints, with u4,
     u5 4 C NB more."""
@@ -2427,9 +2466,12 @@ def pt_bounds(args, inp, prec, kind, all_u=False):
     if kind == "fwd":
         flops = Tr * (2 * C * NB + 3 * C + NB)
         nbytes = rows + small + m2.shape[0] * C * es
-    elif kind == "bwd":
+    elif kind == "bwd" and need_dpt:
         flops = Tr * (6 * C * NB + 6 * C + 4 * NB)
         nbytes = rows + Er * C * es + small + el(xg) + el(pt) + w
+    elif kind == "bwd":
+        flops = Tr * (4 * C * NB + 6 * C + NB)
+        nbytes = rows + Er * C * es + small + el(xg) + w
     else:
         flops = Tr * (10 * C * NB + 20 * C + 10 * NB
                       + (4 * C * NB if all_u else 0))
@@ -2485,10 +2527,15 @@ def phase_pt_times(torch, tpt, inputs):
                     *k_args, ct32, K, cfg, True),
                 "bwd2": lambda: tpt.triplet_pt_bwd2_kernel(
                     *k_args, ct32, *us, K, cfg)}
-            for kind in ("fwd", "bwd", "bwd2"):
+            kern["bwd_nodpt"] = lambda: tpt.triplet_pt_backward_kernel(
+                *k_args, ct32, K, cfg, False)
+            plain["bwd_nodpt"] = lambda: tpt.fused_triplet_pt_bwd_ref(
+                *args, ct, K, cfg, False)
+            for kind in ("fwd", "bwd", "bwd_nodpt", "bwd2"):
                 ms = cuda_ms(torch, kern[kind])
                 p_ms = cuda_ms(torch, plain[kind], iters=3, warmup=1)
-                b = pt_bounds(args, inp, prec, kind)
+                b = pt_bounds(args, inp, prec, kind[:3] if kind != "bwd2"
+                              else kind, need_dpt=kind == "bwd")
                 lib_ms = lib_err = None
                 if kind == "fwd":
                     sbf, tbf = pt_assembled(torch, args, cfg)
@@ -2863,15 +2910,22 @@ def phase_ga_main_path(torch, ts, sc, dev, batches):
     dt = time.perf_counter() - t_start
     launches = (ts.launches_geom_fwd, ts.launches_geom_bwd,
                 ts.launches_geom_bwd2)
+    with_dgeo = ts.launches_geom_bwd_dgeo
     want = SN_KW["num_layers"] * len(batches)
     log(f"  {len(batches)} Adam steps (bf16), losses "
         f"{[round(x, 4) for x in losses]}")
     log(f"  geometry launches fwd {launches[0]} bwd {launches[1]} bwd2 "
-        f"{launches[2]} (layers x steps = {want} each); triplet_slot "
+        f"{launches[2]} (layers x steps = {want} each); backward launches "
+        f"with dgeo {with_dgeo} (per step {with_dgeo // len(batches)} of "
+        f"{launches[1] // len(batches)}: the one first-order pass takes F and "
+        f"dE/dleaves together); triplet_slot "
         f"{ts.launches_fwd} {ts.launches_bwd} {ts.launches_bwd2}; segment "
         f"sum {sc.launches}")
     if launches != (want, want, want):
         fail(f"path 7a geometry launches {launches} != {want} each")
+    if with_dgeo != want:
+        fail(f"path 7a geometry backward launches with dgeo {with_dgeo} != "
+             f"{want}")
     if ts.launches_fwd or ts.launches_bwd or ts.launches_bwd2:
         fail("path 7a launched triplet_slot kernels")
     if not all(math.isfinite(x) for x in losses):
@@ -2883,7 +2937,7 @@ def phase_ga_main_path(torch, ts, sc, dev, batches):
             "first_step": worst, "bf16": a}
 
 
-def ga_bounds(args, inp, prec, kind, ops):
+def ga_bounds(args, inp, prec, kind, ops, need_dgeo=True):
     """Least time for one call's work at this data, the largest of three:
     bytes (the geo column and the gathered x row of each real triplet; the
     mask, the ids and the weights in full; out, or for the backward the
@@ -2910,14 +2964,16 @@ def ga_bounds(args, inp, prec, kind, ops):
         flops = T * (2 * C * NB + 3 * C + NB)
         nbytes = rows + small + el(x)
     elif kind == "bwd":
-        flops = T * (6 * C * NB + 7 * C + 3 * NB)
+        flops = T * ((6 if need_dgeo else 4) * C * NB + 7 * C
+                     + (3 if need_dgeo else 1) * NB)
         nbytes = rows + small + Er * C * x.element_size() + el(x) + \
-            el(geo) + w
+            (el(geo) if need_dgeo else 0) + w
     else:
         flops = T * (10 * C * NB + 20 * C + 10 * NB)
         nbytes = (2 * rows + small + Er * C * 4 + el(x) + el(geo) + w
                   + x.shape[0] * C * 4)
-    row_ops = {"fwd": ops["row"], "bwd": ops["row"] + ops["grad"],
+    row_ops = {"fwd": ops["row"],
+               "bwd": ops["row"] + (ops["grad"] if need_dgeo else 0),
                "bwd2": ops["jet"]}[kind]
     t_ops = flops / PEAK_FLOPS["f32"]
     t_rows = T * row_ops / PEAK_FP64
@@ -2971,6 +3027,8 @@ def phase_ga_times(torch, ts, inp, splits):
                                                                cfg),
             "bwd": lambda: ts.triplet_slot_geom_backward_kernel(
                 *k_args, ct32, A, K, cfg, True),
+            "bwd_nodgeo": lambda: ts.triplet_slot_geom_backward_kernel(
+                *k_args, ct32, A, K, cfg, False),
             "bwd2": lambda: ts.triplet_slot_geom_bwd2_kernel(
                 *k_args, ct32, None, ug, None, None, A, K, cfg)}
         plain = {
@@ -2978,6 +3036,8 @@ def phase_ga_times(torch, ts, inp, splits):
                                                                 cfg),
             "bwd": lambda: ts.fused_triplet_slot_geom_bwd_reference(
                 *args, ct, A, K, cfg),
+            "bwd_nodgeo": lambda: ts.fused_triplet_slot_geom_bwd_reference(
+                *args, ct, A, K, cfg, False),
             "bwd2": lambda: ts.fused_triplet_slot_geom_bwd2_reference(
                 *args, ct, None, ug, None, None, A, K, cfg)}
         n, k = cfg[0], cfg[1]
@@ -2997,12 +3057,14 @@ def phase_ga_times(torch, ts, inp, splits):
         chain_bwd2 = cuda_ms(torch, lambda: torch.autograd.grad(
             first[1], xs, ug, retain_graph=True, allow_unused=True), iters=10)
         del out, first, xs
-        chain_ms = {"fwd": chain_fwd, "bwd": chain_bwd, "bwd2": chain_bwd2}
-        for kind in ("fwd", "bwd", "bwd2"):
+        chain_ms = {"fwd": chain_fwd, "bwd": chain_bwd, "bwd_nodgeo": None,
+                    "bwd2": chain_bwd2}
+        for kind in ("fwd", "bwd", "bwd_nodgeo", "bwd2"):
             ms = cuda_ms(torch, kern[kind])
             split = splits[prec] if kind == "bwd2" else None
             p_ms = cuda_ms(torch, plain[kind], iters=3, warmup=1)
-            b = ga_bounds(args, inp, prec, kind, ops)
+            b = ga_bounds(args, inp, prec, kind[:4].rstrip("_"), ops,
+                          need_dgeo=kind != "bwd_nodgeo")
             lib_ms = lib_err = None
             if kind == "fwd":
                 lib = slot_library_fwd(torch, args, ts.geom_rows_pt(
@@ -3027,8 +3089,10 @@ def phase_ga_times(torch, ts, inp, splits):
         log(f"  {r['kernel']} {r['precision']}: {r['ms']:.4f} ms (bound "
             f"{r['bound_ms']:.4f} ms by {r['bound_by']}, "
             f"{r['bound_ms'] / r['ms']:.4f} of it; {r['flops'] / 1e9:.3f} "
-            f"GFLOP f32, {r['bytes'] / 1e6:.2f} MB); pt chain "
-            f"{r['chain_ms']:.4f} ms; plain {r['plain_ms']:.3f} ms"
+            f"GFLOP f32, {r['bytes'] / 1e6:.2f} MB); "
+            + ("" if r["chain_ms"] is None else
+               f"pt chain {r['chain_ms']:.4f} ms; ")
+            + f"plain {r['plain_ms']:.3f} ms"
             + ("" if r["library_ms"] is None else
                f"; einsum over sbf and tbf assembled outside the timed call "
                f"{r['library_ms']:.3f} ms (rel err {r['library_err']:.2e})")
@@ -3446,8 +3510,9 @@ def main():
     ga_rows = phase_ga_times(torch, ts, ga_inp, ga_splits)
     log(f"  path 7a: step {ga_res['step_ms']:.3f} ms")
     for r in sf_rows:
-        log(f"  (phase 11) triplet_slot_bwd2 A={r['A']} {r['precision']}: "
-            f"{r['ms']:.4f} ms; {split_text(r['split'])}")
+        if r["kernel"] == "triplet_slot_bwd2":
+            log(f"  (phase 11) triplet_slot_bwd2 A={r['A']} {r['precision']}: "
+                f"{r['ms']:.4f} ms; {split_text(r['split'])}")
     cs_rows = phase_cs_times(torch, sc, cs_g)
     del ga_inp, cs_g
     torch.cuda.empty_cache()
@@ -3488,7 +3553,8 @@ def main():
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
-    b_rows = [r for r in sf_rows if r["precision"] == "bf16"]
+    b_rows = [r for r in sf_rows if r["precision"] == "bf16"
+              and r["kernel"] == "triplet_slot_bwd2"]
     kernels.append({
         "name": "triplet_slot_bwd2", "route": "cuda",
         "source": "dig_tpu_torch/csrc/triplet_slot.cu",

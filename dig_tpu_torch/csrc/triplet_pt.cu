@@ -53,25 +53,40 @@
 // xb and ptb in full: each is bound by its bytes. chip_smoke.py counts both
 // bounds from its inputs.
 //
-// What the design does about it (simple and right first; wgmma for the basis
-// products and TMA are later work):
-//  - A block walks chunks of CE whole edges (TC = CE K consecutive triplets)
-//    grid-stride. pt's [R, TC] slab of a chunk is staged in shared memory
-//    with loads coalesced along the triplets (T is pt's minor axis), and a
-//    and b are formed there once per triplet for all C channels.
+// What the design does about it (wgmma for the basis products and TMA are
+// later work):
+//  - Forward and second order: a block walks chunks of CE whole edges (TC =
+//    CE K consecutive triplets) grid-stride. pt's [R, TC] slab of a chunk
+//    is staged in shared memory with loads coalesced along the triplets (T
+//    is pt's minor axis), and a and b are formed there once per triplet
+//    for all C channels; a warp per edge (forward: k walked in order,
+//    float32 registers) or per triplet (second order), lanes over C (Q
+//    channels a lane); masked triplets are skipped by a warp-uniform
+//    branch.
+//  - Backward (triplet_pt_bwd_kernel): about 57% of the triplets are
+//    masked, and the parent kernel's serial per-entry loops over 32-triplet
+//    chunks left it latency-bound (1.7% of its byte bound). A block deals
+//    itself the same chunks (b, b + G, ...) a window of about 1024
+//    triplets at a time, lists the window's real triplets in triplet order
+//    by warp ballots, writes the masked ones' dxg rows and dpt columns as
+//    0, and walks the list 64 triplets at a time: a barrier covers 64 real
+//    triplets, not 32 of any kind. Products: a warp per 4 triplets, a and b
+//    read as float4, each weight loaded once for the 4. Weight cotangents:
+//    a thread owns a channel and a block of up to 24 rows (36 at C > 64),
+//    kept in registers over the batch and read as float4. da | db: 4 x 3 register
+//    tiles. The grid is SMs x the kernel's occupancy (cudaOccupancy...), so
+//    it fills the card and depends only on the shapes and the card. ptxas
+//    (sm_90a): 104-117 registers a thread at C <= 64, 127-128 at C = 128,
+//    no spills; two blocks of 256 threads an SM at SphereNet's widths.
 //  - ws | wt (and u4 | u5) are staged in shared memory, rows of C+1 floats,
 //    so reads with c across lanes (the products) and with the basis row
 //    across lanes (da, db) are free of bank conflicts.
-//  - A warp per edge (forward: k walked in order, float32 registers) or per
-//    triplet (backward passes), lanes over C (Q channels a lane); masked
-//    triplets are skipped by a warp-uniform branch.
-//  - No atomics: in the backward passes each thread owns entries of the
-//    weight cotangents and adds the chunk's triplets in order; ctb sums an
-//    edge's K triplets in order; the per-block weight sums go to a [blocks,
-//    ...] scratch that sum_partials_kernel adds in a fixed order. The block
-//    count depends only on the shapes: repeated calls give the same bits.
-//    dpt and ptb are written column by column along the triplets
-//    (coalesced), each from its own triplet alone.
+//  - No atomics: each thread owns entries of the weight cotangents and adds
+//    its block's real triplets in triplet order; ctb sums an edge's K
+//    triplets in order; the per-block weight sums go to a [blocks, ...]
+//    scratch that sum_partials_kernel adds in a fixed order: repeated
+//    calls give the same bits. dpt and ptb are written column by column
+//    along the triplets, each from its own triplet alone.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -81,7 +96,7 @@ namespace {
 constexpr int NT = 256;        // threads per block
 constexpr int NW = NT / 32;    // warps per block
 constexpr int FWD_GRID = 1056; // forward: at most 8 blocks per SM
-constexpr int BWD_GRID = 264;  // backward passes: a fixed block count
+constexpr int BWD2_GRID = 264; // second order: a fixed block count
 
 template <typename T>
 constexpr bool IS_BF16 = sizeof(T) == 2;
@@ -289,84 +304,300 @@ __global__ void __launch_bounds__(NT) triplet_pt_fwd_kernel(Params<T> p) {
   }
 }
 
+// Backward tiles: a batch of BB real triplets; products TE triplets a warp;
+// the (a | b) cotangents TE2 triplets x TR rows a thread (TR odd: no bank
+// conflicts on the weights' C + 1 stride).
+constexpr int BB = 64, TE = 4, TE2 = 4, TR = 3;
+constexpr int WINDOW = 1024;  // triplets a block lists at a time
+
+// Floats of the backward's shared memory for BW chunks of TC triplets a
+// window (bwd_layout's order).
+struct BwdLayout {
+  int NBp, CP, W, rounds;
+  size_t w_s, dW_s, ptc, bas, gs, gt, m_s, lst, wcnt, bits, total;
+};
+
+template <typename T, bool HAS_T>
+__host__ __device__ inline BwdLayout bwd_layout(const Params<T>& p, int TC) {
+  BwdLayout L;
+  L.NBp = (p.NB + 3) & ~3;  // float4 rows of a | b
+  L.CP = p.C + 1;
+  const int BW = TC >= WINDOW ? 1 : WINDOW / TC;
+  L.W = BW * TC;
+  L.rounds = (L.W + NT - 1) / NT;
+  L.w_s = 0;
+  L.dW_s = L.w_s + (size_t)p.NB * (p.C + 1);
+  L.ptc = L.dW_s + (size_t)p.NB * p.C;
+  L.bas = L.ptc + (size_t)p.R * BB;
+  L.bas = (L.bas + 3) & ~(size_t)3;  // 16-byte aligned
+  L.gs = L.bas + (size_t)BB * L.NBp;
+  L.gt = L.gs + (size_t)BB * L.CP;
+  L.m_s = L.gt + (HAS_T ? (size_t)BB * L.CP : 0);
+  L.lst = L.m_s + BB;
+  L.wcnt = L.lst + L.W;
+  L.bits = L.wcnt + (size_t)L.rounds * NW;
+  L.total = L.bits + (size_t)L.rounds * NW;
+  return L;
+}
+
+// The backward. Block b owns the chunks of TC = CE K triplets b, b + G,
+// b + 2G, ... (G = gridDim.x) and takes them a window of BW chunks at a
+// time: the window's real triplets (m != 0) are listed in triplet order by
+// warp ballots, the masked ones get their dxg rows and dpt columns written
+// as 0, and the list is walked BB triplets at a time. Per batch: the pt
+// columns and a | b (float4 rows); sv, tv, dxg and the cotangents gs, gt of
+// sv, tv (a warp per TE triplets, lanes over the channels, each weight
+// loaded once for the warp's triplets); the block's dws | dwt (each entry
+// owned by one thread, a row block of up to WTM rows kept in registers
+// over the batch and read with float4 loads); with DPT, da | db = gs @
+// ws^T | gt @ wt^T as TE2 x TR register tiles (over a | b, dead by then)
+// and the adjoint of the assembly, a dpt column per triplet. Every sum
+// keeps the order of the masked walk over the same chunks: sv, tv and da |
+// db over the rows / channels from 0, dws | dwt over the block's real
+// triplets in triplet order.
 template <typename T, int Q, bool HAS_T, bool DPT>
-__global__ void __launch_bounds__(NT) triplet_pt_bwd_kernel(Params<T> p) {
+__global__ void __launch_bounds__(NT, 2) triplet_pt_bwd_kernel(Params<T> p) {
+  constexpr int WTM = Q == 2 ? 24 : 36;  // dws | dwt rows of a thread's register block
   extern __shared__ __align__(16) float smem[];
-  const int C = p.C, NB = p.NB, nk = p.nk, K = p.K, TC = p.CE * K;
+  const int C = p.C, NB = p.NB, nk = p.nk, K = p.K, R = p.R, TC = p.CE * K;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, tid = threadIdx.x;
-  float* w_s = smem;                        // [NB][C+1] ws | wt
-  float* dW_s = w_s + NB * (C + 1);         // [NB][C] dws | dwt of this block
-  float* ptc = dW_s + NB * C;               // [R][TC]
-  float* bas = ptc + p.R * TC;              // [TC][NB] a | b
-  float* gs = bas + TC * NB;                // [TC][C] cotangent of sv
-  float* gt = gs + TC * C;                  // [TC][C] cotangent of tv (torsion)
-  float* dbas = gt + (HAS_T ? TC * C : 0);  // [TC][NB] da | db (DPT)
-  float* m_s = dbas + (DPT ? TC * NB : 0);  // [TC]
+  const BwdLayout L = bwd_layout<T, HAS_T>(p, TC);
+  const int NBp = L.NBp, CP = L.CP, W = L.W;
+  float* w_s = smem + L.w_s;    // [NB][C+1] ws | wt
+  float* dW_s = smem + L.dW_s;  // [NB][C] dws | dwt of this block
+  float* ptc = smem + L.ptc;    // [R][BB] the batch's pt columns
+  float* bas = smem + L.bas;    // [BB][NBp] a | b, then (DPT) da | db
+  float* gs = smem + L.gs;      // [BB][C+1] cotangent of sv
+  float* gt = smem + L.gt;      // [BB][C+1] cotangent of tv (torsion)
+  float* m_s = smem + L.m_s;    // [BB]
+  int* lst = reinterpret_cast<int*>(smem + L.lst);            // [W] real triplets
+  int* wcnt = reinterpret_cast<int*>(smem + L.wcnt);          // [rounds * NW]
+  unsigned* bits = reinterpret_cast<unsigned*>(smem + L.bits);  // [rounds * NW]
   stage_rows(p, p.ws, p.wt, w_s);
   for (int x = tid; x < NB * C; x += NT) dW_s[x] = 0.f;
   const int chunks = (p.E + p.CE - 1) / p.CE;
+  const int G = gridDim.x, BW = W / TC;
+  // dws | dwt: thread items (channel c, a block of rpg rows), rpg a multiple
+  // of 4 of about NB C / NT rows, at most WTM
+  int rpg = (NB * C + NT - 1) / NT;
+  rpg = min(WTM, (rpg + 3) & ~3);
+  const int ngroups = (NB + rpg - 1) / rpg;
+  constexpr int VEC = 16 / sizeof(T);  // dxg elements a 16-byte store
 
-  for (int ch = blockIdx.x; ch < chunks; ch += gridDim.x) {
-    const size_t t0 = (size_t)ch * TC;
-    const int cnt = p.Tn - t0 < (size_t)TC ? (int)(p.Tn - t0) : TC;
-    __syncthreads();
-    load_slab(p, p.pt, t0, cnt, TC, ptc);
-    load_mask(p, t0, cnt, TC, m_s);
-    __syncthreads();
-    form_basis(p, ptc, TC, bas);
-    __syncthreads();
-    for (int tl = warp; tl < cnt; tl += NW) {
-      const size_t t = t0 + tl;
-      const float m = m_s[tl];
-      if (m == 0.f) {
-        zero_row(p.dxg, t, C, lane);
-        continue;
+  for (int w0 = blockIdx.x; w0 < chunks; w0 += G * BW) {
+    // the window's chunks w0, w0 + G, ... (BW of them); position x of the
+    // window is triplet (w0 + G (x / TC)) TC + x % TC
+    __syncthreads();  // the previous window is done with the list
+    for (int j = 0; j < L.rounds; ++j) {
+      const int x = j * NT + tid;
+      const size_t ch = (size_t)w0 + (size_t)G * (x / TC);
+      const size_t t = ch * TC + x % TC;
+      const bool valid = x < W && ch < (size_t)chunks && t < p.Tn;
+      const bool real = valid && ld(p.m + t) != 0.f;
+      const unsigned mask = __ballot_sync(0xffffffffu, real);
+      if (lane == 0) {
+        wcnt[j * NW + warp] = __popc(mask);
+        bits[j * NW + warp] = mask;
       }
-      float sv[Q], tv[Q];
-      row_products<Q, HAS_T>(bas + tl * NB, w_s, nk, NB, C, lane, sv, tv);
-      const size_t e = t / K;
-#pragma unroll
-      for (int q = 0; q < Q; ++q) {
-        const int c = lane + 32 * q;
-        if (c < C) {
-          const float go = p.ct[e * C + c] * m;
-          const float x = ld(p.xg + t * C + c);
-          float d = go * sv[q], g1 = go * x;
-          if constexpr (HAS_T) {
-            d *= tv[q];
-            gt[tl * C + c] = g1 * sv[q];
-            g1 *= tv[q];
-          }
-          st(p.dxg + t * C + c, d);
-          gs[tl * C + c] = g1;
-        }
+      if (valid && !real && DPT) {
+        for (int r = 0; r < R; ++r) st(p.dpt + (size_t)r * p.Tn + t, 0.f);
       }
     }
     __syncthreads();
-    // dws | dwt: each (row, c) entry owned by one thread, triplets in order
-    for (int x = tid; x < NB * C; x += NT) {
-      const int r = x / C, c = x % C;
-      const float* src = (HAS_T && r >= nk) ? gt : gs;
-      float acc = dW_s[x];
-      for (int tl = 0; tl < cnt; ++tl)
-        if (m_s[tl] != 0.f) acc = fmaf(bas[tl * NB + r], src[tl * C + c], acc);
-      dW_s[x] = acc;
+    int nl = 0;
+    for (int j = 0; j < L.rounds; ++j) {
+      int at = 0;
+      for (int q = 0; q < L.rounds * NW; ++q) {
+        if (q < j * NW + warp) at += wcnt[q];
+        if (j == 0) nl += wcnt[q];
+      }
+      const unsigned mask = bits[j * NW + warp];
+      if ((mask >> lane) & 1u) {
+        const int x = j * NT + tid;
+        const size_t ch = (size_t)w0 + (size_t)G * (x / TC);
+        lst[at + __popc(mask & ((1u << lane) - 1u))] = (int)(ch * TC + x % TC);
+      }
     }
-    if constexpr (DPT) {
-      // da = gs @ ws^T, db = gt @ wt^T
-      for (int x = tid; x < TC * NB; x += NT) {
-        const int tl = x / NB, r = x % NB;
+    // the masked triplets' dxg rows: 0
+    if (C % VEC == 0) {
+      const int CV = C / VEC;
+      for (int x = tid; x < W * CV; x += NT) {
+        const int pos = x / CV;
+        const size_t ch = (size_t)w0 + (size_t)G * (pos / TC);
+        const size_t t = ch * TC + pos % TC;
+        if (ch >= (size_t)chunks || t >= p.Tn) continue;
+        if ((bits[pos >> 5] >> (pos & 31)) & 1u) continue;
+        reinterpret_cast<uint4*>(p.dxg + t * C)[x % CV] = make_uint4(0u, 0u, 0u, 0u);
+      }
+    } else {
+      for (int x = tid; x < W * C; x += NT) {
+        const int pos = x / C;
+        const size_t ch = (size_t)w0 + (size_t)G * (pos / TC);
+        const size_t t = ch * TC + pos % TC;
+        if (ch >= (size_t)chunks || t >= p.Tn) continue;
+        if ((bits[pos >> 5] >> (pos & 31)) & 1u) continue;
+        st(p.dxg + t * C + x % C, 0.f);
+      }
+    }
+
+    for (int b0 = 0; b0 < nl; b0 += BB) {
+      const int cnt = min(BB, nl - b0);
+      const int* ids = lst + b0;
+      __syncthreads();  // the list is written; the previous batch is done
+      for (int x = tid; x < R * BB; x += NT) {
+        const int r = x / BB, i = x % BB;
+        ptc[x] = i < cnt ? ld(p.pt + (size_t)r * p.Tn + ids[i]) : 0.f;
+      }
+      for (int i = tid; i < BB; i += NT) m_s[i] = i < cnt ? ld(p.m + ids[i]) : 0.f;
+      __syncthreads();
+      // a | b, rounded to T; zero past cnt and NB
+      for (int x = tid; x < BB * NBp; x += NT) {
+        const int r = x / BB, i = x % BB;
         float v = 0.f;
-        if (tl < cnt && m_s[tl] != 0.f) v = row_dot((r < nk ? gs : gt) + tl * C, w_s, r, C);
-        dbas[x] = v;
+        if (i < cnt && r < NB) {
+          int b, y;
+          factors(p, r, b, y);
+          v = rnd<IS_BF16<T>>(ptc[b * BB + i] * ptc[y * BB + i]);
+        }
+        bas[i * NBp + r] = v;
       }
       __syncthreads();
-      // back through the assembly, a column of dpt per triplet
-      for (int x = tid; x < p.R * TC; x += NT) {
-        const int r = x / TC, tl = x % TC;
-        if (tl >= cnt) continue;
-        const float v = m_s[tl] != 0.f ? basis_adjoint(p, dbas + tl * NB, ptc, r, tl, TC) : 0.f;
-        st(p.dpt + (size_t)r * p.Tn + t0 + tl, v);
+      // sv, tv of TE triplets a warp; dxg, gs, gt
+      for (int e0 = warp * TE; e0 < cnt; e0 += NW * TE) {
+        float sv[TE][Q], tv[TE][Q];
+#pragma unroll
+        for (int e = 0; e < TE; ++e)
+#pragma unroll
+          for (int q = 0; q < Q; ++q) sv[e][q] = tv[e][q] = 0.f;
+        for (int r = 0; r < NB; r += 4) {
+          float4 b4[TE];
+#pragma unroll
+          for (int e = 0; e < TE; ++e)
+            b4[e] = *reinterpret_cast<const float4*>(bas + (e0 + e) * NBp + r);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int rr = r + j;
+            if (rr >= NB || (!HAS_T && rr >= nk)) break;
+            float wv[Q];
+#pragma unroll
+            for (int q = 0; q < Q; ++q)
+              wv[q] = lane + 32 * q < C ? w_s[rr * (C + 1) + lane + 32 * q] : 0.f;
+#pragma unroll
+            for (int e = 0; e < TE; ++e) {
+              const float bv = j == 0 ? b4[e].x : j == 1 ? b4[e].y : j == 2 ? b4[e].z : b4[e].w;
+#pragma unroll
+              for (int q = 0; q < Q; ++q) {
+                if (rr < nk) sv[e][q] = fmaf(bv, wv[q], sv[e][q]);
+                else tv[e][q] = fmaf(bv, wv[q], tv[e][q]);
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < TE; ++e) {
+          const int i = e0 + e;
+          if (i >= cnt) break;
+          const size_t t = (size_t)ids[i];
+          const size_t ed = t / K;
+          const float m = m_s[i];
+#pragma unroll
+          for (int q = 0; q < Q; ++q) {
+            const int c = lane + 32 * q;
+            if (c < C) {
+              const float go = p.ct[ed * C + c] * m;
+              const float x = ld(p.xg + t * C + c);
+              float d = go * sv[e][q], g1 = go * x;
+              if constexpr (HAS_T) {
+                d *= tv[e][q];
+                gt[i * CP + c] = g1 * sv[e][q];
+                g1 *= tv[e][q];
+              }
+              st(p.dxg + t * C + c, d);
+              gs[i * CP + c] = g1;
+            }
+          }
+        }
+      }
+      __syncthreads();
+      // dws | dwt: item (c, row block), the block's rows in registers, the
+      // batch's triplets in order
+      for (int it = tid; it < C * ngroups; it += NT) {
+        const int c = it % C, r0 = (it / C) * rpg;
+        const int r1 = min(NB, r0 + rpg);
+        float acc[WTM];
+#pragma unroll
+        for (int j = 0; j < WTM; ++j) acc[j] = r0 + j < r1 ? dW_s[(r0 + j) * C + c] : 0.f;
+        for (int i = 0; i < cnt; ++i) {
+          const float g_s = gs[i * CP + c];
+          const float g_t = HAS_T ? gt[i * CP + c] : 0.f;
+          const float* brow = bas + i * NBp + r0;
+#pragma unroll
+          for (int j4 = 0; j4 < WTM / 4; ++j4) {
+            if (r0 + 4 * j4 >= r1) break;
+            const float4 b4 = *reinterpret_cast<const float4*>(brow + 4 * j4);
+            const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const int rr = r0 + 4 * j4 + j;
+              if (rr < r1) acc[4 * j4 + j] = fmaf(bv[j], rr < nk ? g_s : g_t, acc[4 * j4 + j]);
+            }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < WTM; ++j)
+          if (r0 + j < r1) dW_s[(r0 + j) * C + c] = acc[j];
+      }
+      if constexpr (DPT) {
+        __syncthreads();  // a | b is dead: da | db go there
+        // da = gs @ ws^T, db = gt @ wt^T: TE2 triplets x TR rows a thread,
+        // rows of a tile all of ws or all of wt, each sum over c from 0
+        const int rts = (nk + TR - 1) / TR;
+        const int rtl = rts + (HAS_T ? (p.ntk + TR - 1) / TR : 0);
+        const int etl = (cnt + TE2 - 1) / TE2;
+        for (int x = tid; x < etl * rtl; x += NT) {
+          const int et = x / rtl, rt = x % rtl;
+          const bool sr = rt < rts;
+          const int r0 = sr ? rt * TR : nk + (rt - rts) * TR;
+          const int r1 = sr ? nk : NB;
+          const float* g = sr ? gs : gt;
+          const float* wr[TR];
+          int es[TE2];
+#pragma unroll
+          for (int i = 0; i < TR; ++i) wr[i] = w_s + min(r0 + i, r1 - 1) * (C + 1);
+#pragma unroll
+          for (int e = 0; e < TE2; ++e) es[e] = min(et * TE2 + e, cnt - 1) * CP;
+          float acc[TE2][TR];
+#pragma unroll
+          for (int e = 0; e < TE2; ++e)
+#pragma unroll
+            for (int i = 0; i < TR; ++i) acc[e][i] = 0.f;
+          for (int c = 0; c < C; ++c) {
+            float gv[TE2], wv[TR];
+#pragma unroll
+            for (int e = 0; e < TE2; ++e) gv[e] = g[es[e] + c];
+#pragma unroll
+            for (int i = 0; i < TR; ++i) wv[i] = wr[i][c];
+#pragma unroll
+            for (int e = 0; e < TE2; ++e)
+#pragma unroll
+              for (int i = 0; i < TR; ++i) acc[e][i] = fmaf(gv[e], wv[i], acc[e][i]);
+          }
+#pragma unroll
+          for (int e = 0; e < TE2; ++e) {
+            const int i = et * TE2 + e;
+            if (i >= cnt) continue;
+#pragma unroll
+            for (int k2 = 0; k2 < TR; ++k2)
+              if (r0 + k2 < r1) bas[i * NBp + r0 + k2] = acc[e][k2];
+          }
+        }
+        __syncthreads();
+        // back through the assembly: a dpt column per triplet
+        for (int x = tid; x < R * BB; x += NT) {
+          const int r = x / BB, i = x % BB;
+          if (i >= cnt) continue;
+          st(p.dpt + (size_t)r * p.Tn + ids[i], basis_adjoint(p, bas + i * NBp, ptc, r, i, BB));
+        }
       }
     }
   }
@@ -556,14 +787,29 @@ int fwd_q(Params<T> p, cudaStream_t strm) {
                 floats * sizeof(float), strm, p);
 }
 
+// The backward of one instance: its grid (as many blocks as the card holds
+// at once: SMs x the occupancy of this kernel at its shared memory, at most
+// one a chunk; it depends only on the shapes and the card) in *blocks, and
+// the launch unless only the grid is asked for (run false).
 template <typename T, int Q, bool HAS_T, bool DPT>
-int bwd_q(Params<T> p, int blocks, cudaStream_t strm) {
+int bwd_q(Params<T> p, int* blocks, bool run, cudaStream_t strm) {
   p.CE = chunk_edges(p.K, BWD_TRIPLETS);
-  const size_t TC = (size_t)p.CE * p.K;
-  const size_t floats = (size_t)p.NB * (p.C + 1) + (size_t)p.NB * p.C + p.R * TC + TC * p.NB +
-                        (HAS_T ? 2 : 1) * TC * p.C + (DPT ? TC * p.NB : 0) + TC;
-  return launch(triplet_pt_bwd_kernel<T, Q, HAS_T, DPT>, blocks, NT, floats * sizeof(float),
-                strm, p);
+  const size_t smem = bwd_layout<T, HAS_T>(p, p.CE * p.K).total * sizeof(float);
+  auto kern = triplet_pt_bwd_kernel<T, Q, HAS_T, DPT>;
+  int rc = check_smem(smem);
+  if (rc != 0) return rc;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, NT, smem);
+  if (e != cudaSuccess) return e;
+  const int chunks = (p.E + p.CE - 1) / p.CE;
+  *blocks = grid_of(chunks, sms * (per_sm > 0 ? per_sm : 1));
+  if (!run) return 0;
+  kern<<<*blocks, NT, smem, strm>>>(p);
+  return cudaGetLastError();
 }
 
 template <typename T, int Q, bool HAS_T>
@@ -586,19 +832,19 @@ int fwd_c(Params<T> p, cudaStream_t strm) {
 }
 
 template <typename T, int Q>
-int bwd_b(Params<T> p, bool dpt, int blocks, cudaStream_t strm) {
+int bwd_b(Params<T> p, bool dpt, int* blocks, bool run, cudaStream_t strm) {
   if (p.ntk > 0) {
-    return dpt ? bwd_q<T, Q, true, true>(p, blocks, strm)
-               : bwd_q<T, Q, true, false>(p, blocks, strm);
+    return dpt ? bwd_q<T, Q, true, true>(p, blocks, run, strm)
+               : bwd_q<T, Q, true, false>(p, blocks, run, strm);
   }
-  return dpt ? bwd_q<T, Q, false, true>(p, blocks, strm)
-             : bwd_q<T, Q, false, false>(p, blocks, strm);
+  return dpt ? bwd_q<T, Q, false, true>(p, blocks, run, strm)
+             : bwd_q<T, Q, false, false>(p, blocks, run, strm);
 }
 
 template <typename T>
-int bwd_c(Params<T> p, bool dpt, int blocks, cudaStream_t strm) {
-  if (p.C <= 64) return bwd_b<T, 2>(p, dpt, blocks, strm);
-  if (p.C <= 128) return bwd_b<T, 4>(p, dpt, blocks, strm);
+int bwd_c(Params<T> p, bool dpt, int* blocks, bool run, cudaStream_t strm) {
+  if (p.C <= 64) return bwd_b<T, 2>(p, dpt, blocks, run, strm);
+  if (p.C <= 128) return bwd_b<T, 4>(p, dpt, blocks, run, strm);
   return ERR_SHAPE;
 }
 
@@ -611,7 +857,8 @@ int bwd2_c(Params<T> p, int blocks, cudaStream_t strm) {
 }
 
 bool bad_shape(int E, int K, int C, int n, int k) {
-  return E <= 0 || K <= 0 || C <= 0 || C > 128 || n <= 0 || k <= 0;
+  return E <= 0 || K <= 0 || C <= 0 || C > 128 || n <= 0 || k <= 0 ||
+         (long long)E * K >= (1LL << 31);
 }
 
 }  // namespace
@@ -619,10 +866,27 @@ bool bad_shape(int E, int K, int C, int n, int k) {
 extern "C" {
 
 // Number of blocks (rows of the partial-sum scratch) of the backward
-// (second_order = 0) or second-order pass at E edges of K triplets.
-int triplet_pt_blocks(int E, int K, int second_order) {
-  const int CE = chunk_edges(K, second_order ? BWD2_TRIPLETS : BWD_TRIPLETS);
-  return grid_of((E + CE - 1) / CE, BWD_GRID);
+// (second_order = 0; with dpt or not, on this card) or of the second-order
+// pass, at E edges of K triplets; ERR_SHAPE / ERR_SMEM for a shape the
+// kernels do not take, -1 for a CUDA error.
+int triplet_pt_blocks(int E, int K, int C, int n, int k, int has_t, int bf16, int dpt,
+                      int second_order) {
+  if (bad_shape(E, K, C, n, k)) return ERR_SHAPE;
+  if (second_order) {
+    const int CE = chunk_edges(K, BWD2_TRIPLETS);
+    return grid_of((E + CE - 1) / CE, BWD2_GRID);
+  }
+  int blocks = -1, rc;
+  if (bf16) {
+    auto p = make_params<__nv_bfloat16>(nullptr, nullptr, nullptr, nullptr, nullptr, E, K, C, n,
+                                        k, has_t);
+    rc = bwd_c(p, dpt != 0, &blocks, false, nullptr);
+  } else {
+    auto p = make_params<float>(nullptr, nullptr, nullptr, nullptr, nullptr, E, K, C, n, k,
+                                has_t);
+    rc = bwd_c(p, dpt != 0, &blocks, false, nullptr);
+  }
+  return rc == 0 ? blocks : rc < 0 ? rc : -1;
 }
 
 // 0 on success, a cudaError_t, or ERR_SHAPE / ERR_SMEM. xg, pt, m and out
@@ -645,29 +909,28 @@ int triplet_pt_fwd(const void* xg, const void* pt, const float* ws, const float*
 
 // ct float32 [E, C]; dxg [T, C] in the type of xg; dpt [R, T] in the type
 // of pt, or null (not computed); partial: [blocks, (nk + ntk) * C] scratch
-// with blocks = triplet_pt_blocks(E, K, 0); dw [(nk + ntk) * C] receives
-// dws | dwt.
+// with blocks = triplet_pt_blocks(E, K, C, n, k, has_t, bf16, dpt != null,
+// 0); dw [(nk + ntk) * C] receives dws | dwt.
 int triplet_pt_bwd(const void* xg, const void* pt, const float* ws, const float* wt,
                    const void* m, const float* ct, void* dxg, void* dpt, float* partial,
                    float* dw, int E, int K, int C, int n, int k, int has_t, int bf16,
                    void* stream) {
   if (bad_shape(E, K, C, n, k)) return ERR_SHAPE;
   cudaStream_t strm = static_cast<cudaStream_t>(stream);
-  const int blocks = triplet_pt_blocks(E, K, 0);
-  int rc, NB;
+  int blocks = 0, rc, NB;
   if (bf16) {
     using B = __nv_bfloat16;
     auto p = make_params<B>(xg, pt, ws, wt, m, E, K, C, n, k, has_t);
     p.ct = ct; p.dxg = static_cast<B*>(dxg); p.dpt = static_cast<B*>(dpt);
     p.partial = partial;
     NB = p.NB;
-    rc = bwd_c(p, dpt != nullptr, blocks, strm);
+    rc = bwd_c(p, dpt != nullptr, &blocks, true, strm);
   } else {
     auto p = make_params<float>(xg, pt, ws, wt, m, E, K, C, n, k, has_t);
     p.ct = ct; p.dxg = static_cast<float*>(dxg); p.dpt = static_cast<float*>(dpt);
     p.partial = partial;
     NB = p.NB;
-    rc = bwd_c(p, dpt != nullptr, blocks, strm);
+    rc = bwd_c(p, dpt != nullptr, &blocks, true, strm);
   }
   if (rc != 0) return rc;
   return sum_partials(partial, blocks, NB * C, dw, strm);
@@ -677,7 +940,8 @@ int triplet_pt_bwd(const void* xg, const void* pt, const float* ws, const float*
 // xg, u4 [nk, C] and u5 [ntk, C] float32, each null when absent. xb [T, C]
 // and ptb [R, T] in the type of xg, ctb float32 [E, C]; every element
 // written. partial: [blocks, (nk + ntk) * C] with blocks =
-// triplet_pt_blocks(E, K, 1); dw receives wsb | wtb.
+// triplet_pt_blocks(E, K, C, n, k, has_t, bf16, 1, 1); dw receives wsb |
+// wtb.
 int triplet_pt_bwd2(const void* xg, const void* pt, const float* ws, const float* wt,
                     const void* m, const float* ct, const void* u1, const void* u2,
                     const float* u4, const float* u5, void* xb, void* ptb, float* ctb,
@@ -685,7 +949,7 @@ int triplet_pt_bwd2(const void* xg, const void* pt, const float* ws, const float
                     int bf16, void* stream) {
   if (bad_shape(E, K, C, n, k)) return ERR_SHAPE;
   cudaStream_t strm = static_cast<cudaStream_t>(stream);
-  const int blocks = triplet_pt_blocks(E, K, 1);
+  const int blocks = triplet_pt_blocks(E, K, C, n, k, has_t, bf16, 1, 1);
   int rc, NB;
   if (bf16) {
     using B = __nv_bfloat16;

@@ -65,13 +65,22 @@
 //    basis rows of the 32 edges for one s are staged in shared memory
 //    (coalesced over e), sbf and tbf are formed there once, and each thread
 //    keeps out[e, c] for its edges in float32 registers across all s.
-//  - Backward: a block owns one (slot, s). The dx rows (j, s) of the slot
-//    receive only from the slot's edges, so the block sums them in shared
-//    memory in edge order (each thread owns a set of rows): no atomics.
-//    dws/dwt are per-block shared-memory sums (each entry owned by one
-//    thread), written to a [blocks, ...] scratch and summed by a second
-//    kernel in a fixed tree order: two backwards give the same bits.
-//    dpt is row-local and only computed when asked for.
+//  - Backward: a block owns one (slot, s). It first lists the edges of its
+//    real triplets by warp ballots (about 40% at the force bench's
+//    buckets; dpt is written as 0 at the others) and walks only those, 32
+//    at a time (slot_bwd_kernel in triplet_slot_core.cuh). The dx rows
+//    (j, s) of the slot receive only from the slot's edges, so the block
+//    sums them in shared memory in edge order (each thread owns a set of
+//    rows and walks only the chunk's edges of its rows, from a ballot per
+//    row group): no atomics. dws/dwt are per-block shared-memory sums
+//    (each entry owned by one thread, 18 rows in registers at a time),
+//    written to a [blocks, ...] scratch and summed by a second kernel in a
+//    fixed tree order: two backwards give the same bits. sv, tv and the
+//    basis cotangents are register tiles (each weight loaded once for a
+//    thread's edges). dpt is row-local and only computed when asked for,
+//    which ops/triplet_slot.py does only when the pass running reads it.
+//    ptxas (sm_90a): 105-114 registers a thread at C = 64 and 128, 126-128
+//    at C = 32: two blocks of 256 threads an SM.
 //  - Second order: two kernels. ctb sums over s, so it is a "tangent
 //    forward" in the forward's layout (32 edges a block, s in a loop, f32
 //    registers). xb, ptb, wsb and wtb take the backward's layout (a block

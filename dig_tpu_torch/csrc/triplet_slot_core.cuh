@@ -17,17 +17,20 @@
 // null):
 //   Rows::load<MODE>(p, s, e0, ids, cnt, ptc, m2c, ljc, u2c, rs): the rows
 //     ptc [R][ET] in float32 (zero past cnt), the mask m2c [ET] (0 where lj
-//     is outside [0, A)), the ids ljc [ET] and, unless MODE is ROWS_VALUE,
-//     the rows' tangent u2c [R][ET] (the cotangent of the rows' gradient in
-//     the second order); ROWS_JET also keeps in rs what write_ptb needs;
-//   Rows::write_dpt(p, s, e0, cnt, dbas, ptc, m2c, rs): the backward's
-//     output from the cotangent dbas [ET][NB] of (sbf | tbf);
+//     is outside [0, A)), the ids ljc [ET] and, in modes ROWS_TANGENT and
+//     ROWS_JET, the rows' tangent u2c [R][ET] (the cotangent of the rows'
+//     gradient in the second order); ROWS_GRAD also keeps in rs what
+//     write_dpt needs, ROWS_JET what write_ptb needs;
+//   Rows::write_dpt(p, s, ids, cnt, dbas, ptc, rs, spare): the backward's
+//     output from the cotangent dbas [ET][NB] of (sbf | tbf), every chunk
+//     position a real triplet; spare is Rows::dpt_spare(p) floats;
 //   Rows::write_ptb(p, s, ids, cnt, bas, dbas, ptc, u2c, m2c, rs, spare): the
 //     second order's output from the cotangents bas of (a | b) and dbas of
 //     (da | db); spare is max(5 ET C, Rows::spare(p)) floats of dead shared
 //     memory;
 //   Rows::scratch(p, MODE): the floats of rs (shared scratch) it uses;
 //   Rows::spare(p): the floats of spare that write_ptb uses;
+//   Rows::dpt_spare(p): the floats of spare that write_dpt uses;
 //   Rows::GEO: whether the rows' cotangent goes to dgeo [K, NG, E] (else
 //     to dpt [K, R, E]); Rows::BWD2_THREADS: the threads of a second-order
 //     block.
@@ -42,9 +45,10 @@ namespace {
 constexpr int NT = 256;     // threads per block (slot_bwd2_kernel: Rows::BWD2_THREADS)
 constexpr int ET = 32;      // edges per chunk: a warp's lanes (the second order's ballots)
 
-// what Rows::load evaluates: the rows; the rows and their tangent; the
-// rows, their tangent and what the second order's write_ptb needs
-enum RowsMode { ROWS_VALUE, ROWS_TANGENT, ROWS_JET };
+// what Rows::load evaluates: the rows; the rows and what the backward's
+// write_dpt needs; the rows and their tangent; the rows, their tangent and
+// what the second order's write_ptb needs
+enum RowsMode { ROWS_VALUE, ROWS_GRAD, ROWS_TANGENT, ROWS_JET };
 
 // The (s, e) of chunk position ec: ids[ec] = s E + e (a triplet), or
 // (s, e0 + ec) when ids is null.
@@ -244,9 +248,11 @@ struct PtRows {
   static constexpr int BWD2_THREADS = 256;
 
   template <typename T>
-  static int scratch(const Params<T>&, int) { return 0; }
+  static __host__ __device__ int scratch(const Params<T>&, int) { return 0; }
   template <typename T>
   static __host__ __device__ int spare(const Params<T>&) { return 0; }
+  template <typename T>
+  static int dpt_spare(const Params<T>&) { return 0; }
 
   template <int MODE, typename T>
   static __device__ void load(const Params<T>& p, int s, int e0, const int* ids, int cnt,
@@ -259,10 +265,10 @@ struct PtRows {
         triplet_at(p.E, s, e0, ids, ec, ts, te);
         const size_t at = ((size_t)ts * p.R + r) * p.E + te;
         v = ld(p.pt + at);
-        if (MODE != ROWS_VALUE && p.u2 != nullptr) u = ld(p.u2 + at);
+        if (MODE >= ROWS_TANGENT && p.u2 != nullptr) u = ld(p.u2 + at);
       }
       ptc[x] = v;
-      if constexpr (MODE != ROWS_VALUE) u2c[x] = u;
+      if constexpr (MODE >= ROWS_TANGENT) u2c[x] = u;
     }
     for (int ec = threadIdx.x; ec < ET; ec += blockDim.x) {
       float m = 0.f;
@@ -279,12 +285,13 @@ struct PtRows {
   }
 
   template <typename T>
-  static __device__ void write_dpt(const Params<T>& p, int s, int e0, int cnt, const float* dbas,
-                                   const float* ptc, const float*, const float*) {
-    for (int x = threadIdx.x; x < p.R * ET; x += NT) {
+  static __device__ void write_dpt(const Params<T>& p, int s, const int* ids, int cnt,
+                                   const float* dbas, const float* ptc, const float*, float*) {
+    for (int x = threadIdx.x; x < p.R * ET; x += blockDim.x) {
       const int r = x / ET, ec = x % ET;
       if (ec >= cnt) continue;
-      p.dpt[((size_t)s * p.R + r) * p.E + e0 + ec] = basis_adjoint(p, dbas + ec * p.NB, ptc, r, ec);
+      p.dpt[((size_t)s * p.R + r) * p.E + ids[ec] - s * p.E] =
+          basis_adjoint(p, dbas + ec * p.NB, ptc, r, ec);
     }
   }
 
@@ -351,12 +358,70 @@ __global__ void __launch_bounds__(NT) slot_fwd_kernel(Params<T> p) {
   }
 }
 
+// sv = sbf @ ws[:, c], tv = tbf @ wt[:, c] (tv = 1 without torsion) of the
+// chunk positions eg + EG q, q < nq: the chains of basis_products as a
+// register tile, each weight loaded once for the thread's positions.
+template <int C, int EG, int EPT, typename T>
+__device__ __forceinline__ void tiled_sv_tv(const Params<T>& p, const float* bas,
+                                            const float* ws_s, const float* wt_s, int c, int eg,
+                                            int nq, float (&sv)[EPT], float (&tv)[EPT]) {
+  const int nk = p.nk, ntk = p.ntk, NB = p.NB;
+  const float* b0 = bas + eg * NB;
+#pragma unroll
+  for (int q = 0; q < EPT; ++q) {
+    sv[q] = 0.f;
+    tv[q] = ntk > 0 ? 0.f : 1.f;
+  }
+  for (int r = 0; r < nk; ++r) {
+    const float w = ws_s[r * (C + 1) + c];
+#pragma unroll
+    for (int q = 0; q < EPT; ++q)
+      if (q < nq) sv[q] = fmaf(b0[q * EG * NB + r], w, sv[q]);
+  }
+  for (int i = 0; i < ntk; ++i) {
+    const float w = wt_s[i * (C + 1) + c];
+#pragma unroll
+    for (int q = 0; q < EPT; ++q)
+      if (q < nq) tv[q] = fmaf(b0[q * EG * NB + nk + i], w, tv[q]);
+  }
+}
+
+// The floats of slot_bwd_kernel's shared memory from ws_s on (bwd_t).
+template <typename Rows, int C, typename T>
+__host__ int bwd_floats(const Params<T>& p, bool dpt) {
+  const int NTW = NT / 32;
+  return (p.nk + p.ntk) * (C + 1) + p.NB * C + p.A * C + p.R * ET + ET * p.NB + 3 * ET * C +
+         (dpt ? ET * p.NB : 0) + 2 * ET + p.A * p.K + NTW + NT / C +
+         Rows::scratch(p, dpt && Rows::GEO ? ROWS_GRAD : ROWS_VALUE) +
+         (dpt ? Rows::dpt_spare(p) : 0);
+}
+
+// The backward: one block per (slot, s). The block first lists its real
+// triplets' edges in edge order (a ballot a warp, as slot_bwd2_kernel; the
+// rows' cotangent of every other edge is written as zeros) and walks them
+// in chunks of ET, so the rows, the products and every cotangent are formed
+// only where they count. Per chunk: the rows (with DPT over the geometry,
+// also the rows' gradients, each once per (row, real triplet) across the
+// block); sv, tv and the per-triplet cotangents dxg = m g sv tv, dsv = g tv
+// xv, dtv = g xv sv as a register tile of EPT edges a thread; the weight
+// gradients (the thread's entries, rows eg + EG i at channel c, WT rows in
+// registers at a time) and, in the same phase, the dx rows (thread (c, jg)
+// walks only the chunk's edges of its rows, from a ballot per row group)
+// and with DPT the basis cotangents d sbf | d tbf = dsv @ ws^T | dtv @
+// wt^T as TE x TR tiles; then Rows::write_dpt. Every sum keeps its order
+// over the real edges (edge order), as the masked walk over all edges added
+// them: the outputs do not depend on the chunking.
 template <typename T, int C, bool DPT, typename Rows>
-__global__ void __launch_bounds__(NT) slot_bwd_kernel(Params<T> p) {
+__global__ void __launch_bounds__(NT, 2) slot_bwd_kernel(Params<T> p) {
   constexpr int EG = NT / C;
   constexpr int EPT = ET / EG;
+  constexpr int WT = 18;          // weight-gradient rows of a register tile
+  constexpr int TE = 4, TR = 3;   // basis-cotangent tile: edges x rows (TR odd: no bank
+                                  // conflicts on the weights' C + 1 stride)
+  constexpr int MODE = DPT && Rows::GEO ? ROWS_GRAD : ROWS_VALUE;
   extern __shared__ __align__(16) float smem[];
   const int nk = p.nk, ntk = p.ntk, NB = p.NB, A = p.A, K = p.K;
+  const int SE = A * K;
   float* ws_s = smem;                           // [nk][C+1]
   float* wt_s = ws_s + nk * (C + 1);            // [ntk][C+1]
   float* dW_s = wt_s + ntk * (C + 1);           // [NB][C] weight-gradient sums
@@ -369,75 +434,159 @@ __global__ void __launch_bounds__(NT) slot_bwd_kernel(Params<T> p) {
   float* dbas = dxg + ET * C;                   // [ET][NB] (DPT only)
   float* m2c = dbas + (DPT ? ET * NB : 0);      // [ET]
   int* ljc = reinterpret_cast<int*>(m2c + ET);  // [ET]
-  float* rs = reinterpret_cast<float*>(ljc + ET);  // [Rows::scratch]
+  int* live = ljc + ET;                         // [SE] the real triplets, s E + e
+  int* wcnt = live + SE;                        // [NT / 32]
+  unsigned* jm = reinterpret_cast<unsigned*>(wcnt + NT / 32);  // [EG] chunk edges per row group
+  float* rs = reinterpret_cast<float*>(jm + EG);               // [Rows::scratch]
+  float* spare = rs + (DPT ? Rows::scratch(p, MODE) : 0);      // [Rows::dpt_spare] (DPT)
 
   const int tid = threadIdx.x, c = tid % C, eg = tid / C;
+  const int lane = tid & 31, warp = tid >> 5;
   const int g = blockIdx.x / K, s = blockIdx.x % K;
-  const int SE = A * K, base = g * SE;
+  const int base = g * SE;
   load_weights<C>(p, ws_s, wt_s);
   for (int x = tid; x < NB * C; x += NT) dW_s[x] = 0.f;
   for (int x = tid; x < A * C; x += NT) dx_s[x] = 0.f;
 
-  for (int c0 = 0; c0 < SE; c0 += ET) {
-    const int cnt = min(ET, SE - c0);
-    const int e0 = base + c0;
+  // the real triplets (lj inside the slot, m2T set), in edge order; with
+  // DPT the rows' cotangent of the others is 0
+  float* rows_out = Rows::GEO ? p.dgeo : p.dpt;
+  const int nout = Rows::GEO ? p.NG : p.R;
+  int nl = 0;
+  for (int b0 = 0; b0 < SE; b0 += NT) {
+    const int e = base + b0 + tid;
+    bool real = false;
+    if (b0 + tid < SE) {
+      const int j = p.lj[e];
+      real = j >= 0 && j < A && ld(p.m2T + (size_t)s * p.E + e) != 0.f;
+      if (DPT && !real) {
+        for (int i = 0; i < nout; ++i) rows_out[((size_t)s * nout + i) * p.E + e] = 0.f;
+      }
+    }
+    const unsigned mask = __ballot_sync(0xffffffffu, real);
+    if (lane == 0) wcnt[warp] = __popc(mask);
     __syncthreads();
-    Rows::template load<ROWS_VALUE>(p, s, e0, nullptr, cnt, ptc, m2c, ljc, nullptr, rs);
+    int at = nl;
+    for (int w = 0; w < NT / 32; ++w) {
+      if (w < warp) at += wcnt[w];
+      nl += wcnt[w];
+    }
+    if (real) live[at + __popc(mask & ((1u << lane) - 1u))] = s * p.E + e;
+    __syncthreads();
+  }
+
+  for (int c0 = 0; c0 < nl; c0 += ET) {
+    const int cnt = min(ET, nl - c0);
+    const int* ids = live + c0;
+    __syncthreads();
+    Rows::template load<MODE>(p, s, 0, ids, cnt, ptc, m2c, ljc, nullptr, rs);
     __syncthreads();
     form_basis(p, ptc, bas);
+    if (warp == 0) {
+      // the chunk's edges of each row group jg (rows j with j % EG == jg)
+      const int j = lane < cnt ? ljc[lane] : -1;
+      for (int jg = 0; jg < EG; ++jg) {
+        const unsigned m = __ballot_sync(0xffffffffu, j >= 0 && j % EG == jg);
+        if (lane == 0) jm[jg] = m;
+      }
+    }
     __syncthreads();
     // per-triplet cotangents: dxg = m g sv tv, dsv = g tv xv, dtv = g xv sv
+    {
+      float sv[EPT], tv[EPT];
+      const int nq = min(EPT, (cnt - eg + EG - 1) / EG);
+      tiled_sv_tv<C, EG, EPT>(p, bas, ws_s, wt_s, c, eg, nq, sv, tv);
 #pragma unroll
-    for (int q = 0; q < EPT; ++q) {
-      const int ec = eg + EG * q;
-      const float m = m2c[ec];
-      float a = 0.f, b = 0.f, d = 0.f;
-      if (m != 0.f) {
-        const size_t row = ((size_t)g * A + ljc[ec]) * K + s;
-        float sv, tv;
-        basis_products<C>(bas + ec * NB, ws_s, wt_s, nk, ntk, c, sv, tv);
-        const float xv = m * rnd<IS_BF16<T>>(ld(p.x + row * C + c));
-        const float go = p.ct[(size_t)(e0 + ec) * C + c];
-        const float gt = go * tv;
-        a = (gt * sv) * m;
-        b = gt * xv;
-        d = go * (xv * sv);
+      for (int q = 0; q < EPT; ++q) {
+        if (q < nq) {
+          const int ec = eg + EG * q;
+          const float m = m2c[ec];
+          const size_t row = ((size_t)g * A + ljc[ec]) * K + s;
+          const float xv = m * rnd<IS_BF16<T>>(ld(p.x + row * C + c));
+          const float go = p.ct[(size_t)(ids[ec] - s * p.E) * C + c];
+          const float gt = go * tv[q];
+          dxg[ec * C + c] = (gt * sv[q]) * m;
+          dsv[ec * C + c] = gt * xv;
+          dtv[ec * C + c] = go * (xv * sv[q]);
+        }
       }
-      dxg[ec * C + c] = a;
-      dsv[ec * C + c] = b;
-      dtv[ec * C + c] = d;
     }
     __syncthreads();
-    // weight gradients: each (row, c) entry owned by one thread, edge order
-    for (int x = tid; x < NB * C; x += NT) {
-      const int r = x / C, cc = x % C;
-      const float* src = r < nk ? dsv : dtv;
-      float acc = dW_s[x];
-      for (int ec = 0; ec < cnt; ++ec) {
-        if (m2c[ec] != 0.f) acc = fmaf(bas[ec * NB + r], src[ec * C + cc], acc);
+    // weight gradients: the thread's entries (rows eg + EG i, channel c),
+    // WT rows in registers at a time, each in edge order
+    for (int i0 = 0; i0 * EG + eg < NB; i0 += WT) {
+      float acc[WT];
+#pragma unroll
+      for (int t = 0; t < WT; ++t) {
+        const int r = eg + EG * (i0 + t);
+        acc[t] = r < NB ? dW_s[r * C + c] : 0.f;
       }
-      dW_s[x] = acc;
+      for (int ec = 0; ec < cnt; ++ec) {
+        const float ds = dsv[ec * C + c], dt = dtv[ec * C + c];
+        const float* b = bas + ec * NB;
+#pragma unroll
+        for (int t = 0; t < WT; ++t) {
+          const int r = eg + EG * (i0 + t);
+          if (r < NB) acc[t] = fmaf(b[r], r < nk ? ds : dt, acc[t]);
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < WT; ++t) {
+        const int r = eg + EG * (i0 + t);
+        if (r < NB) dW_s[r * C + c] = acc[t];
+      }
     }
-    // dx rows (j, s): thread (c, jg) owns the rows j with j % EG == jg
-    for (int ec = 0; ec < cnt; ++ec) {
-      const int j = ljc[ec];
-      if (m2c[ec] != 0.f && j % EG == eg) dx_s[j * C + c] += dxg[ec * C + c];
+    // dx rows (j, s): thread (c, jg) adds its rows' edges, in edge order
+    for (unsigned m = jm[eg]; m != 0u; m &= m - 1u) {
+      const int ec = __ffs(m) - 1;
+      dx_s[ljc[ec] * C + c] += dxg[ec * C + c];
     }
     if constexpr (DPT) {
-      // d sbf = dsv @ ws^T, d tbf = dtv @ wt^T
-      for (int x = tid; x < ET * NB; x += NT) {
-        const int ec = x / NB, r = x % NB;
-        float acc = 0.f;
-        if (m2c[ec] != 0.f) {
-          const float* src = r < nk ? dsv + ec * C : dtv + ec * C;
-          const float* w = r < nk ? ws_s + r * (C + 1) : wt_s + (r - nk) * (C + 1);
-          for (int cc = 0; cc < C; ++cc) acc = fmaf(src[cc], w[cc], acc);
+      // d sbf = dsv @ ws^T, d tbf = dtv @ wt^T: TE edges x TR rows a thread,
+      // rows of one tile all of sbf's or all of tbf's, each sum over c from 0
+      const int rts = (nk + TR - 1) / TR;
+      const int rtl = rts + (ntk + TR - 1) / TR;
+      const int etl = (cnt + TE - 1) / TE;
+      for (int t = tid; t < etl * rtl; t += NT) {
+        const int et = t / rtl, rt = t % rtl;
+        const bool sr = rt < rts;
+        const int r0 = sr ? rt * TR : nk + (rt - rts) * TR;
+        const int r1 = sr ? nk : NB;
+        const float* P = sr ? dsv : dtv;
+        const float* w[TR];
+        int ecs[TE];
+#pragma unroll
+        for (int i = 0; i < TR; ++i) w[i] = ws_s + min(r0 + i, r1 - 1) * (C + 1);
+#pragma unroll
+        for (int e = 0; e < TE; ++e) ecs[e] = min(et * TE + e, cnt - 1) * C;
+        float gacc[TE][TR];
+#pragma unroll
+        for (int e = 0; e < TE; ++e)
+#pragma unroll
+          for (int i = 0; i < TR; ++i) gacc[e][i] = 0.f;
+        for (int cc = 0; cc < C; ++cc) {
+          float pv[TE], wv[TR];
+#pragma unroll
+          for (int e = 0; e < TE; ++e) pv[e] = P[ecs[e] + cc];
+#pragma unroll
+          for (int i = 0; i < TR; ++i) wv[i] = w[i][cc];
+#pragma unroll
+          for (int e = 0; e < TE; ++e)
+#pragma unroll
+            for (int i = 0; i < TR; ++i) gacc[e][i] = fmaf(pv[e], wv[i], gacc[e][i]);
         }
-        dbas[x] = acc;
+#pragma unroll
+        for (int e = 0; e < TE; ++e) {
+          const int ec = et * TE + e;
+          if (ec >= cnt) continue;
+#pragma unroll
+          for (int i = 0; i < TR; ++i)
+            if (r0 + i < r1) dbas[ec * NB + r0 + i] = gacc[e][i];
+        }
       }
       __syncthreads();
-      // back through the products to the rows: d bt, d y0, d yt
-      Rows::write_dpt(p, s, e0, cnt, dbas, ptc, m2c, rs);
+      // back through the products to the rows
+      Rows::write_dpt(p, s, ids, cnt, dbas, ptc, rs, spare);
     }
   }
   __syncthreads();
@@ -839,10 +988,7 @@ int fwd_t(Params<T> p, cudaStream_t strm) {
 
 template <typename Rows, typename T, int C>
 int bwd_t(Params<T> p, int need_rows, int blocks, cudaStream_t strm) {
-  const size_t floats = (size_t)(p.nk + p.ntk) * (C + 1) + (size_t)p.NB * C +
-                        (size_t)p.A * C + p.R * ET + ET * p.NB + 3 * ET * C +
-                        (need_rows ? ET * p.NB : 0) + 2 * ET + Rows::scratch(p, ROWS_VALUE);
-  const size_t smem = floats * sizeof(float);
+  const size_t smem = (size_t)bwd_floats<Rows, C>(p, need_rows != 0) * sizeof(float);
   if (need_rows) return launch(slot_bwd_kernel<T, C, true, Rows>, blocks, NT, smem, strm, p);
   return launch(slot_bwd_kernel<T, C, false, Rows>, blocks, NT, smem, strm, p);
 }

@@ -60,11 +60,17 @@
 //    rows (and, where the second order needs it, their tangent J ug)
 //    evaluated once per (row, edge) by one thread, a warp sharing one row,
 //    so the generated switch over rows never diverges within a warp.
-//  - dgeo: one thread per (geometry variable, edge) walks only the rows
-//    that depend on its variable (x: the Bessel rows; theta: the
-//    harmonics; phi: the Y_l^m rows) in row order, recomputing the rows'
-//    cotangent from the chunk's basis cotangents in shared memory; a fixed
-//    order, no atomics, so two calls give the same bits.
+//  - dgeo (the backward walks only the real triplets' edges, see
+//    slot_bwd_kernel): each (row, edge) is evaluated once, by row (the
+//    value) and row_grad (the derivatives along the row's variables), when
+//    the chunk's rows are loaded, the derivatives kept in shared memory.
+//    At the end of the chunk the rows' cotangent dpt_r is formed for every
+//    (row, edge) across the block, then one thread per (geometry variable,
+//    edge) sums d row_r / dv dpt_r over the rows that depend on its
+//    variable (x: the Bessel rows; theta: the harmonics; phi: the Y_l^m
+//    rows) in row order: no serial evaluation of the rows, no atomics, the
+//    same bits on every call. ptxas (sm_90a): 101-113 registers a thread
+//    at C = 64 and 128 (the serial walk held 169-179), two blocks an SM.
 //  - geob (the second order; 512 threads a block, the real triplets' edges
 //    only, see slot_bwd2_kernel): each (row, edge) is evaluated once, by
 //    row_jet (the value, gradient and second derivatives from one set of
@@ -116,18 +122,25 @@ __device__ __forceinline__ double hess_dot(const double* h, int v, double u0, do
 // variable (x for the Bessel rows, theta for the harmonics), jv and hv
 // [R][ET], and along phi for the Y_l^m rows, jp and hp [n^2][ET]: the
 // second order's write_ptb reads them instead of evaluating the rows again.
+// In ROWS_GRAD mode (the backward's) the derivatives alone, jv [R][ET] and
+// jp [n^2][ET], from row_grad (the row's value still from row, as in
+// ROWS_VALUE), for write_dpt.
 struct GeomRows {
   static constexpr bool GEO = true;
   static constexpr int BWD2_THREADS = 512;
 
   template <typename T>
-  static int scratch(const Params<T>& p, int mode) {
+  static __host__ __device__ int scratch(const Params<T>& p, int mode) {
     const int nyl = p.has_t ? p.n * p.n : 0;
-    return 6 * ET + (mode == ROWS_JET ? 2 * (p.R + nyl) * ET : 0);
+    return 6 * ET + (mode == ROWS_JET ? 2 * (p.R + nyl) * ET
+                     : mode == ROWS_GRAD ? (p.R + nyl) * ET : 0);
   }
   // write_ptb's ptb and dpt [R][ET] each
   template <typename T>
   static __host__ __device__ int spare(const Params<T>& p) { return 2 * p.R * ET; }
+  // write_dpt's dpt [R][ET]
+  template <typename T>
+  static int dpt_spare(const Params<T>& p) { return p.R * ET; }
 
   template <int MODE, typename T>
   static __device__ void load(const Params<T>& p, int s, int e0, const int* ids, int cnt,
@@ -147,7 +160,7 @@ struct GeomRows {
           const int v = var_of(p, gi);
           const size_t at = ((size_t)ts * p.NG + gi) * p.E + e;
           if (v != 2 || m != 0.f) g[v] = p.geo[at];
-          if (MODE != ROWS_VALUE && p.ug != nullptr && m != 0.f) u[v] = p.ug[at];
+          if (MODE >= ROWS_TANGENT && p.ug != nullptr && m != 0.f) u[v] = p.ug[at];
         }
       }
       m2c[ec] = m;
@@ -161,7 +174,7 @@ struct GeomRows {
     const int nk = p.nk, ny = p.nk + p.n;  // the Y_l^m rows start at ny
     float* jv = rs + 6 * ET;
     float* hv = jv + p.R * ET;
-    float* jp = hv + p.R * ET;
+    float* jp = MODE == ROWS_GRAD ? hv : hv + p.R * ET;
     float* hp = jp + (p.R - ny) * ET;
     for (int x = threadIdx.x; x < p.R * ET; x += blockDim.x) {
       const int r = x / ET, ec = x % ET;
@@ -171,6 +184,12 @@ struct GeomRows {
         const double u0 = uv[ec], u1 = uv[ET + ec], u2 = uv[2 * ET + ec];
         if constexpr (MODE == ROWS_VALUE) {
           val = (float)geom_rows::row<double>(r, th, ph, xx);
+        } else if constexpr (MODE == ROWS_GRAD) {
+          val = (float)geom_rows::row<double>(r, th, ph, xx);
+          double g[3];
+          geom_rows::row_grad<double>(r, th, ph, xx, g);
+          jv[x] = (float)g[r < nk ? 2 : 0];
+          if (r >= ny) jp[x - ny * ET] = (float)g[1];
         } else if constexpr (MODE == ROWS_TANGENT) {
           double g[3];
           val = (float)geom_rows::row_grad<double>(r, th, ph, xx, g);
@@ -189,31 +208,39 @@ struct GeomRows {
         }
       }
       ptc[x] = val;
-      if constexpr (MODE != ROWS_VALUE) u2c[x] = tg;
+      if constexpr (MODE >= ROWS_TANGENT) u2c[x] = tg;
     }
   }
 
-  // dgeo[s, gi, e] = sum over the rows r of gi's variable v of
-  // d row_r / dv * dpt_r, dpt_r the adjoint of the basis cotangent dbas.
+  // dgeo[s, gi, e] = sum over the rows r of gi's variable v, in row order,
+  // of d row_r / dv * dpt_r, dpt_r the adjoint of the basis cotangent dbas:
+  // dpt_r formed first for every (row, edge) across the block, into spare;
+  // the derivatives from load's ROWS_GRAD (row_grad once per (row, edge)).
+  // Every edge of the chunk is a real triplet's.
   template <typename T>
-  static __device__ void write_dpt(const Params<T>& p, int s, int e0, int cnt, const float* dbas,
-                                   const float* ptc, const float* m2c, const float* rs) {
-    for (int x = threadIdx.x; x < p.NG * ET; x += NT) {
+  static __device__ void write_dpt(const Params<T>& p, int s, const int* ids, int cnt,
+                                   const float* dbas, const float* ptc, const float* rs,
+                                   float* spare) {
+    float* dp = spare;  // [R][ET]
+    for (int x = threadIdx.x; x < p.R * ET; x += blockDim.x) {
+      const int r = x / ET, ec = x % ET;
+      if (ec < cnt) dp[x] = basis_adjoint(p, dbas + ec * p.NB, ptc, r, ec);
+    }
+    __syncthreads();
+    const int ny = p.nk + p.n;
+    const float* jv = rs + 6 * ET;
+    const float* jp = jv + p.R * ET;
+    for (int x = threadIdx.x; x < p.NG * ET; x += blockDim.x) {
       const int gi = x / ET, ec = x % ET;
       if (ec >= cnt) continue;
       const int v = var_of(p, gi);
+      int r0, r1;
+      rows_of(p, v, r0, r1);
+      // phi's derivatives are kept for the Y_l^m rows only
+      const float* J = v == 1 ? jp - ny * ET : jv;
       float acc = 0.f;
-      if (m2c[ec] != 0.f) {
-        const double th = rs[ec], ph = rs[ET + ec], xx = rs[2 * ET + ec];
-        int r0, r1;
-        rows_of(p, v, r0, r1);
-        for (int r = r0; r < r1; ++r) {
-          double g[3];
-          geom_rows::row_grad<double>(r, th, ph, xx, g);
-          acc = fmaf((float)g[v], basis_adjoint(p, dbas + ec * p.NB, ptc, r, ec), acc);
-        }
-      }
-      p.dgeo[((size_t)s * p.NG + gi) * p.E + e0 + ec] = acc;
+      for (int r = r0; r < r1; ++r) acc = fmaf(J[r * ET + ec], dp[r * ET + ec], acc);
+      p.dgeo[((size_t)s * p.NG + gi) * p.E + ids[ec] - s * p.E] = acc;
     }
   }
 

@@ -35,7 +35,10 @@ CUDA tensor every level launches a hand-written kernel of
 version (:func:`fused_triplet_pt_ref` and the autograd first and second
 VJPs of it, :func:`fused_triplet_pt_bwd_ref`,
 :func:`fused_triplet_pt_bwd2_ref`). ``launches_fwd``, ``launches_bwd`` and
-``launches_bwd2`` count kernel launches.
+``launches_bwd2`` count kernel launches (``launches_bwd_dpt`` the backward
+launches that computed ``dpt``). As in ``ops/triplet_slot.py``, a backward
+computes ``dpt`` only when the backward pass now running will use it, so a
+force step's outer pass (``loss.backward(inputs=params)``) leaves it out.
 """
 from __future__ import annotations
 
@@ -46,20 +49,23 @@ from torch.autograd.function import once_differentiable
 
 from . import _build
 from .basis import packed_basis_rows
-from .triplet_slot import _leaves, _round_to, _zeros_for_unused
+from .triplet_slot import (_grad_wanted, _leaves, _round_to,
+                           _vjp_rows_optional, _zeros_for_unused)
 
 launches_fwd = 0
 launches_bwd = 0
 launches_bwd2 = 0
+launches_bwd_dpt = 0     # of launches_bwd: those that computed dpt
 
 _SHAPES = "C must be at most 128"
 
 
 def reset_launch_counts() -> None:
-    global launches_fwd, launches_bwd, launches_bwd2
+    global launches_fwd, launches_bwd, launches_bwd2, launches_bwd_dpt
     launches_fwd = 0
     launches_bwd = 0
     launches_bwd2 = 0
+    launches_bwd_dpt = 0
 
 
 def pt_rows(num_spherical: int, num_radial: int, has_t: bool) -> int:
@@ -110,18 +116,9 @@ def fused_triplet_pt_bwd_ref(xg, pt, ws, wt, m2, ct, K: int, cfg,
     """Plain first-order VJP: float32 ``(dxg, dpt, dws, dwt)`` of the
     contraction against ``ct [E, C]`` (autograd of the plain forward;
     ``dpt`` None unless ``need_dpt``, ``dwt`` 0 without torsion)."""
-    with torch.enable_grad():
-        xs = _leaves(xg, pt, ws, wt)
-        if not need_dpt:
-            xs[1] = pt.detach().float()
-        out = _contract(*xs, m2, K, cfg, pt.dtype)
-        want = [x for x in xs if x.requires_grad]
-        grads = torch.autograd.grad(out, want, ct.detach().float(),
-                                    allow_unused=True)
-    grads = _zeros_for_unused(grads, want)
-    if not need_dpt:
-        grads.insert(1, None)
-    return grads
+    return _vjp_rows_optional(
+        lambda *xs: _contract(*xs, m2, K, cfg, pt.dtype), (xg, pt, ws, wt),
+        ct, need_dpt)
 
 
 def fused_triplet_pt_bwd2_ref(xg, pt, ws, wt, m2, ct, u1, u2, u4, u5,
@@ -155,7 +152,7 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("triplet_pt")
     if not getattr(lib, "_argtypes_set", False):
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.triplet_pt_blocks.argtypes = [I, I, I]
+        lib.triplet_pt_blocks.argtypes = [I] * 9
         lib.triplet_pt_blocks.restype = I
         lib.triplet_pt_fwd.argtypes = [P] * 6 + [I] * 7 + [P]
         lib.triplet_pt_fwd.restype = I
@@ -216,9 +213,14 @@ def _weight_split(dw, cfg, C):
     return dws, dwt
 
 
-def _scratch(lib, E, K, second_order, cfg, C, dev):
+def _scratch(lib, E, K, second_order, cfg, C, bf16, dpt, dev):
+    """The weight partials of a backward (``second_order`` 0, with ``dpt``
+    or not) or second-order launch, one row a block, and their sum."""
     n, k, has_t = cfg
-    blocks = lib.triplet_pt_blocks(E, K, second_order)
+    blocks = lib.triplet_pt_blocks(E, K, C, n, k, int(bool(has_t)), bf16,
+                                   int(bool(dpt)), second_order)
+    if blocks <= 0:
+        _build.check(blocks, "triplet_pt backward kernel's grid", _SHAPES)
     size = n * k * (1 + (n if has_t else 0)) * C
     return (torch.empty((blocks, size), dtype=torch.float32, device=dev),
             torch.empty(size, dtype=torch.float32, device=dev))
@@ -245,19 +247,19 @@ def triplet_pt_backward_kernel(xg, pt, ws, wt, m2, ct, K, cfg, need_dpt):
     ``[E, C]``); returns ``(dxg, dpt, dws, dwt)``: ``dxg`` in ``xg``'s
     type, ``dpt`` in ``pt``'s (None unless ``need_dpt``), the weight
     gradients float32."""
-    global launches_bwd
+    global launches_bwd, launches_bwd_dpt
     E, C, n, k, has_t = _dims(xg, K, cfg)
     lib = _library()
     dxg = torch.empty_like(xg)
     dpt = torch.empty_like(pt) if need_dpt else None
-    partial, dw = _scratch(lib, E, K, 0, cfg, C, xg.device)
+    bf16 = int(xg.dtype == torch.bfloat16)
+    partial, dw = _scratch(lib, E, K, 0, cfg, C, bf16, need_dpt, xg.device)
     rc = lib.triplet_pt_bwd(
         *map(_build.ptr, (xg, pt, ws, wt, m2, ct, dxg, dpt, partial, dw)),
-        E, K, C, n, k, has_t,
-        int(xg.dtype == torch.bfloat16),
-        _build.stream(xg.device))
+        E, K, C, n, k, has_t, bf16, _build.stream(xg.device))
     _build.check(rc, "triplet_pt backward kernel", _SHAPES)
     launches_bwd += 1
+    launches_bwd_dpt += int(bool(need_dpt))
     return (dxg, dpt, *_weight_split(dw, cfg, C))
 
 
@@ -284,7 +286,8 @@ def triplet_pt_bwd2_kernel(xg, pt, ws, wt, m2, ct, u1, u2, u4, u5, K, cfg):
     xb = torch.empty_like(xg)
     ptb = torch.empty_like(pt)
     ctb = torch.empty((E, C), dtype=torch.float32, device=dev)
-    partial, dw = _scratch(lib, E, K, 1, cfg, C, dev)
+    partial, dw = _scratch(lib, E, K, 1, cfg, C, int(dt == torch.bfloat16),
+                           True, dev)
     rc = lib.triplet_pt_bwd2(
         *map(_build.ptr, (xg, pt, ws, wt, m2, ct, u1, u2, u4, u5, xb, ptb,
                           ctb, partial, dw)),
@@ -324,7 +327,7 @@ class _TripletPT(torch.autograd.Function):
         xg, pt, ws, wt, m2 = ctx.saved_tensors
         need = ctx.needs_input_grad
         dxg, dpt, dws, dwt = _TripletPTBwd.apply(xg, pt, ws, wt, m2, ct, K,
-                                                 cfg, need[1])
+                                                 cfg, _grad_wanted(ctx, 1))
         return (dxg if need[0] else None, dpt, dws if need[2] else None,
                 dwt if need[3] else None, None, None, None)
 

@@ -28,7 +28,15 @@ hand-written kernel of ``csrc/triplet_slot.cu`` or raises; on a CPU tensor
 each level runs its plain version (``fused_triplet_slot_reference``, its
 autograd backward ``fused_triplet_slot_bwd_reference`` and the autograd
 double backward ``fused_triplet_slot_bwd2_reference``). ``launches_fwd``,
-``launches_bwd`` and ``launches_bwd2`` count kernel launches.
+``launches_bwd`` and ``launches_bwd2`` count kernel launches
+(``launches_bwd_dpt`` the backward launches that computed ``dpt``).
+
+A backward computes the rows' cotangent (``dpt``, the geometry op's
+``dgeo``) only when the backward pass now running will use it
+(:func:`_grad_wanted`): a force step's outer pass,
+``loss.backward(inputs=params)``, leaves it out, while the inner
+``torch.autograd.grad(energy, pos, create_graph=True)`` and a plain
+``backward()`` get it.
 
 :func:`fused_triplet_slot_geom` (port of the JAX op of the same name) is
 the same contraction with the basis rows evaluated inside the kernels
@@ -47,7 +55,8 @@ zero geometry gradient. Its tower is :class:`_TripletSlotGeom` ->
 :class:`_TripletSlotGeomBwd` -> the second-order kernels; its plain
 versions ``fused_triplet_slot_geom_reference``, ``_bwd_reference`` and
 ``_bwd2_reference``; ``launches_geom_fwd``, ``launches_geom_bwd`` and
-``launches_geom_bwd2`` count its launches.
+``launches_geom_bwd2`` count its launches (``launches_geom_bwd_dgeo``
+the backward launches that computed ``dgeo``).
 """
 from __future__ import annotations
 
@@ -67,6 +76,8 @@ launches_bwd2 = 0
 launches_geom_fwd = 0
 launches_geom_bwd = 0
 launches_geom_bwd2 = 0
+launches_bwd_dpt = 0          # of launches_bwd: those that computed dpt
+launches_geom_bwd_dgeo = 0    # of launches_geom_bwd: those with dgeo
 
 _SHAPES = "C must be one of 32/64/128"
 
@@ -74,12 +85,15 @@ _SHAPES = "C must be one of 32/64/128"
 def reset_launch_counts() -> None:
     global launches_fwd, launches_bwd, launches_bwd2
     global launches_geom_fwd, launches_geom_bwd, launches_geom_bwd2
+    global launches_bwd_dpt, launches_geom_bwd_dgeo
     launches_fwd = 0
     launches_bwd = 0
     launches_bwd2 = 0
     launches_geom_fwd = 0
     launches_geom_bwd = 0
     launches_geom_bwd2 = 0
+    launches_bwd_dpt = 0
+    launches_geom_bwd_dgeo = 0
 
 
 def basis_pt_k(num_spherical: int, num_radial: int, theta, phi, dk,
@@ -149,17 +163,34 @@ def _zeros_for_unused(grads, like):
             for g, t in zip(grads, like)]
 
 
+def _vjp_rows_optional(contract, args, ct, need_rows):
+    """float32 gradients of ``contract(*leaves)`` against ``ct`` with
+    respect to the four operands ``args``; the second (the rows) is
+    neither a leaf nor differentiated, and its gradient None, unless
+    ``need_rows``."""
+    with torch.enable_grad():
+        xs = _leaves(*args)
+        if not need_rows:
+            xs[1] = args[1].detach().float()
+        out = contract(*xs)
+        want = [t for t in xs if t.requires_grad]
+        grads = torch.autograd.grad(out, want, ct.detach().float(),
+                                    allow_unused=True)
+    grads = _zeros_for_unused(grads, want)
+    if not need_rows:
+        grads.insert(1, None)
+    return grads
+
+
 def fused_triplet_slot_bwd_reference(x, pt, ws, wt, m2T, lj, ct, A: int,
-                                     K: int, cfg):
+                                     K: int, cfg, need_dpt: bool = True):
     """Plain first-order VJP: float32 ``(dx, dpt, dws, dwt)`` of the
     contraction against the output cotangent ``ct [E, C]`` (autograd of
-    the plain version; ``dwt`` is 0 without torsion)."""
-    with torch.enable_grad():
-        xs = _leaves(x, pt, ws, wt)
-        out = _contract(*xs, m2T, lj, A, K, cfg, x.dtype)
-        grads = torch.autograd.grad(out, xs, ct.detach().float(),
-                                    allow_unused=True)
-    return _zeros_for_unused(grads, xs)
+    the plain version; ``dpt`` None unless ``need_dpt``, ``dwt`` 0
+    without torsion)."""
+    return _vjp_rows_optional(
+        lambda *xs: _contract(*xs, m2T, lj, A, K, cfg, x.dtype),
+        (x, pt, ws, wt), ct, need_dpt)
 
 
 def fused_triplet_slot_bwd2_reference(x, pt, ws, wt, m2T, lj, ct, u1, u2,
@@ -278,7 +309,7 @@ def triplet_slot_backward_kernel(x, pt, ws, wt, m2T, lj, ct, A, K, cfg,
                                  need_dpt):
     """Launch the backward kernel; returns float32 ``(dx, dpt, dws, dwt)``,
     ``dpt`` None unless ``need_dpt``. ``ct`` is float32 ``[E, C]``."""
-    global launches_bwd
+    global launches_bwd, launches_bwd_dpt
     n, k, has_t = cfg
     E, C = x.shape
     dev = x.device
@@ -292,6 +323,7 @@ def triplet_slot_backward_kernel(x, pt, ws, wt, m2T, lj, ct, A, K, cfg,
         int(bool(need_dpt)), blocks, _build.stream(dev))
     _build.check(rc, "triplet_slot backward kernel", _SHAPES)
     launches_bwd += 1
+    launches_bwd_dpt += int(bool(need_dpt))
     return (dx, dpt, *_weight_grads(dw, n, k, has_t, C, dev))
 
 
@@ -340,6 +372,25 @@ def _cast(g, t, need):
     return g.to(t.dtype) if need and g is not None else None
 
 
+def _grad_wanted(ctx, i: int) -> bool:
+    """Whether the backward pass now running will use the gradient of the
+    Function's tensor input ``i``. ``ctx.needs_input_grad[i]`` only says
+    that the input required a gradient when the graph was built; a pass
+    run for other inputs (a force step's outer ``loss.backward(inputs=
+    params)``, where the rows lead only to the positions) does not execute
+    the input's node, so its gradient would be computed for nothing. The
+    engine says which nodes it will execute. A leaf input keeps the flag:
+    the engine cannot be asked about a leaf inside ``torch.autograd.grad``,
+    which captures leaves instead of executing them."""
+    if not ctx.needs_input_grad[i]:
+        return False
+    node = ctx.next_functions[i][0]
+    if node is None or isinstance(node, torch._C._functions.AccumulateGrad) \
+            or torch._C._current_graph_task_id() == -1:
+        return True
+    return torch._C._will_engine_execute_node(node)
+
+
 class _TripletSlot(torch.autograd.Function):
     """The contraction. CUDA tensors: the forward kernel; CPU tensors: the
     plain version. Its backward is :class:`_TripletSlotBwd`, so a backward
@@ -361,7 +412,8 @@ class _TripletSlot(torch.autograd.Function):
         x, pt, ws, wt, m2T, lj = ctx.saved_tensors
         need = ctx.needs_input_grad
         dx, dpt, dws, dwt = _TripletSlotBwd.apply(x, pt, ws, wt, m2T, lj, ct,
-                                                  A, K, cfg, need[1])
+                                                  A, K, cfg,
+                                                  _grad_wanted(ctx, 1))
         return (dx if need[0] else None, dpt, dws if need[2] else None,
                 dwt if need[3] else None, None, None, None, None, None)
 
@@ -384,7 +436,7 @@ class _TripletSlotBwd(torch.autograd.Function):
                 ct.float().contiguous(), A, K, cfg, need_dpt)
         else:
             dx, dpt, dws, dwt = fused_triplet_slot_bwd_reference(
-                x, pt, ws, wt, m2T, lj, ct, A, K, cfg)
+                x, pt, ws, wt, m2T, lj, ct, A, K, cfg, need_dpt)
         return (dx.to(x.dtype), _cast(dpt, pt, need_dpt), dws.to(ws.dtype),
                 dwt.to(wt.dtype))
 
@@ -460,15 +512,15 @@ def fused_triplet_slot_geom_reference(x, geo, ws, wt, m2T, lj, A: int,
 
 
 def fused_triplet_slot_geom_bwd_reference(x, geo, ws, wt, m2T, lj, ct,
-                                          A: int, K: int, cfg):
-    """Plain first-order VJP: float32 ``(dx, dgeo, dws, dwt)``."""
-    with torch.enable_grad():
-        xs = _leaves(x, geo, ws, wt)
-        pt = geom_rows_pt(xs[1], m2T, lj, A, cfg)
-        out = _contract(xs[0], pt, xs[2], xs[3], m2T, lj, A, K, cfg, x.dtype)
-        grads = torch.autograd.grad(out, xs, ct.detach().float(),
-                                    allow_unused=True)
-    return _zeros_for_unused(grads, xs)
+                                          A: int, K: int, cfg,
+                                          need_dgeo: bool = True):
+    """Plain first-order VJP: float32 ``(dx, dgeo, dws, dwt)``, ``dgeo``
+    None unless ``need_dgeo``."""
+    return _vjp_rows_optional(
+        lambda x_, g, ws_, wt_: _contract(
+            x_, geom_rows_pt(g, m2T, lj, A, cfg), ws_, wt_, m2T, lj, A, K,
+            cfg, x.dtype),
+        (x, geo, ws, wt), ct, need_dgeo)
 
 
 def fused_triplet_slot_geom_bwd2_reference(x, geo, ws, wt, m2T, lj, ct, u1,
@@ -562,7 +614,7 @@ def triplet_slot_geom_backward_kernel(x, geo, ws, wt, m2T, lj, ct, A, K, cfg,
                                       need_dgeo):
     """Launch the geometry backward; float32 ``(dx, dgeo, dws, dwt)``,
     ``dgeo`` None unless ``need_dgeo``. ``ct`` is float32 ``[E, C]``."""
-    global launches_geom_bwd
+    global launches_geom_bwd, launches_geom_bwd_dgeo
     n, k, has_t = cfg
     E, C = x.shape
     dev = x.device
@@ -577,6 +629,7 @@ def triplet_slot_geom_backward_kernel(x, geo, ws, wt, m2T, lj, ct, A, K, cfg,
         int(bool(need_dgeo)), blocks, _build.stream(dev))
     _build.check(rc, "triplet_slot_geom backward kernel", _SHAPES)
     launches_geom_bwd += 1
+    launches_geom_bwd_dgeo += int(bool(need_dgeo))
     return (dx, dgeo, *_weight_grads(dw, n, k, has_t, C, dev))
 
 
@@ -638,7 +691,7 @@ class _TripletSlotGeom(torch.autograd.Function):
         x, geo, ws, wt, m2T, lj = ctx.saved_tensors
         need = ctx.needs_input_grad
         dx, dgeo, dws, dwt = _TripletSlotGeomBwd.apply(
-            x, geo, ws, wt, m2T, lj, ct, A, K, cfg, need[1])
+            x, geo, ws, wt, m2T, lj, ct, A, K, cfg, _grad_wanted(ctx, 1))
         return (dx if need[0] else None, dgeo, dws if need[2] else None,
                 dwt if need[3] else None, None, None, None, None, None)
 
@@ -660,7 +713,7 @@ class _TripletSlotGeomBwd(torch.autograd.Function):
                 ct.float().contiguous(), A, K, cfg, need_dgeo)
         else:
             dx, dgeo, dws, dwt = fused_triplet_slot_geom_bwd_reference(
-                x, geo, ws, wt, m2T, lj, ct, A, K, cfg)
+                x, geo, ws, wt, m2T, lj, ct, A, K, cfg, need_dgeo)
         return (dx.to(x.dtype), _cast(dgeo, geo, need_dgeo),
                 dws.to(ws.dtype), dwt.to(wt.dtype))
 

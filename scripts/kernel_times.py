@@ -1,8 +1,8 @@
-"""Time the kernels of the slot second order and of the chunked CSR sum on
-one card, per call and per kernel, at chip_smoke.py's shapes, and hash
-their outputs.
+"""Time the backward and second-order triplet kernels and the chunked CSR
+sum on one card, per call and per kernel, at chip_smoke.py's shapes, and
+hash their outputs.
 
-    python scripts/kernel_times.py [--root DIR] [--out FILE]
+    python scripts/kernel_times.py [--root DIR] [--out FILE] [--ops A,B]
 
 ``--root`` names the checkout whose ``dig_tpu_torch`` is timed (default:
 this one), so that two versions of the kernels can be timed in turns in
@@ -12,12 +12,16 @@ batch and seeded operands, the force bench's three bucket batches, path
 are built first, one nvcc each, all at once.
 
 What it times, with CUDA events over repeated bare launches (bf16 and f32):
-the geometry forward, backward (dgeo asked for) and second order at path
-7a's shape (u1 = u4 = u5 absent, as in force training); the triplet_slot
-second order at the three bucket shapes; the chunked sum at path 7b's
-shape beside segment_csr_kernel and torch.segment_reduce. Each second
-order and the chunked sum is also split into its kernels by
-chip_smoke.kernel_split (torch.profiler's device events).
+the geometry forward, backward (dgeo asked for and not) and second order
+at path 7a's shape (u1 = u4 = u5 absent, as in force training); the
+triplet_slot backward (dpt asked for and not) and second order at the
+three bucket shapes of the force bench; the triplet_pt backward (dpt asked
+for and not) at paths 6a's and 6b's shapes; the chunked sum at path 7b's
+shape beside segment_csr_kernel and torch.segment_reduce. Each backward,
+second order and the chunked sum is also split into its kernels by
+chip_smoke.kernel_split (torch.profiler's device events). ``--ops`` keeps
+the ops whose names start with one of the given prefixes (default: all),
+e.g. ``--ops pt_bwd,slot_bwd_A,geom_bwd``.
 
 Before the times, one object per kernel call with a hash of each output's
 bytes (the second orders also with u1 = u4 = u5 present), so that two
@@ -38,7 +42,8 @@ from pathlib import Path
 import torch
 
 HERE = Path(__file__).resolve().parent.parent
-SPLIT = ("slot_jvp_kernel", "slot_bwd2_kernel", "sum_partials_kernel",
+SPLIT = ("slot_jvp_kernel", "slot_bwd2_kernel", "slot_bwd_kernel",
+         "triplet_pt_bwd_kernel", "sum_partials_kernel",
          "segment_csr_span_kernel", "segment_csr_chunked_kernel",
          "segment_csr_kernel", "Memset")
 
@@ -63,18 +68,30 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(HERE))
     ap.add_argument("--out", default="")
+    ap.add_argument("--ops", default="")
     a = ap.parse_args()
+    prefixes = [o for o in a.ops.split(",") if o]
+
+    def want(op):
+        return not prefixes or any(op.startswith(o) for o in prefixes)
+
+    def group(name):
+        """Whether an op whose name starts with ``name`` may be kept."""
+        return not prefixes or any(o.startswith(name) or name.startswith(o)
+                                   for o in prefixes)
     root = Path(a.root).resolve()
     sys.path.insert(0, str(root))
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
     from dig_tpu_torch.ops import _build
     from dig_tpu_torch.ops import segment_csr as sc
+    from dig_tpu_torch.ops import triplet_pt as tpt
     from dig_tpu_torch.ops import triplet_slot as ts
     smoke = load_smoke()
     cfg = (smoke.SN_KW["num_spherical"], smoke.SN_KW["num_radial"], True)
     smoke.build_all(_build, {"triplet_slot": ("triplet_slot", None),
                              "segment_csr": ("segment_csr", None),
+                             "triplet_pt": ("triplet_pt", None),
                              "triplet_slot_geom": ("triplet_slot_geom",
                                                    ts.geom_library_spec(cfg))})
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -94,9 +111,12 @@ def main():
     # (op, precision) -> a kernel call; hashed besides, with the outputs of
     # ``extra`` (the second orders with every cotangent present)
     ops, extra = {}, {}
-    batch = smoke.ga_batches(torch, dev, smoke.GA_STEPS)[-1]
-    inp = smoke.ga_kernel_inputs(torch, dev, batch)
+    if group("geom"):
+        batch = smoke.ga_batches(torch, dev, smoke.GA_STEPS)[-1]
+        inp = smoke.ga_kernel_inputs(torch, dev, batch)
     for prec, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        if not group("geom"):
+            break
         args, gcfg = smoke.ga_args(torch, inp, True, dt)
         k_args = ts._geom_kernel_inputs(*args, A, K, gcfg)
         ct32 = inp["ct"].to(dt).float().contiguous()
@@ -108,6 +128,10 @@ def main():
             lambda k_args=k_args, ct32=ct32, g=gcfg:
             ts.triplet_slot_geom_backward_kernel(*k_args, ct32, A, K, g,
                                                  True))
+        ops[("geom_bwd_nodgeo", prec)] = (
+            lambda k_args=k_args, ct32=ct32, g=gcfg:
+            ts.triplet_slot_geom_backward_kernel(*k_args, ct32, A, K, g,
+                                                 False))
         ops[("geom_bwd2", prec)] = (
             lambda k_args=k_args, ct32=ct32, g=gcfg:
             ts.triplet_slot_geom_bwd2_kernel(*k_args, ct32, None, ug, None,
@@ -117,13 +141,19 @@ def main():
             ts.triplet_slot_geom_bwd2_kernel(*k_args, ct32, inp["u1"].to(dt),
                                              ug, inp["u4"], inp["u5"], A, K,
                                              g))
-    batch = smoke.sf_batches(torch, dev, smoke.SF_STEPS + 1)[-1]
+    batch = smoke.sf_batches(torch, dev, smoke.SF_STEPS + 1)[-1] \
+        if group("slot_bwd") else {}
     for Ab, b in batch.items():
         binp = smoke.sn_kernel_inputs(torch, dev, b, Ab)
         for prec, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
             args, ct, us, scfg = smoke.bwd2_args(torch, binp, True, dt, False)
             k_args = ts._kernel_inputs(*args, Ab, K, scfg)
             ct32 = ct.float().contiguous()
+            for dpt in (True, False):
+                ops[(f"slot_bwd_A{Ab}{'_dpt' if dpt else ''}", prec)] = (
+                    lambda k_args=k_args, ct32=ct32, Ab=Ab, g=scfg, dpt=dpt:
+                    ts.triplet_slot_backward_kernel(*k_args, ct32, Ab, K, g,
+                                                    dpt))
             ops[(f"slot_bwd2_A{Ab}", prec)] = (
                 lambda k_args=k_args, ct32=ct32, us=us, Ab=Ab, g=scfg:
                 ts.triplet_slot_bwd2_kernel(*k_args, ct32, *us, Ab, K, g))
@@ -131,9 +161,27 @@ def main():
             extra[(f"slot_bwd2_A{Ab}_all_u", prec)] = (
                 lambda k_args=k_args, ct32=ct32, us=us_all, Ab=Ab, g=scfg:
                 ts.triplet_slot_bwd2_kernel(*k_args, ct32, *us, Ab, K, g))
-    g = smoke.cs_graph(torch, dev)
+    nk_b = smoke.nk_batches(torch, dev, smoke.NK_STEPS + 1)[-1] \
+        if group("pt_bwd") else None
+    for path in smoke.PT_PATHS:
+        if not group(f"pt_bwd_{path}"):
+            continue
+        pinp = smoke.pt_kernel_inputs(torch, dev, nk_b, path)
+        Kp, pcfg = pinp["K"], pinp["cfg"]
+        for prec, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            k_args = tpt._kernel_inputs(*smoke.pt_args(torch, pinp, dt), Kp,
+                                        pcfg)
+            ct32 = pinp["ct"].to(dt).float().contiguous()
+            for dpt in (True, False):
+                ops[(f"pt_bwd_{path}{'_dpt' if dpt else ''}", prec)] = (
+                    lambda k_args=k_args, ct32=ct32, Kp=Kp, g=pcfg, dpt=dpt:
+                    tpt.triplet_pt_backward_kernel(*k_args, ct32, Kp, g, dpt))
+    g = smoke.cs_graph(torch, dev) if group("chunked") or group("csr") \
+        else None
     library = {}
     for prec, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        if g is None:
+            break
         data, seg, rp, N = g["data"].to(dt), g["seg"], g["rowptr"], g["N"]
         BN, EB, meta_np, _ = sc.choose_chunk_plan(g["rowptr_np"], N,
                                                   data.shape[1], dt)
@@ -147,6 +195,9 @@ def main():
             lambda data=data, rp=rp: torch.segment_reduce(
                 data, "sum", offsets=rp.long(), axis=0))
 
+    ops = {key: fn for key, fn in ops.items() if want(key[0])}
+    extra = {key: fn for key, fn in extra.items() if want(key[0])}
+    library = {key: fn for key, fn in library.items() if want("chunked")}
     for (op, prec), fn in list(ops.items()) + list(extra.items()):
         outs = fn()
         torch.cuda.synchronize()
@@ -155,7 +206,7 @@ def main():
     for (op, prec), fn in list(ops.items()) + list(library.items()):
         ms = smoke.cuda_ms(torch, fn, iters=50 if op in (
             "chunked", "csr", "segment_reduce") else 20)
-        split = smoke.kernel_split(torch, fn, SPLIT) if "bwd2" in op or \
+        split = smoke.kernel_split(torch, fn, SPLIT) if "bwd" in op or \
             op == "chunked" else {}
         emit(op=op, precision=prec, ms=ms,
              kernels={k: v for k, v in split.items() if v > 0})

@@ -178,3 +178,57 @@ def test_cuda_input_without_kernel_shape_raises():
     args, _, _, K, cfg = _inputs(dev, torch.float32, 5, 4, 160, 3, 4, True)
     with pytest.raises(ValueError, match="up to 128"):
         op.fused_triplet_pt(*args, K, 128, cfg)
+
+
+# The backward lists each window's real triplets and walks them in batches
+# of 64 (csrc/triplet_pt.cu): (E, K, C, n, k, has_t, mask) for the cases
+# the compacted walk and its register tiles make risky. mask: "empty" (the
+# first 200 edges, whole windows, without a real triplet), "full" (every
+# triplet real), "ragged" (67 real triplets: not a multiple of the batch or
+# of a warp's 4 triplets)
+COMPACT = {"empty_windows": (300, 16, 64, 3, 6, True, "empty"),
+           "all_real": (300, 16, 64, 3, 6, True, "full"),
+           "ragged": (37, 4, 64, 3, 6, True, "ragged"),
+           "c32": (300, 16, 32, 3, 6, True, "random"),
+           "c128": (300, 16, 128, 3, 6, True, "random"),
+           "no_torsion": (300, 16, 64, 7, 6, False, "random")}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(COMPACT))
+def test_backward_compacted_walk(case, dtype):
+    """The backward with dpt asked for and not against the plain version:
+    dxg rows and dpt columns exactly 0 at masked triplets, the other
+    gradients the same bits without dpt, three calls the same bits."""
+    from dig_tpu_torch.ops import triplet_pt as op
+    dev = _device()
+    E, K, C, n, k, has_t, how = COMPACT[case]
+    args, ct, _, K, cfg = _inputs(dev, dtype, E, K, C, n, k, has_t)
+    m = args[4]
+    if how == "empty":
+        m[:200] = 0
+    elif how == "full":
+        m.fill_(1)
+    elif how == "ragged":
+        m.zero_()
+        g = torch.Generator(device="cpu").manual_seed(5)
+        m.view(-1)[torch.randperm(E * K, generator=g)[:67].to(dev)] = 1
+    masked = m.reshape(-1) == 0
+    k_args = op._kernel_inputs(*args, K, cfg)
+    ct32 = ct.float().contiguous()
+    runs = [op.triplet_pt_backward_kernel(*k_args, ct32, K, cfg, True)
+            for _ in range(3)]
+    no_dpt = op.triplet_pt_backward_kernel(*k_args, ct32, K, cfg, False)
+    torch.cuda.synchronize()
+    for again in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(again, runs[0]))
+    assert no_dpt[1] is None
+    for i in (0, 2, 3):
+        assert torch.equal(no_dpt[i], runs[0][i])
+    want = op.fused_triplet_pt_bwd_ref(*args, ct, K, cfg)
+    for name, a, w in zip(("dxg", "dpt", "dws", "dwt"), runs[0], want):
+        assert torch.isfinite(a).all(), name
+        if name == "dwt" and not cfg[2]:
+            continue
+        assert _rel(a, w) < TOL[a.dtype], name
+        assert not bool(masked.any()) or _masked_zero(name, a, masked), name

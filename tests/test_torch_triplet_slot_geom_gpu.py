@@ -235,3 +235,67 @@ def test_second_order_many_rows_few_channels(dtype):
         again = ts.triplet_slot_geom_bwd2_kernel(*k_args, ct32, *present, A,
                                                  K, cfg)
         assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+# The backward lists each (slot, s) block's real triplets and walks them 32
+# at a time, the rows' gradients across the block: (A, K, G, C, has_t,
+# mask) for the cases the compacted walk and its register tiles make
+# risky. mask: "empty" (slot 0 without a real triplet), "full" (every
+# triplet real), "ragged" (37 real triplets in all), "out" (a tenth of the
+# senders outside the slot)
+COMPACT = {"empty_slot": (29, 16, 4, 64, True, "empty"),
+           "all_real": (16, 16, 4, 64, True, "full"),
+           "ragged": (24, 16, 4, 64, True, "ragged"),
+           "c32": (29, 16, 4, 32, True, "out"),
+           "c128": (29, 16, 4, 128, True, "out"),
+           "no_torsion": (29, 16, 4, 64, False, "out")}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(COMPACT))
+def test_backward_compacted_walk(case, dtype):
+    """The backward with dgeo asked for and not against the plain version:
+    dgeo exactly 0 at every masked triplet (m2T = 0 or lj outside [0, A)),
+    the other gradients the same bits without dgeo, three calls the same
+    bits."""
+    from dig_tpu_torch.ops import triplet_slot as ts
+    dev = _device()
+    A, K, G, C, has_t, how = COMPACT[case]
+    args, ct, _, (A, K, cfg) = _inputs(dev, dtype, A, K, G, C, has_t)
+    geo, m2T, lj = args[1].clone(), args[4], args[5].clone()
+    g = torch.Generator(device="cpu").manual_seed(5)
+    if how == "empty":
+        m2T[:, :A * K] = 0
+    elif how == "full":
+        m2T.fill_(1)
+    elif how == "ragged":
+        m2T.zero_()
+        m2T.view(-1)[torch.randperm(m2T.numel(), generator=g)[:37].to(dev)] = 1
+    elif how == "out":
+        out = torch.rand(lj.shape, generator=g).to(dev) < 0.1
+        lj[out] = torch.where(torch.rand(lj.shape, generator=g).to(dev)[out]
+                              < 0.5, -1, A + 2).to(lj.dtype)
+    # real triplets keep d_kj / cutoff in [0.01, 1] (the Bessel rows' poles)
+    geo[:, -1] = torch.where(m2T != 0, geo[:, -1].clamp_min(0.01), 0.0)
+    args = [args[0], geo] + args[2:5] + [lj]
+    k_args = ts._geom_kernel_inputs(*args, A, K, cfg)
+    ct32 = ct.float().contiguous()
+    runs = [ts.triplet_slot_geom_backward_kernel(*k_args, ct32, A, K, cfg,
+                                                 True) for _ in range(3)]
+    no_dgeo = ts.triplet_slot_geom_backward_kernel(*k_args, ct32, A, K, cfg,
+                                                   False)
+    torch.cuda.synchronize()
+    for again in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(again, runs[0]))
+    assert no_dgeo[1] is None
+    for i in (0, 2, 3):
+        assert torch.equal(no_dgeo[i], runs[0][i])
+    live = (m2T != 0) & ((lj[0] >= 0) & (lj[0] < A))[None, :]
+    dgeo = runs[0][1]
+    assert float(dgeo.abs().masked_fill(live[:, None, :], 0.0).max()) == 0.0
+    want = ts.fused_triplet_slot_geom_bwd_reference(*args, ct, A, K, cfg)
+    for name, a, b in zip(NAMES, runs[0], want):
+        assert torch.isfinite(a).all(), name
+        if name == "dwt" and not has_t:
+            continue
+        assert _rel(a.to(dtype), b.to(dtype)) < TOL[dtype][0], name

@@ -209,3 +209,64 @@ def test_bwd2_repeatable_and_zero_at_masked(A, dtype):
     want = ts.fused_triplet_slot_bwd2_reference(*args, ct, *us, A, K, cfg)
     for name, a, b in zip(NAMES2, runs[0], want):
         assert _rel(a, b) < 1e-4, name
+
+
+# The backward lists each (slot, s) block's real triplets and walks them 32
+# at a time: (A, K, G, C, n, k, has_t, mask) for the cases the compacted
+# walk and its register tiles make risky. mask: "empty" (slot 0 without a
+# real triplet), "full" (every triplet real), "ragged" (37 real triplets
+# in all: counts that are not multiples of 32), "out" (a tenth of the
+# senders outside the slot)
+COMPACT = {"empty_slot": (29, 16, 4, 64, 3, 6, True, "empty"),
+           "all_real": (16, 16, 4, 64, 3, 6, True, "full"),
+           "ragged": (24, 16, 4, 64, 3, 6, True, "ragged"),
+           "c32": (29, 16, 4, 32, 3, 6, True, "out"),
+           "c128": (29, 16, 4, 128, 3, 6, True, "out"),
+           "no_torsion": (29, 16, 4, 64, 7, 6, False, "out")}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(COMPACT))
+def test_backward_compacted_walk(case, dtype):
+    """The backward with dpt asked for and not against the plain version:
+    dpt exactly 0 at every masked triplet (m2T = 0 or lj outside [0, A)),
+    the other gradients the same bits without dpt, three calls the same
+    bits."""
+    from dig_tpu_torch.ops import triplet_slot as ts
+    dev = _device()
+    A, K, G, C, n, k, has_t, how = COMPACT[case]
+    args, ct, (A, K, cfg) = _inputs(dev, dtype, A, K, G, C, n, k, has_t)
+    m2T, lj = args[4], args[5].clone()
+    g = torch.Generator(device="cpu").manual_seed(5)
+    if how == "empty":
+        m2T[:, :A * K] = 0
+    elif how == "full":
+        m2T.fill_(1)
+    elif how == "ragged":
+        m2T.zero_()
+        m2T.view(-1)[torch.randperm(m2T.numel(), generator=g)[:37].to(dev)] = 1
+    elif how == "out":
+        out = torch.rand(lj.shape, generator=g).to(dev) < 0.1
+        lj[out] = torch.where(torch.rand(lj.shape, generator=g).to(dev)[out]
+                              < 0.5, -1, A + 2).to(lj.dtype)
+    args = args[:5] + [lj]
+    k_args = ts._kernel_inputs(*args, A, K, cfg)
+    ct32 = ct.float().contiguous()
+    runs = [ts.triplet_slot_backward_kernel(*k_args, ct32, A, K, cfg, True)
+            for _ in range(3)]
+    no_dpt = ts.triplet_slot_backward_kernel(*k_args, ct32, A, K, cfg, False)
+    torch.cuda.synchronize()
+    for again in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(again, runs[0]))
+    assert no_dpt[1] is None
+    for i in (0, 2, 3):
+        assert torch.equal(no_dpt[i], runs[0][i])
+    live = (m2T != 0) & ((lj[0] >= 0) & (lj[0] < A))[None, :]
+    dpt = runs[0][1]
+    assert float(dpt.abs().masked_fill(live[:, None, :], 0.0).max()) == 0.0
+    want = ts.fused_triplet_slot_bwd_reference(*args, ct, A, K, cfg)
+    for name, a, b in zip(NAMES, runs[0], want):
+        assert torch.isfinite(a).all(), name
+        if name == "dwt" and not has_t:
+            continue
+        assert _rel(a.to(dtype), b.to(dtype)) < TOL[dtype], name
