@@ -2071,6 +2071,16 @@ def phase_nk_main_path(torch, cf, ts, sc, tp, tpt, dev, batches, path):
         if with_dpt != L * n:
             fail(f"path {path}: triplet_pt backward launches with dpt "
                  f"{with_dpt} != {L * n} (the inner pass's only)")
+    else:
+        with_basis, want_basis = tp.launches_bwd_basis, L * n if force else 0
+        log(f"  triplet_product backward launches with basis cotangents "
+            f"{with_basis}, without {launches[1] - with_basis} (per step "
+            f"{with_basis // n} of {launches[1] // n}: "
+            + ("the inner create_graph pass needs them, the outer pass does "
+               "not)" if force else "pallas_basis_grads=False)"))
+        if with_basis != want_basis:
+            fail(f"path {path}: triplet_product backward launches with basis "
+                 f"cotangents {with_basis} != {want_basis}")
     out = eval_step(batches[0])
     m = out["graph_mask"]
     mae = ThreeDEvaluator().eval({"y_pred": out["y_pred"][m],
@@ -2157,9 +2167,11 @@ def nk_library_fwd(torch, args, K):
 def phase_nk_times(torch, tp, inputs):
     """One call of each kernel per layer at each path's shape, the bare
     launch on validated operands (CUDA events), beside its bound and the
-    plain version's time. The forward also beside the einsum that computes
-    it (library_ms), held once to the plain forward; no PyTorch call
-    returns the backward's or the second order's cotangents."""
+    plain version's time; at path 5a the backward both with the basis
+    cotangents (the force step's inner pass) and without (its outer pass).
+    The forward also beside the einsum that computes it (library_ms), held
+    once to the plain forward; no PyTorch call returns the backward's or
+    the second order's cotangents."""
     opt = torch.backends.opt_einsum.is_available()
     log(f"  torch.einsum contraction order: "
         f"{'opt_einsum' if opt else 'left to right'}")
@@ -2187,11 +2199,17 @@ def phase_nk_times(torch, tp, inputs):
                     *k_args, ct32, K, basis),
                 "bwd2": lambda: tp.triplet_product_bwd2_kernel(
                     *k_args, ct32, *us, K)}
-            kinds = ("fwd", "bwd", "bwd2") if basis else ("fwd", "bwd")
+            kern["bwd_nobasis"] = lambda: tp.triplet_product_backward_kernel(
+                *k_args, ct32, K, False)
+            plain["bwd_nobasis"] = lambda: \
+                tp.fused_triplet_product_bwd_reference(*args, ct, K, False)
+            kinds = ("fwd", "bwd", "bwd_nobasis", "bwd2") if basis \
+                else ("fwd", "bwd")
             for kind in kinds:
                 ms = cuda_ms(torch, kern[kind])
                 p_ms = cuda_ms(torch, plain[kind], iters=3, warmup=1)
-                b = nk_bounds(args, inp, prec, kind, basis)
+                b = nk_bounds(args, inp, prec, kind[:3] if kind != "bwd2"
+                              else kind, basis and kind != "bwd_nobasis")
                 lib_ms = lib_err = None
                 if kind == "fwd":
                     lib = nk_library_fwd(torch, args, K)
@@ -2202,7 +2220,8 @@ def phase_nk_times(torch, tp, inputs):
                     lib_ms = cuda_ms(torch, lib, iters=3, warmup=1)
                     torch.cuda.empty_cache()
                 rows.append({"kernel": f"triplet_product_{kind}", "path": path,
-                             "precision": prec, "basis_grads": basis,
+                             "precision": prec,
+                             "basis_grads": basis and kind != "bwd_nobasis",
                              "ms": ms, "plain_ms": p_ms, "bound_ms": b[0],
                              "bound_by": b[1], "flops": b[2], "bytes": b[3],
                              "library_ms": lib_ms, "library_err": lib_err,

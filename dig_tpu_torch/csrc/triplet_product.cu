@@ -48,33 +48,56 @@
 // What the design does about it (simple and right first; wgmma for the
 // basis products and TMA are later work):
 //  - Every input row is read once per pass and every output written once;
-//    masked triplets are skipped (warp-uniform branch) and their output
-//    rows written as zeros. T is not padded: the kernels bound every index.
+//    masked triplets are skipped (warp-uniform branch, or left out of the
+//    backward's list) and their output rows written as zeros. T is not
+//    padded: the kernels bound every index.
 //  - ws | wt (and u4 | u5) are staged in shared memory, rows of C+1 floats,
 //    so reads with c across lanes (the products) and with the basis row
 //    across lanes (dsbf, sb) are free of bank conflicts.
 //  - Forward: a warp per edge, lanes over C (Q channels a lane), k walked in
 //    order, float32 registers; the warp stages each triplet's basis row in
 //    shared memory. Blocks walk the edges grid-stride.
-//  - Backward and second order: a block takes chunks of CE whole edges
-//    (TC = CE K triplets), a warp per triplet forms the per-channel
-//    cotangents into shared memory; then each thread owns entries of the
-//    weight cotangents (dws | dwt, wsb | wtb) and adds the chunk's triplets
-//    in order, and the second order's ctb sums each edge's K triplets in
-//    order. The per-block weight sums go to a [blocks, ...] scratch and
-//    sum_partials_kernel adds them in a fixed order. The block count
-//    depends only on the shapes, and no atomics are used: repeated calls
-//    give the same bits.
+//  - Backward (triplet_product_bwd_kernel): about 57% of the triplets are
+//    masked, and the first kernel's serial loops (a warp per triplet, one
+//    shared load per operand, a weight-cotangent loop over every triplet
+//    of a 32-triplet chunk, a barrier a chunk) left it at 3% of its byte
+//    bound, slower than its plain version. It now walks as
+//    triplet_pt_bwd_kernel does (window_list.cuh): a block deals itself the
+//    same 32-triplet chunks (b, b + G, ...) a window of about 1024 triplets
+//    at a time, lists the window's real triplets in triplet order by warp
+//    ballots, writes the masked ones' dxg rows as 0 in 16-byte stores (a
+//    bf16 dsbf | dtbf row is not 16-byte aligned: with BASIS the window's
+//    chunks are zeroed whole, then the real rows written), and walks the
+//    list 64 triplets a barrier. The batch's sbf | tbf rows are staged as [64][NB padded to
+//    4] by coalesced scalar loads (a bf16 row is 36 or 108 bytes, not
+//    16-byte aligned); products 4 triplets a warp, rows read as float4,
+//    each weight loaded once for the 4; dws | dwt a thread's channel x up
+//    to 24 rows (36 at C > 64) in registers, read as float4; dsbf | dtbf
+//    4 x 3 register tiles. The grid is SMs x the occupancy of the
+//    instance with basis gradients, so both instances deal the chunks
+//    alike. ptxas (sm_90a): 100-128 registers, no spills; two blocks of
+//    256 threads an SM at SphereNet's widths (one at C = 128).
+//  - Second order: a block takes chunks of CE whole edges (TC = CE K
+//    triplets), a warp per triplet forms the per-channel cotangents into
+//    shared memory; then each thread owns entries of wsb | wtb and adds the
+//    chunk's triplets in order, and ctb sums each edge's K triplets in
+//    order.
+//  - Every sum keeps the order of the masked walk: over rows and channels
+//    from 0, over a block's real triplets in triplet order. The per-block
+//    weight sums go to a [blocks, ...] scratch and sum_partials_kernel adds
+//    them in a fixed order. The block count depends only on the shapes and
+//    the card, and no atomics are used: repeated calls give the same bits.
 #include <stdint.h>
 
 #include "common.cuh"
+#include "window_list.cuh"
 
 namespace {
 
 constexpr int NT = 256;        // threads per block
 constexpr int NW = NT / 32;    // warps per block
 constexpr int FWD_GRID = 1056; // forward: at most 8 blocks per SM
-constexpr int BWD_GRID = 264;  // backward passes: a fixed block count
+constexpr int BWD2_GRID = 264; // second order: a fixed block count
 
 template <typename T>
 struct Params {
@@ -209,83 +232,251 @@ __device__ __forceinline__ void zero_row(T* dst, size_t t, int width, int lane) 
   for (int r = lane; r < width; r += 32) st(dst + t * width + r, 0.f);
 }
 
+// Backward tiles: a batch of BB real triplets; products TE triplets a warp;
+// dsbf | dtbf TE2 triplets x TR rows a thread (TR odd: no bank conflicts on
+// the weights' C + 1 stride).
+constexpr int BB = 64, TE = 4, TE2 = 4, TR = 3;
+constexpr int WINDOW = 1024;  // triplets a block lists at a time
+
+// Floats of the backward's shared memory for BW chunks of TC triplets a
+// window (bwd_layout's order).
+struct BwdLayout {
+  int NBp, CP, W, rounds;
+  size_t w_s, dW_s, bas, gs, gt, m_s, lst, wcnt, bits, total;
+};
+
+template <typename T, bool HAS_T>
+__host__ __device__ inline BwdLayout bwd_layout(const Params<T>& p, int TC) {
+  BwdLayout L;
+  L.NBp = (p.NB + 3) & ~3;  // float4 rows of sbf | tbf
+  L.CP = p.C + 1;
+  const int BW = TC >= WINDOW ? 1 : WINDOW / TC;
+  L.W = BW * TC;
+  L.rounds = (L.W + NT - 1) / NT;
+  L.w_s = 0;
+  L.dW_s = L.w_s + (size_t)p.NB * (p.C + 1);
+  L.bas = (L.dW_s + (size_t)p.NB * p.C + 3) & ~(size_t)3;  // 16-byte aligned
+  L.gs = L.bas + (size_t)BB * L.NBp;
+  L.gt = L.gs + (size_t)BB * L.CP;
+  L.m_s = L.gt + (HAS_T ? (size_t)BB * L.CP : 0);
+  L.lst = L.m_s + BB;
+  L.wcnt = L.lst + L.W;
+  L.bits = L.wcnt + (size_t)L.rounds * NW;
+  L.total = L.bits + (size_t)L.rounds * NW;
+  return L;
+}
+
+// The backward, walked as triplet_pt_bwd_kernel walks its own: block b owns
+// the chunks of TC = CE K triplets b, b + G, b + 2G, ... (G = gridDim.x)
+// and takes them a window of BW chunks at a time (window_list.cuh): the
+// window's real triplets are listed in triplet order by warp ballots, the
+// masked ones get their dxg rows (and, with BASIS, dsbf and dtbf rows)
+// written as 0 (zero_masked_rows), and the list is walked BB triplets at a
+// time. Per batch:
+// the sbf | tbf rows staged as [BB][NBp] (coalesced scalar loads: a bf16
+// row of 18 or 54 values is not 16-byte aligned); sv, tv, dxg and the
+// cotangents gs, gt of sv, tv (a warp per TE triplets, lanes over the
+// channels, rows read as float4, each weight loaded once for the warp's
+// triplets); the block's dws | dwt (each entry owned by one thread, a row
+// block of up to WTM rows kept in registers over the batch and read as
+// float4); with BASIS, dsbf | dtbf = gs @ ws^T | gt @ wt^T as TE2 x TR
+// register tiles (over the staged rows, dead by then), written row by row.
+// Every sum keeps the order of the masked walk over the same chunks: sv, tv
+// over the rows from 0, dsbf | dtbf over the channels from 0, dws | dwt
+// over the block's real triplets in triplet order.
 template <typename T, int Q, bool HAS_T, bool BASIS>
-__global__ void __launch_bounds__(NT) triplet_product_bwd_kernel(Params<T> p) {
+__global__ void __launch_bounds__(NT, 2) triplet_product_bwd_kernel(Params<T> p) {
+  constexpr int WTM = Q == 2 ? 24 : 36;  // dws | dwt rows of a thread's register block
   extern __shared__ __align__(16) float smem[];
-  const int C = p.C, NB = p.NB, S1 = p.S1, K = p.K;
-  const int TC = p.CE * K;
+  const int C = p.C, NB = p.NB, S1 = p.S1, S2 = p.S2, K = p.K, TC = p.CE * K;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, tid = threadIdx.x;
-  float* w_s = smem;                   // [NB][C+1]
-  float* dW_s = w_s + NB * (C + 1);    // [NB][C] dws | dwt of this block
-  float* bas = dW_s + NB * C;          // [TC][NB] sbf | tbf rows
-  float* gs = bas + TC * NB;           // [TC][C] cotangent of s
-  float* gt = gs + TC * C;             // [TC][C] cotangent of tv (torsion)
-  float* m_s = gt + (HAS_T ? TC * C : 0);  // [TC]
+  const BwdLayout L = bwd_layout<T, HAS_T>(p, TC);
+  const int NBp = L.NBp, CP = L.CP, W = L.W;
+  float* w_s = smem + L.w_s;    // [NB][C+1] ws | wt
+  float* dW_s = smem + L.dW_s;  // [NB][C] dws | dwt of this block
+  float* bas = smem + L.bas;    // [BB][NBp] sbf | tbf, then (BASIS) dsbf | dtbf
+  float* gs = smem + L.gs;      // [BB][C+1] cotangent of s
+  float* gt = smem + L.gt;      // [BB][C+1] cotangent of tv (torsion)
+  float* m_s = smem + L.m_s;    // [BB]
+  int* lst = reinterpret_cast<int*>(smem + L.lst);            // [W] real triplets
+  int* wcnt = reinterpret_cast<int*>(smem + L.wcnt);          // [rounds * NW]
+  unsigned* bits = reinterpret_cast<unsigned*>(smem + L.bits);  // [rounds * NW]
   stage_rows(p, p.ws, p.wt, w_s);
   for (int x = tid; x < NB * C; x += NT) dW_s[x] = 0.f;
   const size_t Tn = (size_t)p.E * K;
   const int chunks = (p.E + p.CE - 1) / p.CE;
+  const int G = gridDim.x, BW = W / TC;
+  // dws | dwt: thread items (channel c, a block of rpg rows), rpg a multiple
+  // of 4 of about NB C / NT rows, at most WTM
+  int rpg = (NB * C + NT - 1) / NT;
+  rpg = min(WTM, (rpg + 3) & ~3);
+  const int ngroups = (NB + rpg - 1) / rpg;
 
-  for (int ch = blockIdx.x; ch < chunks; ch += gridDim.x) {
-    const size_t t0 = (size_t)ch * TC;
-    __syncthreads();  // the previous chunk's sums are done with the buffers
-    for (int tl = warp; tl < TC; tl += NW) {
-      const size_t t = t0 + tl;
-      const float m = t < Tn ? ld(p.mask + t) : 0.f;
-      if (lane == 0) m_s[tl] = m;
-      if (t >= Tn) continue;
-      if (m == 0.f) {
-        zero_row(p.dxg, t, C, lane);
-        if constexpr (BASIS) {
-          zero_row(p.dsbf, t, S1, lane);
-          if constexpr (HAS_T) zero_row(p.dtbf, t, p.S2, lane);
-        }
-        continue;
-      }
-      float* b = bas + tl * NB;
-      load_row(p, p.sbf, p.tbf, t, b, lane);
-      __syncwarp();
-      float sv[Q], tv[Q];
-      row_products<Q, HAS_T>(b, w_s, S1, NB, C, lane, sv, tv);
-      const size_t e = t / K;
-#pragma unroll
-      for (int q = 0; q < Q; ++q) {
-        const int c = lane + 32 * q;
-        if (c < C) {
-          const float go = p.ct[e * C + c] * m;
-          const float x = ld(p.xg + t * C + c);
-          float d = go * sv[q], g1 = go * x;
-          if constexpr (HAS_T) {
-            d *= tv[q];
-            gt[tl * C + c] = g1 * sv[q];
-            g1 *= tv[q];
-          }
-          st(p.dxg + t * C + c, d);
-          gs[tl * C + c] = g1;
-        }
-      }
-      __syncwarp();
-      if constexpr (BASIS) {
-        // dsbf = gs @ ws^T, dtbf = gt @ wt^T: lanes over the basis row
-        for (int r = lane; r < NB; r += 32) {
-          if (r < S1) {
-            st(p.dsbf + t * S1 + r, row_dot(gs + tl * C, w_s, r, C));
-          } else if constexpr (HAS_T) {
-            st(p.dtbf + t * p.S2 + (r - S1), row_dot(gt + tl * C, w_s, r, C));
-          }
-        }
-      }
+  for (int w0 = blockIdx.x; w0 < chunks; w0 += G * BW) {
+    const Window win{w0, G, TC, W, chunks, Tn};
+    const int nl = list_window<NT>(win, p.mask, lst, wcnt, bits, [](size_t) {});
+    zero_masked_rows<NT>(win, bits, p.dxg, C);
+    if constexpr (BASIS) {
+      zero_masked_rows<NT>(win, bits, p.dsbf, S1);
+      if constexpr (HAS_T) zero_masked_rows<NT>(win, bits, p.dtbf, S2);
     }
-    __syncthreads();
-    // dws | dwt: each (row, c) entry owned by one thread, triplets in order
-    const int cnt = Tn - t0 < (size_t)TC ? (int)(Tn - t0) : TC;
-    for (int x = tid; x < NB * C; x += NT) {
-      const int r = x / C, c = x % C;
-      const float* src = (HAS_T && r >= S1) ? gt : gs;
-      float acc = dW_s[x];
-      for (int tl = 0; tl < cnt; ++tl)
-        if (m_s[tl] != 0.f) acc = fmaf(bas[tl * NB + r], src[tl * C + c], acc);
-      dW_s[x] = acc;
+
+    for (int b0 = 0; b0 < nl; b0 += BB) {
+      const int cnt = min(BB, nl - b0);
+      const int* ids = lst + b0;
+      __syncthreads();  // the list is written; the previous batch is done
+      // sbf | tbf rows; zero past cnt and NB
+      for (int x = tid; x < BB * NBp; x += NT) {
+        const int i = x / NBp, r = x % NBp;
+        float v = 0.f;
+        if (i < cnt && r < NB) {
+          const size_t t = (size_t)ids[i];
+          v = r < S1 ? ld(p.sbf + t * S1 + r) : ld(p.tbf + t * S2 + (r - S1));
+        }
+        bas[x] = v;
+      }
+      for (int i = tid; i < BB; i += NT) m_s[i] = i < cnt ? ld(p.mask + ids[i]) : 0.f;
+      __syncthreads();
+      // sv, tv of TE triplets a warp; dxg, gs, gt
+      for (int e0 = warp * TE; e0 < cnt; e0 += NW * TE) {
+        float sv[TE][Q], tv[TE][Q];
+#pragma unroll
+        for (int e = 0; e < TE; ++e)
+#pragma unroll
+          for (int q = 0; q < Q; ++q) sv[e][q] = tv[e][q] = 0.f;
+        for (int r = 0; r < NB; r += 4) {
+          float4 b4[TE];
+#pragma unroll
+          for (int e = 0; e < TE; ++e)
+            b4[e] = *reinterpret_cast<const float4*>(bas + (e0 + e) * NBp + r);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int rr = r + j;
+            if (rr >= NB) break;
+            float wv[Q];
+#pragma unroll
+            for (int q = 0; q < Q; ++q)
+              wv[q] = lane + 32 * q < C ? w_s[rr * (C + 1) + lane + 32 * q] : 0.f;
+#pragma unroll
+            for (int e = 0; e < TE; ++e) {
+              const float bv = j == 0 ? b4[e].x : j == 1 ? b4[e].y : j == 2 ? b4[e].z : b4[e].w;
+#pragma unroll
+              for (int q = 0; q < Q; ++q) {
+                if (rr < S1) sv[e][q] = fmaf(bv, wv[q], sv[e][q]);
+                else tv[e][q] = fmaf(bv, wv[q], tv[e][q]);
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < TE; ++e) {
+          const int i = e0 + e;
+          if (i >= cnt) break;
+          const size_t t = (size_t)ids[i];
+          const size_t ed = t / K;
+          const float m = m_s[i];
+#pragma unroll
+          for (int q = 0; q < Q; ++q) {
+            const int c = lane + 32 * q;
+            if (c < C) {
+              const float go = p.ct[ed * C + c] * m;
+              const float x = ld(p.xg + t * C + c);
+              float d = go * sv[e][q], g1 = go * x;
+              if constexpr (HAS_T) {
+                d *= tv[e][q];
+                gt[i * CP + c] = g1 * sv[e][q];
+                g1 *= tv[e][q];
+              }
+              st(p.dxg + t * C + c, d);
+              gs[i * CP + c] = g1;
+            }
+          }
+        }
+      }
+      __syncthreads();
+      // dws | dwt: item (c, row block), the block's rows in registers, the
+      // batch's triplets in order
+      for (int it = tid; it < C * ngroups; it += NT) {
+        const int c = it % C, r0 = (it / C) * rpg;
+        const int r1 = min(NB, r0 + rpg);
+        float acc[WTM];
+#pragma unroll
+        for (int j = 0; j < WTM; ++j) acc[j] = r0 + j < r1 ? dW_s[(r0 + j) * C + c] : 0.f;
+        for (int i = 0; i < cnt; ++i) {
+          const float g_s = gs[i * CP + c];
+          const float g_t = HAS_T ? gt[i * CP + c] : 0.f;
+          const float* brow = bas + i * NBp + r0;
+#pragma unroll
+          for (int j4 = 0; j4 < WTM / 4; ++j4) {
+            if (r0 + 4 * j4 >= r1) break;
+            const float4 b4 = *reinterpret_cast<const float4*>(brow + 4 * j4);
+            const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const int rr = r0 + 4 * j4 + j;
+              if (rr < r1) acc[4 * j4 + j] = fmaf(bv[j], rr < S1 ? g_s : g_t, acc[4 * j4 + j]);
+            }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < WTM; ++j)
+          if (r0 + j < r1) dW_s[(r0 + j) * C + c] = acc[j];
+      }
+      if constexpr (BASIS) {
+        __syncthreads();  // sbf | tbf are dead: dsbf | dtbf go there
+        // dsbf = gs @ ws^T, dtbf = gt @ wt^T: TE2 triplets x TR rows a
+        // thread, rows of a tile all of ws or all of wt, each sum over c
+        // from 0
+        const int rts = (S1 + TR - 1) / TR;
+        const int rtl = rts + (HAS_T ? (S2 + TR - 1) / TR : 0);
+        const int etl = (cnt + TE2 - 1) / TE2;
+        for (int x = tid; x < etl * rtl; x += NT) {
+          const int et = x / rtl, rt = x % rtl;
+          const bool sr = rt < rts;
+          const int r0 = sr ? rt * TR : S1 + (rt - rts) * TR;
+          const int r1 = sr ? S1 : NB;
+          const float* g = sr ? gs : gt;
+          const float* wr[TR];
+          int es[TE2];
+#pragma unroll
+          for (int i = 0; i < TR; ++i) wr[i] = w_s + min(r0 + i, r1 - 1) * (C + 1);
+#pragma unroll
+          for (int e = 0; e < TE2; ++e) es[e] = min(et * TE2 + e, cnt - 1) * CP;
+          float acc[TE2][TR];
+#pragma unroll
+          for (int e = 0; e < TE2; ++e)
+#pragma unroll
+            for (int i = 0; i < TR; ++i) acc[e][i] = 0.f;
+          for (int c = 0; c < C; ++c) {
+            float gv[TE2], wv[TR];
+#pragma unroll
+            for (int e = 0; e < TE2; ++e) gv[e] = g[es[e] + c];
+#pragma unroll
+            for (int i = 0; i < TR; ++i) wv[i] = wr[i][c];
+#pragma unroll
+            for (int e = 0; e < TE2; ++e)
+#pragma unroll
+              for (int i = 0; i < TR; ++i) acc[e][i] = fmaf(gv[e], wv[i], acc[e][i]);
+          }
+#pragma unroll
+          for (int e = 0; e < TE2; ++e) {
+            const int i = et * TE2 + e;
+            if (i >= cnt) continue;
+#pragma unroll
+            for (int k2 = 0; k2 < TR; ++k2)
+              if (r0 + k2 < r1) bas[i * NBp + r0 + k2] = acc[e][k2];
+          }
+        }
+        __syncthreads();
+        // the batch's dsbf | dtbf rows, lanes along each row
+        for (int x = tid; x < cnt * NB; x += NT) {
+          const int i = x / NB, r = x % NB;
+          const size_t t = (size_t)ids[i];
+          const float v = bas[i * NBp + r];
+          if (r < S1) st(p.dsbf + t * S1 + r, v);
+          else st(p.dtbf + t * S2 + (r - S1), v);
+        }
+      }
     }
   }
   __syncthreads();
@@ -450,9 +641,11 @@ Params<T> make_params(const void* xg, const void* sbf, const void* tbf, const fl
 
 int grid_of(int work, int cap) { return work < cap ? work : cap; }
 
-// edges per chunk of the backward passes: TC = CE * K triplets, about 32
-// (16 for the second order, which keeps more per triplet)
+// edges per chunk of the backward passes: TC = CE * K triplets, about
+// `triplets` of them
 int chunk_edges(int K, int triplets) { return K >= triplets ? 1 : triplets / K; }
+
+constexpr int BWD_TRIPLETS = 32, BWD2_TRIPLETS = 16;
 
 template <typename T, int Q, bool HAS_T>
 int fwd_q(Params<T> p, cudaStream_t strm) {
@@ -461,13 +654,18 @@ int fwd_q(Params<T> p, cudaStream_t strm) {
                 NT, smem, strm, p);
 }
 
+// The backward of one instance: its grid in *blocks, and the launch unless
+// only the grid is asked for (run false). The grid is occupancy_grid's for
+// the instance with basis gradients, whichever runs, so both deal the
+// chunks alike and dws | dwt have the same bits with and without them.
 template <typename T, int Q, bool HAS_T, bool BASIS>
-int bwd_q(Params<T> p, int blocks, cudaStream_t strm) {
-  const size_t TC = (size_t)p.CE * p.K;
-  const size_t floats = (size_t)p.NB * (p.C + 1) + (size_t)p.NB * p.C + TC * p.NB +
-                        (HAS_T ? 2 : 1) * TC * p.C + TC;
-  return launch(triplet_product_bwd_kernel<T, Q, HAS_T, BASIS>, blocks, NT,
-                floats * sizeof(float), strm, p);
+int bwd_q(Params<T> p, int* blocks, bool run, cudaStream_t strm) {
+  p.CE = chunk_edges(p.K, BWD_TRIPLETS);
+  const size_t smem = bwd_layout<T, HAS_T>(p, p.CE * p.K).total * sizeof(float);
+  const int rc = occupancy_grid(triplet_product_bwd_kernel<T, Q, HAS_T, true>, NT, smem,
+                                (p.E + p.CE - 1) / p.CE, blocks);
+  if (rc != 0 || !run) return rc;
+  return launch(triplet_product_bwd_kernel<T, Q, HAS_T, BASIS>, *blocks, NT, smem, strm, p);
 }
 
 template <typename T, int Q, bool HAS_T>
@@ -489,19 +687,19 @@ int fwd_c(Params<T> p, cudaStream_t strm) {
 }
 
 template <typename T, int Q>
-int bwd_b(Params<T> p, int basis, int blocks, cudaStream_t strm) {
+int bwd_b(Params<T> p, int basis, int* blocks, bool run, cudaStream_t strm) {
   if (p.S2 > 0) {
-    return basis ? bwd_q<T, Q, true, true>(p, blocks, strm)
-                 : bwd_q<T, Q, true, false>(p, blocks, strm);
+    return basis ? bwd_q<T, Q, true, true>(p, blocks, run, strm)
+                 : bwd_q<T, Q, true, false>(p, blocks, run, strm);
   }
-  return basis ? bwd_q<T, Q, false, true>(p, blocks, strm)
-               : bwd_q<T, Q, false, false>(p, blocks, strm);
+  return basis ? bwd_q<T, Q, false, true>(p, blocks, run, strm)
+               : bwd_q<T, Q, false, false>(p, blocks, run, strm);
 }
 
 template <typename T>
-int bwd_c(Params<T> p, int basis, int blocks, cudaStream_t strm) {
-  if (p.C <= 64) return bwd_b<T, 2>(p, basis, blocks, strm);
-  if (p.C <= 128) return bwd_b<T, 4>(p, basis, blocks, strm);
+int bwd_c(Params<T> p, int basis, int* blocks, bool run, cudaStream_t strm) {
+  if (p.C <= 64) return bwd_b<T, 2>(p, basis, blocks, run, strm);
+  if (p.C <= 128) return bwd_b<T, 4>(p, basis, blocks, run, strm);
   return ERR_SHAPE;
 }
 
@@ -514,7 +712,8 @@ int bwd2_c(Params<T> p, int blocks, cudaStream_t strm) {
 }
 
 bool bad_shape(int E, int K, int C, int S1, int S2) {
-  return E <= 0 || K <= 0 || C <= 0 || C > 128 || S1 <= 0 || S2 < 0;
+  return E <= 0 || K <= 0 || C <= 0 || C > 128 || S1 <= 0 || S2 < 0 ||
+         (long long)E * K >= (1LL << 31);
 }
 
 }  // namespace
@@ -522,10 +721,26 @@ bool bad_shape(int E, int K, int C, int S1, int S2) {
 extern "C" {
 
 // Number of blocks (rows of the partial-sum scratch) of the backward
-// (second_order = 0) or second-order pass at E edges of K triplets.
-int triplet_product_blocks(int E, int K, int second_order) {
-  const int CE = chunk_edges(K, second_order ? 16 : 32);
-  return grid_of((E + CE - 1) / CE, BWD_GRID);
+// (second_order = 0; with basis gradients or not, on this card) or of the
+// second-order pass, at E edges of K triplets; ERR_SHAPE / ERR_SMEM for a
+// shape the kernels do not take, -1 for a CUDA error.
+int triplet_product_blocks(int E, int K, int C, int S1, int S2, int bf16, int second_order) {
+  if (bad_shape(E, K, C, S1, S2)) return ERR_SHAPE;
+  if (second_order) {
+    const int CE = chunk_edges(K, BWD2_TRIPLETS);
+    return grid_of((E + CE - 1) / CE, BWD2_GRID);
+  }
+  int blocks = -1, rc;
+  if (bf16) {
+    auto p = make_params<__nv_bfloat16>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, E,
+                                        K, C, S1, S2);
+    rc = bwd_c(p, 1, &blocks, false, nullptr);
+  } else {
+    auto p = make_params<float>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, E, K, C, S1,
+                                S2);
+    rc = bwd_c(p, 1, &blocks, false, nullptr);
+  }
+  return rc == 0 ? blocks : rc < 0 ? rc : -1;
 }
 
 // 0 on success, a cudaError_t, or ERR_SHAPE / ERR_SMEM. xg, sbf, tbf, mask
@@ -548,7 +763,8 @@ int triplet_product_fwd(const void* xg, const void* sbf, const void* tbf, const 
 
 // ct float32 [E, C]; dxg [T, C], dsbf [T, S1], dtbf [T, S2] in the type of
 // xg (dsbf and dtbf written only when basis != 0); partial: [blocks,
-// (S1 + S2) * C] scratch with blocks = triplet_product_blocks(E, K, 0);
+// (S1 + S2) * C] scratch with blocks = triplet_product_blocks(E, K, C, S1,
+// S2, bf16, 0);
 // dw [(S1 + S2) * C] receives dws | dwt.
 int triplet_product_bwd(const void* xg, const void* sbf, const void* tbf, const float* ws,
                         const float* wt, const void* mask, const float* ct, void* dxg, void* dsbf,
@@ -556,20 +772,18 @@ int triplet_product_bwd(const void* xg, const void* sbf, const void* tbf, const 
                         int bf16, int basis, void* stream) {
   if (bad_shape(E, K, C, S1, S2)) return ERR_SHAPE;
   cudaStream_t strm = static_cast<cudaStream_t>(stream);
-  const int blocks = triplet_product_blocks(E, K, 0);
-  const int CE = chunk_edges(K, 32);
-  int rc;
+  int blocks = 0, rc;
   if (bf16) {
     using B = __nv_bfloat16;
     auto p = make_params<B>(xg, sbf, tbf, ws, wt, mask, E, K, C, S1, S2);
     p.ct = ct; p.dxg = static_cast<B*>(dxg); p.dsbf = static_cast<B*>(dsbf);
-    p.dtbf = static_cast<B*>(dtbf); p.partial = partial; p.CE = CE;
-    rc = bwd_c(p, basis, blocks, strm);
+    p.dtbf = static_cast<B*>(dtbf); p.partial = partial;
+    rc = bwd_c(p, basis, &blocks, true, strm);
   } else {
     auto p = make_params<float>(xg, sbf, tbf, ws, wt, mask, E, K, C, S1, S2);
     p.ct = ct; p.dxg = static_cast<float*>(dxg); p.dsbf = static_cast<float*>(dsbf);
-    p.dtbf = static_cast<float*>(dtbf); p.partial = partial; p.CE = CE;
-    rc = bwd_c(p, basis, blocks, strm);
+    p.dtbf = static_cast<float*>(dtbf); p.partial = partial;
+    rc = bwd_c(p, basis, &blocks, true, strm);
   }
   if (rc != 0) return rc;
   return sum_partials(partial, blocks, (S1 + S2) * C, dw, strm);
@@ -579,7 +793,7 @@ int triplet_product_bwd(const void* xg, const void* sbf, const void* tbf, const 
 // the type of xg and u4 [S1, C], u5 [S2, C] float32, each null when absent.
 // xb [T, C], sb [T, S1], tb [T, S2] in the type of xg; ctb float32 [E, C];
 // every element written. partial: [blocks, (S1 + S2) * C] with blocks =
-// triplet_product_blocks(E, K, 1); dw receives wsb | wtb.
+// triplet_product_blocks(E, K, C, S1, S2, bf16, 1); dw receives wsb | wtb.
 int triplet_product_bwd2(const void* xg, const void* sbf, const void* tbf, const float* ws,
                          const float* wt, const void* mask, const float* ct, const void* u1,
                          const void* u2, const void* u3, const float* u4, const float* u5,
@@ -587,8 +801,8 @@ int triplet_product_bwd2(const void* xg, const void* sbf, const void* tbf, const
                          int E, int K, int C, int S1, int S2, int bf16, void* stream) {
   if (bad_shape(E, K, C, S1, S2)) return ERR_SHAPE;
   cudaStream_t strm = static_cast<cudaStream_t>(stream);
-  const int blocks = triplet_product_blocks(E, K, 1);
-  const int CE = chunk_edges(K, 16);
+  const int blocks = triplet_product_blocks(E, K, C, S1, S2, bf16, 1);
+  const int CE = chunk_edges(K, BWD2_TRIPLETS);
   int rc;
   if (bf16) {
     using B = __nv_bfloat16;

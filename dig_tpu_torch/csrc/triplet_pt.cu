@@ -55,48 +55,59 @@
 //
 // What the design does about it (wgmma for the basis products and TMA are
 // later work):
-//  - Forward and second order: a block walks chunks of CE whole edges (TC =
-//    CE K consecutive triplets) grid-stride. pt's [R, TC] slab of a chunk
-//    is staged in shared memory with loads coalesced along the triplets (T
-//    is pt's minor axis), and a and b are formed there once per triplet
-//    for all C channels; a warp per edge (forward: k walked in order,
-//    float32 registers) or per triplet (second order), lanes over C (Q
-//    channels a lane); masked triplets are skipped by a warp-uniform
-//    branch.
-//  - Backward (triplet_pt_bwd_kernel): about 57% of the triplets are
-//    masked, and the parent kernel's serial per-entry loops over 32-triplet
-//    chunks left it latency-bound (1.7% of its byte bound). A block deals
-//    itself the same chunks (b, b + G, ...) a window of about 1024
-//    triplets at a time, lists the window's real triplets in triplet order
-//    by warp ballots, writes the masked ones' dxg rows and dpt columns as
-//    0, and walks the list 64 triplets at a time: a barrier covers 64 real
-//    triplets, not 32 of any kind. Products: a warp per 4 triplets, a and b
-//    read as float4, each weight loaded once for the 4. Weight cotangents:
-//    a thread owns a channel and a block of up to 24 rows (36 at C > 64),
-//    kept in registers over the batch and read as float4. da | db: 4 x 3 register
-//    tiles. The grid is SMs x the kernel's occupancy (cudaOccupancy...), so
-//    it fills the card and depends only on the shapes and the card. ptxas
-//    (sm_90a): 104-117 registers a thread at C <= 64, 127-128 at C = 128,
-//    no spills; two blocks of 256 threads an SM at SphereNet's widths.
-//  - ws | wt (and u4 | u5) are staged in shared memory, rows of C+1 floats,
-//    so reads with c across lanes (the products) and with the basis row
-//    across lanes (da, db) are free of bank conflicts.
+//  - Forward: a block walks chunks of CE whole edges (TC = CE K consecutive
+//    triplets) grid-stride. pt's [R, TC] slab of a chunk is staged in
+//    shared memory with loads coalesced along the triplets (T is pt's minor
+//    axis), and a and b are formed there once per triplet for all C
+//    channels; a warp per edge, k walked in order, float32 registers, lanes
+//    over C (Q channels a lane); masked triplets are skipped by a
+//    warp-uniform branch.
+//  - Backward and second order: about 57% of the triplets are masked, and
+//    the first kernels' serial per-entry loops over 32- (16-) triplet
+//    chunks left them latency-bound (1-2% of their byte bounds). Both walk
+//    as window_list.cuh sets out (the backward with its own copy of the
+//    listing): a block deals itself the same chunks (b,
+//    b + G, ...) a window of about 1024 triplets (whole edges) at a time,
+//    lists the window's real triplets in triplet order by warp ballots,
+//    writes the masked ones' outputs as 0 (dxg / xb rows in 16-byte stores,
+//    dpt / ptb columns, the second order's ctb rows of edges without a real
+//    triplet), and walks the list a batch at a time, one barrier a phase:
+//    64 real triplets a batch in the backward, 32 in the second order,
+//    which keeps Ps, Qs, Pt, Qt and the ctb terms per triplet. Per batch
+//    the listed triplets' pt (and u2) columns are gathered and a | b (and
+//    their tangent da' | db') formed once; products a warp per 4 triplets
+//    (2 at C > 64), rows read as float4, each weight loaded once for them
+//    (the second order's u4 | u5 terms in a second pass only when present,
+//    read through the L1 cache so the shared memory keeps two blocks an
+//    SM); the weight cotangents a thread's channel x up to 24 rows (36 at C
+//    > 64) in registers, read as float4 (the second order's two fmaf a
+//    triplet kept in order); the basis cotangents 4 x 3 register tiles;
+//    the second order's ctb summed per edge in list order in the registers
+//    of the first row block's threads, carried across batches and written
+//    when the edge changes. The grid is SMs x the kernel's occupancy
+//    (occupancy_grid), so it fills the card and depends only on the shapes
+//    and the card. ptxas (sm_90a): backward 103-128 registers, second
+//    order 124-128, no spills; two blocks of 256 threads an SM at
+//    SphereNet's and DimeNet++'s widths.
+//  - ws | wt are staged in shared memory, rows of C+1 floats, so reads
+//    with c across lanes (the products) and with the basis row across
+//    threads (the tiles) are free of bank conflicts.
 //  - No atomics: each thread owns entries of the weight cotangents and adds
-//    its block's real triplets in triplet order; ctb sums an edge's K
-//    triplets in order; the per-block weight sums go to a [blocks, ...]
+//    its block's real triplets in triplet order; ctb sums an edge's real
+//    triplets in k order; the per-block weight sums go to a [blocks, ...]
 //    scratch that sum_partials_kernel adds in a fixed order: repeated
 //    calls give the same bits. dpt and ptb are written column by column
 //    along the triplets, each from its own triplet alone.
 #include <stdint.h>
 
 #include "common.cuh"
+#include "window_list.cuh"
 
 namespace {
 
 constexpr int NT = 256;        // threads per block
 constexpr int NW = NT / 32;    // warps per block
 constexpr int FWD_GRID = 1056; // forward: at most 8 blocks per SM
-constexpr int BWD2_GRID = 264; // second order: a fixed block count
 
 template <typename T>
 constexpr bool IS_BF16 = sizeof(T) == 2;
@@ -175,18 +186,6 @@ __device__ void form_basis(const Params<T>& p, const float* ptc, int TC, float* 
   }
 }
 
-// dbas [TC][NB]: the tangent of a | b along u2 (product rule, not rounded).
-template <typename T>
-__device__ void form_tangent(const Params<T>& p, const float* ptc, const float* u2c, int TC,
-                             float* dbas) {
-  for (int x = threadIdx.x; x < TC * p.NB; x += NT) {
-    const int tl = x / p.NB, r = x % p.NB;
-    int b, y;
-    factors(p, r, b, y);
-    dbas[x] = u2c[b * TC + tl] * ptc[y * TC + tl] + ptc[b * TC + tl] * u2c[y * TC + tl];
-  }
-}
-
 // The adjoint of forming a | b from the pt rows in src [R][TC]: given the
 // cotangent d [NB] of triplet tl's a | b, the cotangent of its pt row r.
 template <typename T>
@@ -235,20 +234,6 @@ __device__ __forceinline__ void row_products(const float* b, const float* w_s, i
         if (lane + 32 * q < C) tv[q] = fmaf(v, w[32 * q], tv[q]);
     }
   }
-}
-
-// sum_c g[c] * w[r][c] for the row r of w_s (row stride C+1)
-__device__ __forceinline__ float row_dot(const float* g, const float* w_s, int r, int C) {
-  const float* w = w_s + r * (C + 1);
-  float acc = 0.f;
-  for (int c = 0; c < C; ++c) acc = fmaf(g[c], w[c], acc);
-  return acc;
-}
-
-// zero the row of triplet t in dst [T, C] (lanes over the row)
-template <typename T>
-__device__ __forceinline__ void zero_row(T* dst, size_t t, int C, int lane) {
-  for (int c = lane; c < C; c += 32) st(dst + t * C + c, 0.f);
 }
 
 template <typename T, int Q, bool HAS_T>
@@ -309,6 +294,8 @@ __global__ void __launch_bounds__(NT) triplet_pt_fwd_kernel(Params<T> p) {
 // conflicts on the weights' C + 1 stride).
 constexpr int BB = 64, TE = 4, TE2 = 4, TR = 3;
 constexpr int WINDOW = 1024;  // triplets a block lists at a time
+// The second order keeps more per triplet: batches of BB2.
+constexpr int BB2 = 32;
 
 // Floats of the backward's shared memory for BW chunks of TC triplets a
 // window (bwd_layout's order).
@@ -344,17 +331,19 @@ __host__ __device__ inline BwdLayout bwd_layout(const Params<T>& p, int TC) {
 // b + 2G, ... (G = gridDim.x) and takes them a window of BW chunks at a
 // time: the window's real triplets (m != 0) are listed in triplet order by
 // warp ballots, the masked ones get their dxg rows and dpt columns written
-// as 0, and the list is walked BB triplets at a time. Per batch: the pt
-// columns and a | b (float4 rows); sv, tv, dxg and the cotangents gs, gt of
-// sv, tv (a warp per TE triplets, lanes over the channels, each weight
-// loaded once for the warp's triplets); the block's dws | dwt (each entry
-// owned by one thread, a row block of up to WTM rows kept in registers
-// over the batch and read with float4 loads); with DPT, da | db = gs @
-// ws^T | gt @ wt^T as TE2 x TR register tiles (over a | b, dead by then)
-// and the adjoint of the assembly, a dpt column per triplet. Every sum
-// keeps the order of the masked walk over the same chunks: sv, tv and da |
-// db over the rows / channels from 0, dws | dwt over the block's real
-// triplets in triplet order.
+// as 0, and the list is walked BB triplets at a time. (The listing is
+// window_list.cuh's, written out here: through the shared helper this
+// kernel ran 3-7% slower at DimeNet++'s widths.) Per
+// batch: the pt columns and a | b (float4 rows); sv, tv, dxg and the
+// cotangents gs, gt of sv, tv (a warp per TE triplets, lanes over the
+// channels, each weight loaded once for the warp's triplets); the block's
+// dws | dwt (each entry owned by one thread, a row block of up to WTM rows
+// kept in registers over the batch and read with float4 loads); with DPT,
+// da | db = gs @ ws^T | gt @ wt^T as TE2 x TR register tiles (over a | b,
+// dead by then) and the adjoint of the assembly, a dpt column per triplet.
+// Every sum keeps the order of the masked walk over the same chunks: sv, tv
+// and da | db over the rows / channels from 0, dws | dwt over the block's
+// real triplets in triplet order.
 template <typename T, int Q, bool HAS_T, bool DPT>
 __global__ void __launch_bounds__(NT, 2) triplet_pt_bwd_kernel(Params<T> p) {
   constexpr int WTM = Q == 2 ? 24 : 36;  // dws | dwt rows of a thread's register block
@@ -606,146 +595,398 @@ __global__ void __launch_bounds__(NT, 2) triplet_pt_bwd_kernel(Params<T> p) {
   for (int x = tid; x < NB * C; x += NT) part[x] = dW_s[x];
 }
 
+// Floats of the second order's shared memory for BW chunks of TC triplets
+// a window (bwd2_layout's order).
+struct Bwd2Layout {
+  int NBp, CP, W, rounds;
+  size_t w_s, dW_s, ptc, u2c, bas, dbas, Ps, Qs, I, Pt, Qt, m_s, lst, wcnt, bits, total;
+};
+
+template <typename T, bool HAS_T>
+__host__ __device__ inline Bwd2Layout bwd2_layout(const Params<T>& p, int TC) {
+  Bwd2Layout L;
+  L.NBp = (p.NB + 3) & ~3;
+  L.CP = p.C + 1;
+  const int BW = TC >= WINDOW ? 1 : WINDOW / TC;
+  L.W = BW * TC;
+  L.rounds = (L.W + NT - 1) / NT;
+  const size_t tc = (size_t)BB2 * L.CP;
+  L.w_s = 0;
+  L.dW_s = L.w_s + (size_t)p.NB * (p.C + 1);
+  L.ptc = L.dW_s + (size_t)p.NB * p.C;
+  L.u2c = L.ptc + (size_t)p.R * BB2;
+  L.bas = (L.u2c + (size_t)p.R * BB2 + 3) & ~(size_t)3;  // 16-byte aligned
+  L.dbas = L.bas + (size_t)BB2 * L.NBp;
+  L.Ps = L.dbas + (size_t)BB2 * L.NBp;
+  L.Qs = L.Ps + tc;
+  L.I = L.Qs + tc;
+  L.Pt = L.I + tc;
+  L.Qt = L.Pt + (HAS_T ? tc : 0);
+  L.m_s = L.Qt + (HAS_T ? tc : 0);
+  L.lst = L.m_s + BB2;
+  L.wcnt = L.lst + L.W;
+  L.bits = L.wcnt + (size_t)L.rounds * NW;
+  L.total = L.bits + (size_t)L.rounds * NW;
+  return L;
+}
+
+// Row rr of u4 | u5 (the rows of wsb | wtb's tangent weights), or null
+// where that cotangent is absent (its terms are then sums of zeros, as
+// the parent kernel's zero-staged rows gave).
+template <typename T>
+__device__ __forceinline__ const float* u_row(const Params<T>& p, int rr) {
+  if (rr < p.nk) return p.u4 != nullptr ? p.u4 + (size_t)rr * p.C : nullptr;
+  return p.u5 != nullptr ? p.u5 + (size_t)(rr - p.nk) * p.C : nullptr;
+}
+
+// The second order, walked as the backward is: the window's real triplets
+// listed by ballots (triplet order is edge order), the masked ones' xb rows,
+// ptb columns and the ctb rows of edges without a real triplet written as
+// 0, the list walked BB2 triplets at a time. Per batch: the pt and u2
+// columns of the listed triplets; a | b (rounded) and their tangent da' |
+// db' along u2; sv, tv, dsv, dtv of TE triplets a warp (each weight loaded
+// once for the warp's triplets; the u4 | u5 terms in a second pass, only
+// when present, read through the L1 cache), xb and the per-channel
+// cotangents Ps, Qs, Pt, Qt and the ctb terms I; wsb | wtb over (channel,
+// row block) register blocks, the two fmaf a triplet in the order a^T P,
+// then da'^T Q, while the threads of the first row block also sum each
+// edge's ctb terms in list order, carried across batches in registers and
+// written when the edge changes; the cotangents of a | b (P @ w^T + Q @
+// u^T) and of da' | db' (Q @ w^T) as TE2 x TR register tiles; the assembly
+// adjoint, a ptb column per triplet. Every sum keeps the parent kernel's
+// order, so every output keeps its bits wherever the grid keeps its block
+// count.
 template <typename T, int Q, bool HAS_T>
-__global__ void __launch_bounds__(NT) triplet_pt_bwd2_kernel(Params<T> p) {
+__global__ void __launch_bounds__(NT, 2) triplet_pt_bwd2_kernel(Params<T> p) {
+  constexpr int TEQ = Q == 2 ? 4 : 2;    // triplets a warp in the products
+  constexpr int WTM = Q == 2 ? 24 : 36;  // wsb | wtb rows of a thread's register block
   extern __shared__ __align__(16) float smem[];
-  const int C = p.C, NB = p.NB, nk = p.nk, K = p.K, CE = p.CE, TC = CE * K;
+  const int C = p.C, NB = p.NB, nk = p.nk, K = p.K, R = p.R, CE = p.CE, TC = CE * K;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, tid = threadIdx.x;
   const bool has_u45 = p.u4 != nullptr || p.u5 != nullptr;
-  float* w_s = smem;                        // [NB][C+1] ws | wt
-  float* u_s = w_s + NB * (C + 1);          // [NB][C+1] u4 | u5 (zeros where absent)
-  float* dW_s = u_s + NB * (C + 1);         // [NB][C] wsb | wtb of this block
-  float* ptc = dW_s + NB * C;               // [R][TC]
-  float* u2c = ptc + p.R * TC;              // [R][TC]
-  float* bas = u2c + p.R * TC;              // [TC][NB] a | b, then their cotangents
-  float* dbas = bas + TC * NB;              // [TC][NB] da' | db', then theirs
-  float* Ps = dbas + TC * NB;               // [TC][C]
-  float* Qs = Ps + TC * C;                  // [TC][C]
-  float* I_s = Qs + TC * C;                 // [TC][C] ctb terms
-  float* Pt = I_s + TC * C;                 // [TC][C] (torsion)
-  float* Qt = Pt + (HAS_T ? TC * C : 0);    // [TC][C] (torsion)
-  float* m_s = Qt + (HAS_T ? TC * C : 0);   // [TC]
+  const Bwd2Layout L = bwd2_layout<T, HAS_T>(p, TC);
+  const int NBp = L.NBp, CP = L.CP, W = L.W;
+  float* w_s = smem + L.w_s;    // [NB][C+1] ws | wt
+  float* dW_s = smem + L.dW_s;  // [NB][C] wsb | wtb of this block
+  float* ptc = smem + L.ptc;    // [R][BB2] the batch's pt columns
+  float* u2c = smem + L.u2c;    // [R][BB2] its u2 columns (zeros without u2)
+  float* bas = smem + L.bas;    // [BB2][NBp] a | b, then their cotangents
+  float* dbas = smem + L.dbas;  // [BB2][NBp] da' | db', then theirs
+  float* Ps = smem + L.Ps;      // [BB2][C+1]
+  float* Qs = smem + L.Qs;      // [BB2][C+1]
+  float* I_s = smem + L.I;      // [BB2][C+1] ctb terms
+  float* Pt = smem + L.Pt;      // [BB2][C+1] (torsion)
+  float* Qt = smem + L.Qt;      // [BB2][C+1] (torsion)
+  float* m_s = smem + L.m_s;    // [BB2]
+  int* lst = reinterpret_cast<int*>(smem + L.lst);
+  int* wcnt = reinterpret_cast<int*>(smem + L.wcnt);
+  unsigned* bits = reinterpret_cast<unsigned*>(smem + L.bits);
   stage_rows(p, p.ws, p.wt, w_s);
-  stage_rows(p, p.u4, p.u5, u_s);
   for (int x = tid; x < NB * C; x += NT) dW_s[x] = 0.f;
   const int chunks = (p.E + CE - 1) / CE;
+  const int G = gridDim.x, BW = W / TC;
+  int rpg = (NB * C + NT - 1) / NT;
+  rpg = min(WTM, (rpg + 3) & ~3);
+  const int ngroups = (NB + rpg - 1) / rpg;
 
-  for (int ch = blockIdx.x; ch < chunks; ch += gridDim.x) {
-    const size_t t0 = (size_t)ch * TC;
-    const int cnt = p.Tn - t0 < (size_t)TC ? (int)(p.Tn - t0) : TC;
-    __syncthreads();
-    load_slab(p, p.pt, t0, cnt, TC, ptc);
-    load_slab(p, p.u2, t0, cnt, TC, u2c);
-    load_mask(p, t0, cnt, TC, m_s);
-    __syncthreads();
-    form_basis(p, ptc, TC, bas);
-    form_tangent(p, ptc, u2c, TC, dbas);
-    __syncthreads();
-    for (int tl = warp; tl < cnt; tl += NW) {
-      const size_t t = t0 + tl;
-      const float m = m_s[tl];
-      if (m == 0.f) {
-        zero_row(p.dxg, t, C, lane);
-        continue;
+  for (int w0 = blockIdx.x; w0 < chunks; w0 += G * BW) {
+    const Window win{w0, G, TC, W, chunks, p.Tn};
+    const int nl = list_window<NT>(win, p.m, lst, wcnt, bits, [&](size_t t) {
+      for (int r = 0; r < R; ++r) st(p.dpt + (size_t)r * p.Tn + t, 0.f);
+    });
+    zero_masked_rows<NT>(win, bits, p.dxg, C);
+    // ctb rows of the window's edges without a real triplet
+    for (int x = tid; x < BW * CE * C; x += NT) {
+      const int le = x / C, j = le / CE, ce = le % CE;
+      const size_t ch = (size_t)w0 + (size_t)G * j, e = ch * CE + ce;
+      if (ch >= (size_t)chunks || e >= (size_t)p.E) continue;
+      if (!any_listed(bits, j * TC + ce * K, K)) p.ctb[e * C + x % C] = 0.f;
+    }
+    // (tid < C) the edge whose ctb entry of channel tid is being summed
+    int cur = -1;
+    float cacc = 0.f;
+
+    for (int b0 = 0; b0 < nl; b0 += BB2) {
+      const int cnt = min(BB2, nl - b0);
+      const int* ids = lst + b0;
+      __syncthreads();  // the list is written; the previous batch is done
+      for (int x = tid; x < R * BB2; x += NT) {
+        const int r = x / BB2, i = x % BB2;
+        const size_t o = (size_t)r * p.Tn + (i < cnt ? ids[i] : 0);
+        ptc[x] = i < cnt ? ld(p.pt + o) : 0.f;
+        u2c[x] = i < cnt && p.u2 != nullptr ? ld(p.u2 + o) : 0.f;
       }
-      float sv[Q], tv[Q], dsv[Q], dtv[Q];
-      row_products<Q, HAS_T>(bas + tl * NB, w_s, nk, NB, C, lane, sv, tv);
-      row_products<Q, HAS_T>(dbas + tl * NB, w_s, nk, NB, C, lane, dsv, dtv);
-      if (has_u45) {
-        float a4[Q], a5[Q];
-        row_products<Q, HAS_T>(bas + tl * NB, u_s, nk, NB, C, lane, a4, a5);
-#pragma unroll
-        for (int q = 0; q < Q; ++q) {
-          dsv[q] += a4[q];
-          if constexpr (HAS_T) dtv[q] += a5[q];
+      for (int i = tid; i < BB2; i += NT) m_s[i] = i < cnt ? ld(p.m + ids[i]) : 0.f;
+      __syncthreads();
+      // a | b rounded to T, da' | db' (not rounded); zero past cnt and NB
+      for (int x = tid; x < BB2 * NBp; x += NT) {
+        const int r = x / BB2, i = x % BB2;
+        float v = 0.f, dv = 0.f;
+        if (i < cnt && r < NB) {
+          int b, y;
+          factors(p, r, b, y);
+          v = rnd<IS_BF16<T>>(ptc[b * BB2 + i] * ptc[y * BB2 + i]);
+          dv = u2c[b * BB2 + i] * ptc[y * BB2 + i] + ptc[b * BB2 + i] * u2c[y * BB2 + i];
         }
+        bas[i * NBp + r] = v;
+        dbas[i * NBp + r] = dv;
       }
-      const size_t e = t / K;
+      __syncthreads();
+      // sv, tv, dsv, dtv of TEQ triplets a warp; xb, Ps, Qs, Pt, Qt, I
+      for (int e0 = warp * TEQ; e0 < cnt; e0 += NW * TEQ) {
+        float sv[TEQ][Q], tv[TEQ][Q], dsv[TEQ][Q], dtv[TEQ][Q];
 #pragma unroll
-      for (int q = 0; q < Q; ++q) {
-        const int c = lane + 32 * q;
-        if (c < C) {
-          const float go = p.ct[e * C + c] * m;
-          const float x = ld(p.xg + t * C + c);
-          const float u1 = p.u1 != nullptr ? ld(p.u1 + t * C + c) : 0.f;
-          float xb, ps, qs, integ;
-          if constexpr (HAS_T) {
-            qs = go * (x * tv[q]);
-            ps = go * fmaf(u1, tv[q], x * dtv[q]);
-            Pt[tl * C + c] = go * fmaf(u1, sv[q], x * dsv[q]);
-            Qt[tl * C + c] = go * (x * sv[q]);
-            xb = go * fmaf(dsv[q], tv[q], sv[q] * dtv[q]);
-            integ = fmaf(fmaf(u1, sv[q], x * dsv[q]), tv[q], (x * sv[q]) * dtv[q]);
-          } else {
-            qs = go * x;
-            ps = go * u1;
-            xb = go * dsv[q];
-            integ = fmaf(u1, sv[q], x * dsv[q]);
+        for (int e = 0; e < TEQ; ++e)
+#pragma unroll
+          for (int q = 0; q < Q; ++q) sv[e][q] = tv[e][q] = dsv[e][q] = dtv[e][q] = 0.f;
+        for (int r = 0; r < NB; r += 4) {
+          float4 b4[TEQ], d4[TEQ];
+#pragma unroll
+          for (int e = 0; e < TEQ; ++e) {
+            b4[e] = *reinterpret_cast<const float4*>(bas + (e0 + e) * NBp + r);
+            d4[e] = *reinterpret_cast<const float4*>(dbas + (e0 + e) * NBp + r);
           }
-          st(p.dxg + t * C + c, xb);
-          Ps[tl * C + c] = ps;
-          Qs[tl * C + c] = qs;
-          I_s[tl * C + c] = integ * m;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int rr = r + j;
+            if (rr >= NB) break;
+            float wv[Q];
+#pragma unroll
+            for (int q = 0; q < Q; ++q)
+              wv[q] = lane + 32 * q < C ? w_s[rr * (C + 1) + lane + 32 * q] : 0.f;
+#pragma unroll
+            for (int e = 0; e < TEQ; ++e) {
+              const float bv = j == 0 ? b4[e].x : j == 1 ? b4[e].y : j == 2 ? b4[e].z : b4[e].w;
+              const float dv = j == 0 ? d4[e].x : j == 1 ? d4[e].y : j == 2 ? d4[e].z : d4[e].w;
+#pragma unroll
+              for (int q = 0; q < Q; ++q) {
+                if (rr < nk) {
+                  sv[e][q] = fmaf(bv, wv[q], sv[e][q]);
+                  dsv[e][q] = fmaf(dv, wv[q], dsv[e][q]);
+                } else {
+                  tv[e][q] = fmaf(bv, wv[q], tv[e][q]);
+                  dtv[e][q] = fmaf(dv, wv[q], dtv[e][q]);
+                }
+              }
+            }
+          }
+        }
+        if (has_u45) {  // dsv += a @ u4, dtv += b @ u5, each summed alone first
+          float a4[TEQ][Q], a5[TEQ][Q];
+#pragma unroll
+          for (int e = 0; e < TEQ; ++e)
+#pragma unroll
+            for (int q = 0; q < Q; ++q) a4[e][q] = a5[e][q] = 0.f;
+          for (int r = 0; r < NB; r += 4) {
+            float4 b4[TEQ];
+#pragma unroll
+            for (int e = 0; e < TEQ; ++e)
+              b4[e] = *reinterpret_cast<const float4*>(bas + (e0 + e) * NBp + r);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const int rr = r + j;
+              if (rr >= NB) break;
+              const float* u = u_row(p, rr);
+              float uv[Q];
+#pragma unroll
+              for (int q = 0; q < Q; ++q)
+                uv[q] = u != nullptr && lane + 32 * q < C ? __ldg(u + lane + 32 * q) : 0.f;
+#pragma unroll
+              for (int e = 0; e < TEQ; ++e) {
+                const float bv = j == 0 ? b4[e].x : j == 1 ? b4[e].y : j == 2 ? b4[e].z : b4[e].w;
+#pragma unroll
+                for (int q = 0; q < Q; ++q) {
+                  if (rr < nk) a4[e][q] = fmaf(bv, uv[q], a4[e][q]);
+                  else a5[e][q] = fmaf(bv, uv[q], a5[e][q]);
+                }
+              }
+            }
+          }
+#pragma unroll
+          for (int e = 0; e < TEQ; ++e)
+#pragma unroll
+            for (int q = 0; q < Q; ++q) {
+              dsv[e][q] += a4[e][q];
+              if constexpr (HAS_T) dtv[e][q] += a5[e][q];
+            }
+        }
+#pragma unroll
+        for (int e = 0; e < TEQ; ++e) {
+          const int i = e0 + e;
+          if (i >= cnt) break;
+          const size_t t = (size_t)ids[i];
+          const size_t ed = t / K;
+          const float m = m_s[i];
+#pragma unroll
+          for (int q = 0; q < Q; ++q) {
+            const int c = lane + 32 * q;
+            if (c < C) {
+              const float go = p.ct[ed * C + c] * m;
+              const float x = ld(p.xg + t * C + c);
+              const float u1 = p.u1 != nullptr ? ld(p.u1 + t * C + c) : 0.f;
+              const float s = sv[e][q], ds = dsv[e][q];
+              float xb, ps, qs, integ;
+              if constexpr (HAS_T) {
+                const float tt = tv[e][q], dt = dtv[e][q];
+                qs = go * (x * tt);
+                ps = go * fmaf(u1, tt, x * dt);
+                Pt[i * CP + c] = go * fmaf(u1, s, x * ds);
+                Qt[i * CP + c] = go * (x * s);
+                xb = go * fmaf(ds, tt, s * dt);
+                integ = fmaf(fmaf(u1, s, x * ds), tt, (x * s) * dt);
+              } else {
+                qs = go * x;
+                ps = go * u1;
+                xb = go * ds;
+                integ = fmaf(u1, s, x * ds);
+              }
+              st(p.dxg + t * C + c, xb);
+              Ps[i * CP + c] = ps;
+              Qs[i * CP + c] = qs;
+              I_s[i * CP + c] = integ * m;
+            }
+          }
         }
       }
-    }
-    __syncthreads();
-    // wsb | wtb: a^T P + da'^T Q | b^T P + db'^T Q, triplets in order
-    for (int x = tid; x < NB * C; x += NT) {
-      const int r = x / C, c = x % C;
-      const bool sr = !HAS_T || r < nk;
-      const float* P = sr ? Ps : Pt;
-      const float* Qv = sr ? Qs : Qt;
-      float acc = dW_s[x];
-      for (int tl = 0; tl < cnt; ++tl) {
-        if (m_s[tl] != 0.f) {
-          acc = fmaf(bas[tl * NB + r], P[tl * C + c], acc);
-          acc = fmaf(dbas[tl * NB + r], Qv[tl * C + c], acc);
+      __syncthreads();
+      // wsb | wtb: item (c, row block), the rows in registers, the batch's
+      // triplets in order; the items of the first row block (it = tid < C)
+      // also sum ctb[e][c] over each edge's real triplets in order
+      for (int it = tid; it < C * ngroups; it += NT) {
+        const int c = it % C, r0 = (it / C) * rpg;
+        const int r1 = min(NB, r0 + rpg);
+        float acc[WTM];
+#pragma unroll
+        for (int j = 0; j < WTM; ++j) acc[j] = r0 + j < r1 ? dW_s[(r0 + j) * C + c] : 0.f;
+        for (int i = 0; i < cnt; ++i) {
+          const float ps = Ps[i * CP + c], qs = Qs[i * CP + c];
+          const float pt = HAS_T ? Pt[i * CP + c] : 0.f, qt = HAS_T ? Qt[i * CP + c] : 0.f;
+          const float* brow = bas + i * NBp + r0;
+          const float* drow = dbas + i * NBp + r0;
+#pragma unroll
+          for (int j4 = 0; j4 < WTM / 4; ++j4) {
+            if (r0 + 4 * j4 >= r1) break;
+            const float4 b4 = *reinterpret_cast<const float4*>(brow + 4 * j4);
+            const float4 d4 = *reinterpret_cast<const float4*>(drow + 4 * j4);
+            const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
+            const float dv[4] = {d4.x, d4.y, d4.z, d4.w};
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const int rr = r0 + 4 * j4 + j;
+              if (rr < r1) {
+                const bool sr = rr < nk;
+                acc[4 * j4 + j] = fmaf(bv[j], sr ? ps : pt, acc[4 * j4 + j]);
+                acc[4 * j4 + j] = fmaf(dv[j], sr ? qs : qt, acc[4 * j4 + j]);
+              }
+            }
+          }
+          if (r0 == 0) {
+            const int e = ids[i] / K;
+            if (e != cur) {
+              if (cur >= 0) p.ctb[(size_t)cur * C + c] = cacc;
+              cur = e;
+              cacc = 0.f;
+            }
+            cacc += I_s[i * CP + c];
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < WTM; ++j)
+          if (r0 + j < r1) dW_s[(r0 + j) * C + c] = acc[j];
+      }
+      __syncthreads();  // a | b and da' | db' are dead: their cotangents go there
+      // cotangents of a | b (P @ w^T + Q @ u^T) and of da' | db' (Q @ w^T):
+      // TE2 triplets x TR rows a thread, rows of a tile all of ws or all of
+      // wt, each sum over c from 0. The row tiles run fastest across a
+      // warp (its stores to bas and dbas spread over the banks), but with
+      // u4 | u5 the triplet tiles do, so that a warp's reads of their rows
+      // (from global) fall on few rows.
+      const int rts = (nk + TR - 1) / TR;
+      const int rtl = rts + (HAS_T ? (p.ntk + TR - 1) / TR : 0);
+      const int etl = (cnt + TE2 - 1) / TE2;
+      for (int x = tid; x < etl * rtl; x += NT) {
+        const int rt = has_u45 ? x / etl : x % rtl, et = has_u45 ? x % etl : x / rtl;
+        const bool sr = rt < rts;
+        const int r0 = sr ? rt * TR : nk + (rt - rts) * TR;
+        const int r1 = sr ? nk : NB;
+        const float* P = sr ? Ps : Pt;
+        const float* Qv = sr ? Qs : Qt;
+        const float* wr[TR];
+        int es[TE2];
+#pragma unroll
+        for (int i = 0; i < TR; ++i) wr[i] = w_s + min(r0 + i, r1 - 1) * (C + 1);
+#pragma unroll
+        for (int e = 0; e < TE2; ++e) es[e] = min(et * TE2 + e, cnt - 1) * CP;
+        float ga[TE2][TR], gd[TE2][TR];
+#pragma unroll
+        for (int e = 0; e < TE2; ++e)
+#pragma unroll
+          for (int i = 0; i < TR; ++i) ga[e][i] = gd[e][i] = 0.f;
+        for (int c = 0; c < C; ++c) {
+          float pv[TE2], qv[TE2], wv[TR];
+#pragma unroll
+          for (int e = 0; e < TE2; ++e) {
+            pv[e] = P[es[e] + c];
+            qv[e] = Qv[es[e] + c];
+          }
+#pragma unroll
+          for (int i = 0; i < TR; ++i) wv[i] = wr[i][c];
+#pragma unroll
+          for (int e = 0; e < TE2; ++e)
+#pragma unroll
+            for (int i = 0; i < TR; ++i) {
+              ga[e][i] = fmaf(pv[e], wv[i], ga[e][i]);
+              gd[e][i] = fmaf(qv[e], wv[i], gd[e][i]);
+            }
+        }
+        if (has_u45) {
+          const float* ur[TR];
+#pragma unroll
+          for (int i = 0; i < TR; ++i) ur[i] = u_row(p, min(r0 + i, r1 - 1));
+          float gu[TE2][TR];
+#pragma unroll
+          for (int e = 0; e < TE2; ++e)
+#pragma unroll
+            for (int i = 0; i < TR; ++i) gu[e][i] = 0.f;
+          for (int c = 0; c < C; ++c) {
+            float qv[TE2], uv[TR];
+#pragma unroll
+            for (int e = 0; e < TE2; ++e) qv[e] = Qv[es[e] + c];
+#pragma unroll
+            for (int i = 0; i < TR; ++i) uv[i] = ur[i] != nullptr ? __ldg(ur[i] + c) : 0.f;
+#pragma unroll
+            for (int e = 0; e < TE2; ++e)
+#pragma unroll
+              for (int i = 0; i < TR; ++i) gu[e][i] = fmaf(qv[e], uv[i], gu[e][i]);
+          }
+#pragma unroll
+          for (int e = 0; e < TE2; ++e)
+#pragma unroll
+            for (int i = 0; i < TR; ++i) ga[e][i] += gu[e][i];
+        }
+#pragma unroll
+        for (int e = 0; e < TE2; ++e) {
+          const int i = et * TE2 + e;
+          if (i >= cnt) continue;
+#pragma unroll
+          for (int k2 = 0; k2 < TR; ++k2)
+            if (r0 + k2 < r1) {
+              bas[i * NBp + r0 + k2] = ga[e][k2];
+              dbas[i * NBp + r0 + k2] = gd[e][k2];
+            }
         }
       }
-      dW_s[x] = acc;
-    }
-    // ctb[e] = sum over the edge's K triplets, in order
-    for (int x = tid; x < CE * C; x += NT) {
-      const int ce = x / C, c = x % C;
-      const int e = ch * CE + ce;
-      if (e >= p.E) continue;
-      float acc = 0.f;
-      for (int kk = 0; kk < K; ++kk) {
-        const int tl = ce * K + kk;
-        if (m_s[tl] != 0.f) acc += I_s[tl * C + c];
+      __syncthreads();
+      // ptb: through the assembly against pt and, for the tangent, against u2
+      for (int x = tid; x < R * BB2; x += NT) {
+        const int r = x / BB2, i = x % BB2;
+        if (i >= cnt) continue;
+        float v = basis_adjoint(p, bas + i * NBp, ptc, r, i, BB2);
+        if (p.u2 != nullptr) v += basis_adjoint(p, dbas + i * NBp, u2c, r, i, BB2);
+        st(p.dpt + (size_t)r * p.Tn + ids[i], v);
       }
-      p.ctb[(size_t)e * C + c] = acc;
     }
-    __syncthreads();
-    // cotangents of a | b (P @ w^T + Q @ u^T) -> bas, of da' | db' (Q @ w^T)
-    // -> dbas
-    for (int x = tid; x < TC * NB; x += NT) {
-      const int tl = x / NB, r = x % NB;
-      float ga = 0.f, gd = 0.f;
-      if (tl < cnt && m_s[tl] != 0.f) {
-        const bool sr = !HAS_T || r < nk;
-        const float* P = (sr ? Ps : Pt) + tl * C;
-        const float* Qv = (sr ? Qs : Qt) + tl * C;
-        ga = row_dot(P, w_s, r, C);
-        gd = row_dot(Qv, w_s, r, C);
-        if (has_u45) ga += row_dot(Qv, u_s, r, C);
-      }
-      bas[x] = ga;
-      dbas[x] = gd;
-    }
-    __syncthreads();
-    // ptb: through the assembly against pt and, for the tangent, against u2
-    for (int x = tid; x < p.R * TC; x += NT) {
-      const int r = x / TC, tl = x % TC;
-      if (tl >= cnt) continue;
-      float v = 0.f;
-      if (m_s[tl] != 0.f) {
-        v = basis_adjoint(p, bas + tl * NB, ptc, r, tl, TC);
-        if (p.u2 != nullptr) v += basis_adjoint(p, dbas + tl * NB, u2c, r, tl, TC);
-      }
-      st(p.dpt + (size_t)r * p.Tn + t0 + tl, v);
-    }
+    if (tid < C && cur >= 0) p.ctb[(size_t)cur * C + tid] = cacc;
   }
   __syncthreads();
   float* part = p.partial + (size_t)blockIdx.x * NB * C;
@@ -787,39 +1028,30 @@ int fwd_q(Params<T> p, cudaStream_t strm) {
                 floats * sizeof(float), strm, p);
 }
 
-// The backward of one instance: its grid (as many blocks as the card holds
-// at once: SMs x the occupancy of this kernel at its shared memory, at most
-// one a chunk; it depends only on the shapes and the card) in *blocks, and
-// the launch unless only the grid is asked for (run false).
+// The backward of one instance: its grid (occupancy_grid, at most one block
+// a chunk) in *blocks, and the launch unless only the grid is asked for
+// (run false).
 template <typename T, int Q, bool HAS_T, bool DPT>
 int bwd_q(Params<T> p, int* blocks, bool run, cudaStream_t strm) {
   p.CE = chunk_edges(p.K, BWD_TRIPLETS);
   const size_t smem = bwd_layout<T, HAS_T>(p, p.CE * p.K).total * sizeof(float);
   auto kern = triplet_pt_bwd_kernel<T, Q, HAS_T, DPT>;
-  int rc = check_smem(smem);
-  if (rc != 0) return rc;
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-  int dev = 0, sms = 0, per_sm = 0;
-  if (e == cudaSuccess) e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, NT, smem);
-  if (e != cudaSuccess) return e;
-  const int chunks = (p.E + p.CE - 1) / p.CE;
-  *blocks = grid_of(chunks, sms * (per_sm > 0 ? per_sm : 1));
-  if (!run) return 0;
+  const int rc = occupancy_grid(kern, NT, smem, (p.E + p.CE - 1) / p.CE, blocks);
+  if (rc != 0 || !run) return rc;
   kern<<<*blocks, NT, smem, strm>>>(p);
   return cudaGetLastError();
 }
 
+// The second order likewise.
 template <typename T, int Q, bool HAS_T>
-int bwd2_q(Params<T> p, int blocks, cudaStream_t strm) {
+int bwd2_q(Params<T> p, int* blocks, bool run, cudaStream_t strm) {
   p.CE = chunk_edges(p.K, BWD2_TRIPLETS);
-  const size_t TC = (size_t)p.CE * p.K;
-  const size_t floats = 2 * (size_t)p.NB * (p.C + 1) + (size_t)p.NB * p.C + 2 * p.R * TC +
-                        2 * TC * p.NB + (HAS_T ? 5 : 3) * TC * p.C + TC;
-  return launch(triplet_pt_bwd2_kernel<T, Q, HAS_T>, blocks, NT, floats * sizeof(float), strm,
-                p);
+  const size_t smem = bwd2_layout<T, HAS_T>(p, p.CE * p.K).total * sizeof(float);
+  auto kern = triplet_pt_bwd2_kernel<T, Q, HAS_T>;
+  const int rc = occupancy_grid(kern, NT, smem, (p.E + p.CE - 1) / p.CE, blocks);
+  if (rc != 0 || !run) return rc;
+  kern<<<*blocks, NT, smem, strm>>>(p);
+  return cudaGetLastError();
 }
 
 // Q = channels a lane: 2 for C <= 64, 4 for C <= 128
@@ -849,10 +1081,12 @@ int bwd_c(Params<T> p, bool dpt, int* blocks, bool run, cudaStream_t strm) {
 }
 
 template <typename T>
-int bwd2_c(Params<T> p, int blocks, cudaStream_t strm) {
+int bwd2_c(Params<T> p, int* blocks, bool run, cudaStream_t strm) {
   const bool t = p.ntk > 0;
-  if (p.C <= 64) return t ? bwd2_q<T, 2, true>(p, blocks, strm) : bwd2_q<T, 2, false>(p, blocks, strm);
-  if (p.C <= 128) return t ? bwd2_q<T, 4, true>(p, blocks, strm) : bwd2_q<T, 4, false>(p, blocks, strm);
+  if (p.C <= 64)
+    return t ? bwd2_q<T, 2, true>(p, blocks, run, strm) : bwd2_q<T, 2, false>(p, blocks, run, strm);
+  if (p.C <= 128)
+    return t ? bwd2_q<T, 4, true>(p, blocks, run, strm) : bwd2_q<T, 4, false>(p, blocks, run, strm);
   return ERR_SHAPE;
 }
 
@@ -866,25 +1100,23 @@ bool bad_shape(int E, int K, int C, int n, int k) {
 extern "C" {
 
 // Number of blocks (rows of the partial-sum scratch) of the backward
-// (second_order = 0; with dpt or not, on this card) or of the second-order
-// pass, at E edges of K triplets; ERR_SHAPE / ERR_SMEM for a shape the
+// (second_order = 0; with dpt or not) or of the second-order pass, at E
+// edges of K triplets, on this card; ERR_SHAPE / ERR_SMEM for a shape the
 // kernels do not take, -1 for a CUDA error.
 int triplet_pt_blocks(int E, int K, int C, int n, int k, int has_t, int bf16, int dpt,
                       int second_order) {
   if (bad_shape(E, K, C, n, k)) return ERR_SHAPE;
-  if (second_order) {
-    const int CE = chunk_edges(K, BWD2_TRIPLETS);
-    return grid_of((E + CE - 1) / CE, BWD2_GRID);
-  }
   int blocks = -1, rc;
   if (bf16) {
     auto p = make_params<__nv_bfloat16>(nullptr, nullptr, nullptr, nullptr, nullptr, E, K, C, n,
                                         k, has_t);
-    rc = bwd_c(p, dpt != 0, &blocks, false, nullptr);
+    rc = second_order ? bwd2_c(p, &blocks, false, nullptr)
+                      : bwd_c(p, dpt != 0, &blocks, false, nullptr);
   } else {
     auto p = make_params<float>(nullptr, nullptr, nullptr, nullptr, nullptr, E, K, C, n, k,
                                 has_t);
-    rc = bwd_c(p, dpt != 0, &blocks, false, nullptr);
+    rc = second_order ? bwd2_c(p, &blocks, false, nullptr)
+                      : bwd_c(p, dpt != 0, &blocks, false, nullptr);
   }
   return rc == 0 ? blocks : rc < 0 ? rc : -1;
 }
@@ -949,8 +1181,7 @@ int triplet_pt_bwd2(const void* xg, const void* pt, const float* ws, const float
                     int bf16, void* stream) {
   if (bad_shape(E, K, C, n, k)) return ERR_SHAPE;
   cudaStream_t strm = static_cast<cudaStream_t>(stream);
-  const int blocks = triplet_pt_blocks(E, K, C, n, k, has_t, bf16, 1, 1);
-  int rc, NB;
+  int blocks = 0, rc, NB;
   if (bf16) {
     using B = __nv_bfloat16;
     auto p = make_params<B>(xg, pt, ws, wt, m, E, K, C, n, k, has_t);
@@ -959,7 +1190,7 @@ int triplet_pt_bwd2(const void* xg, const void* pt, const float* ws, const float
     p.dxg = static_cast<B*>(xb); p.dpt = static_cast<B*>(ptb); p.ctb = ctb;
     p.partial = partial;
     NB = p.NB;
-    rc = bwd2_c(p, blocks, strm);
+    rc = bwd2_c(p, &blocks, true, strm);
   } else {
     auto p = make_params<float>(xg, pt, ws, wt, m, E, K, C, n, k, has_t);
     p.ct = ct; p.u1 = static_cast<const float*>(u1); p.u2 = static_cast<const float*>(u2);
@@ -967,7 +1198,7 @@ int triplet_pt_bwd2(const void* xg, const void* pt, const float* ws, const float
     p.dxg = static_cast<float*>(xb); p.dpt = static_cast<float*>(ptb); p.ctb = ctb;
     p.partial = partial;
     NB = p.NB;
-    rc = bwd2_c(p, blocks, strm);
+    rc = bwd2_c(p, &blocks, true, strm);
   }
   if (rc != 0) return rc;
   return sum_partials(partial, blocks, NB * C, dw, strm);

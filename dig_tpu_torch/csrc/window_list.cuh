@@ -1,0 +1,150 @@
+// The compacted walk of the [N, K]-table kernels triplet_pt_bwd2_kernel and
+// triplet_product_bwd_kernel (triplet_pt_bwd_kernel writes the same out):
+// a block deals itself the chunks of TC consecutive triplets b, b + G,
+// b + 2G, ... (G = gridDim.x) and takes them a window of BW chunks at a
+// time; the window's real triplets (m != 0) are listed in triplet order by
+// warp ballots, and the masked ones' outputs written as zeros, so the
+// kernels walk only real triplets and every sum over a block's triplets
+// keeps the order of the masked walk over the same chunks.
+#pragma once
+
+#include <stdint.h>
+
+#include "common.cuh"
+
+namespace {
+
+// Position x of the window starting at chunk w0 (x < W = BW TC) is triplet
+// (w0 + G (x / TC)) TC + x % TC.
+struct Window {
+  int w0, G, TC, W, chunks;
+  size_t Tn;
+
+  __device__ __forceinline__ size_t chunk(int x) const {
+    return (size_t)w0 + (size_t)G * (x / TC);
+  }
+  __device__ __forceinline__ size_t triplet(int x) const { return chunk(x) * TC + x % TC; }
+  __device__ __forceinline__ bool valid(int x) const {
+    return x < W && chunk(x) < (size_t)chunks && triplet(x) < Tn;
+  }
+};
+
+// Whether position x is a real triplet, from the window's ballots.
+__device__ __forceinline__ bool listed(const unsigned* bits, int x) {
+  return (bits[x >> 5] >> (x & 31)) & 1u;
+}
+
+// Lists the window's real triplets in triplet order into lst [W] and
+// returns their count; bits [rounds * NW] receives one ballot a warp and
+// round (bit x % 32 of word x / 32 is position x's) and wcnt the ballots'
+// counts. masked(t) runs once for each masked triplet t of the window, by
+// the thread that read its mask. Starts with a barrier (the previous
+// window is done with the list) and passes one more before the list is
+// written; the list is read after the caller's next barrier.
+template <int NT, typename T, typename F>
+__device__ int list_window(const Window& w, const T* m, int* lst, int* wcnt, unsigned* bits,
+                           F masked) {
+  constexpr int NW = NT / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, tid = threadIdx.x;
+  const int rounds = (w.W + NT - 1) / NT;
+  __syncthreads();
+  for (int j = 0; j < rounds; ++j) {
+    const int x = j * NT + tid;
+    const bool valid = w.valid(x);
+    const size_t t = w.triplet(x);
+    const bool real = valid && ld(m + t) != 0.f;
+    const unsigned mask = __ballot_sync(0xffffffffu, real);
+    if (lane == 0) {
+      wcnt[j * NW + warp] = __popc(mask);
+      bits[j * NW + warp] = mask;
+    }
+    if (valid && !real) masked(t);
+  }
+  __syncthreads();
+  int nl = 0;
+  for (int j = 0; j < rounds; ++j) {
+    int at = 0;
+    for (int q = 0; q < rounds * NW; ++q) {
+      if (q < j * NW + warp) at += wcnt[q];
+      if (j == 0) nl += wcnt[q];
+    }
+    const unsigned mask = bits[j * NW + warp];
+    if ((mask >> lane) & 1u)
+      lst[at + __popc(mask & ((1u << lane) - 1u))] = (int)w.triplet(j * NT + tid);
+  }
+  return nl;
+}
+
+// Whether any of positions [x0, x0 + n) is a real triplet.
+__device__ __forceinline__ bool any_listed(const unsigned* bits, int x0, int n) {
+  for (int x = x0; x < x0 + n;) {
+    const int b = x & 31, take = min(32 - b, x0 + n - x);
+    const unsigned m = take == 32 ? ~0u : (1u << take) - 1u;
+    if ((bits[x >> 5] >> b) & m) return true;
+    x += take;
+  }
+  return false;
+}
+
+// Elements [a, b) of dst set to 0 by the block's threads, in 16-byte stores
+// between the first and the last 16-byte boundary.
+template <int NT, typename T>
+__device__ void zero_span(T* dst, size_t a, size_t b) {
+  constexpr int PER = 16 / sizeof(T);
+  size_t h = a;
+  while (h < b && reinterpret_cast<uintptr_t>(dst + h) % 16 != 0) ++h;
+  const size_t units = (b - h) / PER, tail = h + units * PER;
+  for (size_t x = threadIdx.x; x < units; x += NT)
+    reinterpret_cast<uint4*>(dst + h)[x] = make_uint4(0u, 0u, 0u, 0u);
+  for (size_t x = a + threadIdx.x; x < h; x += NT) st(dst + x, 0.f);
+  for (size_t x = tail + threadIdx.x; x < b; x += NT) st(dst + x, 0.f);
+}
+
+// dst [Tn, width]: the rows of the window's masked triplets set to 0. Rows
+// of a multiple of 16 bytes are zeroed alone, in 16-byte stores; other
+// rows (a bf16 basis row of 18 or 54 values) are not 16-byte aligned, so
+// each of the window's chunks is zeroed whole, its real rows too, and the
+// caller writes those after its next barrier.
+template <int NT, typename T>
+__device__ void zero_masked_rows(const Window& w, const unsigned* bits, T* dst, int width) {
+  if ((width * sizeof(T)) % 16 == 0 && reinterpret_cast<uintptr_t>(dst) % 16 == 0) {
+    const int per = (int)(width * sizeof(T) / 16);
+    for (int x = threadIdx.x; x < w.W * per; x += NT) {
+      const int pos = x / per;
+      if (!w.valid(pos) || listed(bits, pos)) continue;
+      reinterpret_cast<uint4*>(dst + w.triplet(pos) * width)[x % per] =
+          make_uint4(0u, 0u, 0u, 0u);
+    }
+    return;
+  }
+  for (int x = 0; x < w.W; x += w.TC) {
+    const size_t ch = w.chunk(x);
+    if (ch >= (size_t)w.chunks) break;
+    const size_t t0 = ch * w.TC, t1 = t0 + w.TC < w.Tn ? t0 + w.TC : w.Tn;
+    zero_span<NT>(dst, t0 * width, t1 * width);
+  }
+}
+
+// The grid of a kernel that walks windows: as many blocks as the card
+// holds at once (SMs x the kernel's occupancy at smem bytes of dynamic
+// shared memory), at most `chunks`; it depends only on the shapes and the
+// card. Raises the kernel's shared-memory limit to smem. 0, a cudaError_t
+// or ERR_SMEM.
+template <typename Kern>
+int occupancy_grid(Kern kern, int threads, size_t smem, int chunks, int* blocks) {
+  int rc = check_smem(smem);
+  if (rc != 0) return rc;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads, smem);
+  if (e != cudaSuccess) return e;
+  const int cap = sms * (per_sm > 0 ? per_sm : 1);
+  *blocks = chunks < cap ? chunks : cap;
+  return 0;
+}
+
+}  // namespace

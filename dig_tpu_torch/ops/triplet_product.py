@@ -27,7 +27,11 @@ its plain version (``fused_triplet_product_reference``,
 ``fused_triplet_product_bwd_reference``,
 ``fused_triplet_product_bwd2_reference``: the algebra of the TPU kernels
 ``_fwd_kernel``, ``_bwd_kernel`` and ``_bwd2_kernel``). ``launches_fwd``,
-``launches_bwd`` and ``launches_bwd2`` count kernel launches.
+``launches_bwd`` and ``launches_bwd2`` count kernel launches
+(``launches_bwd_basis`` the backward launches that computed the basis
+cotangents). As in ``ops/triplet_slot.py``, a backward computes them only
+when the backward pass now running will use them, so a force step's outer
+pass (``loss.backward(inputs=params)``) leaves them out.
 """
 from __future__ import annotations
 
@@ -37,19 +41,22 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from . import _build
+from .triplet_slot import _grad_wanted
 
 launches_fwd = 0
 launches_bwd = 0
 launches_bwd2 = 0
+launches_bwd_basis = 0   # of launches_bwd: those that computed dsbf / dtbf
 
 _SHAPES = "C must be at most 128"
 
 
 def reset_launch_counts() -> None:
-    global launches_fwd, launches_bwd, launches_bwd2
+    global launches_fwd, launches_bwd, launches_bwd2, launches_bwd_basis
     launches_fwd = 0
     launches_bwd = 0
     launches_bwd2 = 0
+    launches_bwd_basis = 0
 
 
 # ---------------------------------------------------------------------------
@@ -175,7 +182,7 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("triplet_product")
     if not getattr(lib, "_argtypes_set", False):
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.triplet_product_blocks.argtypes = [I, I, I]
+        lib.triplet_product_blocks.argtypes = [I] * 7
         lib.triplet_product_blocks.restype = I
         lib.triplet_product_fwd.argtypes = [P] * 7 + [I] * 6 + [P]
         lib.triplet_product_fwd.restype = I
@@ -248,30 +255,39 @@ def _weight_split(dw, S1, S2, C):
     return dw[:S1 * C].view(S1, C), (dw[S1 * C:].view(S2, C) if S2 else None)
 
 
+def _scratch(lib, E, K, C, S1, S2, bf16, second_order, dev):
+    """The weight partials of a backward (``second_order`` 0) or
+    second-order launch, one row a block, and their sum."""
+    blocks = lib.triplet_product_blocks(E, K, C, S1, S2, bf16, second_order)
+    if blocks <= 0:
+        _build.check(blocks, "triplet_product backward kernel's grid",
+                     _SHAPES)
+    return (torch.empty((blocks, (S1 + S2) * C), dtype=torch.float32,
+                        device=dev),
+            torch.empty((S1 + S2) * C, dtype=torch.float32, device=dev))
+
+
 def triplet_product_backward_kernel(xg, sbf, tbf, ws, wt, mask2d, ct, K,
                                     basis_grads):
     """Launch the backward kernel on validated operands (``ct`` float32
     ``[E, C]``); returns ``(dxg, dsbf, dtbf, dws, dwt)``: the rows in
     ``xg``'s type (``dsbf``/``dtbf`` None without ``basis_grads``), the
     weight gradients float32."""
-    global launches_bwd
+    global launches_bwd, launches_bwd_basis
     E, C, S1, S2 = _widths(xg, sbf, tbf, K)
-    dev, dt = xg.device, xg.dtype
+    dev, bf16 = xg.device, int(xg.dtype == torch.bfloat16)
     lib = _library()
     dxg = torch.empty_like(xg)
     dsbf = torch.empty_like(sbf) if basis_grads else None
     dtbf = torch.empty_like(tbf) if basis_grads and S2 else None
-    blocks = lib.triplet_product_blocks(E, K, 0)
-    partial = torch.empty((blocks, (S1 + S2) * C), dtype=torch.float32,
-                          device=dev)
-    dw = torch.empty((S1 + S2) * C, dtype=torch.float32, device=dev)
+    partial, dw = _scratch(lib, E, K, C, S1, S2, bf16, 0, dev)
     rc = lib.triplet_product_bwd(
         *map(_build.ptr, (xg, sbf, tbf, ws, wt, mask2d, ct, dxg, dsbf, dtbf,
                           partial, dw)),
-        E, K, C, S1, S2, int(dt == torch.bfloat16), int(bool(basis_grads)),
-        _build.stream(dev))
+        E, K, C, S1, S2, bf16, int(bool(basis_grads)), _build.stream(dev))
     _build.check(rc, "triplet_product backward kernel", _SHAPES)
     launches_bwd += 1
+    launches_bwd_basis += int(bool(basis_grads))
     return (dxg, dsbf, dtbf, *_weight_split(dw, S1, S2, C))
 
 
@@ -301,10 +317,8 @@ def triplet_product_bwd2_kernel(xg, sbf, tbf, ws, wt, mask2d, ct, u1, u2,
     sb = torch.empty_like(sbf)
     tb = torch.empty_like(tbf) if S2 else None
     ctb = torch.empty((E, C), dtype=torch.float32, device=dev)
-    blocks = lib.triplet_product_blocks(E, K, 1)
-    partial = torch.empty((blocks, (S1 + S2) * C), dtype=torch.float32,
-                          device=dev)
-    dw = torch.empty((S1 + S2) * C, dtype=torch.float32, device=dev)
+    partial, dw = _scratch(lib, E, K, C, S1, S2, int(dt == torch.bfloat16), 1,
+                           dev)
     rc = lib.triplet_product_bwd2(
         *map(_build.ptr, (xg, sbf, tbf, ws, wt, mask2d, ct, u1, u2, u3, u4,
                           u5, xb, sb, tb, ctb, partial, dw)),
@@ -372,8 +386,9 @@ class _TripletProduct(torch.autograd.Function):
         need = ctx.needs_input_grad
         if basis_grads:
             xg, sbf, tbf, ws, wt, mask2d = ctx.saved_tensors
-            grads = _TripletProductBwd.apply(xg, sbf, tbf, ws, wt, mask2d, ct,
-                                             K, need[1] or need[2])
+            grads = _TripletProductBwd.apply(
+                xg, sbf, tbf, ws, wt, mask2d, ct, K,
+                _grad_wanted(ctx, 1) or _grad_wanted(ctx, 2))
         else:
             grads = _backward_once(ctx, ct)
         return tuple(g if n else None for g, n in zip(grads, need[:5])) + (

@@ -7,21 +7,25 @@ hash their outputs.
 ``--root`` names the checkout whose ``dig_tpu_torch`` is timed (default:
 this one), so that two versions of the kernels can be timed in turns in
 one call, on one card, on the same inputs: chip_smoke.py's own (path 7a's
-batch and seeded operands, the force bench's three bucket batches, path
-7b's graph), made by this checkout's chip_smoke.py. The root's libraries
-are built first, one nvcc each, all at once.
+batch and seeded operands, the force bench's three bucket batches, the
+unblocked NK batch of paths 5a-6b, path 7b's graph), made by this
+checkout's chip_smoke.py. The root's libraries are built first, one nvcc
+each, all at once.
 
 What it times, with CUDA events over repeated bare launches (bf16 and f32):
 the geometry forward, backward (dgeo asked for and not) and second order
 at path 7a's shape (u1 = u4 = u5 absent, as in force training); the
 triplet_slot backward (dpt asked for and not) and second order at the
 three bucket shapes of the force bench; the triplet_pt backward (dpt asked
-for and not) at paths 6a's and 6b's shapes; the chunked sum at path 7b's
-shape beside segment_csr_kernel and torch.segment_reduce. Each backward,
+for and not) and second order (the cotangents a force step passes, u1 and
+u2, and all four) at paths 6a's and 6b's shapes; the triplet_product
+backward at path 5a's shape with and without basis cotangents and at 5b's
+without; the chunked sum at path 7b's shape beside segment_csr_kernel and
+torch.segment_reduce. Each backward,
 second order and the chunked sum is also split into its kernels by
 chip_smoke.kernel_split (torch.profiler's device events). ``--ops`` keeps
 the ops whose names start with one of the given prefixes (default: all),
-e.g. ``--ops pt_bwd,slot_bwd_A,geom_bwd``.
+e.g. ``--ops pt_bwd,slot_bwd_A,geom_bwd,prod_bwd``.
 
 Before the times, one object per kernel call with a hash of each output's
 bytes (the second orders also with u1 = u4 = u5 present), so that two
@@ -43,7 +47,8 @@ import torch
 
 HERE = Path(__file__).resolve().parent.parent
 SPLIT = ("slot_jvp_kernel", "slot_bwd2_kernel", "slot_bwd_kernel",
-         "triplet_pt_bwd_kernel", "sum_partials_kernel",
+         "triplet_pt_bwd_kernel", "triplet_pt_bwd2_kernel",
+         "triplet_product_bwd_kernel", "sum_partials_kernel",
          "segment_csr_span_kernel", "segment_csr_chunked_kernel",
          "segment_csr_kernel", "Memset")
 
@@ -85,6 +90,7 @@ def main():
         sys.exit("needs a CUDA card")
     from dig_tpu_torch.ops import _build
     from dig_tpu_torch.ops import segment_csr as sc
+    from dig_tpu_torch.ops import triplet_product as tp
     from dig_tpu_torch.ops import triplet_pt as tpt
     from dig_tpu_torch.ops import triplet_slot as ts
     smoke = load_smoke()
@@ -92,6 +98,7 @@ def main():
     smoke.build_all(_build, {"triplet_slot": ("triplet_slot", None),
                              "segment_csr": ("segment_csr", None),
                              "triplet_pt": ("triplet_pt", None),
+                             "triplet_product": ("triplet_product", None),
                              "triplet_slot_geom": ("triplet_slot_geom",
                                                    ts.geom_library_spec(cfg))})
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -162,9 +169,9 @@ def main():
                 lambda k_args=k_args, ct32=ct32, us=us_all, Ab=Ab, g=scfg:
                 ts.triplet_slot_bwd2_kernel(*k_args, ct32, *us, Ab, K, g))
     nk_b = smoke.nk_batches(torch, dev, smoke.NK_STEPS + 1)[-1] \
-        if group("pt_bwd") else None
+        if group("pt_bwd") or group("prod_bwd") else None
     for path in smoke.PT_PATHS:
-        if not group(f"pt_bwd_{path}"):
+        if not group(f"pt_bwd_{path}") and not group(f"pt_bwd2_{path}"):
             continue
         pinp = smoke.pt_kernel_inputs(torch, dev, nk_b, path)
         Kp, pcfg = pinp["K"], pinp["cfg"]
@@ -176,6 +183,28 @@ def main():
                 ops[(f"pt_bwd_{path}{'_dpt' if dpt else ''}", prec)] = (
                     lambda k_args=k_args, ct32=ct32, Kp=Kp, g=pcfg, dpt=dpt:
                     tpt.triplet_pt_backward_kernel(*k_args, ct32, Kp, g, dpt))
+            # u1 and u2 as a force step passes them; then all four
+            u12 = [u.to(dt) for u in pinp["us"][:2]]
+            for name, us in ((f"pt_bwd2_{path}", u12 + [None, None]),
+                             (f"pt_bwd2_{path}_all_u", u12 + pinp["us"][2:])):
+                ops[(name, prec)] = (
+                    lambda k_args=k_args, ct32=ct32, us=us, Kp=Kp, g=pcfg:
+                    tpt.triplet_pt_bwd2_kernel(*k_args, ct32, *us, Kp, g))
+    for path in ("5a", "5b"):
+        if not group(f"prod_bwd_{path}"):
+            continue
+        ninp = smoke.nk_kernel_inputs(torch, dev, nk_b, path)
+        Kn = ninp["K"]
+        for prec, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            k_args = tp._kernel_inputs(*smoke.nk_args(torch, ninp, dt), Kn)
+            ct32 = ninp["ct"].to(dt).float().contiguous()
+            # 5a's force step asks for the basis cotangents in its inner
+            # pass only; 5b's energy step never
+            for basis in ((False, True) if path == "5a" else (False,)):
+                ops[(f"prod_bwd_{path}{'_basis' if basis else ''}", prec)] = (
+                    lambda k_args=k_args, ct32=ct32, Kn=Kn, basis=basis:
+                    tp.triplet_product_backward_kernel(*k_args, ct32, Kn,
+                                                       basis))
     g = smoke.cs_graph(torch, dev) if group("chunked") or group("csr") \
         else None
     library = {}

@@ -1,13 +1,14 @@
 """The rows' cotangent (``dpt`` of ``fused_triplet_pt`` and
-``fused_triplet_slot``, ``dgeo`` of ``fused_triplet_slot_geom``) is
-computed only when the backward pass running will use it, on the CPU.
+``fused_triplet_slot``, ``dgeo`` of ``fused_triplet_slot_geom``, the basis
+cotangents ``dsbf`` / ``dtbf`` of ``fused_triplet_product``) is computed
+only when the backward pass running will use it, on the CPU.
 
 A force step differentiates the model twice: the inner
 ``torch.autograd.grad(energy, pos, create_graph=True)`` needs the rows'
 cotangent (the rows lead to the positions), the outer
 ``loss.backward(inputs=params)`` does not. Each op's first-order backward
 is counted here through its plain version's flag (``need_dpt`` /
-``need_dgeo``), the CPU counterpart of the kernel's: per layer the inner
+``need_dgeo`` / ``basis_grads``), the CPU counterpart of the kernel's: per layer the inner
 pass asks for the cotangent and the outer pass does not. The step's
 parameter gradients are the same bits as those of the same step with the
 cotangent forced on (the old rule: asked whenever the rows require a
@@ -16,7 +17,8 @@ gradient), and ``torch.autograd.grad(esum, pos)`` and a plain
 
 SphereNet at 2 layers x 32 (int_emb 16, n = 2, k = 4, K = 8) on seeded
 synthetic molecules of 5-10 atoms: the packed basis on the unblocked
-[N, K] table (``fused_triplet_pt``), the slot layout (``fused_triplet_slot``,
+[N, K] table (``fused_triplet_pt``), the triplet product on the same table
+without the packed basis (``fused_triplet_product``), the slot layout (``fused_triplet_slot``,
 also bucketed through ``make_bucketed_step_fns``), and two layers of the
 geometry op on the slot layout's geometry with seeded leaves.
 """
@@ -28,6 +30,7 @@ import torch
 from dig_tpu.datasets import synthetic_molecules
 from dig_tpu_torch.datasets import BucketedMoleculeLoader, MoleculeLoader
 from dig_tpu_torch.models import SphereNet
+from dig_tpu_torch.ops import triplet_product as tp
 from dig_tpu_torch.ops import triplet_pt as tpt
 from dig_tpu_torch.ops import triplet_slot as ts
 from dig_tpu_torch.train import (energy_force, make_bucketed_step_fns,
@@ -38,12 +41,15 @@ KW = dict(cutoff=5.0, num_layers=2, hidden_channels=32, int_emb_size=16,
           out_emb_channels=32, num_spherical=2, num_radial=4, nk_degree=8)
 LAYERS = KW["num_layers"]
 FLAGS = {"pt": dict(pallas_triplet=True, pallas_fuse_basis=True),
+         "product": dict(pallas_triplet=True),
          "slot": dict(pallas_triplet=True, pallas_fuse_basis=True,
                       pallas_slot=True, block_size=A),
          "geom": dict(block_size=A)}
 # the plain first-order VJP each op's backward runs on the CPU, and the
 # keyword of its rows' flag
 PLAIN = {"pt": (tpt, "fused_triplet_pt_bwd_ref", "need_dpt"),
+         "product": (tp, "fused_triplet_product_bwd_reference",
+                     "basis_grads"),
          "slot": (ts, "fused_triplet_slot_bwd_reference", "need_dpt"),
          "geom": (ts, "fused_triplet_slot_geom_bwd_reference", "need_dgeo")}
 
@@ -54,7 +60,7 @@ def _mols(n=8, seed=5):
 
 
 def _batch(op):
-    slot = {} if op == "pt" else dict(slot_size=A)
+    slot = {} if op in ("pt", "product") else dict(slot_size=A)
     mols = [dict(m, y=m["y"][:1]) for m in _mols()]
     return next(iter(MoleculeLoader(mols, 4, shuffle=False, device="cpu",
                                     **slot)))
@@ -128,6 +134,7 @@ def _force_on(monkeypatch):
     old = lambda ctx, i: bool(ctx.needs_input_grad[i])
     monkeypatch.setattr(ts, "_grad_wanted", old)
     monkeypatch.setattr(tpt, "_grad_wanted", old)
+    monkeypatch.setattr(tp, "_grad_wanted", old)
 
 
 def _step_grads(op, bucketed=False):
@@ -150,8 +157,9 @@ def _step_grads(op, bucketed=False):
     return loss, [p.grad for p in model.parameters()]
 
 
-@pytest.mark.parametrize("op,bucketed", [("pt", False), ("slot", False),
-                                         ("slot", True), ("geom", False)])
+@pytest.mark.parametrize("op,bucketed", [("pt", False), ("product", False),
+                                         ("slot", False), ("slot", True),
+                                         ("geom", False)])
 def test_force_step_outer_pass_skips_rows_cotangent(monkeypatch, op,
                                                     bucketed):
     flags = _count_flags(monkeypatch, op)
@@ -172,7 +180,7 @@ def test_force_step_outer_pass_skips_rows_cotangent(monkeypatch, op,
             assert torch.equal(g, g_on)
 
 
-@pytest.mark.parametrize("op", ["pt", "slot", "geom"])
+@pytest.mark.parametrize("op", ["pt", "product", "slot", "geom"])
 def test_position_gradient_still_gets_rows_cotangent(monkeypatch, op):
     batch = _batch(op)
     model = _model(op, batch)

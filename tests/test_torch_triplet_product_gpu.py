@@ -182,3 +182,76 @@ def test_cuda_input_without_kernel_shape_raises():
     with pytest.raises(ValueError, match="up to 128"):
         op.fused_triplet_product(d["xg"], d["sbf"], d["tbf"], d["ws"],
                                  d["wt"], d["m2d"], K)
+
+
+# The backward lists each window's real triplets and walks them in batches
+# of 64 (csrc/triplet_product.cu): (E, K, C, S1, S2, mask) for the cases the
+# compacted walk and its register tiles make risky. mask: "empty" (the
+# first 200 edges, whole windows, without a real triplet), "full" (every
+# triplet real), "ragged" (67 real triplets: not a multiple of the batch or
+# of a warp's 4 triplets), "random" (about 40% real); "many_windows" gives
+# each block several windows, "straddle" (K = 12, all real) edges that
+# straddle batches
+COMPACT = {"empty_windows": (300, 16, 64, 18, 54, "empty"),
+           "all_real": (300, 16, 64, 18, 54, "full"),
+           "ragged": (37, 4, 64, 18, 54, "ragged"),
+           "straddle": (300, 12, 64, 18, 54, "full"),
+           "many_windows": (20000, 16, 64, 18, 54, "random"),
+           "c32": (300, 16, 32, 18, 54, "random"),
+           "c128": (300, 16, 128, 18, 54, "random"),
+           "no_torsion": (300, 16, 64, 42, 0, "random")}
+
+
+def _mask_as(m, how, seed=5):
+    """Set the triplet mask m [E, K] in place as COMPACT's ``how`` says."""
+    if how == "empty":
+        m[:200] = 0
+    elif how == "full":
+        m.fill_(1)
+    elif how == "ragged":
+        m.zero_()
+        g = torch.Generator(device="cpu").manual_seed(seed)
+        m.view(-1)[torch.randperm(m.numel(), generator=g)[:67].to(m.device)] = 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(COMPACT))
+def test_backward_compacted_walk(case, dtype):
+    """The backward with basis gradients and without against the plain
+    version: dxg, dsbf and dtbf rows exactly 0 at masked triplets, dxg,
+    dws and dwt the same bits without basis gradients, three calls the
+    same bits."""
+    from dig_tpu_torch.ops import triplet_product as op
+    dev = _device()
+    E, K, C, S1, S2, how = COMPACT[case]
+    d, _, K = _inputs(dev, dtype, E, K, C, S1, S2)
+    _mask_as(d["m2d"], how)
+    masked = d["m2d"].reshape(-1) == 0
+    args = [d[k] for k in ("xg", "sbf", "tbf", "ws", "wt", "m2d")]
+    k_args = op._kernel_inputs(*args, K)
+    ct32 = d["ct"].float().contiguous()
+    before = op.launches_bwd, op.launches_bwd_basis
+    runs = [op.triplet_product_backward_kernel(*k_args, ct32, K, True)
+            for _ in range(3)]
+    no_basis = op.triplet_product_backward_kernel(*k_args, ct32, K, False)
+    torch.cuda.synchronize()
+    assert (op.launches_bwd, op.launches_bwd_basis) == (before[0] + 4,
+                                                        before[1] + 3)
+    for again in runs[1:]:
+        assert all(a is None or torch.equal(a, b)
+                   for a, b in zip(again, runs[0]))
+    assert no_basis[1] is None and no_basis[2] is None
+    for i in (0, 3, 4):
+        assert (no_basis[i] is None) == (runs[0][i] is None)
+        assert no_basis[i] is None or torch.equal(no_basis[i], runs[0][i])
+    want = op.fused_triplet_product_bwd_reference(*args, d["ct"], K)
+    for name, a, w in zip(("dxg", "dsbf", "dtbf", "dws", "dwt"), runs[0],
+                          want):
+        assert (a is None) == (w is None), name
+        if a is None:
+            continue
+        assert torch.isfinite(a).all(), name
+        tol = TOL[a.dtype] if name in ("dxg", "dsbf", "dtbf") else 1e-4
+        assert _rel(a, w) < tol, name
+        if a.shape[0] == masked.shape[0] and bool(masked.any()):
+            assert float(a[masked].abs().max()) == 0.0, name

@@ -232,3 +232,61 @@ def test_backward_compacted_walk(case, dtype):
             continue
         assert _rel(a, w) < TOL[a.dtype], name
         assert not bool(masked.any()) or _masked_zero(name, a, masked), name
+
+
+# The second order lists the real triplets of each window of whole edges
+# and walks them in batches of 32 (csrc/triplet_pt.cu), summing ctb per
+# edge across batches: COMPACT's cases, the cotangents of a force step and
+# every other set, plus "straddle" (K = 12, all real: edges that straddle
+# batches) and "many_windows" (several windows a block)
+COMPACT2 = dict(COMPACT, straddle=(300, 12, 64, 3, 6, True, "full"),
+                many_windows=(20000, 16, 64, 3, 6, True, "random"))
+# which of (u1, u2, u4, u5) are present
+U_SETS = {"all": (1, 1, 1, 1), "force_step": (1, 1, 0, 0),
+          "no_u2": (1, 0, 1, 1), "u4_only": (0, 1, 1, 0)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(COMPACT2))
+def test_bwd2_compacted_walk(case, dtype):
+    """The second order under each set of cotangents against the plain
+    version: xb rows and ptb columns exactly 0 at masked triplets, ctb rows
+    exactly 0 at edges without a real triplet, three calls the same bits."""
+    from dig_tpu_torch.ops import triplet_pt as op
+    dev = _device()
+    E, K, C, n, k, has_t, how = COMPACT2[case]
+    args, ct, us, K, cfg = _inputs(dev, dtype, E, K, C, n, k, has_t)
+    m = args[4]
+    if how == "empty":
+        m[:200] = 0
+    elif how == "full":
+        m.fill_(1)
+    elif how == "ragged":
+        m.zero_()
+        g = torch.Generator(device="cpu").manual_seed(5)
+        m.view(-1)[torch.randperm(E * K, generator=g)[:67].to(dev)] = 1
+    masked = m.reshape(-1) == 0
+    empty_edges = (m == 0).all(dim=1)
+    k_args = op._kernel_inputs(*args, K, cfg)
+    ct32 = ct.float().contiguous()
+    for label, present in U_SETS.items():
+        uset = [u if f else None for u, f in zip(us, present)]
+        before = op.launches_bwd2
+        runs = [op.triplet_pt_bwd2_kernel(*k_args, ct32, *uset, K, cfg)
+                for _ in range(3)]
+        torch.cuda.synchronize()
+        assert op.launches_bwd2 == before + 3, label
+        for again in runs[1:]:
+            assert all(torch.equal(a, b) for a, b in zip(again, runs[0])), \
+                label
+        want = op.fused_triplet_pt_bwd2_ref(*args, ct, *uset, K, cfg)
+        for name, a, w in zip(("xb", "ptb", "wsb", "wtb", "ctb"), runs[0],
+                              want):
+            assert torch.isfinite(a).all(), (label, name)
+            if name == "wtb" and not cfg[2]:
+                continue
+            assert _rel(a, w) < TOL[a.dtype], (label, name)
+            if bool(masked.any()):
+                assert _masked_zero(name, a, masked), (label, name)
+        if bool(empty_edges.any()):
+            assert float(runs[0][4][empty_edges].abs().max()) == 0.0, label
