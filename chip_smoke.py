@@ -443,6 +443,17 @@ def rel_err(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-12))
 
 
+def cf_batches(torch, dev, n):
+    """SchNetDense's size-bucketed batches (bench.py main()'s buckets)."""
+    from dig_tpu_torch.datasets import (BucketedDenseMoleculeLoader,
+                                        synthetic_molecules)
+    mols = synthetic_molecules(sum(SLOT_COUNTS.values()) * (STEPS + 4),
+                               seed=0, min_atoms=12, max_atoms=29, box=6.0)
+    it = iter(BucketedDenseMoleculeLoader(mols, SLOT_COUNTS, max_per_slot=2,
+                                          shuffle=True, seed=0, device=dev))
+    return [next(it) for _ in range(n)]
+
+
 def bucket_inputs(torch, batches, dev, seed=0):
     """Per bucket: masked distances of the real batch, random vj and
     filter weights at the model's widths."""
@@ -639,8 +650,10 @@ def bounds(args, n_pairs, prec, kind, need_dist, sfu_rate):
         mufu = P * (R + 2 * F + 1)
         nbytes = el(dist) + el(vj) + w_bytes + out_bytes
     else:
+        # R basis exps, and per feature one exp(-|pre|) shared by the
+        # softplus and the sigmoid, a log and a reciprocal
         flops = 2 * P * F * (2 * R + 3 * F) + 10 * P * F
-        mufu = P * (R + 4 * F + 1)
+        mufu = P * (R + 3 * F + 1)
         if need_dist:
             flops += 2 * P * F * R + 2 * P * (F + R)
             mufu += P
@@ -3314,8 +3327,6 @@ def main():
     if sys.argv[1:2] == ["--repeat-step"]:
         repeat_step(*sys.argv[2:4])
         return
-    from dig_tpu_torch.datasets import (BucketedDenseMoleculeLoader,
-                                        synthetic_molecules)
     from dig_tpu_torch.ops import _build
     from dig_tpu_torch.ops import cfconv as cf
     from dig_tpu_torch.ops import segment_csr as sc
@@ -3355,13 +3366,7 @@ def main():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log("    " + line.strip())
 
-    per_batch = sum(SLOT_COUNTS.values())
-    mols = synthetic_molecules(per_batch * (STEPS + 4), seed=0, min_atoms=12,
-                               max_atoms=29, box=6.0)
-    loader = BucketedDenseMoleculeLoader(mols, SLOT_COUNTS, max_per_slot=2,
-                                         shuffle=True, seed=0, device=dev)
-    it = iter(loader)
-    batches = [next(it) for _ in range(STEPS + 1)]
+    batches = cf_batches(torch, dev, STEPS + 1)
 
     log("== 3. kernel vs plain: cfconv (bench shapes)")
     inputs = bucket_inputs(torch, batches[-1], dev)
@@ -3373,7 +3378,7 @@ def main():
 
     log("== 5. times: cfconv")
     rows = phase_times(torch, cf, inputs, sfu_rate)
-    del inputs, batches, loader, it, mols
+    del inputs, batches
 
     sn_b = sn_batches(torch, dev, SN_STEPS + 1)
     log("== 6. kernel vs plain: triplet_slot (flagship shapes, pt of a "

@@ -1,7 +1,8 @@
 // Helpers shared by the package's CUDA sources: element loads and stores
 // in float32 or bf16, rounding to bf16, the fixed-order sum of per-block
-// partials, and the checked launch. Each source is its own shared library,
-// so everything here lives in an unnamed namespace.
+// partials, the checked launch and the occupancy-sized grid. Each source
+// is its own shared library, so everything here lives in an unnamed
+// namespace.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -74,6 +75,28 @@ int launch(Kern kernel, int grid, int threads, size_t smem, cudaStream_t strm, c
   if (e != cudaSuccess) return e;
   kernel<<<grid, threads, smem, strm>>>(p);
   return cudaGetLastError();
+}
+
+// The grid of a kernel whose blocks deal themselves the work (b, b + G,
+// ...): as many blocks as the card holds at once (SMs x the kernel's
+// occupancy at smem bytes of dynamic shared memory), at most `chunks`, the
+// units of work; it depends only on the shapes and the card. Raises the
+// kernel's shared-memory limit to smem. 0, a cudaError_t or ERR_SMEM.
+template <typename Kern>
+int occupancy_grid(Kern kern, int threads, size_t smem, int chunks, int* blocks) {
+  int rc = check_smem(smem);
+  if (rc != 0) return rc;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads, smem);
+  if (e != cudaSuccess) return e;
+  const int cap = sms * (per_sm > 0 ? per_sm : 1);
+  *blocks = chunks < cap ? chunks : cap;
+  return 0;
 }
 
 }  // namespace

@@ -77,11 +77,23 @@
 //    instance with basis gradients, so both instances deal the chunks
 //    alike. ptxas (sm_90a): 100-128 registers, no spills; two blocks of
 //    256 threads an SM at SphereNet's widths (one at C = 128).
-//  - Second order: a block takes chunks of CE whole edges (TC = CE K
-//    triplets), a warp per triplet forms the per-channel cotangents into
-//    shared memory; then each thread owns entries of wsb | wtb and adds the
-//    chunk's triplets in order, and ctb sums each edge's K triplets in
-//    order.
+//  - Second order (triplet_product_bwd2_kernel): the first kernel (a warp
+//    per triplet over 16-triplet chunks, about half its warps idle on
+//    masked triplets, three serial row products a triplet, a weight loop
+//    that re-walked every triplet of the chunk) ran at 2% of its byte
+//    bound. It now walks as triplet_pt_bwd2_kernel does: the same
+//    16-triplet chunks (b, b + G, ...) listed a window of about 1024
+//    triplets at a time, masked rows' zeros first (xb in 16-byte stores,
+//    the window's sb | tb chunks whole), batches of 32 real triplets; the
+//    batch's sbf | tbf and u2 | u3 rows staged by coalesced scalar loads
+//    into [32][NB padded to 4]; s, tv, P, Q 4 triplets a warp (2 at C >
+//    64), rows read as float4, each weight loaded once for them (the u4 |
+//    u5 terms in a second pass, only when present, read through the L1
+//    cache); wsb | wtb in (channel x row block) register blocks, the two
+//    fmaf a triplet in the first kernel's order; ctb summed per edge in
+//    list order in the registers of the first row block's threads,
+//    carried across batches; sb | tb as 4 x 3 register tiles. The grid is
+//    SMs x the occupancy (264 at two blocks an SM).
 //  - Every sum keeps the order of the masked walk: over rows and channels
 //    from 0, over a block's real triplets in triplet order. The per-block
 //    weight sums go to a [blocks, ...] scratch and sum_partials_kernel adds
@@ -97,7 +109,6 @@ namespace {
 constexpr int NT = 256;        // threads per block
 constexpr int NW = NT / 32;    // warps per block
 constexpr int FWD_GRID = 1056; // forward: at most 8 blocks per SM
-constexpr int BWD2_GRID = 264; // second order: a fixed block count
 
 template <typename T>
 struct Params {
@@ -176,14 +187,6 @@ __device__ __forceinline__ void row_products(const float* b, const float* w_s, i
   }
 }
 
-// sum_c g[c] * w[r][c] for the row r of w_s (row stride C+1)
-__device__ __forceinline__ float row_dot(const float* g, const float* w_s, int r, int C) {
-  const float* w = w_s + r * (C + 1);
-  float acc = 0.f;
-  for (int c = 0; c < C; ++c) acc = fmaf(g[c], w[c], acc);
-  return acc;
-}
-
 template <typename T, int Q, bool HAS_T>
 __global__ void __launch_bounds__(NT) triplet_product_fwd_kernel(Params<T> p) {
   extern __shared__ __align__(16) float smem[];
@@ -223,13 +226,6 @@ __global__ void __launch_bounds__(NT) triplet_product_fwd_kernel(Params<T> p) {
       if (c < C) st(p.out + (size_t)e * C + c, acc[q]);
     }
   }
-}
-
-// zero the rows of triplet t in dst [T, width] (lanes over the row)
-template <typename T>
-__device__ __forceinline__ void zero_row(T* dst, size_t t, int width, int lane) {
-  if (dst == nullptr) return;
-  for (int r = lane; r < width; r += 32) st(dst + t * width + r, 0.f);
 }
 
 // Backward tiles: a batch of BB real triplets; products TE triplets a warp;
@@ -484,140 +480,388 @@ __global__ void __launch_bounds__(NT, 2) triplet_product_bwd_kernel(Params<T> p)
   for (int x = tid; x < NB * C; x += NT) part[x] = dW_s[x];
 }
 
+// The second order's batches: BB2 real triplets.
+constexpr int BB2 = 32;
+
+// Floats of the second order's shared memory for BW chunks of TC triplets
+// a window (bwd2_layout's order).
+struct Bwd2Layout {
+  int NBp, CP, W, rounds;
+  size_t w_s, dW_s, bas, ubas, A, Gt, I, B, Gs, m_s, lst, wcnt, bits, total;
+};
+
+template <typename T, bool HAS_T>
+__host__ __device__ inline Bwd2Layout bwd2_layout(const Params<T>& p, int TC) {
+  Bwd2Layout L;
+  L.NBp = (p.NB + 3) & ~3;
+  L.CP = p.C + 1;
+  const int BW = TC >= WINDOW ? 1 : WINDOW / TC;
+  L.W = BW * TC;
+  L.rounds = (L.W + NT - 1) / NT;
+  const size_t tc = (size_t)BB2 * L.CP;
+  L.w_s = 0;
+  L.dW_s = L.w_s + (size_t)p.NB * (p.C + 1);
+  L.bas = (L.dW_s + (size_t)p.NB * p.C + 3) & ~(size_t)3;  // 16-byte aligned
+  L.ubas = L.bas + (size_t)BB2 * L.NBp;
+  L.A = L.ubas + (size_t)BB2 * L.NBp;
+  L.Gt = L.A + tc;
+  L.I = L.Gt + tc;
+  L.B = L.I + tc;
+  L.Gs = L.B + (HAS_T ? tc : 0);
+  L.m_s = L.Gs + (HAS_T ? tc : 0);
+  L.lst = L.m_s + BB2;
+  L.wcnt = L.lst + L.W;
+  L.bits = L.wcnt + (size_t)L.rounds * NW;
+  L.total = L.bits + (size_t)L.rounds * NW;
+  return L;
+}
+
+// Row rr of u4 | u5, or null where that cotangent is absent.
+template <typename T>
+__device__ __forceinline__ const float* u_row(const Params<T>& p, int rr) {
+  if (rr < p.S1) return p.u4 != nullptr ? p.u4 + (size_t)rr * p.C : nullptr;
+  return p.u5 != nullptr ? p.u5 + (size_t)(rr - p.S1) * p.C : nullptr;
+}
+
 // Second order. Per real triplet and channel: A and B as in the header
 // (B torsion only), G_t = go xg tv (the cotangent term of u4's product),
 // G_s = go xg s (u5's), I = m (u1 s tv + xg (tv P + s Q)).
+// Walked as triplet_pt_bwd2_kernel walks its own (window_list.cuh): the
+// window's real triplets listed by ballots (triplet order is edge order),
+// the masked ones' xb rows (16-byte stores) and the window's sb | tb chunks
+// (whole: a row of 18 or 54 values is not 16-byte aligned) written as 0,
+// and the ctb rows of edges without a real triplet; the list walked BB2
+// triplets at a time. Per batch: the sbf | tbf and u2 | u3 rows staged as
+// [BB2][NBp] by coalesced scalar loads; s, tv, P, Q of TEQ triplets a warp
+// (each weight loaded once for the warp's triplets; sbf @ u4 | tbf @ u5 in
+// a second pass, only when present, read through the L1 cache), xb and
+// A, Gt, I, B, Gs; wsb | wtb over (channel, row block) register blocks,
+// the two fmaf a triplet in the order sbf^T A, then u2^T Gt (tbf^T B, then
+// u3^T Gs), while the threads of the first row block also sum each edge's
+// I in list order, carried across batches in registers and written when
+// the edge changes; sb | tb (A @ ws^T + Gt @ u4^T | B @ wt^T + Gs @ u5^T)
+// as TE2 x TR register tiles over the staged rows, then written row by
+// row after the zeros. Every sum keeps the order of the first kernel's
+// masked walk over the same chunks, so every output keeps its bits
+// wherever the grid keeps its block count.
 template <typename T, int Q, bool HAS_T>
-__global__ void __launch_bounds__(NT) triplet_product_bwd2_kernel(Params<T> p) {
+__global__ void __launch_bounds__(NT, 2) triplet_product_bwd2_kernel(Params<T> p) {
+  constexpr int TEQ = Q == 2 ? 4 : 2;    // triplets a warp in the products
+  constexpr int WTM = Q == 2 ? 24 : 36;  // wsb | wtb rows of a thread's register block
   extern __shared__ __align__(16) float smem[];
-  const int C = p.C, NB = p.NB, S1 = p.S1, K = p.K, CE = p.CE;
-  const int TC = CE * K;
+  const int C = p.C, NB = p.NB, S1 = p.S1, S2 = p.S2, K = p.K, CE = p.CE, TC = CE * K;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, tid = threadIdx.x;
   const bool has_u45 = p.u4 != nullptr || p.u5 != nullptr;
-  float* w_s = smem;                    // [NB][C+1] ws | wt
-  float* u_s = w_s + NB * (C + 1);      // [NB][C+1] u4 | u5 (zeros where absent)
-  float* dW_s = u_s + NB * (C + 1);     // [NB][C] wsb | wtb of this block
-  float* bas = dW_s + NB * C;           // [TC][NB] sbf | tbf rows
-  float* ubas = bas + TC * NB;          // [TC][NB] u2 | u3 rows
-  float* A_s = ubas + TC * NB;          // [TC][C]
-  float* Gt_s = A_s + TC * C;           // [TC][C]
-  float* I_s = Gt_s + TC * C;           // [TC][C]
-  float* B_s = I_s + TC * C;            // [TC][C] (torsion)
-  float* Gs_s = B_s + (HAS_T ? TC * C : 0);  // [TC][C] (torsion)
-  float* m_s = Gs_s + (HAS_T ? TC * C : 0);  // [TC]
+  const Bwd2Layout L = bwd2_layout<T, HAS_T>(p, TC);
+  const int NBp = L.NBp, CP = L.CP, W = L.W;
+  float* w_s = smem + L.w_s;    // [NB][C+1] ws | wt
+  float* dW_s = smem + L.dW_s;  // [NB][C] wsb | wtb of this block
+  float* bas = smem + L.bas;    // [BB2][NBp] sbf | tbf, then sb | tb
+  float* ubas = smem + L.ubas;  // [BB2][NBp] u2 | u3 (zeros where absent)
+  float* A_s = smem + L.A;      // [BB2][C+1]
+  float* Gt_s = smem + L.Gt;    // [BB2][C+1]
+  float* I_s = smem + L.I;      // [BB2][C+1] ctb terms
+  float* B_s = smem + L.B;      // [BB2][C+1] (torsion)
+  float* Gs_s = smem + L.Gs;    // [BB2][C+1] (torsion)
+  float* m_s = smem + L.m_s;    // [BB2]
+  int* lst = reinterpret_cast<int*>(smem + L.lst);
+  int* wcnt = reinterpret_cast<int*>(smem + L.wcnt);
+  unsigned* bits = reinterpret_cast<unsigned*>(smem + L.bits);
   stage_rows(p, p.ws, p.wt, w_s);
-  for (int x = tid; x < NB * C; x += NT) {
-    const int r = x / C, c = x % C;
-    const float* u = r < S1 ? p.u4 : p.u5;
-    const int ro = r < S1 ? r : r - S1;
-    u_s[r * (C + 1) + c] = u != nullptr ? u[ro * C + c] : 0.f;
-    dW_s[x] = 0.f;
-  }
+  for (int x = tid; x < NB * C; x += NT) dW_s[x] = 0.f;
   const size_t Tn = (size_t)p.E * K;
   const int chunks = (p.E + CE - 1) / CE;
+  const int G = gridDim.x, BW = W / TC;
+  int rpg = (NB * C + NT - 1) / NT;
+  rpg = min(WTM, (rpg + 3) & ~3);
+  const int ngroups = (NB + rpg - 1) / rpg;
 
-  for (int ch = blockIdx.x; ch < chunks; ch += gridDim.x) {
-    const size_t t0 = (size_t)ch * TC;
-    const int e0 = ch * CE;
-    __syncthreads();
-    for (int tl = warp; tl < TC; tl += NW) {
-      const size_t t = t0 + tl;
-      const float m = t < Tn ? ld(p.mask + t) : 0.f;
-      if (lane == 0) m_s[tl] = m;
-      if (t >= Tn) continue;
-      if (m == 0.f) {
-        zero_row(p.dxg, t, C, lane);
-        zero_row(p.dsbf, t, S1, lane);
-        if constexpr (HAS_T) zero_row(p.dtbf, t, p.S2, lane);
-        continue;
-      }
-      float* b = bas + tl * NB;
-      float* ub = ubas + tl * NB;
-      load_row(p, p.sbf, p.tbf, t, b, lane);
-      load_row(p, p.u2, p.u3, t, ub, lane);
-      __syncwarp();
-      float sv[Q], tv[Q], P[Q], Qv[Q], a4[Q], a5[Q];
-      row_products<Q, HAS_T>(b, w_s, S1, NB, C, lane, sv, tv);
-      row_products<Q, HAS_T>(ub, w_s, S1, NB, C, lane, P, Qv);  // u2 @ ws, u3 @ wt
-      if (has_u45) {
-        row_products<Q, HAS_T>(b, u_s, S1, NB, C, lane, a4, a5);  // sbf @ u4, tbf @ u5
-#pragma unroll
-        for (int q = 0; q < Q; ++q) {
-          P[q] += a4[q];
-          if constexpr (HAS_T) Qv[q] += a5[q];
-        }
-      }
-      const size_t e = t / K;
-#pragma unroll
-      for (int q = 0; q < Q; ++q) {
-        const int c = lane + 32 * q;
-        if (c < C) {
-          const float go = p.ct[e * C + c] * m;
-          const float x = ld(p.xg + t * C + c);
-          const float u1 = p.u1 != nullptr ? ld(p.u1 + t * C + c) : 0.f;
-          float core, A, Gt, integ;
-          if constexpr (HAS_T) {
-            core = tv[q] * P[q] + sv[q] * Qv[q];
-            A = go * (tv[q] * u1 + x * Qv[q]);
-            B_s[tl * C + c] = go * (sv[q] * u1 + x * P[q]);
-            Gs_s[tl * C + c] = (go * x) * sv[q];
-            Gt = (go * x) * tv[q];
-            integ = (u1 * sv[q]) * tv[q] + x * core;
+  for (int w0 = blockIdx.x; w0 < chunks; w0 += G * BW) {
+    const Window win{w0, G, TC, W, chunks, Tn};
+    const int nl = list_window<NT>(win, p.mask, lst, wcnt, bits, [](size_t) {});
+    zero_masked_rows<NT>(win, bits, p.dxg, C);
+    zero_masked_rows<NT>(win, bits, p.dsbf, S1);
+    if constexpr (HAS_T) zero_masked_rows<NT>(win, bits, p.dtbf, S2);
+    // ctb rows of the window's edges without a real triplet
+    for (int x = tid; x < BW * CE * C; x += NT) {
+      const int le = x / C, j = le / CE, ce = le % CE;
+      const size_t ch = (size_t)w0 + (size_t)G * j, e = ch * CE + ce;
+      if (ch >= (size_t)chunks || e >= (size_t)p.E) continue;
+      if (!any_listed(bits, j * TC + ce * K, K)) p.ctb[e * C + x % C] = 0.f;
+    }
+    // (tid < C) the edge whose ctb entry of channel tid is being summed
+    int cur = -1;
+    float cacc = 0.f;
+
+    for (int b0 = 0; b0 < nl; b0 += BB2) {
+      const int cnt = min(BB2, nl - b0);
+      const int* ids = lst + b0;
+      __syncthreads();  // the list is written; the previous batch is done
+      // sbf | tbf and u2 | u3 rows; zero past cnt and NB
+      for (int x = tid; x < BB2 * NBp; x += NT) {
+        const int i = x / NBp, r = x % NBp;
+        float v = 0.f, u = 0.f;
+        if (i < cnt && r < NB) {
+          const size_t t = (size_t)ids[i];
+          if (r < S1) {
+            v = ld(p.sbf + t * S1 + r);
+            if (p.u2 != nullptr) u = ld(p.u2 + t * S1 + r);
           } else {
-            core = P[q];
-            A = go * u1;
-            Gt = go * x;
-            integ = u1 * sv[q] + x * core;
+            v = ld(p.tbf + t * S2 + (r - S1));
+            if (p.u3 != nullptr) u = ld(p.u3 + t * S2 + (r - S1));
           }
-          st(p.dxg + t * C + c, go * core);
-          A_s[tl * C + c] = A;
-          Gt_s[tl * C + c] = Gt;
-          I_s[tl * C + c] = integ * m;
+        }
+        bas[x] = v;
+        ubas[x] = u;
+      }
+      for (int i = tid; i < BB2; i += NT) m_s[i] = i < cnt ? ld(p.mask + ids[i]) : 0.f;
+      __syncthreads();
+      // s, tv (sbf | tbf against ws | wt), P, Q (u2 | u3 against them) of
+      // TEQ triplets a warp; xb, A, Gt, I, B, Gs
+      for (int e0 = warp * TEQ; e0 < cnt; e0 += NW * TEQ) {
+        float sv[TEQ][Q], tv[TEQ][Q], P[TEQ][Q], Qv[TEQ][Q];
+#pragma unroll
+        for (int e = 0; e < TEQ; ++e)
+#pragma unroll
+          for (int q = 0; q < Q; ++q) sv[e][q] = tv[e][q] = P[e][q] = Qv[e][q] = 0.f;
+        for (int r = 0; r < NB; r += 4) {
+          float4 b4[TEQ], u4v[TEQ];
+#pragma unroll
+          for (int e = 0; e < TEQ; ++e) {
+            b4[e] = *reinterpret_cast<const float4*>(bas + (e0 + e) * NBp + r);
+            u4v[e] = *reinterpret_cast<const float4*>(ubas + (e0 + e) * NBp + r);
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int rr = r + j;
+            if (rr >= NB) break;
+            float wv[Q];
+#pragma unroll
+            for (int q = 0; q < Q; ++q)
+              wv[q] = lane + 32 * q < C ? w_s[rr * (C + 1) + lane + 32 * q] : 0.f;
+#pragma unroll
+            for (int e = 0; e < TEQ; ++e) {
+              const float bv = j == 0 ? b4[e].x : j == 1 ? b4[e].y : j == 2 ? b4[e].z : b4[e].w;
+              const float uv =
+                  j == 0 ? u4v[e].x : j == 1 ? u4v[e].y : j == 2 ? u4v[e].z : u4v[e].w;
+#pragma unroll
+              for (int q = 0; q < Q; ++q) {
+                if (rr < S1) {
+                  sv[e][q] = fmaf(bv, wv[q], sv[e][q]);
+                  P[e][q] = fmaf(uv, wv[q], P[e][q]);
+                } else {
+                  tv[e][q] = fmaf(bv, wv[q], tv[e][q]);
+                  Qv[e][q] = fmaf(uv, wv[q], Qv[e][q]);
+                }
+              }
+            }
+          }
+        }
+        if (has_u45) {  // P += sbf @ u4, Q += tbf @ u5, each summed alone first
+          float a4[TEQ][Q], a5[TEQ][Q];
+#pragma unroll
+          for (int e = 0; e < TEQ; ++e)
+#pragma unroll
+            for (int q = 0; q < Q; ++q) a4[e][q] = a5[e][q] = 0.f;
+          for (int r = 0; r < NB; r += 4) {
+            float4 b4[TEQ];
+#pragma unroll
+            for (int e = 0; e < TEQ; ++e)
+              b4[e] = *reinterpret_cast<const float4*>(bas + (e0 + e) * NBp + r);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const int rr = r + j;
+              if (rr >= NB) break;
+              const float* u = u_row(p, rr);
+              float uv[Q];
+#pragma unroll
+              for (int q = 0; q < Q; ++q)
+                uv[q] = u != nullptr && lane + 32 * q < C ? __ldg(u + lane + 32 * q) : 0.f;
+#pragma unroll
+              for (int e = 0; e < TEQ; ++e) {
+                const float bv = j == 0 ? b4[e].x : j == 1 ? b4[e].y : j == 2 ? b4[e].z : b4[e].w;
+#pragma unroll
+                for (int q = 0; q < Q; ++q) {
+                  if (rr < S1) a4[e][q] = fmaf(bv, uv[q], a4[e][q]);
+                  else a5[e][q] = fmaf(bv, uv[q], a5[e][q]);
+                }
+              }
+            }
+          }
+#pragma unroll
+          for (int e = 0; e < TEQ; ++e)
+#pragma unroll
+            for (int q = 0; q < Q; ++q) {
+              P[e][q] += a4[e][q];
+              if constexpr (HAS_T) Qv[e][q] += a5[e][q];
+            }
+        }
+#pragma unroll
+        for (int e = 0; e < TEQ; ++e) {
+          const int i = e0 + e;
+          if (i >= cnt) break;
+          const size_t t = (size_t)ids[i];
+          const size_t ed = t / K;
+          const float m = m_s[i];
+#pragma unroll
+          for (int q = 0; q < Q; ++q) {
+            const int c = lane + 32 * q;
+            if (c < C) {
+              const float go = p.ct[ed * C + c] * m;
+              const float x = ld(p.xg + t * C + c);
+              const float u1 = p.u1 != nullptr ? ld(p.u1 + t * C + c) : 0.f;
+              float core, A, Gt, integ;
+              if constexpr (HAS_T) {
+                core = tv[e][q] * P[e][q] + sv[e][q] * Qv[e][q];
+                A = go * (tv[e][q] * u1 + x * Qv[e][q]);
+                B_s[i * CP + c] = go * (sv[e][q] * u1 + x * P[e][q]);
+                Gs_s[i * CP + c] = (go * x) * sv[e][q];
+                Gt = (go * x) * tv[e][q];
+                integ = (u1 * sv[e][q]) * tv[e][q] + x * core;
+              } else {
+                core = P[e][q];
+                A = go * u1;
+                Gt = go * x;
+                integ = u1 * sv[e][q] + x * core;
+              }
+              st(p.dxg + t * C + c, go * core);
+              A_s[i * CP + c] = A;
+              Gt_s[i * CP + c] = Gt;
+              I_s[i * CP + c] = integ * m;
+            }
+          }
         }
       }
-      __syncwarp();
-      // sb = A @ ws^T + Gt @ u4^T, tb = B @ wt^T + Gs @ u5^T
-      for (int r = lane; r < NB; r += 32) {
-        if (r < S1) {
-          float v = row_dot(A_s + tl * C, w_s, r, C);
-          if (p.u4 != nullptr) v += row_dot(Gt_s + tl * C, u_s, r, C);
-          st(p.dsbf + t * S1 + r, v);
-        } else if constexpr (HAS_T) {
-          float v = row_dot(B_s + tl * C, w_s, r, C);
-          if (p.u5 != nullptr) v += row_dot(Gs_s + tl * C, u_s, r, C);
-          st(p.dtbf + t * p.S2 + (r - S1), v);
+      __syncthreads();
+      // wsb | wtb: item (c, row block), the rows in registers, the batch's
+      // triplets in order; the items of the first row block (it = tid < C)
+      // also sum ctb[e][c] over each edge's real triplets in order
+      for (int it = tid; it < C * ngroups; it += NT) {
+        const int c = it % C, r0 = (it / C) * rpg;
+        const int r1 = min(NB, r0 + rpg);
+        float acc[WTM];
+#pragma unroll
+        for (int j = 0; j < WTM; ++j) acc[j] = r0 + j < r1 ? dW_s[(r0 + j) * C + c] : 0.f;
+        for (int i = 0; i < cnt; ++i) {
+          const float a = A_s[i * CP + c], gt = Gt_s[i * CP + c];
+          const float b = HAS_T ? B_s[i * CP + c] : 0.f, gs = HAS_T ? Gs_s[i * CP + c] : 0.f;
+          const float* brow = bas + i * NBp + r0;
+          const float* urow = ubas + i * NBp + r0;
+#pragma unroll
+          for (int j4 = 0; j4 < WTM / 4; ++j4) {
+            if (r0 + 4 * j4 >= r1) break;
+            const float4 b4 = *reinterpret_cast<const float4*>(brow + 4 * j4);
+            const float4 u4v = *reinterpret_cast<const float4*>(urow + 4 * j4);
+            const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
+            const float uv[4] = {u4v.x, u4v.y, u4v.z, u4v.w};
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const int rr = r0 + 4 * j4 + j;
+              if (rr < r1) {
+                const bool sr = !HAS_T || rr < S1;
+                acc[4 * j4 + j] = fmaf(bv[j], sr ? a : b, acc[4 * j4 + j]);
+                acc[4 * j4 + j] = fmaf(uv[j], sr ? gt : gs, acc[4 * j4 + j]);
+              }
+            }
+          }
+          if (r0 == 0) {
+            const int e = ids[i] / K;
+            if (e != cur) {
+              if (cur >= 0) p.ctb[(size_t)cur * C + c] = cacc;
+              cur = e;
+              cacc = 0.f;
+            }
+            cacc += I_s[i * CP + c];
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < WTM; ++j)
+          if (r0 + j < r1) dW_s[(r0 + j) * C + c] = acc[j];
+      }
+      __syncthreads();  // sbf | tbf are dead: sb | tb go there
+      // sb = A @ ws^T + Gt @ u4^T, tb = B @ wt^T + Gs @ u5^T: TE2 triplets x
+      // TR rows a thread, rows of a tile all of ws or all of wt, each sum
+      // over c from 0. The row tiles run fastest across a warp, but with
+      // u4 | u5 the triplet tiles do, so that a warp's reads of their rows
+      // (from global) fall on few rows.
+      const int rts = (S1 + TR - 1) / TR;
+      const int rtl = rts + (HAS_T ? (S2 + TR - 1) / TR : 0);
+      const int etl = (cnt + TE2 - 1) / TE2;
+      for (int x = tid; x < etl * rtl; x += NT) {
+        const int rt = has_u45 ? x / etl : x % rtl, et = has_u45 ? x % etl : x / rtl;
+        const bool sr = rt < rts;
+        const int r0 = sr ? rt * TR : S1 + (rt - rts) * TR;
+        const int r1 = sr ? S1 : NB;
+        const float* P1 = sr ? A_s : B_s;
+        const float* P2 = sr ? Gt_s : Gs_s;
+        const float* wr[TR];
+        int es[TE2];
+#pragma unroll
+        for (int i = 0; i < TR; ++i) wr[i] = w_s + min(r0 + i, r1 - 1) * (C + 1);
+#pragma unroll
+        for (int e = 0; e < TE2; ++e) es[e] = min(et * TE2 + e, cnt - 1) * CP;
+        float acc[TE2][TR];
+#pragma unroll
+        for (int e = 0; e < TE2; ++e)
+#pragma unroll
+          for (int i = 0; i < TR; ++i) acc[e][i] = 0.f;
+        for (int c = 0; c < C; ++c) {
+          float gv[TE2], wv[TR];
+#pragma unroll
+          for (int e = 0; e < TE2; ++e) gv[e] = P1[es[e] + c];
+#pragma unroll
+          for (int i = 0; i < TR; ++i) wv[i] = wr[i][c];
+#pragma unroll
+          for (int e = 0; e < TE2; ++e)
+#pragma unroll
+            for (int i = 0; i < TR; ++i) acc[e][i] = fmaf(gv[e], wv[i], acc[e][i]);
+        }
+        const float* ur0 = u_row(p, r0);
+        if (ur0 != nullptr) {  // this tile's rows have their u4 | u5 term
+          const float* ur[TR];
+#pragma unroll
+          for (int i = 0; i < TR; ++i) ur[i] = u_row(p, min(r0 + i, r1 - 1));
+          float gu[TE2][TR];
+#pragma unroll
+          for (int e = 0; e < TE2; ++e)
+#pragma unroll
+            for (int i = 0; i < TR; ++i) gu[e][i] = 0.f;
+          for (int c = 0; c < C; ++c) {
+            float gv[TE2], uv[TR];
+#pragma unroll
+            for (int e = 0; e < TE2; ++e) gv[e] = P2[es[e] + c];
+#pragma unroll
+            for (int i = 0; i < TR; ++i) uv[i] = __ldg(ur[i] + c);
+#pragma unroll
+            for (int e = 0; e < TE2; ++e)
+#pragma unroll
+              for (int i = 0; i < TR; ++i) gu[e][i] = fmaf(gv[e], uv[i], gu[e][i]);
+          }
+#pragma unroll
+          for (int e = 0; e < TE2; ++e)
+#pragma unroll
+            for (int i = 0; i < TR; ++i) acc[e][i] += gu[e][i];
+        }
+#pragma unroll
+        for (int e = 0; e < TE2; ++e) {
+          const int i = et * TE2 + e;
+          if (i >= cnt) continue;
+#pragma unroll
+          for (int k2 = 0; k2 < TR; ++k2)
+            if (r0 + k2 < r1) bas[i * NBp + r0 + k2] = acc[e][k2];
         }
       }
-    }
-    __syncthreads();
-    const int cnt = Tn - t0 < (size_t)TC ? (int)(Tn - t0) : TC;
-    // wsb | wtb: sbf^T A + u2^T Gt | tbf^T B + u3^T Gs, triplets in order
-    for (int x = tid; x < NB * C; x += NT) {
-      const int r = x / C, c = x % C;
-      const bool sr = !HAS_T || r < S1;
-      const float* P1 = sr ? A_s : B_s;
-      const float* P2 = sr ? Gt_s : Gs_s;
-      float acc = dW_s[x];
-      for (int tl = 0; tl < cnt; ++tl) {
-        if (m_s[tl] != 0.f) {
-          acc = fmaf(bas[tl * NB + r], P1[tl * C + c], acc);
-          acc = fmaf(ubas[tl * NB + r], P2[tl * C + c], acc);
-        }
+      __syncthreads();
+      // the batch's sb | tb rows, lanes along each row
+      for (int x = tid; x < cnt * NB; x += NT) {
+        const int i = x / NB, r = x % NB;
+        const size_t t = (size_t)ids[i];
+        const float v = bas[i * NBp + r];
+        if (r < S1) st(p.dsbf + t * S1 + r, v);
+        else st(p.dtbf + t * S2 + (r - S1), v);
       }
-      dW_s[x] = acc;
     }
-    // ctb[e] = sum over the edge's K triplets, in order
-    for (int x = tid; x < CE * C; x += NT) {
-      const int ce = x / C, c = x % C;
-      const int e = e0 + ce;
-      if (e >= p.E) continue;
-      float acc = 0.f;
-      for (int k = 0; k < K; ++k) {
-        const int tl = ce * K + k;
-        if (m_s[tl] != 0.f) acc += I_s[tl * C + c];
-      }
-      p.ctb[(size_t)e * C + c] = acc;
-    }
+    if (tid < C && cur >= 0) p.ctb[(size_t)cur * C + tid] = cacc;
   }
   __syncthreads();
   float* part = p.partial + (size_t)blockIdx.x * NB * C;
@@ -668,13 +912,15 @@ int bwd_q(Params<T> p, int* blocks, bool run, cudaStream_t strm) {
   return launch(triplet_product_bwd_kernel<T, Q, HAS_T, BASIS>, *blocks, NT, smem, strm, p);
 }
 
+// The second order likewise, with its own occupancy.
 template <typename T, int Q, bool HAS_T>
-int bwd2_q(Params<T> p, int blocks, cudaStream_t strm) {
-  const size_t TC = (size_t)p.CE * p.K;
-  const size_t floats = 2 * (size_t)p.NB * (p.C + 1) + (size_t)p.NB * p.C + 2 * TC * p.NB +
-                        (HAS_T ? 5 : 3) * TC * p.C + TC;
-  return launch(triplet_product_bwd2_kernel<T, Q, HAS_T>, blocks, NT, floats * sizeof(float),
-                strm, p);
+int bwd2_q(Params<T> p, int* blocks, bool run, cudaStream_t strm) {
+  p.CE = chunk_edges(p.K, BWD2_TRIPLETS);
+  const size_t smem = bwd2_layout<T, HAS_T>(p, p.CE * p.K).total * sizeof(float);
+  auto kern = triplet_product_bwd2_kernel<T, Q, HAS_T>;
+  const int rc = occupancy_grid(kern, NT, smem, (p.E + p.CE - 1) / p.CE, blocks);
+  if (rc != 0 || !run) return rc;
+  return launch(kern, *blocks, NT, smem, strm, p);
 }
 
 // Q = channels a lane: 2 for C <= 64, 4 for C <= 128
@@ -704,10 +950,12 @@ int bwd_c(Params<T> p, int basis, int* blocks, bool run, cudaStream_t strm) {
 }
 
 template <typename T>
-int bwd2_c(Params<T> p, int blocks, cudaStream_t strm) {
+int bwd2_c(Params<T> p, int* blocks, bool run, cudaStream_t strm) {
   const bool t = p.S2 > 0;
-  if (p.C <= 64) return t ? bwd2_q<T, 2, true>(p, blocks, strm) : bwd2_q<T, 2, false>(p, blocks, strm);
-  if (p.C <= 128) return t ? bwd2_q<T, 4, true>(p, blocks, strm) : bwd2_q<T, 4, false>(p, blocks, strm);
+  if (p.C <= 64)
+    return t ? bwd2_q<T, 2, true>(p, blocks, run, strm) : bwd2_q<T, 2, false>(p, blocks, run, strm);
+  if (p.C <= 128)
+    return t ? bwd2_q<T, 4, true>(p, blocks, run, strm) : bwd2_q<T, 4, false>(p, blocks, run, strm);
   return ERR_SHAPE;
 }
 
@@ -726,19 +974,15 @@ extern "C" {
 // shape the kernels do not take, -1 for a CUDA error.
 int triplet_product_blocks(int E, int K, int C, int S1, int S2, int bf16, int second_order) {
   if (bad_shape(E, K, C, S1, S2)) return ERR_SHAPE;
-  if (second_order) {
-    const int CE = chunk_edges(K, BWD2_TRIPLETS);
-    return grid_of((E + CE - 1) / CE, BWD2_GRID);
-  }
   int blocks = -1, rc;
   if (bf16) {
     auto p = make_params<__nv_bfloat16>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, E,
                                         K, C, S1, S2);
-    rc = bwd_c(p, 1, &blocks, false, nullptr);
+    rc = second_order ? bwd2_c(p, &blocks, false, nullptr) : bwd_c(p, 1, &blocks, false, nullptr);
   } else {
     auto p = make_params<float>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, E, K, C, S1,
                                 S2);
-    rc = bwd_c(p, 1, &blocks, false, nullptr);
+    rc = second_order ? bwd2_c(p, &blocks, false, nullptr) : bwd_c(p, 1, &blocks, false, nullptr);
   }
   return rc == 0 ? blocks : rc < 0 ? rc : -1;
 }
@@ -801,24 +1045,22 @@ int triplet_product_bwd2(const void* xg, const void* sbf, const void* tbf, const
                          int E, int K, int C, int S1, int S2, int bf16, void* stream) {
   if (bad_shape(E, K, C, S1, S2)) return ERR_SHAPE;
   cudaStream_t strm = static_cast<cudaStream_t>(stream);
-  const int blocks = triplet_product_blocks(E, K, C, S1, S2, bf16, 1);
-  const int CE = chunk_edges(K, BWD2_TRIPLETS);
-  int rc;
+  int blocks = 0, rc;
   if (bf16) {
     using B = __nv_bfloat16;
     auto p = make_params<B>(xg, sbf, tbf, ws, wt, mask, E, K, C, S1, S2);
     p.ct = ct; p.u1 = static_cast<const B*>(u1); p.u2 = static_cast<const B*>(u2);
     p.u3 = static_cast<const B*>(u3); p.u4 = u4; p.u5 = u5;
     p.dxg = static_cast<B*>(xb); p.dsbf = static_cast<B*>(sb); p.dtbf = static_cast<B*>(tb);
-    p.ctb = ctb; p.partial = partial; p.CE = CE;
-    rc = bwd2_c(p, blocks, strm);
+    p.ctb = ctb; p.partial = partial;
+    rc = bwd2_c(p, &blocks, true, strm);
   } else {
     auto p = make_params<float>(xg, sbf, tbf, ws, wt, mask, E, K, C, S1, S2);
     p.ct = ct; p.u1 = static_cast<const float*>(u1); p.u2 = static_cast<const float*>(u2);
     p.u3 = static_cast<const float*>(u3); p.u4 = u4; p.u5 = u5;
     p.dxg = static_cast<float*>(xb); p.dsbf = static_cast<float*>(sb);
-    p.dtbf = static_cast<float*>(tb); p.ctb = ctb; p.partial = partial; p.CE = CE;
-    rc = bwd2_c(p, blocks, strm);
+    p.dtbf = static_cast<float*>(tb); p.ctb = ctb; p.partial = partial;
+    rc = bwd2_c(p, &blocks, true, strm);
   }
   if (rc != 0) return rc;
   return sum_partials(partial, blocks, (S1 + S2) * C, dw, strm);

@@ -1,5 +1,6 @@
-// The compacted walk of the [N, K]-table kernels triplet_pt_bwd2_kernel and
-// triplet_product_bwd_kernel (triplet_pt_bwd_kernel writes the same out):
+// The compacted walk of the [N, K]-table kernels triplet_pt_bwd2_kernel,
+// triplet_product_bwd_kernel and triplet_product_bwd2_kernel
+// (triplet_pt_bwd_kernel writes the same out):
 // a block deals itself the chunks of TC consecutive triplets b, b + G,
 // b + 2G, ... (G = gridDim.x) and takes them a window of BW chunks at a
 // time; the window's real triplets (m != 0) are listed in triplet order by
@@ -123,28 +124,6 @@ __device__ void zero_masked_rows(const Window& w, const unsigned* bits, T* dst, 
     const size_t t0 = ch * w.TC, t1 = t0 + w.TC < w.Tn ? t0 + w.TC : w.Tn;
     zero_span<NT>(dst, t0 * width, t1 * width);
   }
-}
-
-// The grid of a kernel that walks windows: as many blocks as the card
-// holds at once (SMs x the kernel's occupancy at smem bytes of dynamic
-// shared memory), at most `chunks`; it depends only on the shapes and the
-// card. Raises the kernel's shared-memory limit to smem. 0, a cudaError_t
-// or ERR_SMEM.
-template <typename Kern>
-int occupancy_grid(Kern kern, int threads, size_t smem, int chunks, int* blocks) {
-  int rc = check_smem(smem);
-  if (rc != 0) return rc;
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-  int dev = 0, sms = 0, per_sm = 0;
-  if (e == cudaSuccess) e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads, smem);
-  if (e != cudaSuccess) return e;
-  const int cap = sms * (per_sm > 0 ? per_sm : 1);
-  *blocks = chunks < cap ? chunks : cap;
-  return 0;
 }
 
 }  // namespace

@@ -75,6 +75,8 @@ def _library() -> ctypes.CDLL:
         lib.cfconv_bwd.argtypes = ([P] * 11 + [I, I, I, I, Fl, I, I, I, I,
                                                P])
         lib.cfconv_bwd.restype = I
+        lib.cfconv_bwd_blocks.argtypes = [I] * 5
+        lib.cfconv_bwd_blocks.restype = I
         lib._argtypes_set = True
     return lib
 
@@ -131,16 +133,18 @@ def cfconv_backward_kernel(dist, vj, w1, b1, w2, b2, g, cutoff,
     d_vj = torch.empty((G, n, F), dtype=torch.float32, device=dev)
     size = R * F + F + F * F + F
     d_params = torch.empty(size, dtype=torch.float32, device=dev)
-    # one block per SM walks whole slots; each writes its weight-gradient
-    # partial sums to its row of `partial`
-    grid = min(G, torch.cuda.get_device_properties(dev).multi_processor_count)
+    # as many blocks as the card holds at once walk whole slots; each
+    # writes its weight-gradient partial sums to its row of `partial`
+    lib, bf16 = _library(), int(precision == "bf16")
+    grid = lib.cfconv_bwd_blocks(G, n, F, R, bf16)
+    if grid <= 0:
+        _build.check(grid, "cfconv backward kernel's grid", _SHAPES)
     partial = torch.empty((grid, size), dtype=torch.float32, device=dev)
-    rc = _library().cfconv_bwd(
+    rc = lib.cfconv_bwd(
         *map(_build.ptr, (dist, vj, w1, b1, w2, b2, g, d_dist, d_vj,
                           partial, d_params)),
-        G, n, F, R, float(cutoff), int(num_gaussians),
-        int(precision == "bf16"), int(bool(need_dist_grad)), grid,
-        _build.stream(dev))
+        G, n, F, R, float(cutoff), int(num_gaussians), bf16,
+        int(bool(need_dist_grad)), grid, _build.stream(dev))
     _build.check(rc, "cfconv backward kernel", _SHAPES)
     launches_bwd += 1
     dw1, db1, dw2, db2 = torch.split(d_params, [R * F, F, F * F, F])

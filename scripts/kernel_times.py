@@ -1,6 +1,6 @@
-"""Time the backward and second-order triplet kernels and the chunked CSR
-sum on one card, per call and per kernel, at chip_smoke.py's shapes, and
-hash their outputs.
+"""Time the backward and second-order triplet kernels, the cfconv kernels
+and the chunked CSR sum on one card, per call and per kernel, at
+chip_smoke.py's shapes, and hash their outputs.
 
     python scripts/kernel_times.py [--root DIR] [--out FILE] [--ops A,B]
 
@@ -8,9 +8,9 @@ hash their outputs.
 this one), so that two versions of the kernels can be timed in turns in
 one call, on one card, on the same inputs: chip_smoke.py's own (path 7a's
 batch and seeded operands, the force bench's three bucket batches, the
-unblocked NK batch of paths 5a-6b, path 7b's graph), made by this
-checkout's chip_smoke.py. The root's libraries are built first, one nvcc
-each, all at once.
+unblocked NK batch of paths 5a-6b, path 7b's graph, SchNetDense's three
+bucket batches), made by this checkout's chip_smoke.py. The root's
+libraries of the kept ops are built first, one nvcc each, all at once.
 
 What it times, with CUDA events over repeated bare launches (bf16 and f32):
 the geometry forward, backward (dgeo asked for and not) and second order
@@ -20,15 +20,21 @@ three bucket shapes of the force bench; the triplet_pt backward (dpt asked
 for and not) and second order (the cotangents a force step passes, u1 and
 u2, and all four) at paths 6a's and 6b's shapes; the triplet_product
 backward at path 5a's shape with and without basis cotangents and at 5b's
-without; the chunked sum at path 7b's shape beside segment_csr_kernel and
-torch.segment_reduce. Each backward,
+without, and its second order at 5a's (``prod_bwd2_5a``: u1, u2, u3, as
+the force step passes them); the cfconv forward and backward at each of
+SchNetDense's buckets (``cfconv_fwd_n16``, ``cfconv_bwd_n16`` and, with
+need_dist_grad, ``cfconv_bwd_n16_dist``; n = 16, 24, 32), vj in bf16 as
+the model passes it; the chunked sum at path 7b's shape beside
+segment_csr_kernel and torch.segment_reduce. Each backward,
 second order and the chunked sum is also split into its kernels by
 chip_smoke.kernel_split (torch.profiler's device events). ``--ops`` keeps
 the ops whose names start with one of the given prefixes (default: all),
-e.g. ``--ops pt_bwd,slot_bwd_A,geom_bwd,prod_bwd``.
+e.g. ``--ops pt_bwd,slot_bwd_A,geom_bwd,prod_bwd``, and only their
+libraries are built. ``scripts/phase_variants.py`` makes roots with one
+phase of a kernel compiled out.
 
 Before the times, one object per kernel call with a hash of each output's
-bytes (the second orders also with u1 = u4 = u5 present), so that two
+bytes (the second orders also with every cotangent present), so that two
 checkouts' outputs can be compared bit for bit without moving them off the
 card. Prints one JSON object per hash or timing, and appends them all to
 ``--out``.
@@ -48,7 +54,8 @@ import torch
 HERE = Path(__file__).resolve().parent.parent
 SPLIT = ("slot_jvp_kernel", "slot_bwd2_kernel", "slot_bwd_kernel",
          "triplet_pt_bwd_kernel", "triplet_pt_bwd2_kernel",
-         "triplet_product_bwd_kernel", "sum_partials_kernel",
+         "triplet_product_bwd_kernel", "triplet_product_bwd2_kernel",
+         "cfconv_bwd_kernel", "sum_partials_kernel",
          "segment_csr_span_kernel", "segment_csr_chunked_kernel",
          "segment_csr_kernel", "Memset")
 
@@ -89,18 +96,21 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
     from dig_tpu_torch.ops import _build
+    from dig_tpu_torch.ops import cfconv as cf
     from dig_tpu_torch.ops import segment_csr as sc
     from dig_tpu_torch.ops import triplet_product as tp
     from dig_tpu_torch.ops import triplet_pt as tpt
     from dig_tpu_torch.ops import triplet_slot as ts
     smoke = load_smoke()
     cfg = (smoke.SN_KW["num_spherical"], smoke.SN_KW["num_radial"], True)
-    smoke.build_all(_build, {"triplet_slot": ("triplet_slot", None),
-                             "segment_csr": ("segment_csr", None),
-                             "triplet_pt": ("triplet_pt", None),
-                             "triplet_product": ("triplet_product", None),
-                             "triplet_slot_geom": ("triplet_slot_geom",
-                                                   ts.geom_library_spec(cfg))})
+    # the libraries of the kept ops, by the ops' name prefixes
+    libs = {"geom": ("triplet_slot_geom", ts.geom_library_spec(cfg)),
+            "slot_bwd": ("triplet_slot", None), "pt_bwd": ("triplet_pt", None),
+            "prod_bwd": ("triplet_product", None),
+            "chunked": ("segment_csr", None), "csr": ("segment_csr", None),
+            "cfconv": ("cfconv", None)}
+    smoke.build_all(_build, {spec[0]: spec for name, spec in libs.items()
+                             if group(name)})
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -191,7 +201,8 @@ def main():
                     lambda k_args=k_args, ct32=ct32, us=us, Kp=Kp, g=pcfg:
                     tpt.triplet_pt_bwd2_kernel(*k_args, ct32, *us, Kp, g))
     for path in ("5a", "5b"):
-        if not group(f"prod_bwd_{path}"):
+        if not group(f"prod_bwd_{path}") and not (
+                path == "5a" and group("prod_bwd2_5a")):
             continue
         ninp = smoke.nk_kernel_inputs(torch, dev, nk_b, path)
         Kn = ninp["K"]
@@ -205,6 +216,35 @@ def main():
                     lambda k_args=k_args, ct32=ct32, Kn=Kn, basis=basis:
                     tp.triplet_product_backward_kernel(*k_args, ct32, Kn,
                                                        basis))
+            if path != "5a":
+                continue
+            # the second order with the force step's u1, u2, u3; hashed
+            # besides with all five
+            u123 = [None if u is None else u.to(dt) for u in ninp["us"][:3]]
+            ops[("prod_bwd2_5a", prec)] = (
+                lambda k_args=k_args, ct32=ct32, us=u123 + [None, None],
+                Kn=Kn: tp.triplet_product_bwd2_kernel(*k_args, ct32, *us, Kn))
+            extra[("prod_bwd2_5a_all_u", prec)] = (
+                lambda k_args=k_args, ct32=ct32, us=u123 + ninp["us"][3:],
+                Kn=Kn: tp.triplet_product_bwd2_kernel(*k_args, ct32, *us, Kn))
+    if group("cfconv"):
+        # SchNetDense's three bucket calls of one layer, vj in bf16 as the
+        # model passes it
+        cf_inp = smoke.bucket_inputs(
+            torch, smoke.cf_batches(torch, dev, smoke.STEPS + 1)[-1], dev)
+    for n, (args, g_out, _) in (cf_inp.items() if group("cfconv") else ()):
+        main_args = [args[0], args[1].to(torch.bfloat16)] + args[2:]
+        k_args = cf._kernel_inputs(*main_args)
+        g32 = g_out.float().contiguous()
+        for prec in ("bf16", "f32"):
+            ops[(f"cfconv_fwd_n{n}", prec)] = (
+                lambda k_args=k_args, prec=prec: cf.cfconv_forward_kernel(
+                    *k_args, smoke.CUTOFF, smoke.GAUSSIANS, prec))
+            for dist in (False, True):
+                ops[(f"cfconv_bwd_n{n}{'_dist' if dist else ''}", prec)] = (
+                    lambda k_args=k_args, g32=g32, prec=prec, dist=dist:
+                    cf.cfconv_backward_kernel(*k_args, g32, smoke.CUTOFF,
+                                              smoke.GAUSSIANS, prec, dist))
     g = smoke.cs_graph(torch, dev) if group("chunked") or group("csr") \
         else None
     library = {}

@@ -74,6 +74,61 @@ def test_kernel_matches_plain(precision, F, n):
         assert _rel(a, b) < TOL[precision], name
 
 
+# The backward lists each slot's in-cutoff pairs and walks them 64 a tile
+# across rows: (G, n, F, R, how) for the cases that make it risky. how:
+# "empty" (slot 1 has no in-cutoff pair), "full" (every pair of every slot,
+# the diagonal too, in cutoff: n^2 pairs, several tiles a slot), "random"
+# (cdist of random points with 10% dropped). G = 3 is below the SM count,
+# G = 300 above it (blocks take several slots); n = 40 rows hold more
+# in-cutoff pairs than 32.
+WALK = {"empty_slot": (5, 24, 64, 50, "empty"),
+        "full_slots": (4, 32, 128, 50, "full"),
+        "n40_f128": (6, 40, 128, 50, "random"),
+        "n40_f32": (6, 40, 32, 12, "random"),
+        "few_slots": (3, 16, 64, 24, "random"),
+        "many_slots_f32": (300, 16, 32, 12, "random"),
+        "many_slots_f128": (300, 24, 128, 50, "random")}
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("case", list(WALK))
+def test_pair_list_walk(case, precision):
+    """The backward on the pair-list walk's risky cases, need_dist_grad
+    on and off: the plain version's gradients, three calls the same bits,
+    need_dist_grad=False the same bits in every other gradient and zeros
+    in d_dist."""
+    from dig_tpu_torch.ops import cfconv as cf
+    from dig_tpu_torch.ops.cfconv import MASK_DIST
+    dev = _device()
+    G, n, F, R, how = WALK[case]
+    args, g_out = _inputs(dev, G, n, F, R, 5.0)
+    if how == "empty":
+        args[0][1] = MASK_DIST
+    elif how == "full":
+        args[0] = torch.rand(G, n, n, generator=torch.Generator().manual_seed(3)
+                             ).to(dev) * 4.9
+    k_args = cf._kernel_inputs(*args)
+    g32 = g_out.float().contiguous()
+    runs = {flag: [cf.cfconv_backward_kernel(*k_args, g32, 5.0, R, precision,
+                                             flag) for _ in range(3)]
+            for flag in (True, False)}
+    torch.cuda.synchronize()
+    for flag, rs in runs.items():
+        for again in rs[1:]:
+            assert all(torch.equal(a, b) for a, b in zip(again, rs[0])), flag
+    on, off = runs[True][0], runs[False][0]
+    assert float(off[0].abs().max()) == 0.0
+    for name, a, b in zip(NAMES[1:], on[1:], off[1:]):
+        assert torch.equal(a, b), name
+    _, g_p = _run(lambda xs: cf.cfconv_reference(
+        *xs, cutoff=5.0, num_gaussians=R, precision=precision), args, g_out)
+    for name, a, b in zip(NAMES, on, g_p):
+        assert _rel(a, b) < TOL[precision], name
+    if how == "empty":
+        assert float(on[0][1].abs().max()) == 0.0
+        assert float(on[1][1].abs().max()) == 0.0
+
+
 def test_need_dist_grad_false_and_bitwise_repeat():
     from dig_tpu_torch.ops import cfconv as cf
     dev = _device()

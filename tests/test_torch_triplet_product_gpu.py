@@ -255,3 +255,47 @@ def test_backward_compacted_walk(case, dtype):
         assert _rel(a, w) < tol, name
         if a.shape[0] == masked.shape[0] and bool(masked.any()):
             assert float(a[masked].abs().max()) == 0.0, name
+
+
+@pytest.mark.parametrize("u45", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(COMPACT))
+def test_bwd2_compacted_walk(case, dtype, u45):
+    """The second order (u1, u2, u3, and u4, u5 when ``u45``) against the
+    plain version on the compacted walk's risky cases: xb, sb and tb rows
+    exactly 0 at masked triplets, ctb 0 at edges without a real triplet,
+    three calls the same bits."""
+    from dig_tpu_torch.ops import triplet_product as op
+    dev = _device()
+    E, K, C, S1, S2, how = COMPACT[case]
+    d, us, K = _inputs(dev, dtype, E, K, C, S1, S2)
+    _mask_as(d["m2d"], how)
+    present = us if u45 else us[:3] + [None, None]
+    masked = d["m2d"].reshape(-1) == 0
+    empty = (d["m2d"] == 0).all(1)
+    args = [d[k] for k in ("xg", "sbf", "tbf", "ws", "wt", "m2d")]
+    k_args = op._kernel_inputs(*args, K)
+    ct32 = d["ct"].float().contiguous()
+    before = op.launches_bwd2
+    runs = [op.triplet_product_bwd2_kernel(*k_args, ct32, *present, K)
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    assert op.launches_bwd2 == before + 3
+    for again in runs[1:]:
+        assert all(a is None or torch.equal(a, b)
+                   for a, b in zip(again, runs[0]))
+    f = lambda t: None if t is None else t.float()
+    want = op.fused_triplet_product_bwd2_reference(
+        *(f(a) for a in args[:5]), d["m2d"], ct32, *present, K)
+    for name, a, w in zip(("xb", "sb", "tb", "wsb", "wtb", "ctb"), runs[0],
+                          want):
+        assert (a is None) == (w is None), name
+        if a is None:
+            continue
+        assert torch.isfinite(a).all(), name
+        tol = TOL[dtype] if a.dtype == dtype != torch.float32 else 1e-4
+        assert _rel(a, w) < tol, name
+        if name in ("xb", "sb", "tb") and bool(masked.any()):
+            assert float(a[masked].abs().max()) == 0.0, name
+        if name == "ctb" and bool(empty.any()):
+            assert float(a[empty].abs().max()) == 0.0, name
