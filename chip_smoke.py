@@ -491,13 +491,14 @@ def phase_kernel_vs_plain(torch, cf, inputs):
             plain = lambda xs: cf.cfconv_reference(
                 *xs, cutoff=CUTOFF, num_gaussians=GAUSSIANS, precision=prec)
             out_p, g_p = grads_of(torch, plain, args, g_out)
-            by_flag = {}
+            by_flag, outs = {}, []
             for flag in (True, False):
                 kern = lambda xs: cf.cfconv_fused(*xs, CUTOFF, GAUSSIANS,
                                                   prec, flag)
                 out_k, g_k = grads_of(torch, kern, args, g_out)
                 torch.cuda.synchronize()
                 by_flag[flag] = g_k
+                outs.append(out_k)
                 e = rel_err(out_k, out_p)
                 log(f"  n={n} {prec} need_dist_grad={flag}: fwd rel err "
                     f"{e:.3e}")
@@ -522,13 +523,16 @@ def phase_kernel_vs_plain(torch, cf, inputs):
                                   by_flag[False][1:]):
                 if rel_err(b, a) >= 1e-6:
                     fail(f"need_dist_grad=False changed d_{name}")
-            _, again = grads_of(torch, lambda xs: cf.cfconv_fused(
+            out_again, again = grads_of(torch, lambda xs: cf.cfconv_fused(
                 *xs, CUTOFF, GAUSSIANS, prec, False), args, g_out)
             if not all(torch.equal(a, b) for a, b in zip(again,
                                                           by_flag[False])):
                 fail(f"backward not bitwise repeatable (n={n}, {prec})")
-    log(f"  repeated backwards bitwise equal; max abs err (bf16, main "
-        f"setting): fwd {errs['fwd']:.3e} bwd {errs['bwd']:.3e}")
+            if not all(torch.equal(o, out_again) for o in outs):
+                fail(f"forward not bitwise repeatable (n={n}, {prec})")
+    log(f"  repeated forwards and backwards bitwise equal; max abs err "
+        f"(bf16, main setting): fwd {errs['fwd']:.3e} bwd "
+        f"{errs['bwd']:.3e}")
     return errs
 
 

@@ -28,28 +28,32 @@
 //    gradients are per-block register partials written to a [blocks, ...]
 //    scratch and summed by a second kernel in a fixed order: the same bits
 //    on every run.
-//  - Forward: each row i compacts its in-cutoff pairs (warp ballot) and
-//    takes them 32 at a time; products on the FP32 pipes with register
-//    tiles of 4 pair rows x 4 features per thread. In "bf16" precision the
-//    operands the TPU kernel rounds (vj, W1, W2, rbf, h) are rounded to
-//    bf16 before each product; bf16 x bf16 is exact in f32 and sums are
-//    f32, as on a tensor core.
-//  - Backward (cfconv_bwd_kernel): the first design walked the rows one at
-//    a time (about 13 in-cutoff pairs a row, so a 32-pair chunk was 60%
-//    padding, with six barriers a chunk), ran every product on the FP32
-//    pipes and needed 183-200 KB of shared memory, one block of 8 warps an
-//    SM. It now lists a slot's in-cutoff pairs once, by ballots over the
-//    whole [n, n] block, and walks the list 64 pairs a tile across row
-//    boundaries, as the TPU kernel feeds its matrix unit MB n^2 pair rows.
-//    In bf16 precision the five products of a tile (rbf W1, h W2, dp2 W2^T,
-//    rbf^T dp1 and h^T dp2, and dp1 W1^T with d_dist) run on the tensor
-//    cores (mma.sync m16n8k16, bf16 operands from shared memory through
-//    ldmatrix, float32 sums): exactly the rounding the TPU kernel and the
-//    plain version apply. W1 and W2 are staged as bf16, and dW1 | dW2 stay
-//    in registers across tiles (48 a thread at F = 128), so a block has F /
-//    8 warps: 16 at F = 128, one block an SM. One exp(-|pre|) serves the
-//    softplus and the sigmoid. In float32 precision the same walk runs the
-//    products on the FP32 pipes. The grid is SMs x the occupancy.
+//  - In "bf16" precision the operands the TPU kernel rounds (vj, W1, W2,
+//    rbf, h) are rounded to bf16 before each product and sums are float32.
+//  - Both kernels list a slot's in-cutoff pairs once, by ballots over the
+//    whole [n, n] block (list_pairs), and walk the list 64 pairs a tile
+//    across row boundaries, as the TPU kernel feeds its matrix unit MB n^2
+//    pair rows. Their first designs walked the rows one at a time (about
+//    13 in-cutoff pairs a row, so a 32-pair chunk was 60% padding, with a
+//    warp listing each row between two barriers while the others waited),
+//    ran every product on the FP32 pipes from float32 weights in shared
+//    memory (one block of 8 warps an SM) and reduced each out row across 8
+//    thread groups.
+//  - The forward (cfconv_fwd_kernel) lists the pairs in (i, j) order, so
+//    each out row is a run of consecutive pairs, summed in pair order by
+//    the threads of the run; the backward (cfconv_bwd_kernel) in (j, i)
+//    order, each d_vj row a run.
+//  - In bf16 precision the products of a tile (the forward's rbf W1 and
+//    h W2; the backward's also dp2 W2^T, rbf^T dp1 and h^T dp2, and dp1
+//    W1^T with d_dist) run on the tensor cores (mma.sync m16n8k16, bf16
+//    operands from shared memory through ldmatrix, float32 sums): exactly
+//    the rounding the TPU kernel and the plain version apply. W1 and W2
+//    are staged as bf16, and the backward's dW1 | dW2 stay in registers
+//    across tiles (48 a thread at F = 128), so a block has F / 8 warps: 16
+//    at F = 128, one block an SM (the forward takes the same blocks). One
+//    exp(-|pre|) serves the softplus and the sigmoid, fast in bf16
+//    precision. In float32 precision the same walks run the products on
+//    the FP32 pipes. The grids are SMs x the occupancy.
 #include <stdint.h>
 
 #include <type_traits>
@@ -58,9 +62,8 @@
 
 namespace {
 
-constexpr int JT = 32;   // pair rows (in-cutoff j of one row i) per chunk
-constexpr int JQ = 8;    // thread groups along the chunk; each owns 4 rows
-constexpr int RMAX = 64; // largest padded basis size the register tiles hold
+constexpr int KR = 64;  // basis rows of the products (R zero-padded): the largest R
+constexpr int PT = 64;  // pairs a tile
 constexpr float LOG2F = 0.6931471805599453f;
 
 struct Params {
@@ -75,217 +78,22 @@ struct Params {
   float* d_dist;      // [G, n, n]
   float* d_vj;        // [G, n, F]
   float* partial;     // [gridDim.x, R*F + F + F*F + F]
-  int G, n, R, Rp;
+  int G, n, R;
   float cutoff, coeff, delta_mu, pi_c;
 };
 
-__device__ __forceinline__ float softplus(float x) {
-  return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
-}
-
-__device__ __forceinline__ float comp(const float4& v, int u) {
-  return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-// In-cutoff pairs of one row, in j order: dvals[0..nv), jidx[0..nv).
-__device__ void compact_row(const float* drow, int n, float cutoff,
-                            float* dvals, int* jidx, int* nvs) {
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    int base = 0;
-    for (int j0 = 0; j0 < n; j0 += 32) {
-      const int j = j0 + lane;
-      const float d = j < n ? drow[j] : 0.f;
-      const bool ok = j < n && d < cutoff;
-      const unsigned m = __ballot_sync(0xffffffffu, ok);
-      if (ok) {
-        const int pos = base + __popc(m & ((1u << lane) - 1u));
-        dvals[pos] = d;
-        jidx[pos] = j;
-      }
-      base += __popc(m);
-    }
-    if (lane == 0) *nvs = base;
-  }
-  __syncthreads();
-}
-
-// acc[b][c] += sum_r A[jq*4+b][r] * W1s[r][fq + c*F/4]
-template <int F>
-__device__ __forceinline__ void gemm_w1(const float* A, const float* W1s, int Rp, int jq,
-                                        int fq, float acc[4][4]) {
-  constexpr int F4 = F / 4;
-  for (int r = 0; r < Rp; r += 4) {
-    float4 a[4];
-#pragma unroll
-    for (int b = 0; b < 4; ++b) a[b] = ld4(&A[(jq * 4 + b) * Rp + r]);
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      float wv[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) wv[c] = W1s[(r + u) * F + fq + c * F4];
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[b][c] = fmaf(comp(a[b], u), wv[c], acc[b][c]);
-      }
-    }
-  }
-}
-
-// acc[b][c] += sum_k H[jq*4+b][k] * W2s[k][fq + c*F/4]   (W2s row stride F+4)
-template <int F>
-__device__ __forceinline__ void gemm_w2(const float* H, const float* W2s,
-                                        int jq, int fq, float acc[4][4]) {
-  constexpr int F4 = F / 4;
-#pragma unroll 2
-  for (int k = 0; k < F; k += 4) {
-    float4 a[4];
-#pragma unroll
-    for (int b = 0; b < 4; ++b) a[b] = ld4(&H[(jq * 4 + b) * F + k]);
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      float wv[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) wv[c] = W2s[(k + u) * (F + 4) + fq + c * F4];
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[b][c] = fmaf(comp(a[b], u), wv[c], acc[b][c]);
-      }
-    }
-  }
-}
-
-template <bool BF16, int F>
-__device__ void load_weights(const Params& p, float* W1s, float* W2s,
-                             float* b1s, float* b2s) {
-  const int NT = blockDim.x;
-  for (int x = threadIdx.x; x < p.Rp * F; x += NT) {
-    W1s[x] = (x / F) < p.R ? rnd<BF16>(p.w1[x]) : 0.f;
-  }
-  for (int x = threadIdx.x; x < F * F; x += NT) {
-    W2s[(x / F) * (F + 4) + x % F] = rnd<BF16>(p.w2[x]);
-  }
-  for (int f = threadIdx.x; f < F; f += NT) {
-    b1s[f] = p.b1[f];
-    b2s[f] = p.b2[f];
-  }
-}
-
-size_t fwd_smem_floats(int n, int F, int Rp) {
-  return (size_t)Rp * F + (size_t)F * (F + 4) + 2 * F + (size_t)n * F +
-         JT * Rp + JT * F + JQ * F + JT + 2 * n + 1;
-}
-
-template <int F, bool BF16>
-__global__ void __launch_bounds__(F / 4 * JQ, 1) cfconv_fwd_kernel(Params p) {
-  constexpr int F4 = F / 4;
-  extern __shared__ __align__(16) float smem[];
-  const int n = p.n, Rp = p.Rp;
-  float* W1s = smem;                  // [Rp][F]
-  float* W2s = W1s + Rp * F;          // [F][F+4]
-  float* b1s = W2s + F * (F + 4);     // [F]
-  float* b2s = b1s + F;               // [F]
-  float* vjs = b2s + F;               // [n][F]
-  float* rbfs = vjs + n * F;          // [JT][Rp]
-  float* hs = rbfs + JT * Rp;         // [JT][F]
-  float* reds = hs + JT * F;          // [JQ][F]
-  float* gates = reds + JQ * F;       // [JT]
-  float* dvals = gates + JT;          // [n]
-  int* jidx = reinterpret_cast<int*>(dvals + n);  // [n]
-  int* nvs = jidx + n;
-
-  const int tid = threadIdx.x, NT = blockDim.x;
-  const int fq = tid % F4, jq = tid / F4;
-  load_weights<BF16, F>(p, W1s, W2s, b1s, b2s);
-
-  for (int g = blockIdx.x; g < p.G; g += gridDim.x) {
-    __syncthreads();
-    for (int x = tid; x < n * F; x += NT) vjs[x] = rnd<BF16>(p.vj[(size_t)g * n * F + x]);
-    for (int i = 0; i < n; ++i) {
-      const size_t row = (size_t)g * n + i;
-      compact_row(p.dist + row * n, n, p.cutoff, dvals, jidx, nvs);
-      const int nv = *nvs;
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int c0 = 0; c0 < nv; c0 += JT) {
-        const int cnt = min(JT, nv - c0);
-        for (int x = tid; x < JT * Rp; x += NT) {
-          const int jj = x / Rp, r = x % Rp;
-          float v = 0.f;
-          if (jj < cnt && r < p.R) {
-            const float dd = dvals[c0 + jj] - r * p.delta_mu;
-            v = rnd<BF16>(expf(p.coeff * dd * dd));
-          }
-          rbfs[x] = v;
-        }
-        for (int jj = tid; jj < JT; jj += NT) {
-          gates[jj] = jj < cnt ? 0.5f * (cosf(dvals[c0 + jj] * p.pi_c) + 1.f) : 0.f;
-        }
-        __syncthreads();
-        float pre[4][4];
-#pragma unroll
-        for (int b = 0; b < 4; ++b)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) pre[b][c] = b1s[fq + c * F4];
-        gemm_w1<F>(rbfs, W1s, Rp, jq, fq, pre);
-#pragma unroll
-        for (int b = 0; b < 4; ++b)
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            hs[(jq * 4 + b) * F + fq + c * F4] = rnd<BF16>(softplus(pre[b][c]) - LOG2F);
-        __syncthreads();
-        float w[4][4];
-#pragma unroll
-        for (int b = 0; b < 4; ++b)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) w[b][c] = b2s[fq + c * F4];
-        gemm_w2<F>(hs, W2s, jq, fq, w);
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          const int jj = jq * 4 + b;
-          if (jj < cnt) {
-            const int j = jidx[c0 + jj];
-            const float gt = gates[jj];
-#pragma unroll
-            for (int c = 0; c < 4; ++c)
-              acc[c] = fmaf(gt * w[b][c], vjs[j * F + fq + c * F4], acc[c]);
-          }
-        }
-        __syncthreads();
-      }
-#pragma unroll
-      for (int c = 0; c < 4; ++c) reds[jq * F + fq + c * F4] = acc[c];
-      __syncthreads();
-      for (int f = tid; f < F; f += NT) {
-        float s = 0.f;
-        for (int q = 0; q < JQ; ++q) s += reds[q * F + f];
-        p.out[row * F + f] = s;
-      }
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
-// Backward
+// The walk's pieces: thread layout, tiles, products, listing
 // ---------------------------------------------------------------------------
 
-constexpr int KR = RMAX;  // basis rows of the backward's products (R zero-padded)
-constexpr int PT = 64;  // pairs a tile
-
-// Per F: NT threads, F / 8 warps. The products over a tile's pairs (pre, w,
-// dh = dp2 W2^T) give warp (wm, wn) = (w % 4, w / 4) the 16 pairs 16 wm..
+// Per F, in both walks: NT threads, F / 8 warps. The products over a tile's
+// pairs (pre, w, dh = dp2 W2^T) give warp (wm, wn) = (w % 4, w / 4) the 16 pairs 16 wm..
 // and the 32 columns 32 wn..; d_rbf = dp1 W1^T the 8 NTR columns from
 // 8 NTR wn; dW1
 // the 16 basis rows 16 wm.. and the 32 columns 32 wn..; dW2 the MT2 16-row
 // tiles from 16 MT2 (w % MG2) and the NT2 8-column tiles from 8 NT2 (w / MG2).
 template <int F>
-struct BwdCfg {
+struct WalkCfg {
   static constexpr int NT = F * 4, NWARP = F / 8, WN = F / 32, NTR = 8 / WN;
   static constexpr int MT2 = F >= 128 ? 2 : 1, NT2 = F >= 64 ? 4 : 2;
   static constexpr int MG2 = F / 16 / MT2;
@@ -312,7 +120,7 @@ __host__ __device__ constexpr size_t up16(size_t b) { return (b + 15) & ~(size_t
 // Byte offsets of the backward's shared memory at slots of n atoms.
 template <int F, bool BF16>
 __host__ __device__ inline BwdLayout bwd_layout(int n) {
-  using C = BwdCfg<F>;
+  using C = WalkCfg<F>;
   const size_t es = sizeof(Elem<BF16>);
   BwdLayout L;
   L.LW = F + 8;             // W1, W2 (bf16 only)
@@ -519,6 +327,280 @@ __device__ __forceinline__ float row_sum(float v) {
   return v;
 }
 
+// The in-cutoff pairs of slot g's [n, n] block, listed by warp ballots in
+// the order of x (x = a n + b for the pair dist[...][a][b] in (i, j) order,
+// or its transpose in (j, i) order): lst[0, nl) holds their x; the return
+// value is nl. keep(x) says whether x is listed; wcnt and bits hold rounds
+// x NWARP counts and ballots. Ends with lst written and visible.
+template <int NT, typename Keep>
+__device__ __forceinline__ int list_pairs(int nn, int rounds, Keep keep, int* lst, int* wcnt,
+                                          unsigned* bits) {
+  constexpr int NWARP = NT / 32;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int k = 0; k < rounds; ++k) {
+    const int x = k * NT + tid;
+    const unsigned m = __ballot_sync(0xffffffffu, x < nn && keep(x));
+    if (lane == 0) {
+      wcnt[k * NWARP + warp] = __popc(m);
+      bits[k * NWARP + warp] = m;
+    }
+  }
+  __syncthreads();
+  int nl = 0;
+  for (int k = 0; k < rounds; ++k) {
+    int at = 0;
+    for (int q = 0; q < rounds * NWARP; ++q) {
+      if (q < k * NWARP + warp) at += wcnt[q];
+      if (k == 0) nl += wcnt[q];
+    }
+    const unsigned m = bits[k * NWARP + warp];
+    if ((m >> lane) & 1u) lst[at + __popc(m & ((1u << lane) - 1u))] = k * NT + tid;
+  }
+  __syncthreads();
+  return nl;
+}
+
+// The basis values row[r0, r0 + RPT) of a pair at distance d (rounded to
+// the element type; 0 where !ok or r >= R).
+template <bool BF16, int RPT>
+__device__ __forceinline__ void stage_rbf(const Params& p, float d, bool ok, int r0,
+                                          Elem<BF16>* row) {
+#pragma unroll
+  for (int rb = r0; rb < r0 + RPT; rb += 8) {
+    float v[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int r = rb + u;
+      const float dd = d - r * p.delta_mu;
+      v[u] = ok && r < p.R ? exp_<BF16>(p.coeff * dd * dd) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < 8; u += 2) st2(row + rb + u, v[u], v[u + 1]);
+  }
+}
+
+// By warp 0: the runs of equal x / n among the tile's pairs lst[0, cnt), in
+// pair order: rst[k] is the k-th run's first pair, rst[count] = cnt, and
+// rst[PT + 1] the count.
+__device__ __forceinline__ void list_runs(const int* lst, int cnt, int n, int* rst) {
+  const int lane = threadIdx.x & 31;
+  int base = 0;
+  for (int h = 0; h < PT; h += 32) {
+    const int q = h + lane;
+    const bool start = q < cnt && (q == 0 || lst[q] / n != lst[q - 1] / n);
+    const unsigned m = __ballot_sync(0xffffffffu, start);
+    if (start) rst[base + __popc(m & ((1u << lane) - 1u))] = q;
+    base += __popc(m);
+  }
+  if (lane == 0) {
+    rst[base] = cnt;
+    rst[PT + 1] = base;
+  }
+}
+
+// Each run's terms ts [PT][LT] summed in pair order and added to the row
+// x / n of dst [n][LV], by thread (run, feature).
+template <int NT, int F>
+__device__ __forceinline__ void add_runs(const int* rst, const int* lst, int n, const float* ts,
+                                         int LT, float* dst, int LV) {
+  const int nruns = rst[PT + 1];
+  for (int x = threadIdx.x; x < nruns * F; x += NT) {
+    const int k = x / F, f = x % F;
+    float s = 0.f;
+    for (int q = rst[k]; q < rst[k + 1]; ++q) s += ts[q * LT + f];
+    dst[(lst[rst[k]] / n) * LV + f] += s;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Forward
+// ---------------------------------------------------------------------------
+
+struct FwdLayout {
+  int LW, LR, LH, LT, LV, rounds;
+  size_t w1, w2, b1, b2, vj, acc, rbf, hs, ts, pj, pg, rst, lst, wcnt, bits, total;
+};
+
+// Byte offsets of the forward's shared memory at slots of n atoms (the
+// backward's strides and threads).
+template <int F, bool BF16>
+__host__ __device__ inline FwdLayout fwd_layout(int n) {
+  using C = WalkCfg<F>;
+  const size_t es = sizeof(Elem<BF16>);
+  FwdLayout L;
+  L.LW = F + 8;             // W1, W2 (bf16 only)
+  L.LR = KR + PADE<BF16>;   // the basis tile
+  L.LH = F + PADE<BF16>;    // h
+  L.LT = F + 4;             // the gated terms (float32)
+  L.LV = F + 4;             // vj and out rows
+  L.rounds = (n * n + C::NT - 1) / C::NT;
+  size_t o = 0;
+  auto take = [&o](size_t bytes) { const size_t at = o; o += up16(bytes); return at; };
+  L.w1 = take(BF16 ? (size_t)KR * L.LW * 2 : 0);
+  L.w2 = take(BF16 ? (size_t)F * L.LW * 2 : 0);
+  L.b1 = take(F * 4);
+  L.b2 = take(F * 4);
+  L.vj = take((size_t)n * L.LV * 4);
+  L.acc = take((size_t)n * L.LV * 4);
+  L.rbf = take((size_t)PT * L.LR * es);
+  L.hs = take((size_t)PT * L.LH * es);
+  L.ts = take((size_t)PT * L.LT * 4);
+  L.pj = take(PT * 4);
+  L.pg = take(PT * 4);
+  L.rst = take((PT + 2) * 4);
+  L.lst = take((size_t)n * n * 4);
+  L.wcnt = take((size_t)L.rounds * C::NWARP * 4);
+  L.bits = take((size_t)L.rounds * C::NWARP * 4);
+  L.total = o;
+  return L;
+}
+
+// cfconv, a block per slot g (grid-strided, the grid SMs x the occupancy).
+// Only pairs with d < cutoff contribute, so the slot's in-cutoff pairs are
+// listed once by warp ballots over the whole [n, n] block in (i, j) order:
+// out[i] = sum_j gate w vj[j] is then a sum over a run of consecutive
+// pairs. The list is walked PT pairs a tile, across row boundaries; per
+// tile:
+//  - the basis rbf [PT][KR] (rounded to bf16 in bf16 precision), each
+//    pair's gate and j, and the tile's runs of equal i;
+//  - pre = rbf W1 + b1, h = sps(pre) (rounded), one exp(-|pre|) a value;
+//  - w = h W2 + b2 and the gated terms gate w vj[j] (float32);
+//  - the threads of each run sum its terms in pair order into the out row
+//    i in shared memory (a row split across two tiles takes two runs).
+// The products run as in the backward: bf16 precision on the tensor cores
+// (mma.sync, W1 and W2 staged as bf16), float32 on the FP32 pipes with the
+// weights read through the L1 cache. Pair rows past the list's end have
+// gate 0 and rbf 0, and no run reads them. Every sum has a fixed order and
+// no atomics are used: the same inputs give the same bits. A slot without
+// an in-cutoff pair gets rows of exact zeros.
+template <int F, bool BF16>
+__global__ void __launch_bounds__(F * 4, 512 / (F * 4)) cfconv_fwd_kernel(Params p) {
+  using Cfg = WalkCfg<F>;
+  using E = Elem<BF16>;
+  constexpr int NT = Cfg::NT, TPP = Cfg::TPP;
+  extern __shared__ __align__(16) unsigned char sm[];
+  const int n = p.n, R = p.R, nn = n * n;
+  const FwdLayout L = fwd_layout<F, BF16>(n);
+  const int LW = L.LW, LR = L.LR, LH = L.LH, LT = L.LT, LV = L.LV;
+  E* W1h = reinterpret_cast<E*>(sm + L.w1);            // [KR][LW] (bf16)
+  E* W2h = reinterpret_cast<E*>(sm + L.w2);            // [F][LW] (bf16)
+  float* b1s = reinterpret_cast<float*>(sm + L.b1);
+  float* b2s = reinterpret_cast<float*>(sm + L.b2);
+  float* vjs = reinterpret_cast<float*>(sm + L.vj);    // [n][LV]
+  float* accs = reinterpret_cast<float*>(sm + L.acc);  // [n][LV] out rows
+  E* rbf = reinterpret_cast<E*>(sm + L.rbf);           // [PT][LR]
+  E* hs = reinterpret_cast<E*>(sm + L.hs);             // [PT][LH]
+  float* ts = reinterpret_cast<float*>(sm + L.ts);     // [PT][LT] gated terms
+  int* pj = reinterpret_cast<int*>(sm + L.pj);
+  float* pg = reinterpret_cast<float*>(sm + L.pg);     // gate
+  int* rst = reinterpret_cast<int*>(sm + L.rst);       // run starts, [PT + 1] and the count
+  int* lst = reinterpret_cast<int*>(sm + L.lst);       // [n n] pairs i n + j
+  int* wcnt = reinterpret_cast<int*>(sm + L.wcnt);
+  unsigned* bits = reinterpret_cast<unsigned*>(sm + L.bits);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp & 3, wn = warp >> 2;
+  const int r4 = lane >> 2, c2 = (lane & 3) * 2;
+  if constexpr (BF16) {
+    for (int x = tid; x < KR * F; x += NT) {
+      const int r = x / F, f = x % F;
+      W1h[r * LW + f] = __float2bfloat16_rn(r < R ? p.w1[x] : 0.f);
+    }
+    for (int x = tid; x < F * F; x += NT) W2h[(x / F) * LW + x % F] = __float2bfloat16_rn(p.w2[x]);
+  }
+  for (int f = tid; f < F; f += NT) {
+    b1s[f] = p.b1[f];
+    b2s[f] = p.b2[f];
+  }
+  // the products' elements: row pr(v), column pc(nt, v)
+  auto pr = [=](int v) { return 16 * wm + r4 + 8 * (v >> 1); };
+  auto pc = [=](int nt, int v) { return 32 * wn + 8 * nt + c2 + (v & 1); };
+
+  for (int g = blockIdx.x; g < p.G; g += gridDim.x) {
+    const float* dist = p.dist + (size_t)g * nn;
+    __syncthreads();  // the previous slot is done
+    for (int x = tid; x < n * F; x += NT) {
+      const int r = x / F, f = x % F;
+      vjs[r * LV + f] = rnd<BF16>(p.vj[(size_t)g * n * F + x]);
+      accs[r * LV + f] = 0.f;
+    }
+    const int nl = list_pairs<NT>(nn, L.rounds, [&](int x) { return dist[x] < p.cutoff; }, lst,
+                                  wcnt, bits);
+
+    for (int b0 = 0; b0 < nl; b0 += PT) {
+      const int cnt = min(PT, nl - b0);
+      if (b0 > 0) __syncthreads();  // the previous tile's runs are summed
+      // the basis rows, TPP threads a pair, and the pairs' j and gate
+      {
+        const int pp = tid / TPP, sub = tid % TPP;
+        const bool ok = pp < cnt;
+        const int x = ok ? lst[b0 + pp] : 0;
+        const float d = ok ? dist[x] : 0.f;
+        if (sub == 0) {
+          pj[pp] = x % n;
+          pg[pp] = ok ? 0.5f * (cosf(d * p.pi_c) + 1.f) : 0.f;
+        }
+        stage_rbf<BF16, KR / TPP>(p, d, ok, sub * (KR / TPP), rbf + pp * LR);
+      }
+      if (warp == 0) list_runs(lst + b0, cnt, n, rst);  // the runs of equal i
+      __syncthreads();
+      // pre = rbf W1 + b1, h = sps(pre)
+      float y[1][4][4];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) y[0][nt][v] = b1s[pc(nt, v)];
+      if constexpr (BF16)
+        tiles<true, 1, 4, false, false>(y, rbf, LR, W1h, LW, 16 * wm, 32 * wn, KR, KR, F);
+      else
+        tiles<false, 1, 4, false, false>(y, rbf, LR, p.w1, F, 16 * wm, 32 * wn, KR, R, F);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int v = 0; v < 4; v += 2) {
+          float h[2];
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const float x = y[0][nt][v + u];
+            h[u] = fmaxf(x, 0.f) + log1p_<BF16>(exp_<BF16>(-fabsf(x))) - LOG2F;
+          }
+          st2(hs + pr(v) * LH + pc(nt, v), h[0], h[1]);
+        }
+      __syncthreads();
+      // w = h W2 + b2; the gated terms gate w vj[j]
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) y[0][nt][v] = b2s[pc(nt, v)];
+      if constexpr (BF16)
+        tiles<true, 1, 4, false, false>(y, hs, LH, W2h, LW, 16 * wm, 32 * wn, F, F, F);
+      else
+        tiles<false, 1, 4, false, false>(y, hs, LH, p.w2, F, 16 * wm, 32 * wn, F, F, F);
+#pragma unroll
+      for (int v = 0; v < 4; v += 2) {
+        const int row = pr(v);
+        const float gt = pg[row];
+        const float* vv = vjs + pj[row] * LV;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int col = pc(nt, v);
+          const float2 vj2 = *reinterpret_cast<const float2*>(vv + col);
+          st2(ts + row * LT + col, (gt * y[0][nt][v]) * vj2.x, (gt * y[0][nt][v + 1]) * vj2.y);
+        }
+      }
+      __syncthreads();
+      add_runs<NT, F>(rst, lst + b0, n, ts, LT, accs, LV);  // into the out rows
+    }
+    __syncthreads();
+    for (int x = tid; x < n * F; x += NT)
+      p.out[(size_t)g * n * F + x] = accs[(x / F) * LV + x % F];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Backward
+// ---------------------------------------------------------------------------
+
 // The VJP of cfconv, a block per slot g (grid-strided). Only pairs with
 // d < cutoff contribute, so the slot's in-cutoff pairs are listed once by
 // warp ballots over the whole [n, n] block in (j, i) order, the transpose
@@ -546,9 +628,9 @@ __device__ __forceinline__ float row_sum(float v) {
 // scratch.
 template <int F, bool BF16, bool DIST>
 __global__ void __launch_bounds__(F * 4, 512 / (F * 4)) cfconv_bwd_kernel(Params p) {
-  using Cfg = BwdCfg<F>;
+  using Cfg = WalkCfg<F>;
   using E = Elem<BF16>;
-  constexpr int NT = Cfg::NT, NWARP = Cfg::NWARP, WN = Cfg::WN, NTR = Cfg::NTR;
+  constexpr int NT = Cfg::NT, WN = Cfg::WN, NTR = Cfg::NTR;
   constexpr int MT2 = Cfg::MT2, NT2 = Cfg::NT2, MG2 = Cfg::MG2, TPP = Cfg::TPP;
   extern __shared__ __align__(16) unsigned char sm[];
   const int n = p.n, R = p.R, nn = n * n;
@@ -613,38 +695,21 @@ __global__ void __launch_bounds__(F * 4, 512 / (F * 4)) cfconv_bwd_kernel(Params
       gos[r * LV + f] = p.gout[(size_t)g * n * F + x];
       dvjs[r * LV + f] = 0.f;
     }
-    // in-cutoff pairs in (j, i) order: position x = j n + i
-    for (int k = 0; k < L.rounds; ++k) {
-      const int x = k * NT + tid;
-      const bool valid = x < nn;
-      const int j = valid ? x / n : 0, i = valid ? x % n : 0;
-      const bool real = valid && dist[i * n + j] < p.cutoff;
-      const unsigned m = __ballot_sync(0xffffffffu, real);
-      if (lane == 0) {
-        wcnt[k * NWARP + warp] = __popc(m);
-        bits[k * NWARP + warp] = m;
-      }
-      if (valid && !(DIST && real)) d_dist[i * n + j] = 0.f;
-    }
-    __syncthreads();
-    int nl = 0;
-    for (int k = 0; k < L.rounds; ++k) {
-      int at = 0;
-      for (int q = 0; q < L.rounds * NWARP; ++q) {
-        if (q < k * NWARP + warp) at += wcnt[q];
-        if (k == 0) nl += wcnt[q];
-      }
-      const unsigned m = bits[k * NWARP + warp];
-      if ((m >> lane) & 1u) lst[at + __popc(m & ((1u << lane) - 1u))] = k * NT + tid;
-    }
+    // in-cutoff pairs in (j, i) order: position x = j n + i; d_dist is 0
+    // at the others (and at all without DIST)
+    const int nl = list_pairs<NT>(nn, L.rounds, [&](int x) {
+      const int at = (x % n) * n + x / n;
+      const bool real = dist[at] < p.cutoff;
+      if (!(DIST && real)) d_dist[at] = 0.f;
+      return real;
+    }, lst, wcnt, bits);
 
     for (int b0 = 0; b0 < nl; b0 += PT) {
       const int cnt = min(PT, nl - b0);
-      __syncthreads();  // the list is written; the previous tile is done
+      if (b0 > 0) __syncthreads();  // the previous tile is done
       // the basis rows, TPP threads a pair, and the pairs' i, j, gate
       {
         const int pp = tid / TPP, sub = tid % TPP;
-        constexpr int RPT = KR / TPP;  // basis rows a thread
         const bool ok = pp < cnt;
         const int x = ok ? lst[b0 + pp] : 0;
         const int j = x / n, i = x % n;
@@ -656,33 +721,9 @@ __global__ void __launch_bounds__(F * 4, 512 / (F * 4)) cfconv_bwd_kernel(Params
           pg[pp] = ok ? 0.5f * (cosf(d * p.pi_c) + 1.f) : 0.f;
           pdg[pp] = ok && DIST ? -0.5f * p.pi_c * sinf(d * p.pi_c) : 0.f;
         }
-#pragma unroll
-        for (int r0 = sub * RPT; r0 < sub * RPT + RPT; r0 += 8) {
-          float v[8];
-#pragma unroll
-          for (int u = 0; u < 8; ++u) {
-            const int r = r0 + u;
-            const float dd = d - r * p.delta_mu;
-            v[u] = ok && r < R ? exp_<BF16>(p.coeff * dd * dd) : 0.f;
-          }
-#pragma unroll
-          for (int u = 0; u < 8; u += 2) st2(rbf + pp * LR + r0 + u, v[u], v[u + 1]);
-        }
+        stage_rbf<BF16, KR / TPP>(p, d, ok, sub * (KR / TPP), rbf + pp * LR);
       }
-      if (warp == 0) {  // the runs of equal j, in pair order
-        int base = 0;
-        for (int h = 0; h < PT; h += 32) {
-          const int q = h + lane;
-          const bool start = q < cnt && (q == 0 || lst[b0 + q] / n != lst[b0 + q - 1] / n);
-          const unsigned m = __ballot_sync(0xffffffffu, start);
-          if (start) rst[base + __popc(m & ((1u << lane) - 1u))] = q;
-          base += __popc(m);
-        }
-        if (lane == 0) {
-          rst[base] = cnt;
-          rst[PT + 1] = base;
-        }
-      }
+      if (warp == 0) list_runs(lst + b0, cnt, n, rst);  // the runs of equal j
       __syncthreads();
       // pre = rbf W1 + b1, h = sps(pre), sigmoid(pre) in registers
       float acc[1][4][4], sig[4][4];
@@ -754,14 +795,7 @@ __global__ void __launch_bounds__(F * 4, 512 / (F * 4)) cfconv_bwd_kernel(Params
         }
       }
       __syncthreads();
-      // each run's d_vj terms in pair order, into d_vj[j]
-      const int nruns = rst[PT + 1];
-      for (int x = tid; x < nruns * F; x += NT) {
-        const int k = x / F, f = x % F;
-        float s = 0.f;
-        for (int q = rst[k]; q < rst[k + 1]; ++q) s += ts[q * LT + f];
-        dvjs[pj[rst[k]] * LV + f] += s;
-      }
+      add_runs<NT, F>(rst, lst + b0, n, ts, LT, dvjs, LV);  // into d_vj[j]
       // dh = dp2 W2^T
       zero_acc(acc);
       if constexpr (BF16)
@@ -867,11 +901,20 @@ __global__ void __launch_bounds__(F * 4, 512 / (F * 4)) cfconv_bwd_kernel(Params
   }
 }
 
+// The forward on a grid of SMs x its occupancy (at most G blocks).
+template <int F, bool BF16>
+int fwd_launch(const Params& p, cudaStream_t s) {
+  const size_t smem = fwd_layout<F, BF16>(p.n).total;
+  int grid = 0;
+  const int rc = occupancy_grid(cfconv_fwd_kernel<F, BF16>, F * 4, smem, p.G, &grid);
+  if (rc != 0) return rc;
+  return launch(cfconv_fwd_kernel<F, BF16>, grid, F * 4, smem, s, p);
+}
+
 template <int F>
-int fwd_f(const Params& p, int bf16, int grid, cudaStream_t s) {
-  const size_t smem = fwd_smem_floats(p.n, F, p.Rp) * sizeof(float);
-  if (bf16) return launch(cfconv_fwd_kernel<F, true>, grid, F / 4 * JQ, smem, s, p);
-  return launch(cfconv_fwd_kernel<F, false>, grid, F / 4 * JQ, smem, s, p);
+int fwd_f(const Params& p, int bf16, cudaStream_t s) {
+  if (bf16) return fwd_launch<F, true>(p, s);
+  return fwd_launch<F, false>(p, s);
 }
 
 template <int F, bool BF16, bool DIST>
@@ -902,7 +945,6 @@ Params make_params(int G, int n, int R, float cutoff, int num_gaussians) {
   p.G = G;
   p.n = n;
   p.R = R;
-  p.Rp = (R + 3) / 4 * 4;
   p.cutoff = cutoff;
   p.delta_mu = cutoff / (float)(num_gaussians - 1);
   p.coeff = -0.5f / (p.delta_mu * p.delta_mu);
@@ -919,15 +961,15 @@ int cfconv_fwd(const float* dist, const float* vj, const float* w1,
                const float* b1, const float* w2, const float* b2, float* out,
                int G, int n, int F, int R, float cutoff, int num_gaussians,
                int bf16, void* stream) {
-  if (R < 1 || R > RMAX) return ERR_SHAPE;
+  if (R < 1 || R > KR) return ERR_SHAPE;
   Params p = make_params(G, n, R, cutoff, num_gaussians);
   p.dist = dist; p.vj = vj; p.w1 = w1; p.b1 = b1; p.w2 = w2; p.b2 = b2;
   p.out = out;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (F) {
-    case 32: return fwd_f<32>(p, bf16, G, s);
-    case 64: return fwd_f<64>(p, bf16, G, s);
-    case 128: return fwd_f<128>(p, bf16, G, s);
+    case 32: return fwd_f<32>(p, bf16, s);
+    case 64: return fwd_f<64>(p, bf16, s);
+    case 128: return fwd_f<128>(p, bf16, s);
     default: return ERR_SHAPE;
   }
 }

@@ -61,10 +61,17 @@
 //  - Triplets with m2T = 0 (padding, k == i, slots beyond the degree)
 //    contribute exactly zero to every output and are skipped (warp-uniform
 //    branch: a warp shares one edge).
-//  - Forward: a block owns 32 consecutive edges and walks s in a loop; the
-//    basis rows of the 32 edges for one s are staged in shared memory
-//    (coalesced over e), sbf and tbf are formed there once, and each thread
-//    keeps out[e, c] for its edges in float32 registers across all s.
+//  - Forward: a block owns 32 consecutive edges. It lists their real
+//    triplets s-major, a ballot per s (57-60% of the triplets are masked
+//    at the force bench's buckets), and walks the list 32 triplets at a
+//    time: the rows, sbf and tbf (by rows, [NB][32]) and the products only
+//    where they count, the products as register tiles (each weight loaded
+//    once for a thread's 8 triplets at C = 64, their basis values 16 bytes
+//    at a time). The thread owning an (edge, channel) adds its edge's terms
+//    in list order, which is s order: the sums, and so the bits, of the
+//    first design, which walked every s of the 32 edges with three
+//    barriers an s and formed the rows and the basis of masked triplets
+//    too, its products a serial chain with a shared load per operand.
 //  - Backward: a block owns one (slot, s). It first lists the edges of its
 //    real triplets by warp ballots (about 40% at the force bench's
 //    buckets; dpt is written as 0 at the others) and walks only those, 32

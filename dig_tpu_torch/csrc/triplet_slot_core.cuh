@@ -117,20 +117,6 @@ __device__ void form_basis(const Params<T>& p, const float* ptc, float* bas) {
   }
 }
 
-// sv = sbf @ ws[:, c], tv = tbf @ wt[:, c] (tv = 1 without torsion).
-template <int C>
-__device__ __forceinline__ void basis_products(const float* b, const float* ws_s,
-                                               const float* wt_s, int nk, int ntk, int c,
-                                               float& sv, float& tv) {
-  sv = 0.f;
-  for (int r = 0; r < nk; ++r) sv = fmaf(b[r], ws_s[r * (C + 1) + c], sv);
-  tv = 1.f;
-  if (ntk > 0) {
-    tv = 0.f;
-    for (int i = 0; i < ntk; ++i) tv = fmaf(b[nk + i], wt_s[i * (C + 1) + c], tv);
-  }
-}
-
 // dbas [ET][NB]: the tangents of sbf and tbf along u2 (product rule), not
 // rounded: d sbf[l*k+m] = ub y0 + bt uy0, d tbf[i] = uyt bt + yt ub.
 template <typename T>
@@ -153,7 +139,7 @@ __device__ void form_tangent(const Params<T>& p, const float* ptc, const float* 
 }
 
 // sv, tv of the chunk positions eg + EG q, q < nq, at channel c (the
-// chains of basis_products) and their tangents dsv = da @ ws[:, c] + a @
+// basis products' chains, below) and their tangents dsv = da @ ws[:, c] + a @
 // u4[:, c], dtv = db @ wt[:, c] + b @ u5[:, c] (dtv = 0 without torsion;
 // the u4 / u5 terms only when given), as a register tile: each weight is
 // loaded once for the thread's positions.
@@ -308,59 +294,197 @@ struct PtRows {
   }
 };
 
-template <typename T, int C, typename Rows>
-__global__ void __launch_bounds__(NT) slot_fwd_kernel(Params<T> p) {
-  constexpr int EG = NT / C;    // edge groups
-  constexpr int EPT = ET / EG;  // edges per thread
-  extern __shared__ __align__(16) float smem[];
-  float* ws_s = smem;                           // [nk][C+1]
-  float* wt_s = ws_s + p.nk * (C + 1);          // [ntk][C+1]
-  float* ptc = wt_s + p.ntk * (C + 1);          // [R][ET]
-  float* bas = ptc + p.R * ET;                  // [ET][NB]
-  float* m2c = bas + ET * p.NB;                 // [ET]
-  int* ljc = reinterpret_cast<int*>(m2c + ET);  // [ET]
-  float* rs = reinterpret_cast<float*>(ljc + ET);  // [Rows::scratch]
-
-  const int tid = threadIdx.x, c = tid % C, eg = tid / C;
-  const int e0 = blockIdx.x * ET;
-  const int cnt = min(ET, p.E - e0);
-  const int SE = p.A * p.K;
-  load_weights<C>(p, ws_s, wt_s);
-
-  float acc[EPT];
-#pragma unroll
-  for (int q = 0; q < EPT; ++q) acc[q] = 0.f;
-
-  for (int s = 0; s < p.K; ++s) {
-    __syncthreads();
-    Rows::template load<ROWS_VALUE>(p, s, e0, nullptr, cnt, ptc, m2c, ljc, nullptr, rs);
-    __syncthreads();
-    form_basis(p, ptc, bas);
-    __syncthreads();
-#pragma unroll
-    for (int q = 0; q < EPT; ++q) {
-      const int ec = eg + EG * q;
-      const float m = m2c[ec];
-      if (m != 0.f) {
-        const int e = e0 + ec;
-        const size_t row = ((size_t)(e / SE) * p.A + ljc[ec]) * p.K + s;
-        float sv, tv;
-        basis_products<C>(bas + ec * p.NB, ws_s, wt_s, p.nk, p.ntk, c, sv, tv);
-        const float xv = m * rnd<IS_BF16<T>>(ld(p.x + row * C + c));
-        acc[q] += (xv * sv) * tv;
-      }
-    }
-  }
+// The basis products: sv = sbf @ ws[:, c] and tv = tbf @ wt[:, c] (tv = 1
+// without torsion), each a chain of fmaf in row order from 0. Here of the
+// chunk positions q0 .. q0 + EPT - 1 from the basis by rows, bas [NB][ET],
+// as a register tile: each weight loaded once for the thread's positions,
+// their basis values 16 bytes at a time.
+template <int C, int EPT, typename T>
+__device__ __forceinline__ void tiled_sv_tv_by_row(const Params<T>& p, const float* bas,
+                                                   const float* ws_s, const float* wt_s, int c,
+                                                   int q0, float (&sv)[EPT], float (&tv)[EPT]) {
+  static_assert(EPT % 4 == 0, "positions come four at a time");
+  const int nk = p.nk, ntk = p.ntk;
 #pragma unroll
   for (int q = 0; q < EPT; ++q) {
-    const int ec = eg + EG * q;
-    if (ec < cnt) st(p.out + (size_t)(e0 + ec) * C + c, acc[q]);
+    sv[q] = 0.f;
+    tv[q] = ntk > 0 ? 0.f : 1.f;
+  }
+  for (int r = 0; r < nk; ++r) {
+    const float w = ws_s[r * (C + 1) + c];
+    const float4* b = reinterpret_cast<const float4*>(bas + r * ET + q0);
+#pragma unroll
+    for (int u = 0; u < EPT / 4; ++u) {
+      const float4 v = b[u];
+      sv[4 * u] = fmaf(v.x, w, sv[4 * u]);
+      sv[4 * u + 1] = fmaf(v.y, w, sv[4 * u + 1]);
+      sv[4 * u + 2] = fmaf(v.z, w, sv[4 * u + 2]);
+      sv[4 * u + 3] = fmaf(v.w, w, sv[4 * u + 3]);
+    }
+  }
+  for (int i = 0; i < ntk; ++i) {
+    const float w = wt_s[i * (C + 1) + c];
+    const float4* b = reinterpret_cast<const float4*>(bas + (nk + i) * ET + q0);
+#pragma unroll
+    for (int u = 0; u < EPT / 4; ++u) {
+      const float4 v = b[u];
+      tv[4 * u] = fmaf(v.x, w, tv[4 * u]);
+      tv[4 * u + 1] = fmaf(v.y, w, tv[4 * u + 1]);
+      tv[4 * u + 2] = fmaf(v.z, w, tv[4 * u + 2]);
+      tv[4 * u + 3] = fmaf(v.w, w, tv[4 * u + 3]);
+    }
   }
 }
 
-// sv = sbf @ ws[:, c], tv = tbf @ wt[:, c] (tv = 1 without torsion) of the
-// chunk positions eg + EG q, q < nq: the chains of basis_products as a
-// register tile, each weight loaded once for the thread's positions.
+// The rows whose product is basis row r (sbf | tbf): fa[r] and fb[r], so
+// that form_basis takes bas[r] = ptc[fa[r]] ptc[fb[r]], for r < NB, by the
+// block's threads.
+template <typename T>
+__device__ void basis_factors(const Params<T>& p, int* fa, int* fb) {
+  const int nk = p.nk, k = p.k;
+  for (int r = threadIdx.x; r < p.NB; r += blockDim.x) {
+    const int i = r - nk;
+    fa[r] = r < nk ? r : nk + p.n + i / k;
+    fb[r] = r < nk ? nk + r / k : i % nk;
+  }
+}
+
+// bas [NB][ET]: form_basis by rows, from the factor rows fa, fb.
+template <typename T>
+__device__ void form_basis_by_row(const Params<T>& p, const int* fa, const int* fb,
+                                  const float* ptc, float* bas) {
+  for (int x = threadIdx.x; x < ET * p.NB; x += blockDim.x) {
+    const int r = x / ET, ec = x % ET;
+    bas[x] = rnd<IS_BF16<T>>(ptc[fa[r] * ET + ec] * ptc[fb[r] * ET + ec]);
+  }
+}
+
+// The real triplets (lj inside the slot, m2T set) of the ne edges from e0,
+// s-major, a ballot per (s, warp): smask[s] the ballot of s, pairs[0, nl)
+// their s E + e and, when loc is given, loc[0, nl) their s ET + e - e0.
+// Returns nl; ends with the list written and visible.
+template <typename T>
+__device__ int list_edge_triplets(const Params<T>& p, int e0, int ne, unsigned* smask,
+                                  int* pairs, int* loc) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  for (int s = warp; s < p.K; s += nw) {
+    bool real = false;
+    if (lane < ne) {
+      const int j = p.lj[e0 + lane];
+      real = j >= 0 && j < p.A && ld(p.m2T + (size_t)s * p.E + e0 + lane) != 0.f;
+    }
+    const unsigned mask = __ballot_sync(0xffffffffu, real);
+    if (lane == 0) smask[s] = mask;
+  }
+  __syncthreads();
+  int nl = 0;
+  for (int s = 0; s < p.K; ++s) nl += __popc(smask[s]);
+  for (int s = warp; s < p.K; s += nw) {
+    int at = 0;
+    for (int s2 = 0; s2 < s; ++s2) at += __popc(smask[s2]);
+    const unsigned mask = smask[s];
+    if ((mask >> lane) & 1u) {
+      const int q = at + __popc(mask & ((1u << lane) - 1u));
+      pairs[q] = s * p.E + e0 + lane;
+      if (loc != nullptr) loc[q] = s * ET + lane;
+    }
+  }
+  __syncthreads();
+  return nl;
+}
+
+// The floats of slot_fwd_kernel's shared memory.
+template <typename Rows, int C, typename T>
+__host__ int fwd_floats(const Params<T>& p) {
+  return p.NB * ET + p.R * ET + 3 * ET * C + (p.nk + p.ntk) * (C + 1) + 3 * ET + 2 * p.NB +
+         p.K * (2 * ET + 1) + Rows::scratch(p, ROWS_VALUE);
+}
+
+// The forward. A block owns ET edges (out's rows) and first lists their
+// real triplets (lj inside the slot, m2T set) s-major, a ballot per s, then
+// walks the list ET triplets at a time: the rows, sbf / tbf and the
+// products only where they count (57-60% of the triplets are masked at the
+// force bench's buckets). Per chunk, thread (c, eg) forms sv and tv of the
+// chunk positions EPT eg .. EPT eg + EPT - 1 as a register tile, and
+// leaves xv sv and tv in shared memory; then the thread owning each (edge,
+// channel) (edges b with b % EG == eg) adds its edge's terms acc +=
+// (xv sv) tv in list order, that is in s order, as the walk over every s
+// added them: every output keeps its bits. Edges without a real triplet
+// get 0. The basis rows' factors and each listed triplet's (s, edge) are
+// tabled once a block, so that no runtime division is left in the walk
+// but the row source's own.
+template <typename T, int C, typename Rows>
+__global__ void __launch_bounds__(NT) slot_fwd_kernel(Params<T> p) {
+  constexpr int EG = NT / C;    // position groups
+  constexpr int EPT = ET / EG;  // positions a thread
+  extern __shared__ __align__(16) float smem[];
+  const int K = p.K;
+  float* bas = smem;                            // [NB][ET] sbf | tbf by row
+  float* ptc = bas + p.NB * ET;                 // [R][ET]
+  float* fp = ptc + p.R * ET;                   // [ET][C] xv sv of each position
+  float* ftv = fp + ET * C;                     // [ET][C] tv of each position
+  float* acc = ftv + ET * C;                    // [ET][C] out of the block's edges
+  float* ws_s = acc + ET * C;                   // [nk][C+1]
+  float* wt_s = ws_s + p.nk * (C + 1);          // [ntk][C+1]
+  float* m2c = wt_s + p.ntk * (C + 1);          // [ET]
+  int* ljc = reinterpret_cast<int*>(m2c + ET);  // [ET]
+  int* xbs = ljc + ET;                          // [ET] slot(e0 + b) A
+  int* fa = xbs + ET;                           // [NB] basis_factors
+  int* fb = fa + p.NB;                          // [NB]
+  unsigned* smask = reinterpret_cast<unsigned*>(fb + p.NB);  // [K] real edges of each s
+  int* pairs = reinterpret_cast<int*>(smask + K);            // [K * ET] s E + e, s-major
+  int* loc = pairs + K * ET;                                 // [K * ET] s ET + e - e0
+  float* rs = reinterpret_cast<float*>(loc + K * ET);        // [Rows::scratch]
+
+  const int tid = threadIdx.x, c = tid % C, eg = tid / C;
+  const int e0 = blockIdx.x * ET;
+  const int ne = min(ET, p.E - e0);
+  load_weights<C>(p, ws_s, wt_s);
+  basis_factors(p, fa, fb);
+  // x's rows of edge e0 + b are (xbs[b] + lj) K + s
+  for (int b = tid; b < ET; b += NT) xbs[b] = (e0 + b) / (p.A * K) * p.A;
+  for (int x = tid; x < ET * C; x += NT) acc[x] = 0.f;
+  const int nl = list_edge_triplets(p, e0, ne, smask, pairs, loc);
+
+  for (int c0 = 0; c0 < nl; c0 += ET) {
+    const int cnt = min(ET, nl - c0);
+    // the previous chunk read bas before its last barrier and ptc, m2c,
+    // ljc before that; its sums read fp and ftv, written again only after
+    // this chunk's next two barriers
+    Rows::template load<ROWS_VALUE>(p, 0, 0, pairs + c0, cnt, ptc, m2c, ljc, nullptr, rs);
+    __syncthreads();
+    form_basis_by_row(p, fa, fb, ptc, bas);
+    __syncthreads();
+    {
+      const int q0 = eg * EPT;
+      float sv[EPT], tv[EPT];
+      tiled_sv_tv_by_row<C, EPT>(p, bas, ws_s, wt_s, c, q0, sv, tv);
+#pragma unroll
+      for (int q = 0; q < EPT; ++q) {
+        const int ec = q0 + q;
+        if (ec < cnt) {
+          const int l = loc[c0 + ec], s = l / ET, b = l % ET;
+          const size_t row = ((size_t)xbs[b] + ljc[ec]) * K + s;
+          const float xv = m2c[ec] * rnd<IS_BF16<T>>(ld(p.x + row * C + c));
+          fp[ec * C + c] = xv * sv[q];
+          ftv[ec * C + c] = tv[q];
+        }
+      }
+    }
+    __syncthreads();
+    // thread (c, eg) owns the edges b with b % EG == eg
+    for (int ec = 0; ec < cnt; ++ec) {
+      const int b = loc[c0 + ec] % ET;
+      if (b % EG == eg) acc[b * C + c] = fmaf(fp[ec * C + c], ftv[ec * C + c], acc[b * C + c]);
+    }
+  }
+  // each thread writes the entries it owns (x = b C + c, b % EG == eg)
+  for (int x = tid; x < ne * C; x += NT) st(p.out + (size_t)e0 * C + x, acc[x]);
+}
+
+// sv and tv of the chunk positions eg + EG q, q < nq, from the basis by
+// positions, bas [ET][NB]: the basis products' chains as a register tile,
+// each weight loaded once for the thread's positions.
 template <int C, int EG, int EPT, typename T>
 __device__ __forceinline__ void tiled_sv_tv(const Params<T>& p, const float* bas,
                                             const float* ws_s, const float* wt_s, int c, int eg,
@@ -633,30 +757,12 @@ __global__ void __launch_bounds__(NT) slot_jvp_kernel(Params<T> p) {
   float* rs = reinterpret_cast<float*>(pairs + K * ET);    // [Rows::scratch]
 
   const int tid = threadIdx.x, c = tid % C, eg = tid / C;
-  const int lane = tid & 31, warp = tid >> 5;
   const int e0 = blockIdx.x * ET;
   const int ne = min(ET, p.E - e0);
   const int SE = p.A * K;
   load_weights<C>(p, ws_s, wt_s);
   for (int x = tid; x < ET * C; x += NT) acc[x] = 0.f;
-  for (int s = warp; s < K; s += NT / 32) {
-    bool real = false;
-    if (lane < ne) {
-      const int j = p.lj[e0 + lane];
-      real = j >= 0 && j < p.A && ld(p.m2T + (size_t)s * p.E + e0 + lane) != 0.f;
-    }
-    const unsigned mask = __ballot_sync(0xffffffffu, real);
-    if (lane == 0) smask[s] = mask;
-  }
-  __syncthreads();
-  int nl = 0;
-  for (int s = 0; s < K; ++s) nl += __popc(smask[s]);
-  for (int s = warp; s < K; s += NT / 32) {
-    int at = 0;
-    for (int s2 = 0; s2 < s; ++s2) at += __popc(smask[s2]);
-    const unsigned mask = smask[s];
-    if ((mask >> lane) & 1u) pairs[at + __popc(mask & ((1u << lane) - 1u))] = s * p.E + e0 + lane;
-  }
+  const int nl = list_edge_triplets(p, e0, ne, smask, pairs, nullptr);
 
   for (int c0 = 0; c0 < nl; c0 += ET) {
     const int cnt = min(ET, nl - c0);
@@ -979,9 +1085,7 @@ Params<T> make_params(const void* x, const void* m2T, const float* ws, const flo
 
 template <typename Rows, typename T, int C>
 int fwd_t(Params<T> p, cudaStream_t strm) {
-  const size_t smem = ((size_t)(p.nk + p.ntk) * (C + 1) + p.R * ET + ET * p.NB + 2 * ET +
-                       Rows::scratch(p, ROWS_VALUE)) *
-                      sizeof(float);
+  const size_t smem = (size_t)fwd_floats<Rows, C>(p) * sizeof(float);
   const int grid = (p.E + ET - 1) / ET;
   return launch(slot_fwd_kernel<T, C, Rows>, grid, NT, smem, strm, p);
 }

@@ -54,12 +54,15 @@
 // each kernel from its inputs and takes the largest.
 //
 // What the design does about it:
-//  - The slot scheme of triplet_slot.cu, unchanged (GeomRows is its row
-//    source): a chunk of 32 edges for one s at a time; the chunk's
-//    geometry, mask and the second order's ug staged in shared memory; the
-//    rows (and, where the second order needs it, their tangent J ug)
-//    evaluated once per (row, edge) by one thread, a warp sharing one row,
-//    so the generated switch over rows never diverges within a warp.
+//  - The slot kernels of triplet_slot.cu, unchanged (GeomRows is their row
+//    source): each walks only real triplets, 32 at a time (the forward a
+//    block's 32 edges s-major, the backward and second order a (slot, s)
+//    block's edges); the chunk's geometry, mask and the second order's ug
+//    staged in shared memory; the rows (and, where the second order needs
+//    it, their tangent J ug) evaluated once per (row, real triplet) by one
+//    thread, a warp sharing one row, so the generated switch over rows
+//    never diverges within a warp. The forward's first design evaluated
+//    the float64 rows of masked triplets too.
 //  - dgeo (the backward walks only the real triplets' edges, see
 //    slot_bwd_kernel): each (row, edge) is evaluated once, by row (the
 //    value) and row_grad (the derivatives along the row's variables), when

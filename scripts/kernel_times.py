@@ -15,8 +15,9 @@ libraries of the kept ops are built first, one nvcc each, all at once.
 What it times, with CUDA events over repeated bare launches (bf16 and f32):
 the geometry forward, backward (dgeo asked for and not) and second order
 at path 7a's shape (u1 = u4 = u5 absent, as in force training); the
-triplet_slot backward (dpt asked for and not) and second order at the
-three bucket shapes of the force bench; the triplet_pt backward (dpt asked
+triplet_slot forward, backward (dpt asked for and not) and second order at
+the three bucket shapes of the force bench (``slot_fwd_A16``, ...) and its
+forward at path 2's shape (``slot_fwd_p2``); the triplet_pt backward (dpt asked
 for and not) and second order (the cotangents a force step passes, u1 and
 u2, and all four) at paths 6a's and 6b's shapes; the triplet_product
 backward at path 5a's shape with and without basis cotangents and at 5b's
@@ -52,7 +53,8 @@ from pathlib import Path
 import torch
 
 HERE = Path(__file__).resolve().parent.parent
-SPLIT = ("slot_jvp_kernel", "slot_bwd2_kernel", "slot_bwd_kernel",
+SPLIT = ("slot_fwd_kernel", "slot_jvp_kernel", "slot_bwd2_kernel",
+         "slot_bwd_kernel", "cfconv_fwd_kernel",
          "triplet_pt_bwd_kernel", "triplet_pt_bwd2_kernel",
          "triplet_product_bwd_kernel", "triplet_product_bwd2_kernel",
          "cfconv_bwd_kernel", "sum_partials_kernel",
@@ -105,7 +107,8 @@ def main():
     cfg = (smoke.SN_KW["num_spherical"], smoke.SN_KW["num_radial"], True)
     # the libraries of the kept ops, by the ops' name prefixes
     libs = {"geom": ("triplet_slot_geom", ts.geom_library_spec(cfg)),
-            "slot_bwd": ("triplet_slot", None), "pt_bwd": ("triplet_pt", None),
+            "slot_bwd": ("triplet_slot", None),
+            "slot_fwd": ("triplet_slot", None), "pt_bwd": ("triplet_pt", None),
             "prod_bwd": ("triplet_product", None),
             "chunked": ("segment_csr", None), "csr": ("segment_csr", None),
             "cfconv": ("cfconv", None)}
@@ -158,14 +161,28 @@ def main():
             ts.triplet_slot_geom_bwd2_kernel(*k_args, ct32, inp["u1"].to(dt),
                                              ug, inp["u4"], inp["u5"], A, K,
                                              g))
+    if group("slot_fwd_p2"):
+        # path 2's batch: the energy step's forward
+        sinp = smoke.sn_kernel_inputs(
+            torch, dev, smoke.sn_batches(torch, dev, smoke.SN_STEPS + 1)[-1])
+    for prec, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        if not group("slot_fwd_p2"):
+            break
+        args, scfg = smoke.sn_args(torch, sinp, True, dt)
+        ops[("slot_fwd_p2", prec)] = (
+            lambda k_args=ts._kernel_inputs(*args, A, K, scfg), g=scfg:
+            ts.triplet_slot_forward_kernel(*k_args, A, K, g))
     batch = smoke.sf_batches(torch, dev, smoke.SF_STEPS + 1)[-1] \
-        if group("slot_bwd") else {}
+        if group("slot_bwd") or group("slot_fwd_A") else {}
     for Ab, b in batch.items():
         binp = smoke.sn_kernel_inputs(torch, dev, b, Ab)
         for prec, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
             args, ct, us, scfg = smoke.bwd2_args(torch, binp, True, dt, False)
             k_args = ts._kernel_inputs(*args, Ab, K, scfg)
             ct32 = ct.float().contiguous()
+            ops[(f"slot_fwd_A{Ab}", prec)] = (
+                lambda k_args=k_args, Ab=Ab, g=scfg:
+                ts.triplet_slot_forward_kernel(*k_args, Ab, K, g))
             for dpt in (True, False):
                 ops[(f"slot_bwd_A{Ab}{'_dpt' if dpt else ''}", prec)] = (
                     lambda k_args=k_args, ct32=ct32, Ab=Ab, g=scfg, dpt=dpt:

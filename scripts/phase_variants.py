@@ -6,9 +6,9 @@ takes is the time the kernel saves without it (the outputs are wrong).
 
 Writes ``OUT/NAME/dig_tpu_torch`` for each NAME of ``VARIANTS`` (a source
 under ``csrc/`` and text replacements, each of which must occur exactly
-once in that checkout's source, else the script fails). The ``parent_``
-variants apply to the first designs of the triplet_product second order
-and of the cfconv backward, the others to their redesigns.
+once in that checkout's source, else the script fails). The comment above
+each group names the design whose source its edits match: the ``parent_``
+variants a kernel's first design, the others its redesign.
 """
 from __future__ import annotations
 
@@ -18,28 +18,79 @@ import sys
 from pathlib import Path
 
 VARIANTS = {
-    # triplet_product_bwd2_kernel, the first design (a warp per triplet)
-    "parent_prod_no_weights": ("triplet_product.cu", [(
-        "      for (int tl = 0; tl < cnt; ++tl) {\n        if (m_s[tl] != 0.f) {",
-        "      for (int tl = 0; tl < 0; ++tl) {\n        if (m_s[tl] != 0.f) {")]),
-    "parent_prod_no_tiles": ("triplet_product.cu", [(
-        "      for (int r = lane; r < NB; r += 32) {\n        if (r < S1) {\n"
-        "          float v = row_dot(",
-        "      for (int r = lane; r < 0; r += 32) {\n        if (r < S1) {\n"
-        "          float v = row_dot(")]),
-    "parent_prod_no_ctb": ("triplet_product.cu", [(
-        "      for (int k = 0; k < K; ++k) {\n        const int tl = ce * K + k;",
-        "      for (int k = 0; k < 0; ++k) {\n        const int tl = ce * K + k;")]),
-    # cfconv_bwd_kernel, the first design (rows one at a time, FP32 pipes)
-    "parent_cf_no_weights": ("cfconv.cu", [(
-        "        for (int jj = 0; jj < cnt; ++jj) {\n          float p2[4], p1[4];",
-        "        for (int jj = 0; jj < 0; ++jj) {\n          float p2[4], p1[4];")]),
-    "parent_cf_no_dh": ("cfconv.cu", [(
-        "        gemm_w2t<F>(dp2s, W2s, jq, fq, dh);\n", "")]),
-    "parent_cf_no_filter": ("cfconv.cu", [
-        ("        gemm_w1<F, DIST>(rbfs, cs, W1s, Rp, jq, fq, pre, q);\n", ""),
-        ("        __syncthreads();\n        gemm_w2<F>(hs, W2s, jq, fq, w);\n"
-         "        // d_vj", "        __syncthreads();\n        // d_vj")]),
+    # cfconv_fwd_kernel, the first design (rows one at a time, FP32 pipes)
+    "parent_cffwd_no_w1": ("cfconv.cu", [(
+        "        gemm_w1<F>(rbfs, W1s, Rp, jq, fq, pre);\n", "")]),
+    "parent_cffwd_no_w2": ("cfconv.cu", [(
+        "        gemm_w2<F>(hs, W2s, jq, fq, w);\n", "")]),
+    "parent_cffwd_no_sps": ("cfconv.cu", [(
+        "rnd<BF16>(softplus(pre[b][c]) - LOG2F)", "rnd<BF16>(pre[b][c])")]),
+    "parent_cffwd_no_basis": ("cfconv.cu", [(
+        "            v = rnd<BF16>(expf(p.coeff * dd * dd));",
+        "            v = rnd<BF16>(p.coeff * dd * dd);")]),
+    "parent_cffwd_no_sum": ("cfconv.cu", [(
+        "              acc[c] = fmaf(gt * w[b][c], vjs[j * F + fq + c * F4], acc[c]);",
+        "              acc[c] += w[b][c];")]),
+    "parent_cffwd_no_reds": ("cfconv.cu", [(
+        "        for (int q = 0; q < JQ; ++q) s += reds[q * F + f];",
+        "        s = reds[f];")]),
+    "parent_cffwd_no_chunks": ("cfconv.cu", [(
+        "      const int nv = *nvs;", "      const int nv = 0 * *nvs;")]),
+    # slot_fwd_kernel, the first design (every s of 32 edges a block)
+    "parent_slotfwd_no_basis": ("triplet_slot_core.cuh", [(
+        "    Rows::template load<ROWS_VALUE>(p, s, e0, nullptr, cnt, ptc, m2c, ljc, nullptr, rs);\n"
+        "    __syncthreads();\n    form_basis(p, ptc, bas);\n",
+        "    Rows::template load<ROWS_VALUE>(p, s, e0, nullptr, cnt, ptc, m2c, ljc, nullptr, rs);\n"
+        "    __syncthreads();\n")]),
+    "parent_slotfwd_no_products": ("triplet_slot_core.cuh", [(
+        "        basis_products<C>(bas + ec * p.NB, ws_s, wt_s, p.nk, p.ntk, c, sv, tv);\n",
+        "        sv = bas[ec * p.NB + c % p.NB];\n        tv = 1.f;\n")]),
+    "parent_slotfwd_no_gather": ("triplet_slot_core.cuh", [(
+        "        const float xv = m * rnd<IS_BF16<T>>(ld(p.x + row * C + c));\n"
+        "        acc[q] += (xv * sv) * tv;",
+        "        const float xv = m + (float)row;\n"
+        "        acc[q] += (xv * sv) * tv;")]),
+    # the rows of either design of slot_fwd_kernel: the geometry's values
+    # (ROWS_VALUE), the table's loads
+    "slotfwd_no_geom_rows": ("triplet_slot_geom.cu", [(
+        "        if constexpr (MODE == ROWS_VALUE) {\n"
+        "          val = (float)geom_rows::row<double>(r, th, ph, xx);",
+        "        if constexpr (MODE == ROWS_VALUE) {\n"
+        "          val = (float)(th + ph + xx);")]),
+    "slotfwd_no_pt_rows": ("triplet_slot_core.cuh", [(
+        "        v = ld(p.pt + at);\n", "        v = (float)at;\n")]),
+    # the redesigned slot_fwd_kernel (the compacted walk)
+    "slotfwd_no_basis": ("triplet_slot_core.cuh", [(
+        "    form_basis_by_row(p, fa, fb, ptc, bas);\n", "")]),
+    "slotfwd_no_products": ("triplet_slot_core.cuh", [(
+        "      tiled_sv_tv_by_row<C, EPT>(p, bas, ws_s, wt_s, c, q0, sv, tv);\n",
+        "      for (int q = 0; q < EPT; ++q) {\n        sv[q] = bas[q0 + q];\n"
+        "        tv[q] = 1.f;\n      }\n")]),
+    "slotfwd_no_gather": ("triplet_slot_core.cuh", [(
+        "          const float xv = m2c[ec] * rnd<IS_BF16<T>>(ld(p.x + row * C + c));",
+        "          const float xv = m2c[ec] + (float)row;")]),
+    "slotfwd_no_sums": ("triplet_slot_core.cuh", [(
+        "    for (int ec = 0; ec < cnt; ++ec) {\n      const int b = loc[c0 + ec] % ET;",
+        "    for (int ec = 0; ec < 0; ++ec) {\n      const int b = loc[c0 + ec] % ET;")]),
+    # the redesigned cfconv_fwd_kernel (the pair-list walk); the basis
+    # staging (in both special-function variants) and the run sums are the
+    # backward's too
+    "cffwd_no_filter": ("cfconv.cu", [
+        ("        tiles<true, 1, 4, false, false>(y, rbf, LR, W1h, LW, 16 * wm, 32 * wn, KR, KR, F);\n",
+         "        {}\n"),
+        ("        tiles<true, 1, 4, false, false>(y, hs, LH, W2h, LW, 16 * wm, 32 * wn, F, F, F);\n",
+         "        {}\n")]),
+    "cffwd_no_special": ("cfconv.cu", [
+        ("      v[u] = ok && r < p.R ? exp_<BF16>(p.coeff * dd * dd) : 0.f;",
+         "      v[u] = ok && r < p.R ? p.coeff * dd * dd : 0.f;"),
+        ("            h[u] = fmaxf(x, 0.f) + log1p_<BF16>(exp_<BF16>(-fabsf(x))) - LOG2F;",
+         "            h[u] = x;")]),
+    "cffwd_no_terms": ("cfconv.cu", [(
+        "          st2(ts + row * LT + col, (gt * y[0][nt][v]) * vj2.x, (gt * y[0][nt][v + 1]) * vj2.y);",
+        "          st2(ts + row * LT + col, y[0][nt][v], y[0][nt][v + 1]);")]),
+    "cf_no_runs": ("cfconv.cu", [(  # both kernels' run sums
+        "  for (int x = threadIdx.x; x < nruns * F; x += NT) {",
+        "  for (int x = threadIdx.x; x < 0; x += NT) {")]),
     # the redesigned triplet_product_bwd2_kernel
     "prod_no_weights": ("triplet_product.cu", [(
         "        for (int i = 0; i < cnt; ++i) {\n"
@@ -58,12 +109,9 @@ VARIANTS = {
         ""), (
         "      tiles<BF16, MT2, NT2, true, false>(dW2, hs, LH, dp2s, LH, 16 * MT2 * wm2, "
         "8 * NT2 * wn2,\n                                         PT, PT, F);\n", "")]),
-    "cf_no_runs": ("cfconv.cu", [(
-        "      for (int x = tid; x < nruns * F; x += NT) {",
-        "      for (int x = tid; x < 0; x += NT) {")]),
     "cf_no_special": ("cfconv.cu", [
-        ("            v[u] = ok && r < R ? exp_<BF16>(p.coeff * dd * dd) : 0.f;",
-         "            v[u] = ok && r < R ? p.coeff * dd * dd : 0.f;"),
+        ("      v[u] = ok && r < p.R ? exp_<BF16>(p.coeff * dd * dd) : 0.f;",
+         "      v[u] = ok && r < p.R ? p.coeff * dd * dd : 0.f;"),
         ("            const float e = exp_<BF16>(-fabsf(x));\n"
          "            h[u] = fmaxf(x, 0.f) + log1p_<BF16>(e) - LOG2F;\n"
          "            sig[nt][v + u] = BF16 ? __fdividef(x >= 0.f ? 1.f : e, 1.f + e)\n"

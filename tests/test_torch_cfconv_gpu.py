@@ -129,6 +129,43 @@ def test_pair_list_walk(case, precision):
         assert float(on[1][1].abs().max()) == 0.0
 
 
+def _walk_inputs(dev, case):
+    """The inputs of a ``WALK`` case: (args, R, how)."""
+    from dig_tpu_torch.ops.cfconv import MASK_DIST
+    G, n, F, R, how = WALK[case]
+    args, _ = _inputs(dev, G, n, F, R, 5.0)
+    if how == "empty":
+        args[0][1] = MASK_DIST
+    elif how == "full":
+        args[0] = torch.rand(G, n, n, generator=torch.Generator().manual_seed(3)
+                             ).to(dev) * 4.9
+    return args, R, how
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("case", list(WALK))
+def test_forward_pair_list_walk(case, precision):
+    """The forward on the pair-list walk's risky cases (it lists a slot's
+    in-cutoff pairs in (i, j) order and walks them 64 a tile across rows):
+    the plain version's output, three calls the same bits, the rows of an
+    empty slot exactly 0."""
+    from dig_tpu_torch.ops import cfconv as cf
+    dev = _device()
+    args, R, how = _walk_inputs(dev, case)
+    k_args = cf._kernel_inputs(*args)
+    outs = [cf.cfconv_forward_kernel(*k_args, 5.0, R, precision)
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    for again in outs[1:]:
+        assert torch.equal(again, outs[0])
+    want = cf.cfconv_reference(*args, cutoff=5.0, num_gaussians=R,
+                               precision=precision)
+    assert torch.isfinite(outs[0]).all()
+    assert _rel(outs[0], want) < TOL[precision]
+    if how == "empty":
+        assert float(outs[0][1].abs().max()) == 0.0
+
+
 def test_need_dist_grad_false_and_bitwise_repeat():
     from dig_tpu_torch.ops import cfconv as cf
     dev = _device()

@@ -299,3 +299,49 @@ def test_backward_compacted_walk(case, dtype):
         if name == "dwt" and not has_t:
             continue
         assert _rel(a.to(dtype), b.to(dtype)) < TOL[dtype][0], name
+
+
+def _compact_inputs(dev, dtype, case):
+    """The operands of a ``COMPACT`` case: (args, A, K, cfg)."""
+    A, K, G, C, has_t, how = COMPACT[case]
+    args, _, _, (A, K, cfg) = _inputs(dev, dtype, A, K, G, C, has_t)
+    geo, m2T, lj = args[1].clone(), args[4], args[5].clone()
+    g = torch.Generator(device="cpu").manual_seed(5)
+    if how == "empty":
+        m2T[:, :A * K] = 0
+    elif how == "full":
+        m2T.fill_(1)
+    elif how == "ragged":
+        m2T.zero_()
+        m2T.view(-1)[torch.randperm(m2T.numel(), generator=g)[:37].to(dev)] = 1
+    elif how == "out":
+        out = torch.rand(lj.shape, generator=g).to(dev) < 0.1
+        lj[out] = torch.where(torch.rand(lj.shape, generator=g).to(dev)[out]
+                              < 0.5, -1, A + 2).to(lj.dtype)
+    # real triplets keep d_kj / cutoff in [0.01, 1] (the Bessel rows' poles)
+    geo[:, -1] = torch.where(m2T != 0, geo[:, -1].clamp_min(0.01), 0.0)
+    return [args[0], geo] + args[2:5] + [lj], A, K, cfg
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(COMPACT))
+def test_forward_compacted_walk(case, dtype):
+    """The forward, which lists each 32-edge block's real triplets s-major
+    and evaluates the rows only for those, against the plain version: out
+    exactly 0 at every edge without a real triplet (m2T = 0 or lj outside
+    [0, A) at every s), three calls the same bits."""
+    from dig_tpu_torch.ops import triplet_slot as ts
+    dev = _device()
+    args, A, K, cfg = _compact_inputs(dev, dtype, case)
+    k_args = ts._geom_kernel_inputs(*args, A, K, cfg)
+    outs = [ts.triplet_slot_geom_forward_kernel(*k_args, A, K, cfg)
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    for again in outs[1:]:
+        assert torch.equal(again, outs[0])
+    m2T, lj = args[4], args[5]
+    live = ((m2T != 0) & ((lj[0] >= 0) & (lj[0] < A))[None, :]).any(0)
+    assert not outs[0][~live].float().any()
+    want = ts.fused_triplet_slot_geom_reference(*args, A, K, cfg)
+    assert outs[0].dtype == dtype and torch.isfinite(outs[0]).all()
+    assert _rel(outs[0], want) < TOL[dtype][0]
