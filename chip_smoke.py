@@ -1975,7 +1975,10 @@ def phase_nk_kernel_vs_plain(torch, tp, inputs):
                     if a.shape[0] == masked.shape[0] and \
                             float(a[masked].abs().max()) != 0.0:
                         fail(f"triplet_product {nm}: masked rows not 0")
-                _, again = nk_vjp(torch, tp, args, ct, K, basis)
+                out_again, again = nk_vjp(torch, tp, args, ct, K, basis)
+                if not torch.equal(out_again, out_k):
+                    fail(f"triplet_product forward not bitwise repeatable "
+                         f"({path}, {prec}, basis={basis})")
                 if not all(a is None or torch.equal(a, b)
                            for a, b in zip(again, g_k)):
                     fail(f"triplet_product backward not bitwise repeatable "
@@ -2359,7 +2362,10 @@ def phase_pt_kernel_vs_plain(torch, tpt, inputs):
                        for i, (a, b) in enumerate(zip(g_k, g_n)) if i != 1):
                 fail(f"triplet_pt gradients changed without dpt ({path}, "
                      f"{prec})")
-            _, again = pt_vjp(torch, tpt, args, ct, K, cfg, True)
+            out_again, again = pt_vjp(torch, tpt, args, ct, K, cfg, True)
+            if not torch.equal(out_again, out_k):
+                fail(f"triplet_pt forward not bitwise repeatable ({path}, "
+                     f"{prec})")
             if not all(a is None or torch.equal(a, b)
                        for a, b in zip(again, g_k)):
                 fail(f"triplet_pt backward not bitwise repeatable ({path}, "

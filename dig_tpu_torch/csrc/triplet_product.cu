@@ -48,15 +48,27 @@
 // What the design does about it (simple and right first; wgmma for the
 // basis products and TMA are later work):
 //  - Every input row is read once per pass and every output written once;
-//    masked triplets are skipped (warp-uniform branch, or left out of the
-//    backward's list) and their output rows written as zeros. T is not
-//    padded: the kernels bound every index.
+//    masked triplets are left out of each kernel's list and their output
+//    rows written as zeros. T is not padded: the kernels bound every index.
 //  - ws | wt (and u4 | u5) are staged in shared memory, rows of C+1 floats,
 //    so reads with c across lanes (the products) and with the basis row
 //    across lanes (dsbf, sb) are free of bank conflicts.
-//  - Forward: a warp per edge, lanes over C (Q channels a lane), k walked in
-//    order, float32 registers; the warp stages each triplet's basis row in
-//    shared memory. Blocks walk the edges grid-stride.
+//  - Forward: the first kernel gave a warp an edge and walked k in order,
+//    each real triplet's mask load, row load and 72-step fmaf chain in
+//    turn (6.2% of its byte bound; 55% of its time in the products, 24%
+//    in the mask's dependent load). It now walks as triplet_pt_fwd_kernel
+//    does (window_list.cuh): 32-triplet chunks listed a window of about
+//    1024 triplets at a time, out rows of edges without a real triplet
+//    written as 0, batches of 64 listed triplets: the sbf | tbf rows
+//    (a warp a row, lanes along it; loads free of branches, bf16 widened
+//    by a shift) staged by row, [NB][65], and the xg rows, then a warp's 8
+//    triplets x its lanes' Q channels as the pt forward's register tile
+//    (row_tile: each weight loaded once for the 8, the basis values as
+//    broadcast loads; staged by triplet and read as float4 a triplet, the
+//    products took twice as long); each edge's terms summed in list order
+//    by a warp a run, the run an edge carries across batches kept in
+//    shared memory. Grid: SMs x the occupancy, three blocks of 256 threads
+//    an SM at C <= 64.
 //  - Backward (triplet_product_bwd_kernel): about 57% of the triplets are
 //    masked, and the first kernel's serial loops (a warp per triplet, one
 //    shared load per operand, a weight-cotangent loop over every triplet
@@ -95,9 +107,9 @@
 //    carried across batches; sb | tb as 4 x 3 register tiles. The grid is
 //    SMs x the occupancy (264 at two blocks an SM).
 //  - Every sum keeps the order of the masked walk: over rows and channels
-//    from 0, over a block's real triplets in triplet order. The per-block
-//    weight sums go to a [blocks, ...] scratch and sum_partials_kernel adds
-//    them in a fixed order. The block count depends only on the shapes and
+//    from 0, over a block's real triplets in triplet order, over an edge's
+//    in k order. The per-block weight sums go to a [blocks, ...] scratch
+//    and sum_partials_kernel adds them in a fixed order. The block count depends only on the shapes and
 //    the card, and no atomics are used: repeated calls give the same bits.
 #include <stdint.h>
 
@@ -108,7 +120,6 @@ namespace {
 
 constexpr int NT = 256;        // threads per block
 constexpr int NW = NT / 32;    // warps per block
-constexpr int FWD_GRID = 1056; // forward: at most 8 blocks per SM
 
 template <typename T>
 struct Params {
@@ -145,85 +156,143 @@ __device__ void stage_rows(const Params<T>& p, const float* src1, const float* s
   }
 }
 
-// b[0, S1) <- a1[t, :], b[S1, NB) <- a2[t, :] (zeros where a pointer is null)
+// Forward tiles: a batch of FB real triplets, FE of them a warp in the
+// products; the batch's sbf | tbf by row, FBP floats a row (odd: a warp's
+// stores along a triplet's row fall on distinct banks).
+constexpr int FB = 64, FE = FB / NW, FBP = FB + 1;
+constexpr int WINDOW = 1024;  // triplets a block lists at a time
+
+// Floats of the forward's shared memory for BW chunks of TC triplets a
+// window (fwd_layout's order).
+struct FwdLayout {
+  int W, rounds;
+  size_t w_s, bas, xs, carry, m_s, eds, rs, lst, wcnt, bits, total;
+};
+
 template <typename T>
-__device__ __forceinline__ void load_row(const Params<T>& p, const T* a1, const T* a2,
-                                         size_t t, float* b, int lane) {
-  for (int r = lane; r < p.NB; r += 32) {
-    float v = 0.f;
-    if (r < p.S1) {
-      if (a1 != nullptr) v = ld(a1 + t * p.S1 + r);
-    } else if (a2 != nullptr) {
-      v = ld(a2 + t * p.S2 + (r - p.S1));
-    }
-    b[r] = v;
-  }
+__host__ __device__ inline FwdLayout fwd_layout(const Params<T>& p, int TC) {
+  FwdLayout L;
+  const int BW = TC >= WINDOW ? 1 : WINDOW / TC;
+  L.W = BW * TC;
+  L.rounds = (L.W + NT - 1) / NT;
+  L.w_s = 0;
+  L.bas = L.w_s + (size_t)p.NB * (p.C + 1);
+  L.xs = L.bas + (size_t)p.NB * FBP;
+  L.carry = L.xs + (size_t)FB * p.C;
+  L.m_s = L.carry + 2 * (size_t)p.C;
+  L.eds = L.m_s + FB;
+  L.rs = L.eds + FB;
+  L.lst = L.rs + FB + 2;
+  L.wcnt = L.lst + L.W;
+  L.bits = L.wcnt + (size_t)L.rounds * NW;
+  L.total = L.bits + (size_t)L.rounds * NW;
+  return L;
 }
 
-// sv[q] = b[0:S1] @ w[0:S1, c_q], tv[q] = b[S1:NB] @ w[S1:NB, c_q]
-// (c_q = lane + 32 q; tv untouched without torsion)
-template <int Q, bool HAS_T>
-__device__ __forceinline__ void row_products(const float* b, const float* w_s, int S1, int NB,
-                                             int C, int lane, float (&sv)[Q], float (&tv)[Q]) {
-#pragma unroll
-  for (int q = 0; q < Q; ++q) sv[q] = 0.f;
-  for (int r = 0; r < S1; ++r) {
-    const float v = b[r];
-    const float* w = w_s + r * (C + 1) + lane;
-#pragma unroll
-    for (int q = 0; q < Q; ++q)
-      if (lane + 32 * q < C) sv[q] = fmaf(v, w[32 * q], sv[q]);
-  }
-  if constexpr (HAS_T) {
-#pragma unroll
-    for (int q = 0; q < Q; ++q) tv[q] = 0.f;
-    for (int r = S1; r < NB; ++r) {
-      const float v = b[r];
-      const float* w = w_s + r * (C + 1) + lane;
-#pragma unroll
-      for (int q = 0; q < Q; ++q)
-        if (lane + 32 * q < C) tv[q] = fmaf(v, w[32 * q], tv[q]);
-    }
-  }
-}
-
+// The forward, on the compacted walk of window_list.cuh, as
+// triplet_pt_fwd_kernel walks: block b deals itself the chunks of TC = CE
+// K triplets b, b + G, ... a window of BW chunks at a time, lists the
+// window's real triplets in triplet order (each edge's a contiguous run),
+// writes the out rows of its edges without one as 0, and walks the list FB
+// triplets at a time. Per batch: the listed triplets' sbf | tbf rows (a
+// warp a row, lanes along it: coalesced, as a bf16 row of 18 or 54 values
+// is not 16-byte aligned; stored by row, [NB][FBP]), xg rows, masks and
+// edges are gathered, loads in flight together and free of branches; warp
+// 0 lists the runs of equal edges while each warp forms sv and tv of its
+// FE triplets as a register tile over its lanes' Q channels (row_tile) and
+// leaves xg sv tv in place of the xg row; a warp per run sums its edge's
+// terms in list order, the run an edge carries into the next batch kept in
+// shared memory. Every sum is the
+// masked walk's: sv, tv fmaf chains over the rows from 0, prod = xg sv,
+// prod *= tv, acc = fmaf(prod, m, acc) over the edge's real triplets in k
+// order; so out keeps its bits whatever the chunking.
 template <typename T, int Q, bool HAS_T>
-__global__ void __launch_bounds__(NT) triplet_product_fwd_kernel(Params<T> p) {
+__global__ void __launch_bounds__(NT, Q == 2 ? 3 : 2) triplet_product_fwd_kernel(Params<T> p) {
   extern __shared__ __align__(16) float smem[];
-  const int C = p.C, NB = p.NB, K = p.K;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float* w_s = smem;                                 // [NB][C+1]
-  float* bas = w_s + NB * (C + 1) + warp * NB;       // [NB] per warp
+  const int C = p.C, NB = p.NB, S1 = p.S1, S2 = p.S2, K = p.K, CE = p.CE, TC = CE * K;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, tid = threadIdx.x;
+  const FwdLayout L = fwd_layout(p, TC);
+  float* w_s = smem + L.w_s;      // [NB][C+1] ws | wt
+  float* bas = smem + L.bas;      // [NB][FBP] sbf | tbf by row
+  float* xs = smem + L.xs;        // [FB][C] xg rows, then xg sv tv
+  float* carry = smem + L.carry;  // [2][C] the sums batches carry on
+  float* m_s = smem + L.m_s;      // [FB]
+  int* eds = reinterpret_cast<int*>(smem + L.eds);  // [FB] edge of each listed triplet
+  int* rs = reinterpret_cast<int*>(smem + L.rs);    // [FB + 2] run starts, cnt; their count
+  int* lst = reinterpret_cast<int*>(smem + L.lst);
+  int* wcnt = reinterpret_cast<int*>(smem + L.wcnt);
+  unsigned* bits = reinterpret_cast<unsigned*>(smem + L.bits);
   stage_rows(p, p.ws, p.wt, w_s);
-  __syncthreads();
+  const size_t Tn = (size_t)p.E * K;
+  const int chunks = (p.E + CE - 1) / CE;
+  const int G = gridDim.x, BW = L.W / TC;
 
-  for (int e = blockIdx.x * NW + warp; e < p.E; e += gridDim.x * NW) {
-    float acc[Q];
+  for (int w0 = blockIdx.x; w0 < chunks; w0 += G * BW) {
+    const Window win{w0, G, TC, L.W, chunks, Tn};
+    const int nl = list_window<NT>(win, p.mask, lst, wcnt, bits, [](size_t) {});
+    zero_empty_edges<NT>(win, bits, CE, K, p.E, p.out, C);
+    for (int b0 = 0; b0 < nl; b0 += FB) {
+      const int cnt = min(FB, nl - b0);
+      const int* ids = lst + b0;
+      __syncthreads();  // the list is written; the previous batch is done
+      {  // a warp FE rows i = warp + NW e (past cnt the last again): sbf |
+         // tbf and xg, addresses clamped, no branches
+        size_t t[FE];
 #pragma unroll
-    for (int q = 0; q < Q; ++q) acc[q] = 0.f;
-    for (int k = 0; k < K; ++k) {
-      const size_t t = (size_t)e * K + k;
-      const float m = ld(p.mask + t);
-      if (m == 0.f) continue;  // the warp shares t
-      load_row(p, p.sbf, p.tbf, t, bas, lane);
-      __syncwarp();
-      float sv[Q], tv[Q];
-      row_products<Q, HAS_T>(bas, w_s, p.S1, NB, C, lane, sv, tv);
+        for (int e = 0; e < FE; ++e) t[e] = (size_t)ids[min(warp + NW * e, cnt - 1)];
+        float xv[FE][Q];
 #pragma unroll
-      for (int q = 0; q < Q; ++q) {
-        const int c = lane + 32 * q;
-        if (c < C) {
-          float prod = ld(p.xg + t * C + c) * sv[q];
-          if constexpr (HAS_T) prod *= tv[q];
-          acc[q] = fmaf(prod, m, acc[q]);
+        for (int e = 0; e < FE; ++e)
+#pragma unroll
+          for (int q = 0; q < Q; ++q) xv[e][q] = ldw(p.xg + t[e] * C + min(lane + 32 * q, C - 1));
+        for (int r = lane; r < NB; r += 32) {
+          float v[FE];
+#pragma unroll
+          for (int e = 0; e < FE; ++e)
+            v[e] = ldw(r < S1 ? p.sbf + t[e] * S1 + r : p.tbf + t[e] * S2 + (r - S1));
+#pragma unroll
+          for (int e = 0; e < FE; ++e) bas[r * FBP + warp + NW * e] = v[e];
+        }
+#pragma unroll
+        for (int e = 0; e < FE; ++e)
+#pragma unroll
+          for (int q = 0; q < Q; ++q)
+            if (lane + 32 * q < C) xs[(warp + NW * e) * C + lane + 32 * q] = xv[e][q];
+      }
+      for (int i = tid; i < FB; i += NT) {
+        const int t = ids[min(i, cnt - 1)];
+        m_s[i] = ldw(p.mask + t);
+        eds[i] = i < cnt ? t / K : -1;
+      }
+      __syncthreads();
+      if (warp == 0) list_runs(eds, cnt, rs, rs + FB + 1);
+      const int i0 = warp * FE;
+      if (i0 < cnt) {
+        float sv[FE][Q], tv[FE][Q];
+#pragma unroll
+        for (int e = 0; e < FE; ++e)
+#pragma unroll
+          for (int q = 0; q < Q; ++q) sv[e][q] = tv[e][q] = 0.f;
+        row_tile(bas, FBP, w_s, 0, S1, i0, lane, C, sv);
+        if constexpr (HAS_T) row_tile(bas, FBP, w_s, S1, NB, i0, lane, C, tv);
+#pragma unroll
+        for (int e = 0; e < FE; ++e) {
+          if (i0 + e >= cnt) break;
+#pragma unroll
+          for (int q = 0; q < Q; ++q) {
+            const int c = lane + 32 * q;
+            if (c < C) {
+              float prod = xs[(i0 + e) * C + c] * sv[e][q];
+              if constexpr (HAS_T) prod *= tv[e][q];
+              xs[(i0 + e) * C + c] = prod;
+            }
+          }
         }
       }
-      __syncwarp();  // bas is rewritten by the next triplet
-    }
-#pragma unroll
-    for (int q = 0; q < Q; ++q) {
-      const int c = lane + 32 * q;
-      if (c < C) st(p.out + (size_t)e * C + c, acc[q]);
+      __syncthreads();
+      const int par = (b0 / FB) & 1;
+      add_edge_runs<NT, Q>(xs, m_s, eds, rs, rs[FB + 1], b0 > 0 ? lst[b0 - 1] / K : -1,
+                           carry + par * C, carry + (1 - par) * C, b0 + FB >= nl, p.out, C);
     }
   }
 }
@@ -232,7 +301,6 @@ __global__ void __launch_bounds__(NT) triplet_product_fwd_kernel(Params<T> p) {
 // dsbf | dtbf TE2 triplets x TR rows a thread (TR odd: no bank conflicts on
 // the weights' C + 1 stride).
 constexpr int BB = 64, TE = 4, TE2 = 4, TR = 3;
-constexpr int WINDOW = 1024;  // triplets a block lists at a time
 
 // Floats of the backward's shared memory for BW chunks of TC triplets a
 // window (bwd_layout's order).
@@ -883,19 +951,23 @@ Params<T> make_params(const void* xg, const void* sbf, const void* tbf, const fl
   return p;
 }
 
-int grid_of(int work, int cap) { return work < cap ? work : cap; }
-
-// edges per chunk of the backward passes: TC = CE * K triplets, about
-// `triplets` of them
+// edges per chunk: TC = CE * K triplets, about `triplets` of them
 int chunk_edges(int K, int triplets) { return K >= triplets ? 1 : triplets / K; }
 
-constexpr int BWD_TRIPLETS = 32, BWD2_TRIPLETS = 16;
+constexpr int FWD_TRIPLETS = 32, BWD_TRIPLETS = 32, BWD2_TRIPLETS = 16;
 
+// The forward: its grid is SMs x its occupancy (occupancy_grid), at most
+// one block a chunk.
 template <typename T, int Q, bool HAS_T>
 int fwd_q(Params<T> p, cudaStream_t strm) {
-  const size_t smem = ((size_t)p.NB * (p.C + 1) + (size_t)NW * p.NB) * sizeof(float);
-  return launch(triplet_product_fwd_kernel<T, Q, HAS_T>, grid_of((p.E + NW - 1) / NW, FWD_GRID),
-                NT, smem, strm, p);
+  p.CE = chunk_edges(p.K, FWD_TRIPLETS);
+  const size_t smem = fwd_layout(p, p.CE * p.K).total * sizeof(float);
+  auto kern = triplet_product_fwd_kernel<T, Q, HAS_T>;
+  int blocks = 0;
+  const int rc = occupancy_grid(kern, NT, smem, (p.E + p.CE - 1) / p.CE, &blocks);
+  if (rc != 0) return rc;
+  kern<<<blocks, NT, smem, strm>>>(p);
+  return cudaGetLastError();
 }
 
 // The backward of one instance: its grid in *blocks, and the launch unless

@@ -55,13 +55,25 @@
 //
 // What the design does about it (wgmma for the basis products and TMA are
 // later work):
-//  - Forward: a block walks chunks of CE whole edges (TC = CE K consecutive
-//    triplets) grid-stride. pt's [R, TC] slab of a chunk is staged in
-//    shared memory with loads coalesced along the triplets (T is pt's minor
-//    axis), and a and b are formed there once per triplet for all C
-//    channels; a warp per edge, k walked in order, float32 registers, lanes
-//    over C (Q channels a lane); masked triplets are skipped by a
-//    warp-uniform branch.
+//  - Forward: the first kernel staged every triplet of 8-edge chunks (pt's
+//    slab, then a | b with a division by NB and by k per element), and a
+//    warp per edge walked k in order, one triplet's 72-step fmaf chain at a
+//    time: 2.8% of its byte bound, 41% of its time in the products and 30%
+//    in forming a | b, for 57% of triplets masked. It now walks as the
+//    second order does (window_list.cuh): a block deals itself 32-triplet
+//    chunks a window of about 1024 triplets at a time, lists the window's
+//    real triplets in triplet order, writes the out rows of edges without
+//    one as 0, and walks the list 64 triplets a batch: the listed
+//    triplets' pt columns and xg rows gathered, loads in flight together
+//    and free of branches (bf16 widened by a shift: the conversion
+//    intrinsic inside a conditional load kept the loads serial); a | b
+//    formed by rows for those only, from factor rows tabled once a block
+//    (no division in the per-element loops); sv and tv of a warp's 8
+//    triplets x its lanes' Q channels as a register tile, each weight
+//    loaded once for the 8; each edge's terms summed in list order by a
+//    warp a run, the run an edge carries across batches kept in shared
+//    memory. Grid: SMs x the occupancy, three blocks of 256 threads an SM
+//    at C <= 64.
 //  - Backward and second order: about 57% of the triplets are masked, and
 //    the first kernels' serial per-entry loops over 32- (16-) triplet
 //    chunks left them latency-bound (1-2% of their byte bounds). Both walk
@@ -93,8 +105,8 @@
 //    with c across lanes (the products) and with the basis row across
 //    threads (the tiles) are free of bank conflicts.
 //  - No atomics: each thread owns entries of the weight cotangents and adds
-//    its block's real triplets in triplet order; ctb sums an edge's real
-//    triplets in k order; the per-block weight sums go to a [blocks, ...]
+//    its block's real triplets in triplet order; out and ctb sum an edge's
+//    real triplets in k order; the per-block weight sums go to a [blocks, ...]
 //    scratch that sum_partials_kernel adds in a fixed order: repeated
 //    calls give the same bits. dpt and ptb are written column by column
 //    along the triplets, each from its own triplet alone.
@@ -107,7 +119,6 @@ namespace {
 
 constexpr int NT = 256;        // threads per block
 constexpr int NW = NT / 32;    // warps per block
-constexpr int FWD_GRID = 1056; // forward: at most 8 blocks per SM
 
 template <typename T>
 constexpr bool IS_BF16 = sizeof(T) == 2;
@@ -147,21 +158,6 @@ __device__ void stage_rows(const Params<T>& p, const float* src1, const float* s
   }
 }
 
-// src[:, t0:t0+cnt] -> dst [R][TC] (zero past cnt or without src)
-template <typename T>
-__device__ void load_slab(const Params<T>& p, const T* src, size_t t0, int cnt, int TC,
-                          float* dst) {
-  for (int x = threadIdx.x; x < p.R * TC; x += NT) {
-    const int r = x / TC, tl = x % TC;
-    dst[x] = (src != nullptr && tl < cnt) ? ld(src + (size_t)r * p.Tn + t0 + tl) : 0.f;
-  }
-}
-
-template <typename T>
-__device__ void load_mask(const Params<T>& p, size_t t0, int cnt, int TC, float* m_s) {
-  for (int tl = threadIdx.x; tl < TC; tl += NT) m_s[tl] = tl < cnt ? ld(p.m + t0 + tl) : 0.f;
-}
-
 // The pt rows (bt row, y row) whose product is basis row r.
 template <typename T>
 __device__ __forceinline__ void factors(const Params<T>& p, int r, int& b, int& y) {
@@ -172,17 +168,6 @@ __device__ __forceinline__ void factors(const Params<T>& p, int r, int& b, int& 
     const int i = r - p.nk;
     b = i % p.nk;
     y = p.nk + p.n + i / p.k;
-  }
-}
-
-// bas [TC][NB]: a | b of each triplet from the slab ptc [R][TC], rounded to T.
-template <typename T>
-__device__ void form_basis(const Params<T>& p, const float* ptc, int TC, float* bas) {
-  for (int x = threadIdx.x; x < TC * p.NB; x += NT) {
-    const int tl = x / p.NB, r = x % p.NB;
-    int b, y;
-    factors(p, r, b, y);
-    bas[x] = rnd<IS_BF16<T>>(ptc[b * TC + tl] * ptc[y * TC + tl]);
   }
 }
 
@@ -209,82 +194,158 @@ __device__ __forceinline__ float basis_adjoint(const Params<T>& p, const float* 
   return v;
 }
 
-// sv[q] = b[0:nk] @ w[0:nk, c_q], tv[q] = b[nk:NB] @ w[nk:NB, c_q]
-// (c_q = lane + 32 q; tv untouched without torsion)
-template <int Q, bool HAS_T>
-__device__ __forceinline__ void row_products(const float* b, const float* w_s, int nk, int NB,
-                                             int C, int lane, float (&sv)[Q], float (&tv)[Q]) {
-#pragma unroll
-  for (int q = 0; q < Q; ++q) sv[q] = 0.f;
-  for (int r = 0; r < nk; ++r) {
-    const float v = b[r];
-    const float* w = w_s + r * (C + 1) + lane;
-#pragma unroll
-    for (int q = 0; q < Q; ++q)
-      if (lane + 32 * q < C) sv[q] = fmaf(v, w[32 * q], sv[q]);
-  }
-  if constexpr (HAS_T) {
-#pragma unroll
-    for (int q = 0; q < Q; ++q) tv[q] = 0.f;
-    for (int r = nk; r < NB; ++r) {
-      const float v = b[r];
-      const float* w = w_s + r * (C + 1) + lane;
-#pragma unroll
-      for (int q = 0; q < Q; ++q)
-        if (lane + 32 * q < C) tv[q] = fmaf(v, w[32 * q], tv[q]);
-    }
-  }
+// Forward tiles: a batch of FB real triplets, FE of them a warp in the
+// products.
+constexpr int FB = 64, FE = FB / NW;
+
+constexpr int WINDOW = 1024;  // triplets a block lists at a time
+
+// Floats of the forward's shared memory for BW chunks of TC triplets a
+// window (fwd_layout's order).
+struct FwdLayout {
+  int W, rounds;
+  size_t w_s, ptc, bas, xs, carry, m_s, eds, rs, fa, fb, lst, wcnt, bits, total;
+};
+
+template <typename T>
+__host__ __device__ inline FwdLayout fwd_layout(const Params<T>& p, int TC) {
+  FwdLayout L;
+  const int BW = TC >= WINDOW ? 1 : WINDOW / TC;
+  L.W = BW * TC;
+  L.rounds = (L.W + NT - 1) / NT;
+  L.w_s = 0;
+  L.ptc = L.w_s + (size_t)p.NB * (p.C + 1);
+  L.bas = (L.ptc + (size_t)p.R * FB + 3) & ~(size_t)3;  // 16-byte aligned
+  L.xs = L.bas + (size_t)p.NB * FB;
+  L.carry = L.xs + (size_t)FB * p.C;
+  L.m_s = L.carry + 2 * (size_t)p.C;
+  L.eds = L.m_s + FB;
+  L.rs = L.eds + FB;
+  L.fa = L.rs + FB + 2;
+  L.fb = L.fa + p.NB;
+  L.lst = L.fb + p.NB;
+  L.wcnt = L.lst + L.W;
+  L.bits = L.wcnt + (size_t)L.rounds * NW;
+  L.total = L.bits + (size_t)L.rounds * NW;
+  return L;
 }
 
+// The forward, on the compacted walk of window_list.cuh: block b deals
+// itself the chunks of TC = CE K triplets b, b + G, ... (G = gridDim.x) a
+// window of BW chunks at a time, lists the window's real triplets in
+// triplet order (so each edge's are a contiguous run), writes the out rows
+// of its edges without one as 0, and walks the list FB triplets at a time.
+// Per batch: the listed triplets' pt columns [R][FB], xg rows [FB][C],
+// masks and edges are gathered (loads in flight together); a | b is formed
+// by rows, [NB][FB], from the factor rows fa, fb tabled once a block, and
+// rounded to T, while warp 0 lists the batch's runs of equal edges; each
+// warp forms sv and tv of its FE triplets as a register tile over its
+// lanes' Q channels (row_tile) and leaves xg sv tv in place of the xg row;
+// then a
+// warp per run sums its edge's terms in list order, the run an edge
+// carries into the next batch kept in shared memory. Every sum is the
+// masked walk's: sv, tv fmaf chains over the rows from 0, prod = xg sv,
+// prod *= tv, acc = fmaf(prod, m, acc) over the edge's real triplets in k
+// order; so out keeps its bits whatever the chunking.
 template <typename T, int Q, bool HAS_T>
-__global__ void __launch_bounds__(NT) triplet_pt_fwd_kernel(Params<T> p) {
+__global__ void __launch_bounds__(NT, Q == 2 ? 3 : 2) triplet_pt_fwd_kernel(Params<T> p) {
   extern __shared__ __align__(16) float smem[];
-  const int C = p.C, NB = p.NB, K = p.K, CE = p.CE, TC = CE * K;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float* w_s = smem;                // [NB][C+1] ws | wt
-  float* ptc = w_s + NB * (C + 1);  // [R][TC]
-  float* bas = ptc + p.R * TC;      // [TC][NB]
-  float* m_s = bas + TC * NB;       // [TC]
+  const int C = p.C, NB = p.NB, nk = p.nk, K = p.K, R = p.R, CE = p.CE, TC = CE * K;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, tid = threadIdx.x;
+  const FwdLayout L = fwd_layout(p, TC);
+  float* w_s = smem + L.w_s;      // [NB][C+1] ws | wt
+  float* ptc = smem + L.ptc;      // [R][FB] the batch's pt columns
+  float* bas = smem + L.bas;      // [NB][FB] a | b by row
+  float* xs = smem + L.xs;        // [FB][C] xg rows, then xg sv tv
+  float* carry = smem + L.carry;  // [2][C] the sums batches carry on
+  float* m_s = smem + L.m_s;      // [FB]
+  int* eds = reinterpret_cast<int*>(smem + L.eds);  // [FB] edge of each listed triplet
+  int* rs = reinterpret_cast<int*>(smem + L.rs);    // [FB + 2] run starts, cnt; their count
+  int* fa = reinterpret_cast<int*>(smem + L.fa);    // [NB] factor rows of each basis row
+  int* fb = reinterpret_cast<int*>(smem + L.fb);    // [NB]
+  int* lst = reinterpret_cast<int*>(smem + L.lst);
+  int* wcnt = reinterpret_cast<int*>(smem + L.wcnt);
+  unsigned* bits = reinterpret_cast<unsigned*>(smem + L.bits);
   stage_rows(p, p.ws, p.wt, w_s);
+  for (int r = tid; r < NB; r += NT) factors(p, r, fa[r], fb[r]);
   const int chunks = (p.E + CE - 1) / CE;
+  const int G = gridDim.x, BW = L.W / TC;
 
-  for (int ch = blockIdx.x; ch < chunks; ch += gridDim.x) {
-    const size_t t0 = (size_t)ch * TC;
-    const int cnt = p.Tn - t0 < (size_t)TC ? (int)(p.Tn - t0) : TC;
-    __syncthreads();  // the previous chunk is done with the buffers
-    load_slab(p, p.pt, t0, cnt, TC, ptc);
-    load_mask(p, t0, cnt, TC, m_s);
-    __syncthreads();
-    form_basis(p, ptc, TC, bas);
-    __syncthreads();
-    for (int ce = warp; ce < CE; ce += NW) {
-      const int e = ch * CE + ce;
-      if (e >= p.E) break;
-      float acc[Q];
+  for (int w0 = blockIdx.x; w0 < chunks; w0 += G * BW) {
+    const Window win{w0, G, TC, L.W, chunks, p.Tn};
+    const int nl = list_window<NT>(win, p.m, lst, wcnt, bits, [](size_t) {});
+    zero_empty_edges<NT>(win, bits, CE, K, p.E, p.out, C);
+    for (int b0 = 0; b0 < nl; b0 += FB) {
+      const int cnt = min(FB, nl - b0);
+      const int* ids = lst + b0;
+      __syncthreads();  // the list is written; the previous batch is done
+      // pt columns (zero past cnt) and xg rows (a warp FE rows, lanes over
+      // C; rows past cnt repeat the last); addresses clamped, no branches
+      for (int x0 = tid; x0 < R * FB; x0 += 4 * NT) {
+        float v[4];
 #pragma unroll
-      for (int q = 0; q < Q; ++q) acc[q] = 0.f;
-      for (int kk = 0; kk < K; ++kk) {
-        const int tl = ce * K + kk;
-        const float m = m_s[tl];
-        if (m == 0.f) continue;  // the warp shares the triplet
-        float sv[Q], tv[Q];
-        row_products<Q, HAS_T>(bas + tl * NB, w_s, p.nk, NB, C, lane, sv, tv);
-        const size_t t = t0 + tl;
+        for (int u = 0; u < 4; ++u) {
+          const int x = min(x0 + u * NT, R * FB - 1), r = x / FB, i = x % FB;
+          v[u] = ldw(p.pt + (size_t)r * p.Tn + ids[min(i, cnt - 1)]);
+          if (i >= cnt) v[u] = 0.f;
+        }
 #pragma unroll
-        for (int q = 0; q < Q; ++q) {
-          const int c = lane + 32 * q;
-          if (c < C) {
-            float prod = ld(p.xg + t * C + c) * sv[q];
-            if constexpr (HAS_T) prod *= tv[q];
-            acc[q] = fmaf(prod, m, acc[q]);
+        for (int u = 0; u < 4; ++u)
+          if (x0 + u * NT < R * FB) ptc[x0 + u * NT] = v[u];
+      }
+      {
+        float v[FE][Q];
+#pragma unroll
+        for (int e = 0; e < FE; ++e) {
+          const size_t row = (size_t)ids[min(warp + NW * e, cnt - 1)] * C;
+#pragma unroll
+          for (int q = 0; q < Q; ++q) v[e][q] = ldw(p.xg + row + min(lane + 32 * q, C - 1));
+        }
+#pragma unroll
+        for (int e = 0; e < FE; ++e)
+#pragma unroll
+          for (int q = 0; q < Q; ++q)
+            if (lane + 32 * q < C) xs[(warp + NW * e) * C + lane + 32 * q] = v[e][q];
+      }
+      for (int i = tid; i < FB; i += NT) {
+        const int t = ids[min(i, cnt - 1)];
+        m_s[i] = ldw(p.m + t);
+        eds[i] = i < cnt ? t / K : -1;
+      }
+      __syncthreads();
+      for (int x = tid; x < NB * FB; x += NT) {
+        const int r = x / FB, i = x % FB;
+        bas[x] = rnd<IS_BF16<T>>(ptc[fa[r] * FB + i] * ptc[fb[r] * FB + i]);
+      }
+      if (warp == 0) list_runs(eds, cnt, rs, rs + FB + 1);
+      __syncthreads();
+      const int i0 = warp * FE;
+      if (i0 < cnt) {
+        float sv[FE][Q], tv[FE][Q];
+#pragma unroll
+        for (int e = 0; e < FE; ++e)
+#pragma unroll
+          for (int q = 0; q < Q; ++q) sv[e][q] = tv[e][q] = 0.f;
+        row_tile(bas, FB, w_s, 0, nk, i0, lane, C, sv);
+        if constexpr (HAS_T) row_tile(bas, FB, w_s, nk, NB, i0, lane, C, tv);
+#pragma unroll
+        for (int e = 0; e < FE; ++e) {
+          if (i0 + e >= cnt) break;
+#pragma unroll
+          for (int q = 0; q < Q; ++q) {
+            const int c = lane + 32 * q;
+            if (c < C) {
+              float prod = xs[(i0 + e) * C + c] * sv[e][q];
+              if constexpr (HAS_T) prod *= tv[e][q];
+              xs[(i0 + e) * C + c] = prod;
+            }
           }
         }
       }
-#pragma unroll
-      for (int q = 0; q < Q; ++q) {
-        const int c = lane + 32 * q;
-        if (c < C) st(p.out + (size_t)e * C + c, acc[q]);
-      }
+      __syncthreads();
+      const int par = (b0 / FB) & 1;
+      add_edge_runs<NT, Q>(xs, m_s, eds, rs, rs[FB + 1], b0 > 0 ? lst[b0 - 1] / K : -1,
+                           carry + par * C, carry + (1 - par) * C, b0 + FB >= nl, p.out, C);
     }
   }
 }
@@ -293,7 +354,6 @@ __global__ void __launch_bounds__(NT) triplet_pt_fwd_kernel(Params<T> p) {
 // the (a | b) cotangents TE2 triplets x TR rows a thread (TR odd: no bank
 // conflicts on the weights' C + 1 stride).
 constexpr int BB = 64, TE = 4, TE2 = 4, TR = 3;
-constexpr int WINDOW = 1024;  // triplets a block lists at a time
 // The second order keeps more per triplet: batches of BB2.
 constexpr int BB2 = 32;
 
@@ -1011,21 +1071,23 @@ Params<T> make_params(const void* xg, const void* pt, const float* ws, const flo
   return p;
 }
 
-int grid_of(int work, int cap) { return work < cap ? work : cap; }
-
 // edges per chunk: TC = CE * K triplets, about `triplets` of them
 int chunk_edges(int K, int triplets) { return K >= triplets ? 1 : triplets / K; }
 
-constexpr int FWD_TRIPLETS = 128, BWD_TRIPLETS = 32, BWD2_TRIPLETS = 16;
+constexpr int FWD_TRIPLETS = 32, BWD_TRIPLETS = 32, BWD2_TRIPLETS = 16;
 
+// The forward: its grid is SMs x its occupancy (occupancy_grid), at most
+// one block a chunk.
 template <typename T, int Q, bool HAS_T>
 int fwd_q(Params<T> p, cudaStream_t strm) {
   p.CE = chunk_edges(p.K, FWD_TRIPLETS);
-  const size_t TC = (size_t)p.CE * p.K;
-  const size_t floats = (size_t)p.NB * (p.C + 1) + p.R * TC + TC * p.NB + TC;
-  const int chunks = (p.E + p.CE - 1) / p.CE;
-  return launch(triplet_pt_fwd_kernel<T, Q, HAS_T>, grid_of(chunks, FWD_GRID), NT,
-                floats * sizeof(float), strm, p);
+  const size_t smem = fwd_layout(p, p.CE * p.K).total * sizeof(float);
+  auto kern = triplet_pt_fwd_kernel<T, Q, HAS_T>;
+  int blocks = 0;
+  const int rc = occupancy_grid(kern, NT, smem, (p.E + p.CE - 1) / p.CE, &blocks);
+  if (rc != 0) return rc;
+  kern<<<blocks, NT, smem, strm>>>(p);
+  return cudaGetLastError();
 }
 
 // The backward of one instance: its grid (occupancy_grid, at most one block

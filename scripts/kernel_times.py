@@ -1,5 +1,5 @@
-"""Time the backward and second-order triplet kernels, the cfconv kernels
-and the chunked CSR sum on one card, per call and per kernel, at
+"""Time the triplet kernels, the cfconv kernels and the chunked CSR sum
+on one card, per call and per kernel, at
 chip_smoke.py's shapes, and hash their outputs.
 
     python scripts/kernel_times.py [--root DIR] [--out FILE] [--ops A,B]
@@ -17,22 +17,24 @@ the geometry forward, backward (dgeo asked for and not) and second order
 at path 7a's shape (u1 = u4 = u5 absent, as in force training); the
 triplet_slot forward, backward (dpt asked for and not) and second order at
 the three bucket shapes of the force bench (``slot_fwd_A16``, ...) and its
-forward at path 2's shape (``slot_fwd_p2``); the triplet_pt backward (dpt asked
-for and not) and second order (the cotangents a force step passes, u1 and
-u2, and all four) at paths 6a's and 6b's shapes; the triplet_product
-backward at path 5a's shape with and without basis cotangents and at 5b's
-without, and its second order at 5a's (``prod_bwd2_5a``: u1, u2, u3, as
-the force step passes them); the cfconv forward and backward at each of
-SchNetDense's buckets (``cfconv_fwd_n16``, ``cfconv_bwd_n16`` and, with
+forward at path 2's shape (``slot_fwd_p2``); the triplet_pt forward
+(``pt_fwd_6a``, ``pt_fwd_6b``), backward (dpt asked for and not) and
+second order (the cotangents a force step passes, u1 and u2, and all
+four) at paths 6a's and 6b's shapes; the triplet_product forward at
+paths 5a's and 5b's shapes (``prod_fwd_5a``, ``prod_fwd_5b``), its
+backward at path 5a's shape with and without basis cotangents and at
+5b's without, and its second order at 5a's (``prod_bwd2_5a``: u1, u2,
+u3, as the force step passes them); the cfconv forward and backward at
+each of SchNetDense's buckets (``cfconv_fwd_n16``, ``cfconv_bwd_n16`` and, with
 need_dist_grad, ``cfconv_bwd_n16_dist``; n = 16, 24, 32), vj in bf16 as
 the model passes it; the chunked sum at path 7b's shape beside
-segment_csr_kernel and torch.segment_reduce. Each backward,
-second order and the chunked sum is also split into its kernels by
-chip_smoke.kernel_split (torch.profiler's device events). ``--ops`` keeps
-the ops whose names start with one of the given prefixes (default: all),
-e.g. ``--ops pt_bwd,slot_bwd_A,geom_bwd,prod_bwd``, and only their
-libraries are built. ``scripts/phase_variants.py`` makes roots with one
-phase of a kernel compiled out.
+segment_csr_kernel and torch.segment_reduce. Each backward, second
+order, the chunked sum and the two triplet forwards is also split into
+its kernels by chip_smoke.kernel_split (torch.profiler's device events).
+``--ops`` keeps the ops whose names start with one of the given prefixes
+(default: all), e.g. ``--ops pt_fwd,prod_fwd,pt_bwd,prod_bwd``, and only
+their libraries are built. ``scripts/phase_variants.py`` makes roots with
+one phase of a kernel compiled out.
 
 Before the times, one object per kernel call with a hash of each output's
 bytes (the second orders also with every cotangent present), so that two
@@ -54,7 +56,8 @@ import torch
 
 HERE = Path(__file__).resolve().parent.parent
 SPLIT = ("slot_fwd_kernel", "slot_jvp_kernel", "slot_bwd2_kernel",
-         "slot_bwd_kernel", "cfconv_fwd_kernel",
+         "slot_bwd_kernel", "cfconv_fwd_kernel", "triplet_pt_fwd_kernel",
+         "triplet_product_fwd_kernel",
          "triplet_pt_bwd_kernel", "triplet_pt_bwd2_kernel",
          "triplet_product_bwd_kernel", "triplet_product_bwd2_kernel",
          "cfconv_bwd_kernel", "sum_partials_kernel",
@@ -109,7 +112,9 @@ def main():
     libs = {"geom": ("triplet_slot_geom", ts.geom_library_spec(cfg)),
             "slot_bwd": ("triplet_slot", None),
             "slot_fwd": ("triplet_slot", None), "pt_bwd": ("triplet_pt", None),
+            "pt_fwd": ("triplet_pt", None),
             "prod_bwd": ("triplet_product", None),
+            "prod_fwd": ("triplet_product", None),
             "chunked": ("segment_csr", None), "csr": ("segment_csr", None),
             "cfconv": ("cfconv", None)}
     smoke.build_all(_build, {spec[0]: spec for name, spec in libs.items()
@@ -196,9 +201,9 @@ def main():
                 lambda k_args=k_args, ct32=ct32, us=us_all, Ab=Ab, g=scfg:
                 ts.triplet_slot_bwd2_kernel(*k_args, ct32, *us, Ab, K, g))
     nk_b = smoke.nk_batches(torch, dev, smoke.NK_STEPS + 1)[-1] \
-        if group("pt_bwd") or group("prod_bwd") else None
+        if group("pt_") or group("prod_") else None
     for path in smoke.PT_PATHS:
-        if not group(f"pt_bwd_{path}") and not group(f"pt_bwd2_{path}"):
+        if not any(group(f"pt_{g}_{path}") for g in ("fwd", "bwd", "bwd2")):
             continue
         pinp = smoke.pt_kernel_inputs(torch, dev, nk_b, path)
         Kp, pcfg = pinp["K"], pinp["cfg"]
@@ -206,6 +211,9 @@ def main():
             k_args = tpt._kernel_inputs(*smoke.pt_args(torch, pinp, dt), Kp,
                                         pcfg)
             ct32 = pinp["ct"].to(dt).float().contiguous()
+            ops[(f"pt_fwd_{path}", prec)] = (
+                lambda k_args=k_args, Kp=Kp, g=pcfg:
+                tpt.triplet_pt_forward_kernel(*k_args, Kp, g))
             for dpt in (True, False):
                 ops[(f"pt_bwd_{path}{'_dpt' if dpt else ''}", prec)] = (
                     lambda k_args=k_args, ct32=ct32, Kp=Kp, g=pcfg, dpt=dpt:
@@ -218,14 +226,17 @@ def main():
                     lambda k_args=k_args, ct32=ct32, us=us, Kp=Kp, g=pcfg:
                     tpt.triplet_pt_bwd2_kernel(*k_args, ct32, *us, Kp, g))
     for path in ("5a", "5b"):
-        if not group(f"prod_bwd_{path}") and not (
-                path == "5a" and group("prod_bwd2_5a")):
+        if not group(f"prod_bwd_{path}") and not group(f"prod_fwd_{path}") \
+                and not (path == "5a" and group("prod_bwd2_5a")):
             continue
         ninp = smoke.nk_kernel_inputs(torch, dev, nk_b, path)
         Kn = ninp["K"]
         for prec, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
             k_args = tp._kernel_inputs(*smoke.nk_args(torch, ninp, dt), Kn)
             ct32 = ninp["ct"].to(dt).float().contiguous()
+            ops[(f"prod_fwd_{path}", prec)] = (
+                lambda k_args=k_args, Kn=Kn:
+                tp.triplet_product_forward_kernel(*k_args, Kn))
             # 5a's force step asks for the basis cotangents in its inner
             # pass only; 5b's energy step never
             for basis in ((False, True) if path == "5a" else (False,)):
@@ -293,7 +304,7 @@ def main():
         ms = smoke.cuda_ms(torch, fn, iters=50 if op in (
             "chunked", "csr", "segment_reduce") else 20)
         split = smoke.kernel_split(torch, fn, SPLIT) if "bwd" in op or \
-            op == "chunked" else {}
+            op == "chunked" or op.startswith(("pt_fwd", "prod_fwd")) else {}
         emit(op=op, precision=prec, ms=ms,
              kernels={k: v for k, v in split.items() if v > 0})
     if a.out:

@@ -1,6 +1,8 @@
 """Copies of a checkout's dig_tpu_torch package with one phase of a kernel
 compiled out, for ``scripts/kernel_times.py --root``: the time a phase
 takes is the time the kernel saves without it (the outputs are wrong).
+A few copies instead revert one design choice (their outputs are right),
+to time the choice.
 
     python scripts/phase_variants.py --root DIR --out DIR NAME [NAME ...]
 
@@ -18,40 +20,8 @@ import sys
 from pathlib import Path
 
 VARIANTS = {
-    # cfconv_fwd_kernel, the first design (rows one at a time, FP32 pipes)
-    "parent_cffwd_no_w1": ("cfconv.cu", [(
-        "        gemm_w1<F>(rbfs, W1s, Rp, jq, fq, pre);\n", "")]),
-    "parent_cffwd_no_w2": ("cfconv.cu", [(
-        "        gemm_w2<F>(hs, W2s, jq, fq, w);\n", "")]),
-    "parent_cffwd_no_sps": ("cfconv.cu", [(
-        "rnd<BF16>(softplus(pre[b][c]) - LOG2F)", "rnd<BF16>(pre[b][c])")]),
-    "parent_cffwd_no_basis": ("cfconv.cu", [(
-        "            v = rnd<BF16>(expf(p.coeff * dd * dd));",
-        "            v = rnd<BF16>(p.coeff * dd * dd);")]),
-    "parent_cffwd_no_sum": ("cfconv.cu", [(
-        "              acc[c] = fmaf(gt * w[b][c], vjs[j * F + fq + c * F4], acc[c]);",
-        "              acc[c] += w[b][c];")]),
-    "parent_cffwd_no_reds": ("cfconv.cu", [(
-        "        for (int q = 0; q < JQ; ++q) s += reds[q * F + f];",
-        "        s = reds[f];")]),
-    "parent_cffwd_no_chunks": ("cfconv.cu", [(
-        "      const int nv = *nvs;", "      const int nv = 0 * *nvs;")]),
-    # slot_fwd_kernel, the first design (every s of 32 edges a block)
-    "parent_slotfwd_no_basis": ("triplet_slot_core.cuh", [(
-        "    Rows::template load<ROWS_VALUE>(p, s, e0, nullptr, cnt, ptc, m2c, ljc, nullptr, rs);\n"
-        "    __syncthreads();\n    form_basis(p, ptc, bas);\n",
-        "    Rows::template load<ROWS_VALUE>(p, s, e0, nullptr, cnt, ptc, m2c, ljc, nullptr, rs);\n"
-        "    __syncthreads();\n")]),
-    "parent_slotfwd_no_products": ("triplet_slot_core.cuh", [(
-        "        basis_products<C>(bas + ec * p.NB, ws_s, wt_s, p.nk, p.ntk, c, sv, tv);\n",
-        "        sv = bas[ec * p.NB + c % p.NB];\n        tv = 1.f;\n")]),
-    "parent_slotfwd_no_gather": ("triplet_slot_core.cuh", [(
-        "        const float xv = m * rnd<IS_BF16<T>>(ld(p.x + row * C + c));\n"
-        "        acc[q] += (xv * sv) * tv;",
-        "        const float xv = m + (float)row;\n"
-        "        acc[q] += (xv * sv) * tv;")]),
-    # the rows of either design of slot_fwd_kernel: the geometry's values
-    # (ROWS_VALUE), the table's loads
+    # the rows of slot_fwd_kernel: the geometry's values (ROWS_VALUE), the
+    # table's loads
     "slotfwd_no_geom_rows": ("triplet_slot_geom.cu", [(
         "        if constexpr (MODE == ROWS_VALUE) {\n"
         "          val = (float)geom_rows::row<double>(r, th, ph, xx);",
@@ -91,6 +61,88 @@ VARIANTS = {
     "cf_no_runs": ("cfconv.cu", [(  # both kernels' run sums
         "  for (int x = threadIdx.x; x < nruns * F; x += NT) {",
         "  for (int x = threadIdx.x; x < 0; x += NT) {")]),
+    # triplet_pt_fwd_kernel, the first design (every triplet of 8-edge
+    # chunks staged, a warp per edge)
+    "parent_ptfwd_no_slab": ("triplet_pt.cu", [(
+        "    load_slab(p, p.pt, t0, cnt, TC, ptc);\n", "")]),
+    "parent_ptfwd_no_basis": ("triplet_pt.cu", [(
+        "    form_basis(p, ptc, TC, bas);\n", "")]),
+    "parent_ptfwd_no_products": ("triplet_pt.cu", [(
+        "        row_products<Q, HAS_T>(bas + tl * NB, w_s, p.nk, NB, C, lane, sv, tv);\n",
+        "        for (int q = 0; q < Q; ++q) {\n          sv[q] = bas[tl * NB + q];\n"
+        "          tv[q] = 1.f;\n        }\n")]),
+    "parent_ptfwd_no_xg": ("triplet_pt.cu", [(
+        "            float prod = ld(p.xg + t * C + c) * sv[q];",
+        "            float prod = (float)t * sv[q];")]),
+    "parent_ptfwd_no_stores": ("triplet_pt.cu", [(
+        "        if (c < C) st(p.out + (size_t)e * C + c, acc[q]);",
+        "        if (c < C && acc[q] == 1.2345f) st(p.out + (size_t)e * C + c, acc[q]);")]),
+    # triplet_product_fwd_kernel, the first design (a warp per edge, k
+    # walked in order); no_mask puts a fixed 40% pattern in the mask's place
+    "parent_prodfwd_no_mask": ("triplet_product.cu", [(
+        "      const float m = ld(p.mask + t);",
+        "      const float m = (float)((e * 7 + k) % 5 < 2);")]),
+    "parent_prodfwd_no_rows": ("triplet_product.cu", [(
+        "      load_row(p, p.sbf, p.tbf, t, bas, lane);\n", "")]),
+    "parent_prodfwd_no_products": ("triplet_product.cu", [(
+        "      row_products<Q, HAS_T>(bas, w_s, p.S1, NB, C, lane, sv, tv);\n",
+        "      for (int q = 0; q < Q; ++q) {\n        sv[q] = bas[q];\n"
+        "        tv[q] = 1.f;\n      }\n")]),
+    "parent_prodfwd_no_xg": ("triplet_product.cu", [(
+        "          float prod = ld(p.xg + t * C + c) * sv[q];",
+        "          float prod = (float)t * sv[q];")]),
+    "parent_prodfwd_no_stores": ("triplet_product.cu", [(
+        "      if (c < C) st(p.out + (size_t)e * C + c, acc[q]);",
+        "      if (c < C && acc[q] == 1.2345f) st(p.out + (size_t)e * C + c, acc[q]);")]),
+    # the redesigned forwards (the compacted walk): only_listing keeps the
+    # listing and the zero rows of edges without a real triplet
+    "ptfwd_no_gather": ("triplet_pt.cu", [(
+        "          v[u] = ldw(p.pt + (size_t)r * p.Tn + ids[min(i, cnt - 1)]);",
+        "          v[u] = (float)ids[min(i, cnt - 1)];")]),
+    "ptfwd_no_xg": ("triplet_pt.cu", [(
+        "          for (int q = 0; q < Q; ++q) v[e][q] = ldw(p.xg + row + min(lane + 32 * q, C - 1));",
+        "          for (int q = 0; q < Q; ++q) v[e][q] = (float)row;")]),
+    "ptfwd_no_basis": ("triplet_pt.cu", [(
+        "      for (int x = tid; x < NB * FB; x += NT) {\n"
+        "        const int r = x / FB, i = x % FB;\n        bas[x] = rnd",
+        "      for (int x = tid; x < 0; x += NT) {\n"
+        "        const int r = x / FB, i = x % FB;\n        bas[x] = rnd")]),
+    "ptfwd_no_products": ("triplet_pt.cu", [(
+        "        row_tile(bas, FB, w_s, 0, nk, i0, lane, C, sv);\n"
+        "        if constexpr (HAS_T) row_tile(bas, FB, w_s, nk, NB, i0, lane, C, tv);\n",
+        "")]),
+    "ptfwd_no_sums": ("triplet_pt.cu", [(
+        "      add_edge_runs<NT, Q>(xs, m_s, eds, rs, rs[FB + 1],",
+        "      add_edge_runs<NT, Q>(xs, m_s, eds, rs, 0,")]),
+    "ptfwd_only_listing": ("triplet_pt.cu", [(
+        "    const int nl = list_window<NT>(win, p.m, lst, wcnt, bits, [](size_t) {});",
+        "    const int nl = 0 * list_window<NT>(win, p.m, lst, wcnt, bits, [](size_t) {});")]),
+    "prodfwd_no_rows": ("triplet_product.cu", [(
+        "            v[e] = ldw(r < S1 ? p.sbf + t[e] * S1 + r : p.tbf + t[e] * S2 + (r - S1));",
+        "            v[e] = (float)t[e];")]),
+    "prodfwd_no_xg": ("triplet_product.cu", [(
+        "          for (int q = 0; q < Q; ++q) xv[e][q] = ldw(p.xg + t[e] * C + min(lane + 32 * q, C - 1));",
+        "          for (int q = 0; q < Q; ++q) xv[e][q] = (float)t[e];")]),
+    "prodfwd_no_products": ("triplet_product.cu", [(
+        "        row_tile(bas, FBP, w_s, 0, S1, i0, lane, C, sv);\n"
+        "        if constexpr (HAS_T) row_tile(bas, FBP, w_s, S1, NB, i0, lane, C, tv);\n",
+        "")]),
+    "prodfwd_no_sums": ("triplet_product.cu", [(
+        "      add_edge_runs<NT, Q>(xs, m_s, eds, rs, rs[FB + 1],",
+        "      add_edge_runs<NT, Q>(xs, m_s, eds, rs, 0,")]),
+    "prodfwd_only_listing": ("triplet_product.cu", [(
+        "    const int nl = list_window<NT>(win, p.mask, lst, wcnt, bits, [](size_t) {});\n"
+        "    zero_empty_edges",
+        "    const int nl = 0 * list_window<NT>(win, p.mask, lst, wcnt, bits, [](size_t) {});\n"
+        "    zero_empty_edges")]),
+    # the redesigned forwards with one design choice reverted: two blocks
+    # an SM in place of three
+    "ptfwd_two_blocks": ("triplet_pt.cu", [(
+        "__launch_bounds__(NT, Q == 2 ? 3 : 2) triplet_pt_fwd_kernel",
+        "__launch_bounds__(NT, 2) triplet_pt_fwd_kernel")]),
+    "prodfwd_two_blocks": ("triplet_product.cu", [(
+        "__launch_bounds__(NT, Q == 2 ? 3 : 2) triplet_product_fwd_kernel",
+        "__launch_bounds__(NT, 2) triplet_product_fwd_kernel")]),
     # the redesigned triplet_product_bwd2_kernel
     "prod_no_weights": ("triplet_product.cu", [(
         "        for (int i = 0; i < cnt; ++i) {\n"

@@ -1,6 +1,6 @@
 """Where the time of one of the port's train steps goes, on one card.
 
-    python scripts/profile_torch_step.py [schnet_dense|spherenet|spherenet_force|schnet_force|spherenet_nk_force|spherenet_pt_force]
+    python scripts/profile_torch_step.py [schnet_dense|spherenet|spherenet_force|schnet_force|spherenet_nk_force|dimenetpp_nk|spherenet_pt_force]
 
 ``schnet_dense`` (the default) runs main path 1 of chip_smoke.py
 (SchNetDense 4 x 128, bf16, fused cfconv, buckets {16: 252, 24: 380,
@@ -16,8 +16,10 @@ examples/threedgraph/run_morse_surrogate.py --model schnet --forces);
 ``spherenet_nk_force`` runs main path 5a (SphereNet 4 x 128, n=3, k=6,
 bf16, on the unblocked [N, K] table with K=16, fused_triplet_product with
 basis gradients, energy+force through make_step_fns, MoleculeLoader
-batches of 96, Adam(5e-4), p = 100); ``spherenet_pt_force`` runs main
-path 6a (the same model, batches and step with ``pallas_fuse_basis``: the
+batches of 96, Adam(5e-4), p = 100); ``dimenetpp_nk`` runs main path
+5b (DimeNetPP's defaults, 4 x 128, n=7, k=6, bf16, on the same table and
+batches, fused_angle_product without basis gradients, energy through
+make_step_fns, Adam(5e-4)); ``spherenet_pt_force`` runs main path 6a (the same model, batches and step with ``pallas_fuse_basis``: the
 packed basis table built once per forward and fused_triplet_pt in every
 layer).
 Traces a few steady
@@ -162,6 +164,23 @@ def spherenet_nk_force(dev, steps, pallas_fuse_basis=False):
     return step, [next(it) for _ in range(steps)]
 
 
+def dimenetpp_nk(dev, steps):
+    from dig_tpu_torch.datasets import MoleculeLoader, synthetic_molecules
+    from dig_tpu_torch.models import DimeNetPP
+    from dig_tpu_torch.train import make_step_fns
+
+    mols = synthetic_molecules(96 * (steps + 1), seed=0, min_atoms=12,
+                               max_atoms=29, box=6.0, with_forces=True)
+    mols = [dict(m, y=m["y"][:1]) for m in mols]
+    it = iter(MoleculeLoader(mols, 96, shuffle=True, seed=0, device=dev))
+    model = DimeNetPP(nk_degree=16, block_size=0, pallas_basis_grads=False,
+                      pallas_triplet=True, compute_dtype=torch.bfloat16,
+                      device=dev)
+    opt = torch.optim.Adam(model.parameters(), lr=5e-4)
+    step, _ = make_step_fns(model, opt, p=100.0, loss="l1")
+    return step, [next(it) for _ in range(steps)]
+
+
 def spherenet_pt_force(dev, steps):
     return spherenet_nk_force(dev, steps, pallas_fuse_basis=True)
 
@@ -174,6 +193,7 @@ def main():
              "spherenet_force": spherenet_force,
              "schnet_force": schnet_force,
              "spherenet_nk_force": spherenet_nk_force,
+             "dimenetpp_nk": dimenetpp_nk,
              "spherenet_pt_force": spherenet_pt_force}
     if which not in paths:
         sys.exit(f"unknown path {which!r}; one of {sorted(paths)}")
@@ -218,8 +238,9 @@ def main():
               f"{c // TRACED:5d}x  {name[:90]}")
     print("the port's own kernels:")
     for name, (t, c) in top:
-        if any(k in name for k in ("cfconv", "triplet_slot", "segment_csr",
-                                   "triplet_product")):
+        if any(k in name for k in ("cfconv", "slot_", "segment_csr",
+                                   "triplet_product", "triplet_pt",
+                                   "sum_partials")):
             print(f"  {t / TRACED:8.3f} ms/step {t / total_kernel_ms:6.3f} "
                   f"{c // TRACED:5d}x  {name[:90]}")
     print("host operators by self CPU time:")

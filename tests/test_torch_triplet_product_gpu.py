@@ -299,3 +299,33 @@ def test_bwd2_compacted_walk(case, dtype, u45):
             assert float(a[masked].abs().max()) == 0.0, name
         if name == "ctb" and bool(empty.any()):
             assert float(a[empty].abs().max()) == 0.0, name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(COMPACT))
+def test_forward_compacted_walk(case, dtype):
+    """The forward lists each window's real triplets and walks them in
+    batches of 64, an edge's sum carried across batches
+    (csrc/triplet_product.cu): against the plain version on COMPACT's
+    cases; out rows exactly 0 at edges without a real triplet, three calls
+    the same bits."""
+    from dig_tpu_torch.ops import triplet_product as op
+    dev = _device()
+    E, K, C, S1, S2, how = COMPACT[case]
+    d, _, K = _inputs(dev, dtype, E, K, C, S1, S2)
+    _mask_as(d["m2d"], how)
+    empty = (d["m2d"] == 0).all(1)
+    args = [d[k] for k in ("xg", "sbf", "tbf", "ws", "wt", "m2d")]
+    k_args = op._kernel_inputs(*args, K)
+    before = op.launches_fwd
+    runs = [op.triplet_product_forward_kernel(*k_args, K) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert op.launches_fwd == before + 3
+    for again in runs[1:]:
+        assert torch.equal(again, runs[0])
+    out = runs[0]
+    assert out.dtype == dtype and torch.isfinite(out).all()
+    want = op.fused_triplet_product_reference(*args[:5], K, d["m2d"])
+    assert _rel(out, want) < TOL[dtype]
+    if bool(empty.any()):
+        assert float(out[empty].abs().max()) == 0.0

@@ -290,3 +290,39 @@ def test_bwd2_compacted_walk(case, dtype):
                 assert _masked_zero(name, a, masked), (label, name)
         if bool(empty_edges.any()):
             assert float(runs[0][4][empty_edges].abs().max()) == 0.0, label
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(COMPACT2))
+def test_forward_compacted_walk(case, dtype):
+    """The forward lists each window's real triplets and walks them in
+    batches of 64, an edge's sum carried across batches
+    (csrc/triplet_pt.cu): against the plain version on COMPACT's cases,
+    "straddle" and "many_windows"; out rows exactly 0 at edges without a
+    real triplet, three calls the same bits."""
+    from dig_tpu_torch.ops import triplet_pt as op
+    dev = _device()
+    E, K, C, n, k, has_t, how = COMPACT2[case]
+    args, _, _, K, cfg = _inputs(dev, dtype, E, K, C, n, k, has_t)
+    m = args[4]
+    if how == "empty":
+        m[:200] = 0
+    elif how == "full":
+        m.fill_(1)
+    elif how == "ragged":
+        m.zero_()
+        g = torch.Generator(device="cpu").manual_seed(5)
+        m.view(-1)[torch.randperm(E * K, generator=g)[:67].to(dev)] = 1
+    empty_edges = (m == 0).all(dim=1)
+    k_args = op._kernel_inputs(*args, K, cfg)
+    before = op.launches_fwd
+    runs = [op.triplet_pt_forward_kernel(*k_args, K, cfg) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert op.launches_fwd == before + 3
+    for again in runs[1:]:
+        assert torch.equal(again, runs[0])
+    out = runs[0]
+    assert out.dtype == dtype and torch.isfinite(out).all()
+    assert _rel(out, op.fused_triplet_pt_ref(*args, K, cfg)) < TOL[dtype]
+    if bool(empty_edges.any()):
+        assert float(out[empty_edges].abs().max()) == 0.0
