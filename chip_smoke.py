@@ -59,9 +59,15 @@ Phases, each printed as it runs; any failure exits non-zero:
      kernel (slot_jvp_kernel, slot_bwd2_kernel, sum_partials_kernel;
      torch.profiler); the backward at each bucket with dpt and without
  12. kernel vs plain: the sorted-CSR segment sum at the two flat paths'
-     shapes (receivers of real batches), f32 and bf16, and on a skewed
-     random CSR; repeated calls bitwise equal; the closed autograd pair's
-     gradients to second order against the plain version's
+     shapes (receivers of real batches), f32 and bf16; at the main paths'
+     other sums, their ids and row pointers made by the port's gather_rows
+     and readout_sum on real batches: the adjoints of path 4a's sender
+     gather (F = 128) and position gathers (F = 3; the flat edge list pads
+     with node 0, so row 0 holds every padding edge) and its readout (F =
+     1), path 4b's readout, sender and embedding gathers, path 3's readout
+     and embedding gather and path 5a's embedding gather (bf16); and on a
+     skewed random CSR; repeated calls bitwise equal; the closed autograd
+     pair's gradients to second order against the plain version's
  13. main path 4a: flat SchNet energy+force training at the config of
      examples/threedgraph/run_morse_surrogate.py --model schnet --forces
      (4 x 128, 128 filters, 50 Gaussians, cutoff 5, max_edges 16384, f32,
@@ -70,16 +76,17 @@ Phases, each printed as it runs; any failure exits non-zero:
      segment-sum launches per step (edge->node sums, the readout, the row
      gathers' adjoints); radius_overflow and csr_block_overflow
      0; finite forces; the first step's loss and gradients held against
-     segment_eb=0 of the same weights; then one short
-     Run3D(energy_and_force=True, slot_size=29) epoch
+     segment_eb=0 of the same weights; the segment sums a step counted by
+     shape; then one short Run3D(energy_and_force=True, slot_size=29) epoch
  14. main path 4b: flat SphereNet energy training at the tutorial's widths
      (tutorials/threedgraph.md: 4 x 128, int_emb 64, basis 8/8/8, out_emb
      256, n=3, k=6, cutoff 5, f32) with max_edges 16384, max_in_degree 32,
      segment_eb=1024, MoleculeLoader batches of 32, Adam(5e-4); 13
      segment-sum launches per step; the same checks
- 15. times: both flat steps in ms and edges/s; the segment-sum kernel per
-     call at both paths' shapes beside its byte bound, its plain version
-     and the PyTorch calls that compute the same sum
+ 15. times: both flat steps in ms and edges/s; the segment-sum kernels per
+     call at every shape of phase 12 (with its calls a step on paths 4a
+     and 4b) beside the byte bound, the plain version and the PyTorch
+     calls that compute the same sum; each flat step's segment sums in all
  16. kernel vs plain: fused_triplet_product (path 5a's widths) and
      fused_angle_product (path 5b's) with the bases, mask and raw triplet
      gather of a real batch, f32 and bf16: the forward, the backward with
@@ -160,7 +167,7 @@ Phases, each printed as it runs; any failure exits non-zero:
      path 7a's step; phase 11's triplet_slot second order at the three
      bucket shapes, split by kernel; the chunked sum (span pass and row
      sums) at path 7b's shape beside its bound, its plain version,
-     segment_csr_kernel, torch.segment_reduce and index_add_
+     the segment sum, torch.segment_reduce and index_add_
 The card's name and power limit (nvidia-smi), then the kernels as JSON,
 are the two lines before the last; the last line is
 {"ok": true, "device": {...}}.
@@ -395,15 +402,21 @@ def cuda_ms(torch, fn, iters=20, warmup=3):
 
 def device_ms(torch, fn, iters=50, warmup=3, spin_cycles=50_000_000):
     """Device time per call of a call shorter than its own host issue
-    time: a spin kernel (about 25 ms) holds the stream while the calls are
-    queued behind it, so the events time the card's work back to back and
-    not the host's issue rate. Fails if the host did not get ahead."""
+    time: a spin kernel holds the stream while the calls are queued behind
+    it, so the events time the card's work back to back and not the host's
+    issue rate. The spin lasts at least spin_cycles (about 25 ms) and four
+    times the host's issue time for the calls (its quickest warm-up call
+    times iters, at no more than 2e9 cycles a second). Fails if the host
+    did not get ahead."""
+    issue = []
     for _ in range(warmup):
+        t = time.perf_counter()
         fn()
+        issue.append(time.perf_counter() - t)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(spin_cycles)
+    torch.cuda._sleep(max(spin_cycles, int(4 * min(issue) * iters * 2e9)))
     start.record()
     for _ in range(iters):
         fn()
@@ -1510,12 +1523,82 @@ def flat_csr(torch, g, kw):
             "max_degree": int(adj.sum(1).max())}
 
 
+def port_csr(out):
+    """The (ids, row pointer) that the port's sorted-CSR autograd node
+    under ``out`` saved: what its sum (or the gather's adjoint) runs on."""
+    todo = [out.grad_fn]
+    while todo:
+        node = todo.pop(0)
+        if node is None:
+            continue
+        if type(node).__name__ in ("_RowGatherBackward",
+                                   "_SegmentSumSortedCSRBackward"):
+            return node.saved_tensors[:2]
+        todo += [n for n, _ in node.next_functions]
+    fail("no sorted-CSR node under the output")
+
+
+def model_csr(torch, dev, fs_g, sp_g):
+    """The ids and row pointers of the main paths' other segment sums, made
+    by the port's own gather_rows and readout_sum on real batches: (name,
+    ids, rowptr, N, F, dtype). Path 4a: the adjoint of the senders' row
+    gather (models/schnet.py:81, F = 128) and of the two position gathers
+    of edge_distances (F = 3): the flat edge list pads with node 0, so row
+    0 of both holds every padding edge; the readout (F = 1). Path 4b: the
+    readout (F = 1; its last graph's range runs through the batch's padding
+    rows), the adjoint of the first block's sender gather and of the
+    embedding gather (models/spherenet.py:207, F = 128). Path 3 (the
+    24-atom bucket) and path 5a: the embedding gather's adjoint in bf16 and
+    path 3's readout."""
+    from dig_tpu_torch.ops.radius import radius_graph_flat
+    from dig_tpu_torch.ops.segment import gather_rows, readout_sum
+
+    def gather(idx, N, F, dt=torch.float32):
+        x = torch.zeros(N, F, device=dev, dtype=dt, requires_grad=True)
+        return port_csr(gather_rows(x, idx))
+
+    def readout(g):
+        h = torch.zeros(g.num_nodes, 1, device=dev, requires_grad=True)
+        return port_csr(readout_sum(h, g.node_graph, g.num_graphs,
+                                    g.node_mask))
+
+    cases = []
+    for tag, g, kw in (("4a", fs_g, FS_KW), ("4b", sp_g, SP_KW)):
+        send, recv, _ = radius_graph_flat(g.nodes["pos"], g.node_graph,
+                                          g.node_mask, kw["cutoff"],
+                                          kw["max_edges"])
+        N = g.num_nodes
+        cases.append((f"{tag}_sender_adjoint", *gather(send, N, 128), N,
+                      128, torch.float32))
+        if tag == "4a":
+            for name, idx in (("send", send), ("recv", recv)):
+                cases.append((f"4a_position_adjoint_{name}",
+                              *gather(idx, N, 3), N, 3, torch.float32))
+        else:
+            cases.append(("4b_embedding_adjoint",
+                          *gather(g.nodes["z"], 95, 128), 95, 128,
+                          torch.float32))
+        cases.append((f"{tag}_readout", *readout(g), g.num_graphs, 1,
+                      torch.float32))
+    sf_g = sf_batches(torch, dev, 1)[0][24]
+    nk_g = nk_batches(torch, dev, 1)[0]
+    for tag, g in (("3", sf_g), ("5a", nk_g)):
+        cases.append((f"{tag}_embedding_adjoint",
+                      *gather(g.nodes["z"], 95, 128, torch.bfloat16), 95,
+                      128, torch.bfloat16))
+    cases.append(("3_readout", *readout(sf_g), sf_g.num_graphs, 1,
+                  torch.bfloat16))
+    return cases
+
+
 def seg_cases(torch, dev, fs_b, sp_b):
     """Inputs of the segment sum: each flat path's real receivers with
     seeded random edge rows at its width (F = 128: SchNet's filters,
-    SphereNet's hidden channels), in the types its path uses, and a skewed
-    random CSR (one row holds a quarter of 20,000 edges, every 50th row
-    empty, a -1 tail) at F = 24 and 128."""
+    SphereNet's hidden channels), in the types its path uses; the main
+    paths' gather adjoints and readouts (model_csr) with seeded rows; and a
+    skewed random CSR (one row holds a quarter of 20,000 edges, every 50th
+    row empty, a -1 tail) at F = 24 and 128."""
+    from dig_tpu_torch.ops.segment_csr import full_window
     gen = torch.Generator(device="cpu").manual_seed(5)
     cases = []
     for name, g, kw, dts in (("schnet_4a", fs_b, FS_KW, (torch.float32,)),
@@ -1526,6 +1609,10 @@ def seg_cases(torch, dev, fs_b, sp_b):
         for dt in dts:
             cases.append(dict(c, name=name, data=data.to(dt),
                               eb=kw["segment_eb"]))
+    for name, seg, rp, N, F, dt in model_csr(torch, dev, fs_b, sp_b):
+        data = torch.randn(seg.shape[0], F, generator=gen).to(dev, dt)
+        cases.append({"name": name, "seg": seg.detach(), "rowptr": rp.detach(),
+                      "N": N, "data": data, "eb": full_window(seg.shape[0])})
     N, E = 1000, 20000
     rows = torch.randint(0, N, (E,), generator=gen)
     rows = rows[rows % 50 != 7]
@@ -1543,10 +1630,45 @@ def seg_cases(torch, dev, fs_b, sp_b):
     return cases
 
 
+def seg_shape(sc, E, F, N, dtype, eb):
+    """A segment-sum call's key: edges, width, rows, data type, and whether
+    its window holds every edge (the gathers' adjoints and the readouts) or
+    is the model's segment_eb (the edge->node sums)."""
+    return (E, F, N, str(dtype)[6:], eb >= sc.full_window(E))
+
+
+class SegmentCalls:
+    """Notes each segment-sum call's seg_shape, in call order, while active,
+    by wrapping segment_csr_kernel (the call each sum of the autograd pair
+    makes on the card), and each shape's first row pointer; sc.launches
+    counts as before."""
+
+    def __init__(self, sc):
+        self.sc, self.calls, self.rowptr = sc, [], {}
+
+    def __enter__(self):
+        self.orig = orig = self.sc.segment_csr_kernel
+
+        def noted(data, seg_ids, rowptr, num_rows, block_rows, eb):
+            key = seg_shape(self.sc, *data.shape, num_rows, data.dtype, eb)
+            self.calls.append(key)
+            self.rowptr.setdefault(key, rowptr)
+            return orig(data, seg_ids, rowptr, num_rows, block_rows, eb)
+        self.sc.segment_csr_kernel = noted
+        return self
+
+    def __exit__(self, *exc):
+        self.sc.segment_csr_kernel = self.orig
+
+    def per_step(self, steps):
+        """Calls a step by shape."""
+        return {k: self.calls.count(k) / steps for k in set(self.calls)}
+
+
 def phase_seg_kernel_vs_plain(torch, sc, cases):
     """Every case: kernel against plain, one launch, a repeated call the
     same bits; the closed pair to second order in f32. Returns the largest
-    absolute error at path 4a's shape."""
+    absolute error over path 4a's shapes."""
     err_4a = 0.0
     for c in cases:
         seg, rp, N, data = c["seg"], c["rowptr"], c["N"], c["data"]
@@ -1566,7 +1688,7 @@ def phase_seg_kernel_vs_plain(torch, sc, cases):
             fail(f"segment sum {c['name']}: rel err {e} >= {SEG_TOL}")
         if not same:
             fail(f"segment sum {c['name']} not bitwise repeatable")
-        if c["name"] == "schnet_4a":
+        if c["name"].startswith(("schnet_4a", "4a_")):
             err_4a = max(err_4a, float((out - want).abs().max()))
         if data.dtype != torch.float32:
             continue
@@ -1589,7 +1711,7 @@ def phase_seg_kernel_vs_plain(torch, sc, cases):
             f"{e2:.3e}")
         if e1 >= SEG_TOL or e2 >= SEG_TOL2:
             fail(f"segment sum {c['name']} derivatives: {e1}, {e2}")
-    log(f"  max abs err at path 4a's shape: {err_4a:.3e}")
+    log(f"  max abs err over path 4a's shapes: {err_4a:.3e}")
     return err_4a
 
 
@@ -1658,7 +1780,8 @@ def phase_fs_main_path(torch, cf, ts, sc, dev, batches):
     train_step, eval_step = make_step_fns(model, opt, energy_and_force=True,
                                           p=FS_P, loss="l1")
     reset_all(cf, ts, sc)
-    losses, dt = timed_steps(torch, train_step, batches, FS_WARMUP)
+    with SegmentCalls(sc) as calls:
+        losses, dt = timed_steps(torch, train_step, batches, FS_WARMUP)
     launches = sc.launches
     others_idle(cf, ts, "path 4a")
     want = (4 * FS_KW["num_layers"] + 2) * len(batches)
@@ -1692,7 +1815,7 @@ def phase_fs_main_path(torch, cf, ts, sc, dev, batches):
     return {"launches": launches, "steps": len(batches), "losses": losses,
             "step_ms": step_ms, "edges_per_s": pairs / dt,
             "pairs_per_step": pairs / timed, "first_step": step_errs,
-            "eval_mae": mae}
+            "eval_mae": mae, "by_shape": calls.per_step(len(batches))}
 
 
 def phase_fs_run3d(torch, sc, dev):
@@ -1743,7 +1866,8 @@ def phase_sp_main_path(torch, cf, ts, sc, dev, batches):
                                           target_key="energy")
     torch.cuda.reset_peak_memory_stats()
     reset_all(cf, ts, sc)
-    losses, dt = timed_steps(torch, train_step, batches, SP_WARMUP)
+    with SegmentCalls(sc) as calls:
+        losses, dt = timed_steps(torch, train_step, batches, SP_WARMUP)
     launches = sc.launches
     others_idle(cf, ts, "path 4b")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1774,7 +1898,8 @@ def phase_sp_main_path(torch, cf, ts, sc, dev, batches):
     return {"launches": launches, "steps": len(batches), "losses": losses,
             "step_ms": step_ms, "edges_per_s": pairs / dt,
             "pairs_per_step": pairs / timed, "first_step": step_errs,
-            "eval_mae": mae, "peak_gib": peak}
+            "eval_mae": mae, "peak_gib": peak,
+            "by_shape": calls.per_step(len(batches))}
 
 
 def seg_bound(c):
@@ -1790,18 +1915,29 @@ def seg_bound(c):
             "bytes" if t_bytes >= t_ops else "operations", nnz, nbytes)
 
 
-def phase_seg_times(torch, sc, cases):
-    """Per call at each flat path's shape, device time with the host
-    ahead (device_ms): the bare kernel launch, its plain version, and the
-    PyTorch calls that compute the same sum over the counted (prefix)
-    edges: index_add_ into zeros, and segment_reduce over rowptr where it
-    runs (library_ms is the faster one). Beside them, host-clocked: the
-    kernel at the rate the host issues it, and the checked wrapper the
-    path calls (input checks and the overflow audit read on the host)."""
+def seg_path(name):
+    """The flat path whose step makes a case's calls (None: another path's
+    shape, or the skewed CSR)."""
+    for path, prefixes in (("4a", ("schnet_4a", "4a_")),
+                           ("4b", ("spherenet_4b", "4b_"))):
+        if name.startswith(prefixes):
+            return path
+    return None
+
+
+def phase_seg_times(torch, sc, cases, by_shape):
+    """Per call at every case's shape, device time with the host ahead
+    (device_ms): the bare launch, its plain version, and the PyTorch calls
+    that compute the same sum over the counted edges (taken out of the
+    data before timing): index_add_ into zeros, and segment_reduce over
+    their row offsets where it runs (library_ms is the faster one). Beside
+    them, host-clocked: the launch at the rate the host issues it, and the
+    checked wrapper the path calls (input checks and the overflow audit
+    read on the host). ``by_shape`` maps a flat path to its calls a step
+    by seg_shape (phases 13 and 14); each path's step total sums, per
+    shape, its calls a step times the mean of its cases' times."""
     rows = []
     for c in cases:
-        if c["name"] == "skewed":
-            continue
         seg, rp, N, data = c["seg"], c["rowptr"], c["N"], c["data"]
         launch = lambda: sc.segment_csr_launch(data, seg, rp, N)
         k_ms = device_ms(torch, launch)
@@ -1811,21 +1947,27 @@ def phase_seg_times(torch, sc, cases):
         plain_ms = device_ms(torch, lambda: sc.segment_sum_sorted_csr_reference(
             data, seg, rp, N))
         bound_ms, by, nnz, nbytes = seg_bound(c)
-        real, idx = data[:nnz], seg[:nnz]
-        if not bool((seg[:nnz] >= 0).all()):
-            fail("segment sum timing: the counted edges are not a prefix")
+        keep = seg >= 0
+        real, idx = data[keep].contiguous(), seg[keep].long()
+        offsets = torch.searchsorted(idx, torch.arange(N + 1,
+                                                       device=idx.device))
         lib = {"index_add_": device_ms(torch, lambda: torch.zeros(
             N, data.shape[1], dtype=data.dtype, device=data.device
         ).index_add_(0, idx, real))}
         try:
             lib["segment_reduce"] = device_ms(torch, lambda: torch.segment_reduce(
-                real, "sum", offsets=rp.long(), axis=0))
+                real, "sum", offsets=offsets, axis=0))
         except RuntimeError as exc:          # a yardstick only, not the port
             log(f"  torch.segment_reduce does not run here: "
                 f"{str(exc).splitlines()[0]}")
         best = min(lib, key=lib.get)
+        span = (rp[1:].clamp(max=seg.shape[0]) - rp[:-1].clamp(min=0))
+        path = seg_path(c["name"])
+        key = seg_shape(sc, *data.shape, N, data.dtype, c["eb"])
         rows.append({"case": c["name"], "dtype": str(data.dtype)[6:], "N": N,
                      "E": data.shape[0], "nnz": nnz, "F": data.shape[1],
+                     "longest": int(span.max()), "path": path, "key": key,
+                     "per_step": by_shape.get(path, {}).get(key, 0),
                      "ms": k_ms, "issued_ms": issued_ms, "wrapper_ms": w_ms,
                      "plain_ms": plain_ms,
                      "bound_ms": bound_ms,
@@ -1834,14 +1976,36 @@ def phase_seg_times(torch, sc, cases):
     for r in rows:
         libs = ", ".join(f"{k} {v:.4f} ms" for k, v in r["library"].items())
         log(f"  segment_sum_sorted_csr {r['case']} {r['dtype']} N={r['N']} "
-            f"E={r['E']} ({r['nnz']} counted) F={r['F']}: kernel "
+            f"E={r['E']} ({r['nnz']} counted, longest row range "
+            f"{r['longest']}) F={r['F']}: kernel "
             f"{r['ms']:.4f} ms (bound {r['bound_ms']:.5f} ms by "
             f"{r['bound_by']}, {r['bytes'] / 1e6:.3f} MB, "
             f"{r['bound_ms'] / r['ms']:.3f} of it); plain {r['plain_ms']:.4f}"
             f" ms; {libs}; host-clocked: kernel as issued "
             f"{r['issued_ms']:.4f} ms, checked wrapper {r['wrapper_ms']:.4f}"
-            f" ms")
-    return rows
+            f" ms" + (f"; calls a step of path {r['path']}: {r['per_step']:g}"
+                      if r["path"] else ""))
+    totals = {}
+    for path in ("4a", "4b"):
+        keys = {r["key"] for r in rows if r["path"] == path}
+        tot = dict.fromkeys(("ms", "plain_ms", "bound_ms", "library_ms"), 0.0)
+        for key in keys:
+            same = [r for r in rows if r["path"] == path and r["key"] == key]
+            for f in tot:
+                tot[f] += (by_shape[path].get(key, 0)
+                           * sum(r[f] for r in same) / len(same))
+        missed = set(by_shape[path]) - keys
+        if missed:
+            fail(f"path {path}: segment sums of shapes no case times: "
+                 f"{sorted(missed)}")
+        tot["bound_by"] = max((r for r in rows if r["path"] == path),
+                              key=lambda r: r["bound_ms"])["bound_by"]
+        totals[path] = tot
+        log(f"  path {path} step, every segment sum ({sum(by_shape[path].values()):g}"
+            f" calls): kernel {tot['ms']:.4f} ms, bound {tot['bound_ms']:.4f}"
+            f" ms, plain {tot['plain_ms']:.4f} ms, library "
+            f"{tot['library_ms']:.4f} ms")
+    return rows, totals
 
 
 # ---------------------------------------------------------------------------
@@ -3273,8 +3437,9 @@ def cs_bound(data, seg, N):
 def phase_cs_times(torch, sc, g):
     """Per call at path 7b's shape (f32 and bf16; CUDA events): the bare
     chunked launch beside its bound, its plain version, the ported
-    segment_csr_kernel on the same graph, torch.segment_reduce and
-    index_add_ (library_ms: the faster of the two)."""
+    segment sum (segment_csr_launch) on the same graph,
+    torch.segment_reduce and index_add_ (library_ms: the faster of the
+    two)."""
     rows = []
     for dt in (torch.float32, torch.bfloat16):
         data, seg, rp, N = g["data"].to(dt), g["seg"], g["rowptr"], g["N"]
@@ -3309,7 +3474,7 @@ def phase_cs_times(torch, sc, g):
             f"EB={r['EB']}, {r['chunks']} chunks): {r['ms']:.4f} ms (bound "
             f"{r['bound_ms']:.4f} ms by {r['bound_by']}, "
             f"{r['bytes'] / 1e6:.2f} MB, {r['bound_ms'] / r['ms']:.3f} of "
-            f"it); segment_csr_kernel {r['csr_ms']:.4f} ms; plain "
+            f"it); segment sum {r['csr_ms']:.4f} ms; plain "
             f"{r['plain_ms']:.3f} ms; {libs}")
     return rows
 
@@ -3442,7 +3607,9 @@ def main():
     torch.cuda.empty_cache()
 
     log("== 15. times: segment_sum_sorted_csr; the flat steps")
-    seg_rows = phase_seg_times(torch, sc, seg_inputs)
+    seg_rows, seg_steps = phase_seg_times(
+        torch, sc, seg_inputs, {"4a": fs_res["by_shape"],
+                                "4b": sp_res["by_shape"]})
     log(f"  path 4a: force step {fs_res['step_ms']:.3f} ms, "
         f"{fs_res['edges_per_s']:.6g} edges/s; path 4b: step "
         f"{sp_res['step_ms']:.3f} ms, {sp_res['edges_per_s']:.6g} edges/s")
@@ -3599,7 +3766,7 @@ def main():
         "bound_ms": sum(r["bound_ms"] for r in b_rows),
         "bound_by": max(b_rows, key=lambda r: r["bound_ms"])["bound_by"],
         "library_ms": None})
-    r = next(r for r in seg_rows if r["case"] == "schnet_4a")
+    r = seg_steps["4a"]
     kernels.append({
         "name": "segment_sum_sorted_csr", "route": "cuda",
         "source": "dig_tpu_torch/csrc/segment_csr.cu",
@@ -3672,10 +3839,11 @@ def main():
         "over the timed runs of paths 5a and 5b; the forward's library_ms "
         "is the einsum that computes it; no PyTorch call returns the "
         "backward's or the second order's cotangents, so theirs is null)")
-    log("  (segment_sum_sorted_csr: one bare launch at path 4a's shape, "
-        "f32, device time with the host ahead, as are plain_ms and "
-        "library_ms (the faster of index_add_ and segment_reduce); launches "
-        "from path 4a's timed steps)")
+    log("  (segment_sum_sorted_csr: every call of one path-4a step summed "
+        "(its calls a step by shape from phase 13, each shape's bare launch "
+        "timed in phase 15, f32), device time with the host ahead, as are "
+        "plain_ms and library_ms (per shape the faster of index_add_ and "
+        "segment_reduce); launches from path 4a's timed steps)")
     log("  (cfconv ms, plain_ms and bound_ms: one call per bucket, summed "
         "over the 3 buckets = one layer of one step; triplet_slot fwd/bwd: "
         "one call = one layer of one energy step (main path 2), no "

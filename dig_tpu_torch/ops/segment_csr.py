@@ -7,11 +7,17 @@
 
 ``data [E, F]`` (float32 or bf16), ``seg [E]`` int32 ascending over the real
 edges (-1 marks padding), ``rowptr [num_rows + 1]`` -> ``[num_rows, F]``
-float32. On a CUDA tensor the sum launches the hand-written kernel of
-``csrc/segment_csr.cu`` (a warp per output row, edges summed in edge order:
-the same bits on every run) or raises; on a CPU tensor it runs the plain
-version :func:`segment_sum_sorted_csr_reference`. ``launches`` counts kernel
-launches.
+float32. On a CUDA tensor the sum launches the hand-written kernels of
+``csrc/segment_csr.cu`` or raises; on a CPU tensor it runs the plain
+version :func:`segment_sum_sorted_csr_reference`. The card balances the
+work by edges: the edge range is cut into fixed slices of
+:func:`slice_edges` edges (128 at F >= 8, more below: 1,024 at F = 1); a
+row of at most that many edges is summed whole by one warp in edge order,
+a longer row slice by slice (``segment_csr_piece_kernel``) and its pieces
+then added in slice order (``segment_csr_row_kernel``, which also sums
+the short rows); that needs ``rowptr`` non-decreasing, as a row pointer
+is. Every row's sum has one order, so two runs give the same bits.
+``launches`` counts calls, one per sum (each runs one or two kernels).
 
 Deliberate deviation from the TPU kernel: that kernel reads a window of
 ``max_edges_per_block`` edges for each block of ``block_rows`` rows and
@@ -37,12 +43,12 @@ The chunked sum (:func:`segment_sum_sorted_csr_chunked`) takes the chunk
 table ``meta [3, C]`` of :func:`plan_chunks` in place of ``rowptr``: each
 block of ``block_rows`` rows sums the edges of its windows of
 ``chunk_edges`` edges whose id falls in the block, and the windows tile the
-block's edges, so nothing is dropped. On a CUDA tensor it runs two kernels
+block's edges, so nothing is dropped. On a CUDA tensor it runs the kernels
 of the same source, or raises: ``segment_csr_span_kernel`` finds each
 row's first and last window edge (integer atomic minima and maxima, a
-thread per window position), then ``segment_csr_kernel``, the segment
-sum's own kernel, sums each row over that span in edge order (a warp per
-row); ``launches_chunked`` counts calls, one per sum. On a CPU tensor it runs
+thread per window position), then the segment sum's own two kernels sum
+each row over that span (the same bits as the segment sum);
+``launches_chunked`` counts calls, one per sum. On a CPU tensor it runs
 its plain version. Its VJP is the row gather of ``_ssc_bwd``
 (:func:`row_gather`). :func:`spmm_csr` is ``x[col] * val`` summed per CSR
 row through :func:`segment_sum_sorted_csr`.
@@ -127,12 +133,33 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("segment_csr")
     if not getattr(lib, "_argtypes_set", False):
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.segment_csr_fwd.argtypes = [P, P, P, P, I, I, I, I, P]
+        lib.segment_csr_fwd.argtypes = [P] * 6 + [I] * 4 + [P]
         lib.segment_csr_fwd.restype = I
-        lib.segment_csr_chunked_fwd.argtypes = [P] * 5 + [I] * 7 + [P]
+        lib.segment_csr_chunked_fwd.argtypes = [P] * 7 + [I] * 7 + [P]
         lib.segment_csr_chunked_fwd.restype = I
+        lib.segment_csr_slice_edges.argtypes = [I]
+        lib.segment_csr_slice_edges.restype = I
         lib._argtypes_set = True
     return lib
+
+
+def slice_edges(F: int) -> int:
+    """Edges a slice of the card kernels at width ``F``
+    (``slice_edges`` in ``csrc/segment_csr.cu``): a row whose range holds
+    more is summed in pieces."""
+    return _library().segment_csr_slice_edges(F)
+
+
+def _pieces(E: int, F: int, device):
+    """The card kernels' scratch for the pieces of long rows, float32
+    ``[S, 2, F]`` and int32 ``[S, 2]`` over the ``S`` slices of ``E`` edges
+    (None when no row can be long: ``E`` within one slice)."""
+    L = slice_edges(F)
+    if E <= L:
+        return None, None
+    S = -(-E // L)
+    return (torch.empty((S, 2, F), dtype=torch.float32, device=device),
+            torch.empty((S, 2), dtype=torch.int32, device=device))
 
 
 def segment_csr_kernel(data: torch.Tensor, seg_ids: torch.Tensor,
@@ -178,9 +205,11 @@ def segment_csr_launch(data: torch.Tensor, seg: torch.Tensor,
     global launches
     E, F = data.shape
     out = torch.empty((num_rows, F), dtype=torch.float32, device=data.device)
+    piece, piece_row = _pieces(E, F, data.device)
     rc = _library().segment_csr_fwd(
-        *map(_build.ptr, (data, seg, rp, out)), E, F, num_rows,
-        int(data.dtype == torch.bfloat16), _build.stream(data.device))
+        *map(_build.ptr, (data, seg, rp, piece, piece_row, out)), E, F,
+        num_rows, int(data.dtype == torch.bfloat16),
+        _build.stream(data.device))
     _build.check(rc, "segment_sum_sorted_csr kernel", _SHAPES)
     launches += 1
     return out
@@ -326,9 +355,9 @@ def segment_csr_chunked_launch(data, seg, meta, num_rows, block_rows,
     """Check CUDA inputs and launch the chunked sum: contiguous ``data
     [E, F]`` (float32 or bf16), int32 ``seg [E]`` and ``meta [3, C]`` (a
     numpy table is copied to the card); ``[num_rows, F]`` float32. One
-    call runs two kernels on the stream (the span pass into an int32
-    ``[2, num_rows]`` scratch, then the row sums) and counts once in
-    ``launches_chunked``."""
+    call runs a memset and the span pass (into an int32 ``[2, num_rows]``
+    scratch), then the segment sum's kernels over the spans, on the
+    stream, and counts once in ``launches_chunked``."""
     global launches_chunked
     if data.ndim != 2:
         raise ValueError(f"segment_sum_sorted_csr_chunked: data must be "
@@ -350,9 +379,10 @@ def segment_csr_chunked_launch(data, seg, meta, num_rows, block_rows,
     meta = meta.contiguous()
     out = torch.empty((num_rows, F), dtype=torch.float32, device=data.device)
     span = torch.empty((2, num_rows), dtype=torch.int32, device=data.device)
+    piece, piece_row = _pieces(E, F, data.device)
     rc = _library().segment_csr_chunked_fwd(
-        *map(_build.ptr, (data, seg, meta, span, out)), E, F, num_rows,
-        meta.shape[1], block_rows, chunk_edges,
+        *map(_build.ptr, (data, seg, meta, span, piece, piece_row, out)), E,
+        F, num_rows, meta.shape[1], block_rows, chunk_edges,
         int(data.dtype == torch.bfloat16), _build.stream(data.device))
     _build.check(rc, "segment_sum_sorted_csr_chunked kernel", _SHAPES)
     launches_chunked += 1

@@ -28,9 +28,14 @@ u3, as the force step passes them); the cfconv forward and backward at
 each of SchNetDense's buckets (``cfconv_fwd_n16``, ``cfconv_bwd_n16`` and, with
 need_dist_grad, ``cfconv_bwd_n16_dist``; n = 16, 24, 32), vj in bf16 as
 the model passes it; the chunked sum at path 7b's shape beside
-segment_csr_kernel and torch.segment_reduce. Each backward, second
-order, the chunked sum and the two triplet forwards is also split into
-its kernels by chip_smoke.kernel_split (torch.profiler's device events).
+the segment sum (``csr``) and torch.segment_reduce; the segment sum at
+every shape of chip_smoke.py's phase 12 (``csr_<case>``: the flat paths'
+edge->node sums, the main paths' gather adjoints and readouts, the skewed
+CSR at F = 24 and 128), timed with the host ahead (chip_smoke.device_ms:
+one call takes a few microseconds, less than the host takes to issue it).
+Each backward, second order, the chunked sum, the segment sum and the two
+triplet forwards is also split into its kernels by chip_smoke.kernel_split
+(torch.profiler's device events).
 ``--ops`` keeps the ops whose names start with one of the given prefixes
 (default: all), e.g. ``--ops pt_fwd,prod_fwd,pt_bwd,prod_bwd``, and only
 their libraries are built. ``scripts/phase_variants.py`` makes roots with
@@ -39,8 +44,10 @@ one phase of a kernel compiled out.
 Before the times, one object per kernel call with a hash of each output's
 bytes (the second orders also with every cotangent present), so that two
 checkouts' outputs can be compared bit for bit without moving them off the
-card. Prints one JSON object per hash or timing, and appends them all to
-``--out``.
+card; a segment sum's also with a hash of its short rows alone (those whose
+row-pointer range holds at most SHORT_EDGES edges, summed whole in edge
+order by every design). Prints one JSON object per hash or timing, and
+appends them all to ``--out``.
 """
 from __future__ import annotations
 
@@ -55,14 +62,17 @@ from pathlib import Path
 import torch
 
 HERE = Path(__file__).resolve().parent.parent
+# rows of at most this many edges (csrc/segment_csr.cu's least slice) are
+# summed whole in edge order by every design of the segment sum
+SHORT_EDGES = 128
 SPLIT = ("slot_fwd_kernel", "slot_jvp_kernel", "slot_bwd2_kernel",
          "slot_bwd_kernel", "cfconv_fwd_kernel", "triplet_pt_fwd_kernel",
          "triplet_product_fwd_kernel",
          "triplet_pt_bwd_kernel", "triplet_pt_bwd2_kernel",
          "triplet_product_bwd_kernel", "triplet_product_bwd2_kernel",
          "cfconv_bwd_kernel", "sum_partials_kernel",
-         "segment_csr_span_kernel", "segment_csr_chunked_kernel",
-         "segment_csr_kernel", "Memset")
+         "segment_csr_span_kernel", "segment_csr_piece_kernel",
+         "segment_csr_row_kernel", "segment_csr_kernel", "Memset")
 
 
 def load_smoke():
@@ -273,7 +283,7 @@ def main():
                     lambda k_args=k_args, g32=g32, prec=prec, dist=dist:
                     cf.cfconv_backward_kernel(*k_args, g32, smoke.CUTOFF,
                                               smoke.GAUSSIANS, prec, dist))
-    g = smoke.cs_graph(torch, dev) if group("chunked") or group("csr") \
+    g = smoke.cs_graph(torch, dev) if group("chunked") or want("csr") \
         else None
     library = {}
     for prec, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
@@ -292,6 +302,22 @@ def main():
             lambda data=data, rp=rp: torch.segment_reduce(
                 data, "sum", offsets=rp.long(), axis=0))
 
+    # the segment sum at phase 12's shapes; short: its short rows
+    short = {}
+    if group("csr_"):
+        cases = smoke.seg_cases(
+            torch, dev, smoke.fs_batches(torch, dev, smoke.FS_STEPS + 1)[-1],
+            smoke.sp_batches(torch, dev, smoke.SP_STEPS + 1)[-1])
+    for c in cases if group("csr_") else ():
+        data, seg, rp, N = c["data"], c["seg"], c["rowptr"], c["N"]
+        op = f"csr_{c['name']}" + (f"_F{data.shape[1]}"
+                                   if c["name"] == "skewed" else "")
+        prec = {torch.float32: "f32", torch.bfloat16: "bf16"}[data.dtype]
+        ops[(op, prec)] = (lambda data=data, seg=seg, rp=rp, N=N:
+                           sc.segment_csr_launch(data, seg, rp, N))
+        span = rp[1:].clamp(max=seg.shape[0]) - rp[:-1].clamp(min=0)
+        short[(op, prec)] = span <= SHORT_EDGES
+
     ops = {key: fn for key, fn in ops.items() if want(key[0])}
     extra = {key: fn for key, fn in extra.items() if want(key[0])}
     library = {key: fn for key, fn in library.items() if want("chunked")}
@@ -299,12 +325,19 @@ def main():
         outs = fn()
         torch.cuda.synchronize()
         outs = outs if isinstance(outs, (tuple, list)) else [outs]
-        emit(op=op, precision=prec, hashes=[digest(t) for t in outs])
+        hashes = [digest(t) for t in outs]
+        if (op, prec) in short:
+            hashes.append(digest(outs[0][short[(op, prec)]]))
+        emit(op=op, precision=prec, hashes=hashes)
     for (op, prec), fn in list(ops.items()) + list(library.items()):
-        ms = smoke.cuda_ms(torch, fn, iters=50 if op in (
-            "chunked", "csr", "segment_reduce") else 20)
+        if op.startswith("csr_"):
+            ms = smoke.device_ms(torch, fn)
+        else:
+            ms = smoke.cuda_ms(torch, fn, iters=50 if op in (
+                "chunked", "csr", "segment_reduce") else 20)
         split = smoke.kernel_split(torch, fn, SPLIT) if "bwd" in op or \
-            op == "chunked" or op.startswith(("pt_fwd", "prod_fwd")) else {}
+            op in ("chunked", "csr") or op.startswith(
+                ("pt_fwd", "prod_fwd", "csr_")) else {}
         emit(op=op, precision=prec, ms=ms,
              kernels={k: v for k, v in split.items() if v > 0})
     if a.out:

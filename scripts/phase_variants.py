@@ -20,6 +20,25 @@ import sys
 from pathlib import Path
 
 VARIANTS = {
+    # the redesigned segment sum: the row pass launched as a plain kernel,
+    # not as a programmatic dependent of the piece pass
+    "segcsr_no_pdl": ("segment_csr.cu", [(
+        "  cfg.numAttrs = pieces ? 1 : 0;\n", "  cfg.numAttrs = 0;\n")]),
+    # the redesigned segment sum with a barrier that keeps a batch's loads
+    # of the row walk above its adds, as the pieces' sum has
+    "segcsr_fence": ("segment_csr.cu", [(
+        "#pragma unroll\n      for (int u = 0; u < U_WIDE; ++u) {\n        const bool take",
+        "      __syncwarp();\n#pragma unroll\n      for (int u = 0; u < U_WIDE; ++u) {\n"
+        "        const bool take")]),
+    # the redesigned segment sum with 32 edges in flight a lane, not 16
+    "segcsr_u32": ("segment_csr.cu", [(
+        "constexpr int U_WIDE = 16;", "constexpr int U_WIDE = 32;")]),
+    # the redesigned segment sum with 8 rows a row-pass block, not 4
+    "segcsr_rows8": ("segment_csr.cu", [(
+        "constexpr int ROW_WARPS = 4;", "constexpr int ROW_WARPS = 8;")]),
+    # the redesigned segment sum with slices of 256 edges, not 128
+    "segcsr_slice256": ("segment_csr.cu", [(
+        "constexpr int SLICE = 128;", "constexpr int SLICE = 256;")]),
     # the rows of slot_fwd_kernel: the geometry's values (ROWS_VALUE), the
     # table's loads
     "slotfwd_no_geom_rows": ("triplet_slot_geom.cu", [(

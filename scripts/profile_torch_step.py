@@ -1,6 +1,10 @@
 """Where the time of one of the port's train steps goes, on one card.
 
-    python scripts/profile_torch_step.py [schnet_dense|spherenet|spherenet_force|schnet_force|spherenet_nk_force|dimenetpp_nk|spherenet_pt_force]
+    python scripts/profile_torch_step.py [schnet_dense|spherenet|spherenet_force|schnet_force|spherenet_flat|spherenet_nk_force|dimenetpp_nk|spherenet_pt_force] [--root DIR]
+
+``--root`` names the checkout whose ``dig_tpu_torch`` runs (default: this
+one), e.g. the parent unpacked with ``git archive``, so that two versions
+can be profiled in one call.
 
 ``schnet_dense`` (the default) runs main path 1 of chip_smoke.py
 (SchNetDense 4 x 128, bf16, fused cfconv, buckets {16: 252, 24: 380,
@@ -13,6 +17,10 @@ main path 4a (flat SchNet 4 x 128, f32, energy+force through
 make_step_fns, segment_eb=1024: the sorted-CSR segment-sum kernel, batches
 of 24 Morse molecules in slots of 29, Adam(1e-3), p = 100, as
 examples/threedgraph/run_morse_surrogate.py --model schnet --forces);
+``spherenet_flat`` runs main path 4b (flat SphereNet at the tutorial's
+widths, tutorials/threedgraph.md: 4 x 128, int_emb 64, basis 8/8/8,
+out_emb 256, n=3, k=6, f32, max_edges 16384, max_in_degree 32,
+segment_eb=1024, energy through make_step_fns, batches of 32, Adam(5e-4));
 ``spherenet_nk_force`` runs main path 5a (SphereNet 4 x 128, n=3, k=6,
 bf16, on the unblocked [N, K] table with K=16, fused_triplet_product with
 basis gradients, energy+force through make_step_fns, MoleculeLoader
@@ -25,18 +33,29 @@ layer).
 Traces a few steady
 steps with torch.profiler and prints the
 step's host time, the device's busy and idle share, device time by
-kernel, and the host operators that took the most time.
+kernel, the segment-sum kernels' time by call shape, and the host
+operators that took the most time.
+
+The segment sums are told apart by their calls: during the traced steps
+chip_smoke.py's SegmentCalls wraps ``ops.segment_csr.segment_csr_kernel``
+(the call each sum of the card's autograd pair makes) to note each call's
+shape (edges E, width F, rows N, type, whether its window holds every
+edge: the gathers' adjoints and the readouts; the longest row range is
+read after the window). The segment-sum kernels' device events, in stream order, are
+matched to the calls in order: each call's events are one kernel, or a
+piece pass and the row pass after it.
 """
 from __future__ import annotations
 
+import argparse
+import importlib.util
 import os
+import re
 import subprocess
 import sys
 import time
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-import torch  # noqa: E402
+import torch
 
 SLOT_COUNTS = {16: 252, 24: 380, 32: 236}
 WARMUP, TRACED = 3, 5
@@ -145,6 +164,66 @@ def schnet_force(dev, steps):
     return step, [next(it) for _ in range(steps)]
 
 
+def spherenet_flat(dev, steps):
+    from dig_tpu_torch.datasets import MoleculeLoader, synthetic_molecules
+    from dig_tpu_torch.models import SphereNet
+    from dig_tpu_torch.train import make_step_fns
+
+    mols = synthetic_molecules(32 * (steps + 1), seed=0, min_atoms=12,
+                               max_atoms=29, box=6.0)
+    it = iter(MoleculeLoader(mols, 32, shuffle=True, seed=0, device=dev))
+    batches = [b.replace_globals(energy=b.globals["y"][:, :1])
+               for b in (next(it) for _ in range(steps))]
+    model = SphereNet(cutoff=5.0, num_layers=4, hidden_channels=128,
+                      int_emb_size=64, basis_emb_size_dist=8,
+                      basis_emb_size_angle=8, basis_emb_size_torsion=8,
+                      out_emb_channels=256, num_spherical=3, num_radial=6,
+                      max_edges=16384, max_in_degree=32, segment_eb=1024,
+                      generator=torch.Generator().manual_seed(0), device=dev)
+    opt = torch.optim.Adam(model.parameters(), lr=5e-4)
+    step, _ = make_step_fns(model, opt, loss="l1", target_key="energy")
+    return step, batches
+
+
+def segment_report(calls, kernels, steps, busy_ms):
+    """Device ms a step of each segment-sum kernel by call shape, from the
+    calls chip_smoke.SegmentCalls noted."""
+    evs = sorted((e for e in kernels if "segment_csr" in e.name),
+                 key=lambda e: e.time_range.start)
+    groups = []
+    for e in evs:
+        if "row_kernel" in e.name and groups and \
+                "piece_kernel" in groups[-1][-1].name:
+            groups[-1].append(e)
+        else:
+            groups.append([e])
+    if len(groups) != len(calls.calls):
+        print(f"  {len(evs)} segment-sum kernels in {len(groups)} calls "
+              f"for {len(calls.calls)} noted calls; not attributed")
+        return
+    by = {}
+    for key, group in zip(calls.calls, groups):
+        t = by.setdefault(key, {})
+        for e in group:
+            name = re.search(r"segment_csr\w*(<[^>]*>)?", e.name)[0]
+            t[name] = t.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+    print("segment-sum kernels by call shape (E, F, N, type, full window; "
+          "longest row range):")
+    total = 0.0
+    for key in sorted(by, key=lambda k: -sum(by[k].values())):
+        rp = calls.rowptr[key].long()
+        longest = int((rp[1:].clamp(max=key[0]) - rp[:-1].clamp(min=0)).max())
+        ms = sum(by[key].values()) / steps
+        total += ms
+        split = ", ".join(f"{n} {v / steps:.4f}"
+                          for n, v in sorted(by[key].items()))
+        print(f"  {key} longest {longest}: "
+              f"{calls.calls.count(key) / steps:g} calls/step, "
+              f"{ms:.4f} ms/step ({split})")
+    print(f"  all: {total:.4f} ms/step = {total / busy_ms:.3f} of the "
+          f"device's busy time")
+
+
 def spherenet_nk_force(dev, steps, pallas_fuse_basis=False):
     from dig_tpu_torch.datasets import MoleculeLoader, synthetic_molecules
     from dig_tpu_torch.models import SphereNet
@@ -188,10 +267,17 @@ def spherenet_pt_force(dev, steps):
 def main():
     from torch.profiler import DeviceType, ProfilerActivity, profile
 
-    which = sys.argv[1] if len(sys.argv) > 1 else "schnet_dense"
+    ap = argparse.ArgumentParser()
+    ap.add_argument("path", nargs="?", default="schnet_dense")
+    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    a = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(a.root))
+    which = a.path
     paths = {"schnet_dense": schnet_dense, "spherenet": spherenet,
              "spherenet_force": spherenet_force,
              "schnet_force": schnet_force,
+             "spherenet_flat": spherenet_flat,
              "spherenet_nk_force": spherenet_nk_force,
              "dimenetpp_nk": dimenetpp_nk,
              "spherenet_pt_force": spherenet_pt_force}
@@ -203,12 +289,19 @@ def main():
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
+    from dig_tpu_torch.ops import segment_csr as sc
+    spec = importlib.util.spec_from_file_location("smoke", os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
     train_step, batches = paths[which](dev, WARMUP + TRACED)
     for b in batches[:WARMUP]:
         train_step(b)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+                             ProfilerActivity.CUDA]) as prof, \
+            smoke.SegmentCalls(sc) as seg_calls:
         t0 = time.perf_counter()
         for b in batches[WARMUP:]:
             train_step(b)
@@ -243,6 +336,8 @@ def main():
                                    "sum_partials")):
             print(f"  {t / TRACED:8.3f} ms/step {t / total_kernel_ms:6.3f} "
                   f"{c // TRACED:5d}x  {name[:90]}")
+    if seg_calls.calls:
+        segment_report(seg_calls, kernels, TRACED, busy_ms / TRACED)
     print("host operators by self CPU time:")
     ops = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
     for a in ops[:20]:

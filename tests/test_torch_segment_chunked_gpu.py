@@ -154,7 +154,7 @@ def test_chunked_windows_and_ids(case, dtype):
     (128-aligned starts), a row over several windows, -1 holes and ids at
     or past N, N not a multiple of BN, more row blocks than SMs (313) and
     fewer (4): integer-valued data sums exactly in any order, so the kernel
-    must give the plain version's bits and segment_csr_kernel's."""
+    must give the plain version's bits and the segment sum's."""
     from dig_tpu_torch.ops import segment_csr as sc
     dev = _device()
     seg, rowptr, N, BN, EB = _structured(case)

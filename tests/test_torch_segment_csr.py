@@ -6,7 +6,10 @@ The JAX ``segment_sum_sorted_csr`` runs its Pallas kernel in interpret mode
 (as ``tests/test_pallas_segment.py`` does); the port on a CPU tensor runs
 the kernel's plain version. Inputs are made with numpy from a seed: sorted
 ids with a -1 padding tail, empty rows and a skewed degree (one row holds
-a third of the edges).
+a third of the edges); and the pattern of a flat edge list's row gathers,
+whose padding edges all hold node 0, so that row 0 of the sorted ids holds
+most of the entries (the adjoint of ``gather_rows`` over the senders or
+receivers, at the widths the models gather: 1, 3 and 128).
 
 Tolerances: float32 sums in another order, 1e-5 relative and absolute for
 the forward and the VJP (a gather: exact), 1e-4 for the double backward
@@ -23,7 +26,7 @@ from dig_tpu.ops.pallas_segment import csr_block_overflow as j_overflow
 from dig_tpu.ops.pallas_segment import segment_sum_sorted_csr as j_csr
 from dig_tpu.ops.segment import segment_sum_sorted as j_sorted
 from dig_tpu_torch.ops import segment_csr as sc
-from dig_tpu_torch.ops.segment import segment_sum_sorted
+from dig_tpu_torch.ops.segment import gather_rows, segment_sum_sorted
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -42,6 +45,27 @@ def _problem(seed=0, N=50, E_real=400, E_pad=48, F=24):
     return data, seg, rowptr, N
 
 
+def _padded_senders(seed=0, N=40, E_real=150, E=512):
+    """A flat edge list as ``adjacency_to_edges`` lays it out: E_real real
+    (receiver, sender) pairs in receiver order, then padding pairs holding
+    node 0; the senders of it, unsorted."""
+    rng = np.random.default_rng(seed)
+    recv = np.sort(rng.integers(0, N, E_real))
+    send = (recv + rng.integers(1, N, E_real)) % N
+    return np.concatenate([send, np.zeros(E - E_real, np.int64)]), N
+
+
+def _padded_problem(F, seed=0):
+    """The sorted ids and row pointer gather_rows builds for the padded
+    senders (row 0 holds the padding: most of the entries), data [E, F]."""
+    idx, N = _padded_senders(seed)
+    seg = np.sort(idx).astype(np.int32)
+    rowptr = np.searchsorted(seg, np.arange(N + 1)).astype(np.int32)
+    data = np.random.default_rng(seed + 1).normal(
+        size=(seg.shape[0], F)).astype(np.float32)
+    return data, seg, rowptr, N
+
+
 def _plain(data, seg, N):
     """The oracle: index_add_ over the real edges, float32."""
     keep = seg >= 0
@@ -50,7 +74,7 @@ def _plain(data, seg, N):
                           torch.where(keep[:, None], data, 0.0))
 
 
-@pytest.mark.parametrize("F", [24, 128])
+@pytest.mark.parametrize("F", [24, 128, 1, 3])
 def test_forward_and_vjp_match_jax(F):
     data, seg, rowptr, N = _problem(F=F)
     BN, EB = 8, 512             # the densest 8 rows + 127 slack fit
@@ -74,6 +98,47 @@ def test_forward_and_vjp_match_jax(F):
     assert np.all(out_t.detach().numpy()[[0, 1, 2, 40, 44]] == 0)
     np.testing.assert_allclose(g_t.numpy(), np.asarray(g_j), **TOL)
     assert np.all(g_t.numpy()[seg < 0] == 0)
+
+
+@pytest.mark.parametrize("F", [1, 3, 128])
+def test_padded_row_zero_matches_jax(F):
+    """The padded-row-0 pattern: one row holds 362 of 512 entries; a
+    window of the whole edge list, so that no edge is dropped."""
+    data, seg, rowptr, N = _padded_problem(F)
+    assert np.diff(rowptr).max() > seg.shape[0] // 2
+    BN, EB = 8, sc.full_window(seg.shape[0])
+    assert int(j_overflow(jnp.asarray(rowptr), N, BN, EB)) == 0
+    ct = np.random.default_rng(2).normal(size=(N, F)).astype(np.float32)
+    out_j, vjp = jax.vjp(lambda d: j_csr(d, jnp.asarray(seg),
+                                         jnp.asarray(rowptr), N, BN, EB),
+                         jnp.asarray(data))
+    (g_j,) = vjp(jnp.asarray(ct))
+    d = torch.tensor(data, requires_grad=True)
+    out_t = sc.segment_sum_sorted_csr(d, torch.tensor(seg),
+                                      torch.tensor(rowptr), N, BN, EB)
+    (g_t,) = torch.autograd.grad(out_t, d, torch.tensor(ct))
+    np.testing.assert_allclose(out_t.detach().numpy(), np.asarray(out_j),
+                               **TOL)
+    np.testing.assert_allclose(g_t.numpy(), np.asarray(g_j), **TOL)
+
+
+@pytest.mark.parametrize("F", [3, 128])
+def test_gather_rows_adjoint_matches_jax(F):
+    """gather_rows over the padded senders (its adjoint: the sorted-CSR sum
+    over the sorted ids, row 0 holding the padding) against jax.vjp of
+    ``x[idx]``."""
+    idx, N = _padded_senders(seed=3)
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(N, F)).astype(np.float32)
+    ct = rng.normal(size=(idx.shape[0], F)).astype(np.float32)
+    out_j, vjp = jax.vjp(lambda a: a[jnp.asarray(idx)], jnp.asarray(x))
+    (g_j,) = vjp(jnp.asarray(ct))
+    xt = torch.tensor(x, requires_grad=True)
+    out_t = gather_rows(xt, torch.tensor(idx))
+    (g_t,) = torch.autograd.grad(out_t, xt, torch.tensor(ct))
+    np.testing.assert_array_equal(out_t.detach().numpy(), np.asarray(out_j))
+    np.testing.assert_allclose(g_t.numpy(), np.asarray(g_j), **TOL)
+    assert np.abs(g_t.numpy()[0]).max() > 0     # row 0: the padding's sum
 
 
 def test_bf16_data_matches_jax_and_casts_the_gradient():
