@@ -168,6 +168,39 @@ Phases, each printed as it runs; any failure exits non-zero:
      bucket shapes, split by kernel; the chunked sum (span pass and row
      sums) at path 7b's shape beside its bound, its plain version,
      the segment sum, torch.segment_reduce and index_add_
+ 29. main path 8a: ComENet energy+force at its published widths (4 x
+     256, middle 64, n=2, k=3, cutoff 8) on the NK-blocked layout (K = 28
+     keeps every pair of a 29-atom slot; radius_blocked_dropped 0),
+     MoleculeLoader batches of 32 in slots of 29, f32, Adam(5e-4), loss
+     |E - y| + 100 |F - F_ref| through make_step_fns; the first step held
+     against the same step on the CPU (every op its plain version): loss
+     1e-4, gradients 1e-3 (relative norm per parameter); the segment-sum
+     launches a step (GraphNorm's statistics and readout, the row gathers'
+     adjoints) the same every step and counted by shape; finite forces;
+     one short Run3D(energy_and_force=True, slot_size=29) epoch
+ 30. main path 8b: ComENet-OCP at the same widths on synthetic crystals of
+     20-80 atoms (cutoff 6, one shell of images), batches of 8; max_edges
+     sized by pbc_overflow (0 dropped); the [N, N, 27] build's peak
+     memory; the same checks
+ 31. main path 8c: ProNet all-atom at its published widths (4 x 128,
+     mid_emb 64, cutoff 10) on the NK-blocked layout, K = 32, proteins of
+     64-192 residues in batches of 16 in slots of 192, f32, energy
+     training on the loader's y, deterministic; the same first-step check
+     and launch count; the kept share of the in-cutoff pairs
+ 32. times: the segment sum at every call shape of paths 8a-8c (phase
+     15's measurements), with its calls a step; each step's sums in all
+ 33. SchNetDense forces: path 1's model and buckets, F = -dE/dpos through
+     the cfconv kernels (pos_grads=True: every backward with
+     need_dist_grad) against the einsum branch of the same weights, f32
+     1e-4 (relative norm), bf16 by direction and size against the f32
+     einsum forces; the forward plus force pass timed; phase 5's backward
+     with need_dist_grad beside it
+ 34. remat: path 3's force step on its 29-atom bucket with remat off and
+     on, each in a fresh process (chip_smoke.py --remat-step 0|1
+     bf16|f32 OUT) from the same seeded state, in bf16 and f32: the loss
+     (within 1e-5), the gradients (f32 within 1e-5 per parameter; bf16
+     against f32 by direction and size) and the parameters after Adam
+     (whether the bits are the same is printed), and both peak memories
 The card's name and power limit (nvidia-smi), then the kernels as JSON,
 are the two lines before the last; the last line is
 {"ok": true, "device": {...}}.
@@ -358,6 +391,30 @@ GA_TOL = {"f32": (1e-5, 1e-4), "bf16": (1e-2, 1e-2)}
 GA_STEP_TOL = (1e-4, 2e-4, 1e-3)
 # FP64 peak of one H100 SXM outside the tensor cores (NVIDIA data sheet)
 PEAK_FP64 = 34e12
+# Paths 8a-8c. ComENet's published defaults (dig_tpu/models/comenet.py:
+# 155-162: cutoff 8, 4 layers, 256 hidden, 64 middle, 3 radial, 2
+# spherical, 3 output layers) on the NK-blocked layout; K = 28 keeps every
+# pair of a 29-atom slot. ComENet-OCP at the same widths, cutoff 6, one
+# shell of images (tests/test_pbc.py:107). ProNet's published defaults
+# (dig_tpu/models/pronet.py:126-138), all-atom, K = 32 in slots of 192
+# residues. Each first step is held against the same step on the CPU.
+CE_KW = dict(cutoff=8.0, num_layers=4, hidden_channels=256,
+             middle_channels=64, num_radial=3, num_spherical=2,
+             num_output_layers=3, nk_degree=28, block_size=29)
+CE_A, CE_G, CE_LR, CE_P, CE_STEPS, CE_WARMUP = 29, 32, 5e-4, 100.0, 6, 2
+OCP_KW = dict(cutoff=6.0, num_layers=4, hidden_channels=256,
+              middle_channels=64, num_radial=3, num_spherical=2,
+              num_output_layers=3, pbc_images=1)
+OCP_G, OCP_ATOMS, OCP_STEPS = 8, (20, 80), 6
+PN_KW = dict(level="allatom", num_blocks=4, hidden_channels=128, mid_emb=64,
+             cutoff=10.0, max_num_neighbors=32, nk_degree=32,
+             block_size=192)
+PN_G, PN_RES, PN_LR, PN_STEPS, PN_WARMUP = 16, (64, 192), 5e-4, 6, 2
+CPU_STEP_TOL = (1e-4, 1e-3)
+# SchNetDense forces through the kernels against the einsum branch (f32);
+# remat against no remat (one step, parameters after Adam)
+DENSE_F_TOL = 1e-4
+REMAT_TOL = 1e-5
 # Path 7b: the chunked sorted-CSR sum on bench.py bench_spmm_roofline's
 # graph (:560-571): synthetic_large_graph(60000, seed=0, avg_deg=16), F =
 # 128. Against segment_sum_sorted_csr over a full window: the same bits
@@ -1640,11 +1697,11 @@ def seg_shape(sc, E, F, N, dtype, eb):
 class SegmentCalls:
     """Notes each segment-sum call's seg_shape, in call order, while active,
     by wrapping segment_csr_kernel (the call each sum of the autograd pair
-    makes on the card), and each shape's first row pointer; sc.launches
-    counts as before."""
+    makes on the card), and each shape's first row pointer and ids;
+    sc.launches counts as before."""
 
     def __init__(self, sc):
-        self.sc, self.calls, self.rowptr = sc, [], {}
+        self.sc, self.calls, self.rowptr, self.ids = sc, [], {}, {}
 
     def __enter__(self):
         self.orig = orig = self.sc.segment_csr_kernel
@@ -1653,6 +1710,7 @@ class SegmentCalls:
             key = seg_shape(self.sc, *data.shape, num_rows, data.dtype, eb)
             self.calls.append(key)
             self.rowptr.setdefault(key, rowptr)
+            self.ids.setdefault(key, seg_ids)
             return orig(data, seg_ids, rowptr, num_rows, block_rows, eb)
         self.sc.segment_csr_kernel = noted
         return self
@@ -1925,6 +1983,57 @@ def seg_path(name):
     return None
 
 
+def seg_time_row(torch, sc, c):
+    """One case's times (see phase_seg_times): the bare launch, its plain
+    version, the library calls, the host-clocked launch and wrapper, the
+    bound."""
+    seg, rp, N, data = c["seg"], c["rowptr"], c["N"], c["data"]
+    launch = lambda: sc.segment_csr_launch(data, seg, rp, N)
+    k_ms = device_ms(torch, launch)
+    issued_ms = cuda_ms(torch, launch)
+    w_ms = cuda_ms(torch, lambda: sc.segment_csr_kernel(
+        data, seg, rp, N, 32, c["eb"]))
+    plain_ms = device_ms(torch, lambda: sc.segment_sum_sorted_csr_reference(
+        data, seg, rp, N))
+    bound_ms, by, nnz, nbytes = seg_bound(c)
+    keep = seg >= 0
+    real, idx = data[keep].contiguous(), seg[keep].long()
+    offsets = torch.searchsorted(idx, torch.arange(N + 1, device=idx.device))
+    lib = {"index_add_": device_ms(torch, lambda: torch.zeros(
+        N, data.shape[1], dtype=data.dtype, device=data.device
+    ).index_add_(0, idx, real))}
+    try:
+        lib["segment_reduce"] = device_ms(torch, lambda: torch.segment_reduce(
+            real, "sum", offsets=offsets, axis=0))
+    except RuntimeError as exc:          # a yardstick only, not the port
+        log(f"  torch.segment_reduce does not run here: "
+            f"{str(exc).splitlines()[0]}")
+    best = min(lib, key=lib.get)
+    span = (rp[1:].clamp(max=seg.shape[0]) - rp[:-1].clamp(min=0))
+    return {"case": c["name"], "dtype": str(data.dtype)[6:], "N": N,
+            "E": data.shape[0], "nnz": nnz, "F": data.shape[1],
+            "longest": int(span.max()),
+            "key": seg_shape(sc, *data.shape, N, data.dtype, c["eb"]),
+            "ms": k_ms, "issued_ms": issued_ms, "wrapper_ms": w_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+            "bytes": nbytes, "library": lib, "library_ms": lib[best],
+            "library_call": best}
+
+
+def seg_log_row(r):
+    libs = ", ".join(f"{k} {v:.4f} ms" for k, v in r["library"].items())
+    log(f"  segment_sum_sorted_csr {r['case']} {r['dtype']} N={r['N']} "
+        f"E={r['E']} ({r['nnz']} counted, longest row range "
+        f"{r['longest']}) F={r['F']}: kernel "
+        f"{r['ms']:.4f} ms (bound {r['bound_ms']:.5f} ms by "
+        f"{r['bound_by']}, {r['bytes'] / 1e6:.3f} MB, "
+        f"{r['bound_ms'] / r['ms']:.3f} of it); plain {r['plain_ms']:.4f}"
+        f" ms; {libs}; host-clocked: kernel as issued "
+        f"{r['issued_ms']:.4f} ms, checked wrapper {r['wrapper_ms']:.4f}"
+        f" ms" + (f"; calls a step of path {r['path']}: {r['per_step']:g}"
+                  if r.get("path") else ""))
+
+
 def phase_seg_times(torch, sc, cases, by_shape):
     """Per call at every case's shape, device time with the host ahead
     (device_ms): the bare launch, its plain version, and the PyTorch calls
@@ -1938,53 +2047,12 @@ def phase_seg_times(torch, sc, cases, by_shape):
     shape, its calls a step times the mean of its cases' times."""
     rows = []
     for c in cases:
-        seg, rp, N, data = c["seg"], c["rowptr"], c["N"], c["data"]
-        launch = lambda: sc.segment_csr_launch(data, seg, rp, N)
-        k_ms = device_ms(torch, launch)
-        issued_ms = cuda_ms(torch, launch)
-        w_ms = cuda_ms(torch, lambda: sc.segment_csr_kernel(
-            data, seg, rp, N, 32, c["eb"]))
-        plain_ms = device_ms(torch, lambda: sc.segment_sum_sorted_csr_reference(
-            data, seg, rp, N))
-        bound_ms, by, nnz, nbytes = seg_bound(c)
-        keep = seg >= 0
-        real, idx = data[keep].contiguous(), seg[keep].long()
-        offsets = torch.searchsorted(idx, torch.arange(N + 1,
-                                                       device=idx.device))
-        lib = {"index_add_": device_ms(torch, lambda: torch.zeros(
-            N, data.shape[1], dtype=data.dtype, device=data.device
-        ).index_add_(0, idx, real))}
-        try:
-            lib["segment_reduce"] = device_ms(torch, lambda: torch.segment_reduce(
-                real, "sum", offsets=offsets, axis=0))
-        except RuntimeError as exc:          # a yardstick only, not the port
-            log(f"  torch.segment_reduce does not run here: "
-                f"{str(exc).splitlines()[0]}")
-        best = min(lib, key=lib.get)
-        span = (rp[1:].clamp(max=seg.shape[0]) - rp[:-1].clamp(min=0))
+        r = seg_time_row(torch, sc, c)
         path = seg_path(c["name"])
-        key = seg_shape(sc, *data.shape, N, data.dtype, c["eb"])
-        rows.append({"case": c["name"], "dtype": str(data.dtype)[6:], "N": N,
-                     "E": data.shape[0], "nnz": nnz, "F": data.shape[1],
-                     "longest": int(span.max()), "path": path, "key": key,
-                     "per_step": by_shape.get(path, {}).get(key, 0),
-                     "ms": k_ms, "issued_ms": issued_ms, "wrapper_ms": w_ms,
-                     "plain_ms": plain_ms,
-                     "bound_ms": bound_ms,
-                     "bound_by": by, "bytes": nbytes, "library": lib,
-                     "library_ms": lib[best], "library_call": best})
+        r.update(path=path, per_step=by_shape.get(path, {}).get(r["key"], 0))
+        rows.append(r)
     for r in rows:
-        libs = ", ".join(f"{k} {v:.4f} ms" for k, v in r["library"].items())
-        log(f"  segment_sum_sorted_csr {r['case']} {r['dtype']} N={r['N']} "
-            f"E={r['E']} ({r['nnz']} counted, longest row range "
-            f"{r['longest']}) F={r['F']}: kernel "
-            f"{r['ms']:.4f} ms (bound {r['bound_ms']:.5f} ms by "
-            f"{r['bound_by']}, {r['bytes'] / 1e6:.3f} MB, "
-            f"{r['bound_ms'] / r['ms']:.3f} of it); plain {r['plain_ms']:.4f}"
-            f" ms; {libs}; host-clocked: kernel as issued "
-            f"{r['issued_ms']:.4f} ms, checked wrapper {r['wrapper_ms']:.4f}"
-            f" ms" + (f"; calls a step of path {r['path']}: {r['per_step']:g}"
-                      if r["path"] else ""))
+        seg_log_row(r)
     totals = {}
     for path in ("4a", "4b"):
         keys = {r["key"] for r in rows if r["path"] == path}
@@ -3479,6 +3547,487 @@ def phase_cs_times(torch, sc, g):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Paths 8a-8c: ComENet, ComENet-OCP, ProNet; SchNetDense forces; remat
+# ---------------------------------------------------------------------------
+
+def first_step_vs_cpu(torch, what, make_model, make_step, batch_dev,
+                      batch_cpu, tol=CPU_STEP_TOL):
+    """Loss and gradients of one step at lr 0, on the card (the kernels)
+    and on the CPU (every op its plain version), the same seeded weights
+    and batch: the loss within tol[0] and every parameter's gradient
+    within tol[1] (||a-b|| / ||b||). Returns the errors and the CPU
+    step's seconds."""
+    res = []
+    for b in (batch_dev, batch_cpu):
+        m = make_model(b.node_mask.device)
+        step = make_step(m, torch.optim.SGD(m.parameters(), lr=0.0))
+        t = time.perf_counter()
+        loss = float(step(b)["loss"])
+        res.append((loss,
+                    [p.grad.detach().float().cpu() for p in m.parameters()],
+                    [n for n, _ in m.named_parameters()],
+                    time.perf_counter() - t))
+        del m, step
+    (lk, gk, names, _), (lp, gp, _, cpu_s) = res
+    loss_err = abs(lk - lp) / abs(lp)
+    per = sorted(((rel_norm(torch, [a], [b]), n)
+                  for a, b, n in zip(gk, gp, names)), reverse=True)
+    log(f"  first step, card against CPU: loss {lk:.7f} / {lp:.7f} (rel "
+        f"{loss_err:.3e}, held to {tol[0]}); gradient rel-norm err "
+        f"{rel_norm(torch, gk, gp):.3e} over all parameters, worst "
+        + ", ".join(f"{n} {e:.3e}" for e, n in per[:3])
+        + f" (each held to {tol[1]}); the CPU step took {cpu_s:.1f} s")
+    if not math.isfinite(lk) or loss_err >= tol[0]:
+        fail(f"{what}: first-step loss card {lk} vs CPU {lp}")
+    if not per[0][0] < tol[1]:
+        fail(f"{what}: first-step gradients differ from the CPU's: "
+             f"{per[:3]}")
+    return {"loss_rel_err": loss_err, "worst_param": per[0]}
+
+
+def uncapped_pairs(torch, b, cutoff):
+    """In-cutoff directed pairs of one graph (as Run3D counts them) and
+    the largest in-degree."""
+    from dig_tpu_torch.ops.radius import _pairwise_same_graph
+    d2, valid = _pairwise_same_graph(b.nodes["pos"], b.node_graph,
+                                     b.node_mask)
+    adj = valid & (d2 < cutoff * cutoff)
+    return int(adj.sum()), int(adj.sum(1).max())
+
+
+def new_path_steps(torch, cf, ts, sc, what, model, train_step, batches,
+                   warmup, pairs):
+    """The timed steps of a new path: losses, step ms, edges/s over the
+    uncapped pairs ``pairs`` (one per batch), the segment-sum launches a
+    step (the same every step) and the calls by shape; no kernel of
+    another path launched."""
+    reset_all(cf, ts, sc)
+    per_step = []
+    with SegmentCalls(sc) as calls:
+        losses, t_start = [], None
+        for s, b in enumerate(batches):
+            if s == warmup:
+                torch.cuda.synchronize()
+                t_start = time.perf_counter()
+            before = sc.launches
+            losses.append(train_step(b)["loss"])
+            per_step.append(sc.launches - before)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t_start
+    losses = [float(x) for x in losses]
+    others_idle(cf, ts, what)
+    timed = len(batches) - warmup
+    step_ms = dt / timed * 1e3
+    edges = sum(pairs[warmup:])
+    log(f"  {len(batches)} Adam steps, losses {[round(x, 5) for x in losses]}")
+    shapes = calls.per_step(len(batches))
+    log(f"  segment-sum launches a step {per_step}: "
+        + ", ".join(f"{n:g} x (E {k[0]}, F {k[1]}, rows {k[2]}, {k[3]})"
+                    for k, n in sorted(shapes.items())))
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{what}: non-finite loss")
+    if min(per_step) == 0 or len(set(per_step)) != 1:
+        fail(f"{what}: segment-sum launches a step {per_step}")
+    log(f"  step {step_ms:.3f} ms (mean of {timed} steps); "
+        f"{edges / dt:.6g} edges/s over {edges / timed:.0f} in-cutoff "
+        f"pairs per step")
+    return {"launches": sc.launches, "per_step": per_step[0],
+            "losses": losses, "step_ms": step_ms, "edges_per_s": edges / dt,
+            "pairs_per_step": edges / timed, "calls": calls,
+            "by_shape": shapes}
+
+
+def ce_molecules(n, seed=0):
+    from dig_tpu_torch.datasets import synthetic_molecules
+    mols = synthetic_molecules(n, seed=seed, min_atoms=12, max_atoms=CE_A,
+                               box=6.0, with_forces=True)
+    return [dict(m, y=m["y"][:1]) for m in mols]
+
+
+def ce_model(torch, dev):
+    from dig_tpu_torch.models import ComENet
+    return ComENet(**CE_KW, generator=torch.Generator().manual_seed(0),
+                   device=dev)
+
+
+def phase_ce_main_path(torch, cf, ts, sc, dev):
+    """Path 8a: ComENet energy+force at its published widths on the
+    NK-blocked layout (K = 28 keeps every pair of a 29-atom slot)."""
+    from dig_tpu_torch.datasets import MoleculeLoader
+    from dig_tpu_torch.ops.radius import radius_blocked_dropped
+    from dig_tpu_torch.threed import Run3D, ThreeDEvaluator
+    from dig_tpu_torch.train import make_step_fns
+    mols = ce_molecules(CE_G * CE_STEPS)
+    loader = lambda d: MoleculeLoader(mols, CE_G, slot_size=CE_A, device=d)
+    batches = list(loader(dev))
+    pairs, deg = zip(*(uncapped_pairs(torch, b, CE_KW["cutoff"])
+                       for b in batches))
+    dropped = [int(radius_blocked_dropped(
+        b.nodes["pos"], b.node_graph, b.node_mask, CE_KW["cutoff"], CE_A))
+        for b in batches]
+    log(f"  largest in-degree {max(deg)} (K = {CE_KW['nk_degree']}); "
+        f"radius_blocked_dropped {dropped}")
+    if any(dropped) or max(deg) > CE_KW["nk_degree"]:
+        fail("path 8a: the NK table drops pairs")
+    make_step = lambda m, opt: make_step_fns(m, opt, energy_and_force=True,
+                                             p=CE_P, loss="l1")[0]
+    first = first_step_vs_cpu(torch, "path 8a",
+                              lambda d: ce_model(torch, d), make_step,
+                              batches[0], next(iter(loader("cpu"))))
+    model = ce_model(torch, dev)
+    opt = torch.optim.Adam(model.parameters(), lr=CE_LR)
+    train_step, eval_step = make_step_fns(model, opt, energy_and_force=True,
+                                          p=CE_P, loss="l1")
+    torch.cuda.reset_peak_memory_stats()
+    res = new_path_steps(torch, cf, ts, sc, "path 8a", model, train_step,
+                         batches, CE_WARMUP, pairs)
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out = eval_step(batches[0])
+    if not bool(torch.isfinite(out["force_pred"]).all()):
+        fail("path 8a: non-finite forces")
+    log(f"  eval: forces finite (largest |F| "
+        f"{float(out['force_pred'].abs().max()):.4g}); peak device memory "
+        f"{res['peak_gib']:.2f} GiB")
+    t = time.perf_counter()
+    run = Run3D().run(mols[:2 * CE_G], mols[2 * CE_G:3 * CE_G],
+                      mols[3 * CE_G:4 * CE_G], ce_model(torch, dev),
+                      ThreeDEvaluator(), epochs=1, batch_size=CE_G,
+                      vt_batch_size=CE_G, lr=CE_LR, energy_and_force=True,
+                      p=CE_P, slot_size=CE_A, quiet=True, device=dev)
+    log(f"  Run3D epoch (2 training batches, one validation, one test): "
+        f"valid MAE {run['best_valid']:.5f}, test {run['best_test']:.5f}; "
+        f"{time.perf_counter() - t:.1f} s")
+    if not math.isfinite(run["best_valid"] + run["best_test"]):
+        fail("path 8a: Run3D gave a non-finite MAE")
+    res["first_step"] = first
+    return res
+
+
+def ocp_batches(torch, n, dev):
+    """Crystals of 20-80 atoms (OC20's S2EF structures hold tens to a
+    couple of hundred), the Morse forces of the open-boundary atoms as the
+    force target, batches of OCP_G."""
+    from dig_tpu_torch.datasets import (MoleculeLoader, morse_energy,
+                                        synthetic_crystals)
+    cr = synthetic_crystals(OCP_G * n, seed=0, min_atoms=OCP_ATOMS[0],
+                            max_atoms=OCP_ATOMS[1])
+    cr = [dict(c, force=morse_energy(c["z"], c["pos"])[1]) for c in cr]
+    pad = OCP_G * OCP_ATOMS[1]
+    return (list(MoleculeLoader(cr, OCP_G, n_node_pad=pad, device=dev)),
+            next(iter(MoleculeLoader(cr, OCP_G, n_node_pad=pad,
+                                     device="cpu"))))
+
+
+def phase_ocp_main_path(torch, cf, ts, sc, dev):
+    """Path 8b: ComENet-OCP energy+force on periodic crystals, max_edges
+    sized by pbc_overflow so that nothing is dropped."""
+    from dig_tpu_torch.models import ComENetOCP
+    from dig_tpu_torch.ops.pbc import pbc_overflow, radius_graph_pbc_flat
+    from dig_tpu_torch.train import make_step_fns
+    batches, cpu_b = ocp_batches(torch, OCP_STEPS, dev)
+    args = lambda b: (b.nodes["pos"], b.globals["cell"], b.node_graph,
+                      b.node_mask, OCP_KW["cutoff"])
+    pairs = [int(pbc_overflow(*args(b), 0)) for b in batches]
+    max_edges = -(-max(pairs) // 1024) * 1024
+    over = [int(pbc_overflow(*args(b), max_edges)) for b in batches]
+    b0 = batches[0]
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    radius_graph_pbc_flat(*args(b0), max_edges)
+    torch.cuda.synchronize()
+    build_gib = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    log(f"  periodic edges per batch {min(pairs)}-{max(pairs)}; max_edges "
+        f"{max_edges}, pbc_overflow {over}; the [N, N, 27] build of N = "
+        f"{b0.num_nodes} rows peaks at {build_gib:.3f} GiB above its "
+        f"inputs")
+    if any(over):
+        fail("path 8b: the edge cap drops periodic edges")
+    kw = dict(OCP_KW, max_edges=max_edges)
+    make_model = lambda d: ComENetOCP(
+        **kw, generator=torch.Generator().manual_seed(0), device=d)
+    make_step = lambda m, opt: make_step_fns(m, opt, energy_and_force=True,
+                                             p=CE_P, loss="l1")[0]
+    first = first_step_vs_cpu(torch, "path 8b", make_model, make_step, b0,
+                              cpu_b)
+    model = make_model(dev)
+    opt = torch.optim.Adam(model.parameters(), lr=CE_LR)
+    train_step, eval_step = make_step_fns(model, opt, energy_and_force=True,
+                                          p=CE_P, loss="l1")
+    torch.cuda.reset_peak_memory_stats()
+    res = new_path_steps(torch, cf, ts, sc, "path 8b", model, train_step,
+                         batches, CE_WARMUP, pairs)
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out = eval_step(b0)
+    if not bool(torch.isfinite(out["force_pred"]).all()):
+        fail("path 8b: non-finite forces")
+    log(f"  eval: forces finite (largest |F| "
+        f"{float(out['force_pred'].abs().max()):.4g}); peak device memory "
+        f"{res['peak_gib']:.2f} GiB")
+    res.update(first_step=first, build_gib=build_gib, max_edges=max_edges)
+    return res
+
+
+def pn_batches(torch, n, dev):
+    from dig_tpu_torch.datasets import ProteinLoader, synthetic_proteins
+    prots = synthetic_proteins(PN_G * n, min_res=PN_RES[0],
+                               max_res=PN_RES[1], seed=0)
+    mk = lambda d: ProteinLoader(prots, PN_G, slot_size=PN_RES[1], device=d)
+    return list(mk(dev)), next(iter(mk("cpu")))
+
+
+def phase_pn_main_path(torch, cf, ts, sc, dev):
+    """Path 8c: ProNet (all-atom) energy training at its published widths
+    on the NK-blocked layout, K = 32, deterministic."""
+    from dig_tpu_torch.models import ProNet
+    from dig_tpu_torch.ops.radius import (radius_blocked_dropped,
+                                          radius_graph_nk_blocked)
+    from dig_tpu_torch.train import make_step_fns
+    batches, cpu_b = pn_batches(torch, PN_STEPS, dev)
+    cut, K, A = PN_KW["cutoff"], PN_KW["nk_degree"], PN_KW["block_size"]
+    pairs, deg = zip(*(uncapped_pairs(torch, b, cut) for b in batches))
+    kept = [int(radius_graph_nk_blocked(b.nodes["pos"], b.node_mask, cut, K,
+                                        A, node_graph=b.node_graph)
+                .edge_mask.sum()) for b in batches]
+    dropped = [int(radius_blocked_dropped(b.nodes["pos"], b.node_graph,
+                                          b.node_mask, cut, A))
+               for b in batches]
+    log(f"  in-cutoff pairs per batch {min(pairs)}-{max(pairs)}, largest "
+        f"in-degree {max(deg)}; the K = {K} table keeps "
+        f"{sum(kept) / sum(pairs):.4f} of them (the reference's "
+        f"max_num_neighbors = 32 cap, symmetrised); radius_blocked_dropped "
+        f"{dropped}")
+    if any(dropped):
+        fail("path 8c: the batches are not slot-aligned")
+    make_model = lambda d: ProNet(
+        **PN_KW, generator=torch.Generator().manual_seed(0), device=d)
+    make_step = lambda m, opt: make_step_fns(m, opt, loss="l1")[0]
+    first = first_step_vs_cpu(torch, "path 8c", make_model, make_step,
+                              batches[0], cpu_b)
+    model = make_model(dev)
+    opt = torch.optim.Adam(model.parameters(), lr=PN_LR)
+    train_step, eval_step = make_step_fns(model, opt, loss="l1")
+    torch.cuda.reset_peak_memory_stats()
+    res = new_path_steps(torch, cf, ts, sc, "path 8c", model, train_step,
+                         batches, PN_WARMUP, pairs)
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out = eval_step(batches[0])
+    if not bool(torch.isfinite(out["y_pred"]).all()):
+        fail("path 8c: non-finite outputs")
+    res["kept_edges_per_s"] = (sum(kept[PN_WARMUP:]) * res["edges_per_s"]
+                               / sum(pairs[PN_WARMUP:]))
+    log(f"  {res['kept_edges_per_s']:.6g} edges/s counting the kept NK "
+        f"edges; peak device memory {res['peak_gib']:.2f} GiB")
+    res["first_step"] = first
+    return res
+
+
+def new_seg_rows(torch, sc, results):
+    """Every segment-sum call shape of paths 8a-8c, timed as phase 15's
+    (seg_time_row), on the ids and row pointer of its first call and
+    seeded rows; each row with its calls a step."""
+    gen = torch.Generator(device="cpu").manual_seed(8)
+    rows = []
+    for path, res in results.items():
+        calls = res["calls"]
+        for key, n in sorted(res["by_shape"].items()):
+            E, F, N, dname, full = key
+            seg, rp = calls.ids[key], calls.rowptr[key]
+            dt = getattr(torch, dname)
+            data = torch.randn(E, F, generator=gen).to(seg.device, dt)
+            c = {"name": f"{path}_{'window' if full else 'eb'}", "seg": seg,
+                 "rowptr": rp, "N": N, "data": data,
+                 "eb": sc.full_window(E) if full else 1024}
+            r = seg_time_row(torch, sc, c)
+            r.update(path=path, per_step=n)
+            seg_log_row(r)
+            rows.append(r)
+    return rows
+
+
+def phase_dense_forces(torch, cf, dev, batches):
+    """SchNetDense at path 1's model and buckets: F = -dE/dpos through the
+    cfconv kernels (pos_grads=True: the backward with need_dist_grad)
+    against the einsum branch of the same weights; f32 held to
+    DENSE_F_TOL (relative norm), bf16 by direction and size against the
+    f32 einsum forces (SF_BF16_COS, SF_BF16_NORM; per bucket in place of
+    per parameter). The forward plus the force pass timed."""
+    from dig_tpu_torch.models import SchNetDense
+
+    def forces(cd, kernel):
+        m = SchNetDense(cutoff=CUTOFF, num_layers=LAYERS,
+                        hidden_channels=HIDDEN, num_filters=HIDDEN,
+                        num_gaussians=GAUSSIANS, compute_dtype=cd,
+                        use_kernel=kernel, pos_grads=True,
+                        generator=torch.Generator().manual_seed(0),
+                        device=dev)
+
+        def run():
+            out = []
+            for n, b in sorted(batches.items()):
+                pos = b.pos.detach().requires_grad_()
+                e = m(b.replace(pos=pos))
+                (g,) = torch.autograd.grad(e.sum(), pos)
+                out.append(-g)
+            return out
+        return m, run
+
+    need = []
+    orig = cf.cfconv_backward_kernel
+
+    def noted(*a):
+        need.append(bool(a[-1]))
+        return orig(*a)
+    res = {}
+    for prec, cd in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        _, run_k = forces(cd, True)
+        cf.reset_launch_counts()
+        cf.cfconv_backward_kernel = noted
+        try:
+            fk = run_k()
+        finally:
+            cf.cfconv_backward_kernel = orig
+        counts = (cf.launches_fwd, cf.launches_bwd)
+        want = LAYERS * len(batches)
+        if counts != (want, want) or not all(need):
+            fail(f"SchNetDense forces {prec}: cfconv launches {counts} "
+                 f"(want {want} each), need_dist_grad {set(need)}")
+        need.clear()
+        ms = cuda_ms(torch, run_k, iters=5, warmup=1)
+        _, run_e = forces(cd, False)
+        fe = run_e()
+        if not all(bool(torch.isfinite(f).all()) for f in fk):
+            fail(f"SchNetDense forces {prec}: non-finite")
+        res[prec] = {"kernel": fk, "einsum": fe, "ms": ms,
+                     "einsum_ms": cuda_ms(torch, run_e, iters=5, warmup=1)}
+    err = rel_norm(torch, res["f32"]["kernel"], res["f32"]["einsum"])
+    log(f"  f32: forces through the kernels against the einsum branch, "
+        f"rel-norm err {err:.3e} (held to {DENSE_F_TOL}); "
+        f"{LAYERS * len(batches)} forward and backward cfconv launches a "
+        f"pass, every backward with need_dist_grad")
+    if not err < DENSE_F_TOL:
+        fail(f"SchNetDense f32 forces differ: {err}")
+    names = [f"bucket {n}" for n in sorted(batches)]
+    a = agreement(torch, res["bf16"]["kernel"], res["f32"]["einsum"], names)
+    log(f"  bf16: the kernels' forces against the f32 einsum ones: cosine "
+        f"{a['cos']:.4f}, median bucket {a['median_cos']:.4f}; norm "
+        f"{a['norm']:.4f} x, per bucket {a['least'][0]:.4f} to "
+        f"{a['largest'][0]:.4f}")
+    if (not a["cos"] >= SF_BF16_COS[0] or not a["median_cos"] >= SF_BF16_COS[1]
+            or not SF_BF16_NORM[0] <= a["least"][0]
+            or not a["largest"][0] <= SF_BF16_NORM[1]):
+        fail(f"SchNetDense bf16 forces: {a}")
+    for prec in ("bf16", "f32"):
+        log(f"  {prec}: forward + force pass over the 3 buckets "
+            f"{res[prec]['ms']:.3f} ms through the kernels, "
+            f"{res[prec]['einsum_ms']:.3f} ms through the einsum branch")
+    return {"f32_err": err, "bf16": a, "ms": res["bf16"]["ms"],
+            "ms_f32": res["f32"]["ms"],
+            "launches_bwd": LAYERS * len(batches)}
+
+
+def remat_step(flag, prec, out):
+    """``chip_smoke.py --remat-step 0|1 bf16|f32 OUT``: one path-3 force
+    step on its 29-atom bucket from the seeded state, ``remat`` off or on;
+    the loss, the gradients, the parameters after Adam and the step's peak
+    device memory go to OUT."""
+    import torch
+    from dig_tpu_torch.models import SphereNet
+    from dig_tpu_torch.train import make_bucketed_step_fns
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cd = {"bf16": torch.bfloat16, "f32": torch.float32}[prec]
+    model = SphereNet(**SN_KW, **SN_SLOT, compute_dtype=cd,
+                      remat=flag == "1",
+                      generator=torch.Generator().manual_seed(0), device=dev)
+    batch = {29: sf_batches(torch, dev, 1)[0][29]}
+    step = make_bucketed_step_fns(
+        model, torch.optim.Adam(model.parameters(), lr=5e-4), p=SF_P)[0]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    loss = step(batch)["loss"]
+    torch.cuda.synchronize()
+    named = list(model.named_parameters())
+    from dig_tpu_torch.ops import segment_csr as sc
+    from dig_tpu_torch.ops import triplet_slot as ts
+    torch.save({"loss": loss.detach().cpu(),
+                "peak": torch.cuda.max_memory_allocated() - base,
+                "launches": (ts.launches_fwd, ts.launches_bwd,
+                             ts.launches_bwd_dpt, ts.launches_bwd2,
+                             sc.launches),
+                "grad": {n: p.grad.detach().float().cpu() for n, p in named},
+                "param": {n: p.detach().cpu() for n, p in named}}, out)
+
+
+def phase_remat(torch):
+    """Path 3's force step on one bucket with remat off and on, each in a
+    fresh process (as phase 23: within one process the autograd engine's
+    order of the outer backward can differ between two steps), in bf16 (the
+    path's type) and f32: the loss, the gradients, the parameters after
+    Adam, and the peak memory of each. Held: the loss within REMAT_TOL,
+    the f32 gradients within REMAT_TOL per parameter, the bf16 gradient to
+    the f32 one by direction and size (path 3's bf16 gate)."""
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for prec in ("bf16", "f32"):
+            for flag in ("0", "1"):
+                out = os.path.join(tmp, f"remat_{prec}_{flag}.pt")
+                r = subprocess.run(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--remat-step", flag, prec, out], capture_output=True,
+                    text=True, timeout=900)
+                if r.returncode != 0:
+                    fail(f"remat {flag} {prec} step process: "
+                         f"{r.stderr[-2000:]}")
+                runs[prec, flag] = torch.load(out)
+    res = {}
+    for prec in ("bf16", "f32"):
+        a, b = runs[prec, "0"], runs[prec, "1"]
+        names = list(a["param"])
+        same_p = sum(torch.equal(a["param"][n], b["param"][n]) for n in names)
+        same_g = sum(torch.equal(a["grad"][n], b["grad"][n]) for n in names)
+        per = sorted(((rel_norm(torch, [b["grad"][n]], [a["grad"][n]]), n)
+                      for n in names), reverse=True)
+        moved = max(float((b["param"][n] - a["param"][n]).abs().max())
+                    for n in names)
+        loss_err = abs(float(b["loss"]) - float(a["loss"])) / abs(
+            float(a["loss"]))
+        log(f"  {prec}: loss remat off {float(a['loss']):.7f}, on "
+            f"{float(b['loss']):.7f} (the same bits: "
+            f"{torch.equal(a['loss'], b['loss'])}); gradients the same bits "
+            f"in {same_g} of {len(names)} parameters, rel-norm err worst "
+            + ", ".join(f"{n} {e:.3e}" for e, n in per[:3])
+            + f"; parameters after Adam the same bits in {same_p} of "
+            f"{len(names)}, largest difference {moved:.3e} (lr 5e-4)")
+        log(f"  {prec}: peak device memory of the step above its inputs: "
+            f"remat off {a['peak'] / 2 ** 30:.3f} GiB, on "
+            f"{b['peak'] / 2 ** 30:.3f} GiB; launches (slot forward, "
+            f"backward, backward with dpt, second order; segment sum) off "
+            f"{a['launches']}, on {b['launches']}")
+        if not loss_err < REMAT_TOL:
+            fail(f"remat changes the {prec} loss: {loss_err}")
+        if prec == "f32" and not per[0][0] < REMAT_TOL:
+            fail(f"remat changes the f32 gradients: {per[:3]}")
+        res[prec] = {"same_loss": torch.equal(a["loss"], b["loss"]),
+                     "same_grads": same_g, "same_params": same_p,
+                     "params": len(names), "worst_grad": per[0],
+                     "peak_gib": (a["peak"] / 2 ** 30, b["peak"] / 2 ** 30)}
+    for flag in ("0", "1"):
+        g = [runs["bf16", flag]["grad"][n] for n in runs["f32", flag]["grad"]]
+        ref = list(runs["f32", flag]["grad"].values())
+        ag = agreement(torch, g, ref, list(runs["f32", flag]["grad"]))
+        log(f"  remat {'on' if flag == '1' else 'off'}: the bf16 gradient "
+            f"against the f32 one: cosine {ag['cos']:.4f}, median parameter "
+            f"{ag['median_cos']:.4f}; norm {ag['norm']:.4f} x")
+        if (not ag["cos"] >= SF_BF16_COS[0]
+                or not ag["median_cos"] >= SF_BF16_COS[1]
+                or not SF_BF16_NORM[0] <= ag["least"][0]
+                or not ag["largest"][0] <= SF_BF16_NORM[1]):
+            fail(f"remat {flag}: the bf16 gradient against the f32 one: {ag}")
+    return res
+
+
 def build_all(_build, builds):
     """Build every CUDA source at once (one nvcc each): ``builds`` maps a
     label to (source name, generated headers or None); the seconds each
@@ -3501,6 +4050,9 @@ def main():
         fail("torch.cuda.is_available() is false: this script needs a card")
     if sys.argv[1:2] == ["--repeat-step"]:
         repeat_step(*sys.argv[2:4])
+        return
+    if sys.argv[1:2] == ["--remat-step"]:
+        remat_step(*sys.argv[2:5])
         return
     from dig_tpu_torch.ops import _build
     from dig_tpu_torch.ops import cfconv as cf
@@ -3717,6 +4269,60 @@ def main():
     cs_rows = phase_cs_times(torch, sc, cs_g)
     del ga_inp, cs_g
     torch.cuda.empty_cache()
+
+    log("== 29. main path 8a: ComENet energy+force 4x256 f32 (published "
+        "widths), NK-blocked (K=28), batches of 32 in slots of 29, "
+        "Adam(5e-4)")
+    new_res = {"8a": phase_ce_main_path(torch, cf, ts, sc, dev)}
+    torch.cuda.empty_cache()
+
+    log("== 30. main path 8b: ComENet-OCP energy+force 4x256 f32 on periodic"
+        " crystals of 20-80 atoms (cutoff 6, one shell of images), batches "
+        "of 8, Adam(5e-4)")
+    new_res["8b"] = phase_ocp_main_path(torch, cf, ts, sc, dev)
+    torch.cuda.empty_cache()
+
+    log("== 31. main path 8c: ProNet all-atom energy 4x128 f32 (published "
+        "widths), NK-blocked (K=32), proteins of 64-192 residues, batches of"
+        " 16 in slots of 192, Adam(5e-4)")
+    new_res["8c"] = phase_pn_main_path(torch, cf, ts, sc, dev)
+    torch.cuda.empty_cache()
+
+    log("== 32. times: the segment sum at every call shape of paths 8a-8c")
+    new_rows = new_seg_rows(torch, sc, new_res)
+    for path, res in new_res.items():
+        tot = {f: sum(r["per_step"] * r[f] for r in new_rows
+                      if r["path"] == path)
+               for f in ("ms", "bound_ms", "plain_ms", "library_ms")}
+        log(f"  path {path} step, every segment sum ({res['per_step']} "
+            f"calls): kernel {tot['ms']:.4f} ms, bound {tot['bound_ms']:.4f}"
+            f" ms, plain {tot['plain_ms']:.4f} ms, library "
+            f"{tot['library_ms']:.4f} ms")
+        res.pop("calls")
+    torch.cuda.empty_cache()
+
+    log("== 33. SchNetDense forces: path 1's model and buckets, F = -dE/dpos"
+        " through the cfconv kernels (pos_grads=True) against the einsum "
+        "branch")
+    df_res = phase_dense_forces(torch, cf, dev, cf_batches(torch, dev, 1)[0])
+    for prec in ("bf16", "f32"):
+        nd = [r for r in rows if r["kernel"] == "cfconv_bwd"
+              and r["precision"] == prec and r["need_dist_grad"]]
+        log(f"  (phase 5) cfconv_bwd with need_dist_grad, {prec}, one layer "
+            f"(3 buckets): {sum(r['ms'] for r in nd):.4f} ms, bound "
+            f"{sum(r['bound_ms'] for r in nd):.4f} ms, plain "
+            f"{sum(r['plain_ms'] for r in nd):.3f} ms; "
+            f"{df_res['launches_bwd']} launches a force pass")
+    torch.cuda.empty_cache()
+
+    log("== 34. remat: path 3's force step on its 29-atom bucket, remat off"
+        " and on, each in a fresh process from the same seeded state")
+    phase_remat(torch)
+    torch.cuda.empty_cache()
+    for path, r in new_res.items():
+        log(f"  path {path}: step {r['step_ms']:.3f} ms, "
+            f"{r['edges_per_s']:.6g} edges/s, peak {r['peak_gib']:.2f} GiB "
+            f"({card})")
 
     def total(kernel, key):
         return sum(r[key] for r in rows if r["kernel"] == kernel

@@ -9,22 +9,28 @@ Layering (mirrors ``dig_tpu``):
   device        ``resolve_device``: entry points default to the CUDA card
   graph_dense   dense per-graph molecular batches
   graph         flat padded graph batches (and the slot-aligned layout)
-  ops           bases, flat and NK radius graphs and triplet tables, the
-                fused cfconv kernel, the triplet product, packed-basis and
-                slot triplet kernels (to second order), the sorted-CSR
+  ops           segment reductions, gather / scatter, bases, flat, NK
+                and periodic radius graphs, triplet tables, the fused
+                cfconv kernel, the triplet product, packed-basis and slot
+                triplet kernels (to second order), the sorted-CSR
                 segment-sum kernel
   nn            shared blocks and initializers
-  models        SchNet, SchNetDense, SphereNet, DimeNetPP
+  models        SchNet, SchNetDense, SphereNet, DimeNetPP, ComENet,
+                ComENetOCP, ProNet
   train         train steps (energy, energy+force, bucketed), Run3D,
                 checkpoints, metrics
   threed        evaluator, Run3D / run
-  datasets      synthetic molecules, the flat, bucketed and dense loaders
+  datasets      QM93D, MD17, synthetic molecules and crystals, the flat,
+                bucketed and dense loaders, the protein data and loader
+  config        the configuration tree
   convert       flax parameter trees -> torch modules
 """
 
 __version__ = "0.1.0"
 
 from . import graph, graph_dense, ops
+from .config import Config
 from .device import resolve_device
 
-__all__ = ["graph", "graph_dense", "ops", "resolve_device", "__version__"]
+__all__ = ["graph", "graph_dense", "ops", "Config", "resolve_device",
+           "__version__"]

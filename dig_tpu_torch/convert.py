@@ -12,6 +12,8 @@ from typing import Dict
 import numpy as np
 import torch
 
+from .models.comenet import ComENet
+from .models.pronet import ProNet
 from .models.schnet import SchNet
 from .models.schnet_dense import SchNetDense
 from .models.spherenet import _SphericalMPNN
@@ -127,4 +129,56 @@ def spherenet_from_flax(params: Dict[str, np.ndarray],
         denses(f"UpdateE_{l}/", ue.flax_denses())
         for r, res in enumerate([*ue.before, *ue.after]):
             denses(f"UpdateE_{l}/ResidualLayer_{r}/", res.flax_denses())
+    return t.finish(model)
+
+
+def _denses(t: _Tree, prefix: str, lins) -> None:
+    for i, lin in enumerate(lins):
+        t.dense(lin, f"{prefix}Dense_{i}")
+
+
+def _tll(t: _Tree, prefix: str, tll) -> None:
+    _denses(t, prefix, tll.flax_denses())
+
+
+@torch.no_grad()
+def comenet_from_flax(params: Dict[str, np.ndarray],
+                      model: ComENet) -> ComENet:
+    """Copy a flax ``ComENet`` / ``ComENetOCP`` tree into ``model``: every
+    layout has the same parameters under the same names (``Embed_0``,
+    ``SimpleInteractionBlock_l/{Dense_i, TwoLayerLinear_{0,1},
+    EdgeGraphConv_{0,1}, GraphNorm_0}``, the readout's ``Dense_i``). Every
+    entry must be used and every parameter of ``model`` set."""
+    t = _Tree(params)
+    t.put(model.embed.weight, t.take("Embed_0/embedding"))
+    for l, blk in enumerate(model.blocks):
+        pre = f"SimpleInteractionBlock_{l}/"
+        _denses(t, pre, blk.flax_denses())
+        for c, (tll, conv) in enumerate(((blk.tll1, blk.conv1),
+                                         (blk.tll2, blk.conv2))):
+            _tll(t, f"{pre}TwoLayerLinear_{c}/", tll)
+            _denses(t, f"{pre}EdgeGraphConv_{c}/", conv.flax_denses())
+        for name in ("alpha", "gamma", "beta"):
+            t.put(getattr(blk.norm, name), t.take(f"{pre}GraphNorm_0/{name}"))
+    _denses(t, "", model.flax_denses())
+    return t.finish(model)
+
+
+@torch.no_grad()
+def pronet_from_flax(params: Dict[str, np.ndarray], model: ProNet) -> ProNet:
+    """Copy a flax ``ProNet`` tree into ``model`` (any level and layout):
+    ``Embed_0`` (``aminoacid``) or the input ``Dense_0``,
+    ``ProNetInteraction_b/{Dense_i, TwoLayerLinear_{0,1,2},
+    EdgeGraphConv_{0,1,2}}``, the readout's ``Dense_i``. Every entry must
+    be used and every parameter of ``model`` set."""
+    t = _Tree(params)
+    if model.level == "aminoacid":
+        t.put(model.embed.weight, t.take("Embed_0/embedding"))
+    for b, blk in enumerate(model.blocks):
+        pre = f"ProNetInteraction_{b}/"
+        _denses(t, pre, blk.flax_denses())
+        for c, (tll, conv) in enumerate(zip(blk.tlls, blk.convs)):
+            _tll(t, f"{pre}TwoLayerLinear_{c}/", tll)
+            _denses(t, f"{pre}EdgeGraphConv_{c}/", conv.flax_denses())
+    _denses(t, "", model.flax_denses())
     return t.finish(model)

@@ -1,10 +1,16 @@
-from .synthetic import (morse_energy, synthetic_molecules,
-                        synthetic_morse_molecules)
+from .qm9 import QM93D
+from .md17 import MD17
+from .synthetic import (morse_energy, synthetic_crystals,
+                        synthetic_molecules, synthetic_morse_molecules)
 from .loader import (BucketedDenseMoleculeLoader, BucketedMoleculeLoader,
                      DenseMoleculeLoader, MoleculeLoader,
                      PackedDenseMoleculeLoader)
+from .proteins import (ECdataset, FOLDdataset, ProteinLoader,
+                       synthetic_proteins)
 
-__all__ = ["synthetic_molecules", "synthetic_morse_molecules",
-           "morse_energy", "MoleculeLoader", "DenseMoleculeLoader",
+__all__ = ["QM93D", "MD17", "synthetic_molecules",
+           "synthetic_morse_molecules", "morse_energy", "synthetic_crystals",
+           "MoleculeLoader", "DenseMoleculeLoader",
            "PackedDenseMoleculeLoader", "BucketedDenseMoleculeLoader",
-           "BucketedMoleculeLoader"]
+           "BucketedMoleculeLoader", "ECdataset", "FOLDdataset",
+           "ProteinLoader", "synthetic_proteins"]

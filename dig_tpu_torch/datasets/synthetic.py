@@ -64,3 +64,27 @@ def synthetic_morse_molecules(num: int, seed: int = 0, min_atoms: int = 4,
         mols.append({"z": z, "pos": pos, "y": np.full((12,), e, np.float32),
                      "force": f})
     return mols
+
+
+def synthetic_crystals(num: int, seed: int = 0, min_atoms: int = 4,
+                       max_atoms: int = 12, a_min: float = 9.0,
+                       a_max: float = 12.0):
+    """Random periodic structures for the periodic (OCP-style) path:
+    near-cubic cells with jittered lattice vectors (``cell`` rows), atoms
+    at uniform fractional coordinates, the Morse energy over the
+    open-boundary atoms as a stand-in target."""
+    rng = np.random.default_rng(seed)
+    Z_CHOICES = np.array([1, 6, 8, 13, 14, 26, 29])  # H C O Al Si Fe Cu
+    mols = []
+    for _ in range(num):
+        n = int(rng.integers(min_atoms, max_atoms + 1))
+        lengths = rng.uniform(a_min, a_max, size=3)
+        cell = np.diag(lengths) + rng.normal(scale=0.3, size=(3, 3))
+        frac = rng.uniform(0.0, 1.0, size=(n, 3))
+        pos = (frac @ cell).astype(np.float32)
+        z = rng.choice(Z_CHOICES, size=n).astype(np.int32)
+        e, _ = morse_energy(z, pos)
+        mols.append({"z": z, "pos": pos,
+                     "cell": cell.astype(np.float32),
+                     "y": np.atleast_1d(e).astype(np.float32)})
+    return mols

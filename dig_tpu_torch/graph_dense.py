@@ -2,8 +2,8 @@
 
 Port of ``dig_tpu/graph_dense.py``: every graph occupies ``n_max`` node
 slots, the radius graph is a masked dense adjacency, and several small
-molecules may share a slot (``nodes['mol']``). ``dense_to_flat`` waits for
-the flat ``GraphBatch``.
+molecules may share a slot (``nodes['mol']``). :func:`dense_to_flat` turns
+a dense batch and its adjacency into a flat ``GraphBatch``.
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from .device import DeviceLike, resolve_device
+from .graph import GraphBatch
 
 
 @dataclasses.dataclass
@@ -196,3 +197,38 @@ def radius_adjacency(pos: torch.Tensor, node_mask: torch.Tensor,
     if mol_id is not None:
         pair_mask = pair_mask & (mol_id[:, :, None] == mol_id[:, None, :])
     return dist, pair_mask & (dist < cutoff)
+
+
+def dense_to_flat(batch: DenseGraphBatch, adj: torch.Tensor,
+                  max_edges: int) -> GraphBatch:
+    """A dense batch and its adjacency ``adj [G, n, n]`` (``adj[g, i, j]``:
+    edge j -> i) as a flat ``GraphBatch`` with a static edge cap: a stable
+    sort of the flattened ``~adj`` puts the real edges first in row-major
+    (g, i, j) order and the first ``max_edges`` are kept (more real edges
+    than the cap: the tail is dropped). Padding edges hold node 0."""
+    G, n = batch.z.shape
+    N_pad = G * n
+    dev = batch.z.device
+    flat_adj = adj.reshape(-1)
+    order = torch.argsort((~flat_adj).to(torch.uint8), stable=True)
+    take = order[:max_edges]
+    edge_mask = flat_adj[take]
+    g_idx = take // (n * n)
+    rem = take % (n * n)
+    i_idx, j_idx = rem // n, rem % n
+    receivers = torch.where(edge_mask, g_idx * n + i_idx, 0).to(torch.int32)
+    senders = torch.where(edge_mask, g_idx * n + j_idx, 0).to(torch.int32)
+    n_edge = torch.zeros(G, dtype=torch.int32, device=dev).index_add_(
+        0, g_idx, edge_mask.to(torch.int32))
+    nodes = {"z": batch.z.reshape(N_pad), "pos": batch.pos.reshape(N_pad, 3)}
+    for k, v in batch.nodes.items():
+        nodes[k] = v.reshape((N_pad,) + tuple(v.shape[2:]))
+    return GraphBatch(
+        nodes=nodes, edges={}, senders=senders, receivers=receivers,
+        globals=dict(batch.globals),
+        node_graph=torch.repeat_interleave(
+            torch.arange(G, dtype=torch.int32, device=dev), n),
+        node_mask=batch.node_mask.reshape(N_pad), edge_mask=edge_mask,
+        graph_mask=torch.ones(G, dtype=torch.bool, device=dev),
+        n_node=torch.sum(batch.node_mask, dim=1).to(torch.int32),
+        n_edge=n_edge)

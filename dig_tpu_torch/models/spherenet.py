@@ -54,8 +54,11 @@ the whole batch whatever the call says.
 On the NK layout ``UpdateV`` is a reshape-sum and ``segment_eb`` is
 accepted and ignored, as in the JAX ``UpdateV``. The per-graph readout is
 ``readout_sum`` (the sorted-CSR sum: bitwise repeatable on the card).
-``remat`` raises ``NotImplementedError`` naming its ROADMAP item (queue 1
-item 9).
+``remat=True`` recomputes each ``UpdateE`` in the backward pass (a
+non-reentrant ``torch.utils.checkpoint``, as the JAX model's ``nn.remat``)
+instead of keeping its activations: the same values, less memory, one
+more forward of each layer per backward. It survives the force loss's
+double backward; the recomputed forward launches the layer's kernels again.
 
 ``compute_dtype`` (e.g. ``torch.bfloat16``) casts where the JAX model
 casts: the distance embedding, the bases and the linears run in it;
@@ -70,6 +73,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device
 from ..graph import GraphBatch
@@ -389,9 +393,6 @@ class _SphericalMPNN(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  device: DeviceLike = None):
         super().__init__()
-        if remat:
-            raise NotImplementedError("remat is not ported (ROADMAP queue 1 "
-                                      "item 9)")
         if compute_dtype not in (None, torch.float32, torch.bfloat16):
             raise ValueError(f"compute_dtype must be None, float32 or "
                              f"bfloat16, got {compute_dtype}")
@@ -406,6 +407,7 @@ class _SphericalMPNN(nn.Module):
         self.pallas_basis_grads = pallas_basis_grads
         self.pallas_fuse_basis = pallas_fuse_basis
         self.pallas_slot = pallas_slot
+        self.remat = remat
         dt = None if compute_dtype == torch.float32 else compute_dtype
         self.dist_emb = DistEmb(num_radial, cutoff, envelope_exponent)
         self.init_block = InitBlock(hidden_channels, num_radial, dt, gen)
@@ -542,7 +544,11 @@ class _SphericalMPNN(nn.Module):
         v = self.update_vs[0](e2, trip, N)
         u = readout_sum(v, g.node_graph, G, g.node_mask)
         for ue, uv in zip(self.update_es, self.update_vs[1:]):
-            e1, e2 = ue(e1, rbf0, sbf, tbf, trip, branch, geom)
+            if self.remat:
+                e1, e2 = checkpoint(ue, e1, rbf0, sbf, tbf, trip, branch,
+                                    geom, use_reentrant=False)
+            else:
+                e1, e2 = ue(e1, rbf0, sbf, tbf, trip, branch, geom)
             v = uv(e2, trip, N)
             u = u + readout_sum(v, g.node_graph, G, g.node_mask)
         return u

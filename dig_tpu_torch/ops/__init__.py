@@ -1,5 +1,6 @@
-"""Graph ops: segment sums, radius graphs, triplet tables and geometry,
-bases, and the fused kernels (cfconv, the triplet product, the packed-basis
+"""Graph ops: segment reductions, gather / scatter helpers, radius graphs
+(periodic ones too), triplet tables and geometry, bases, and the fused
+kernels (cfconv, the triplet product, the packed-basis
 and slot triplet kernels, the sorted-CSR segment sum). Mirrors
 ``dig_tpu.ops``: every name of its ``__all__`` that the port has, plus the
 port's kernels. Importing it builds nothing: each kernel is built on its
@@ -10,7 +11,11 @@ from .cfconv import MASK_DIST, cfconv_fused, cfconv_reference
 from .radius import (knn_graph_flat, radius_blocked_dropped,
                      radius_graph_flat, radius_graph_nk,
                      radius_graph_nk_blocked, radius_overflow)
-from .segment import segment_sum, segment_sum_sorted
+from .pbc import pbc_overflow, radius_graph_pbc_flat
+from .scatter import coalesce_mean, gather, scatter_sum_edges
+from .segment import (segment_argmin, segment_max, segment_mean, segment_min,
+                      segment_normalize, segment_softmax, segment_sum,
+                      segment_sum_sorted, spmm_bidir_csr)
 from .triplet_product import fused_angle_product, fused_triplet_product
 from .triplet_pt import basis_pt, fused_triplet_pt, pt_rows
 from .triplets import (build_triplets, build_triplets_nk, nk_edge_distances,
@@ -18,12 +23,16 @@ from .triplets import (build_triplets, build_triplets_nk, nk_edge_distances,
                        triplet_kj_distances)
 
 __all__ = [
-    "segment_sum", "segment_sum_sorted",
+    "segment_sum", "segment_sum_sorted", "segment_mean", "segment_max",
+    "segment_min", "segment_softmax", "segment_normalize", "segment_argmin",
+    "spmm_bidir_csr",
+    "gather", "scatter_sum_edges", "coalesce_mean",
     "radius_graph_flat", "knn_graph_flat", "radius_overflow",
     "radius_graph_nk", "radius_graph_nk_blocked", "radius_blocked_dropped",
     "build_triplets", "build_triplets_nk", "nk_edge_distances",
     "nk_gather_nodes", "triplet_geometry",
     "torsion_angles", "triplet_kj_distances",
+    "radius_graph_pbc_flat", "pbc_overflow",
     "fused_angle_product", "fused_triplet_product",
     "fused_triplet_pt", "basis_pt", "pt_rows",
     "cosine_cutoff", "gaussian_rbf", "MASK_DIST", "cfconv_fused",

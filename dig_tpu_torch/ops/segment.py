@@ -1,6 +1,6 @@
-"""Segment reductions. Port of ``segment_sum``, ``segment_sum_sorted`` and
-``_apply_mask`` of ``dig_tpu/ops/segment.py``, with the port's repeatable
-readout and row gather.
+"""Segment reductions. Port of ``dig_tpu/ops/segment.py`` (all but
+``spmm_bidir_sell``, which waits for ``ops/sell.py``), with the port's
+repeatable readout and row gather.
 
 Static output sizes; an optional ``mask`` over the data rows makes
 masked rows contribute the identity. Indices must be in range (padding
@@ -15,7 +15,16 @@ every derivative order: ``segment_sum_sorted`` (the flat edge->node sum
 with ``segment_eb > 0``), :func:`readout_sum` (the per-graph readout) and
 :func:`gather_rows` (row gathers whose adjoint is such a sum). The NK
 layout aggregates edges by a reshape-sum
-(``ops.triplets.edges_to_nodes_nk``).
+(``ops.triplets.edges_to_nodes_nk``). :func:`spmm_bidir_csr` runs both of
+its directions through the same kernel.
+
+The other reductions (mean, max, min, softmax, normalize, argmin) are
+plain PyTorch (``index_add_`` and ``scatter_reduce``), as the JAX ones are
+plain XLA. They keep the JAX identities: a masked row holds -1e30 (max)
+or +1e30 (min), a segment with no row at all -inf or +inf, and the
+gradient of a max or min is split evenly among the rows that attain it
+(the initial value included when it does), as JAX's scatter extrema split
+theirs.
 """
 from __future__ import annotations
 
@@ -23,8 +32,11 @@ from typing import Optional
 
 import torch
 
-from .segment_csr import (_RowGather, full_window,
+from .segment_csr import (_RowGather, _SegmentSumSortedCSR, full_window,
                           segment_sum_sorted_csr)
+
+_NEG_INF = -1e30
+_POS_INF = 1e30
 
 
 def _apply_mask(data: torch.Tensor, mask: Optional[torch.Tensor],
@@ -157,3 +169,147 @@ def flat_edges_to_nodes(data: torch.Tensor, receivers: torch.Tensor,
         return segment_sum_sorted(data, receivers, num_nodes, mask=edge_mask,
                                   max_edges_per_block=segment_eb)
     return segment_sum(data, receivers, num_nodes, mask=edge_mask)
+
+
+def _count(segment_ids: torch.Tensor, num_segments: int,
+           mask: Optional[torch.Tensor], dtype) -> torch.Tensor:
+    ones = torch.ones(segment_ids.shape[0], dtype=dtype,
+                      device=segment_ids.device)
+    if mask is not None:
+        ones = torch.where(mask, ones, 0.0)
+    return segment_sum(ones, segment_ids, num_segments)
+
+
+def _per_row(t: torch.Tensor, ndim: int) -> torch.Tensor:
+    return t.reshape(t.shape + (1,) * (ndim - t.ndim))
+
+
+def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor,
+                 num_segments: int,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean of each segment's (unmasked) rows; 0 for an empty segment."""
+    s = segment_sum(data, segment_ids, num_segments, mask)
+    cnt = torch.clamp(_count(segment_ids, num_segments, mask, data.dtype),
+                      min=1.0)
+    return s / _per_row(cnt, s.ndim)
+
+
+def _segment_extremum(data, segment_ids, num_segments, mask, fill, reduce):
+    data = _apply_mask(data, mask, fill)
+    init = -torch.inf if reduce == "amax" else torch.inf
+    out = torch.full((num_segments,) + tuple(data.shape[1:]), init,
+                     dtype=data.dtype, device=data.device)
+    idx = _per_row(segment_ids.long(), data.ndim).expand_as(data)
+    return out.scatter_reduce(0, idx, data, reduce, include_self=True)
+
+
+def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-segment maximum; masked rows count as -1e30, an empty segment is
+    -inf."""
+    return _segment_extremum(data, segment_ids, num_segments, mask,
+                             _NEG_INF, "amax")
+
+
+def segment_min(data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-segment minimum; masked rows count as +1e30, an empty segment is
+    +inf."""
+    return _segment_extremum(data, segment_ids, num_segments, mask,
+                             _POS_INF, "amin")
+
+
+def segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor,
+                    num_segments: int,
+                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Numerically stable softmax within segments: the segment's max (0 for
+    a segment with no unmasked row) is subtracted, masked rows get 0, the
+    denominator is floored at 1e-16."""
+    mx = segment_max(logits, segment_ids, num_segments, mask)
+    mx = torch.where(mx <= _NEG_INF / 2, 0.0, mx)
+    ids = segment_ids.long()
+    ex = torch.exp(logits - mx[ids])
+    if mask is not None:
+        ex = torch.where(_per_row(mask, ex.ndim), ex, 0.0)
+    denom = torch.clamp(segment_sum(ex, segment_ids, num_segments),
+                        min=1e-16)
+    return ex / denom[ids]
+
+
+def segment_normalize(data: torch.Tensor, segment_ids: torch.Tensor,
+                      num_segments: int,
+                      mask: Optional[torch.Tensor] = None,
+                      eps: float = 1e-16) -> torch.Tensor:
+    """Each row divided by its segment's sum (plus ``eps``)."""
+    s = segment_sum(data, segment_ids, num_segments, mask)
+    return data / (s[segment_ids.long()] + eps)
+
+
+def segment_argmin(data: torch.Tensor, segment_ids: torch.Tensor,
+                   num_segments: int,
+                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """int32 index of the first row at each segment's minimum (masked rows
+    count as +1e30); 0 for an empty segment."""
+    d = _apply_mask(data, mask, _POS_INF)
+    ids = segment_ids.long()
+    m = segment_min(d, segment_ids, num_segments)
+    E = data.shape[0]
+    ar = torch.arange(E, device=data.device)
+    idx = torch.where(d <= m[ids], ar, E)
+    out = torch.full((num_segments,), E, dtype=torch.long,
+                     device=data.device)
+    out = out.scatter_reduce(0, ids, idx, "amin", include_self=True)
+    return torch.where(out >= E, 0, out).to(torch.int32)
+
+
+class _SpmmBidirCSR(torch.autograd.Function):
+    """``out[r] = sum_e coef[e] * h[senders[e]]`` over the receiver-sorted
+    CSR, float32 summed, in ``h``'s dtype. Adjoint: the cotangent rows
+    ``ct[recv] * coef`` (zeros on padding), permuted into sender order by
+    ``rev_perm`` and summed over the sender CSR: the same kernel, no
+    scatter. ``coef`` is a constant (no gradient)."""
+
+    @staticmethod
+    def forward(ctx, h, coef, senders, recv_ids, rowptr, rev_perm,
+                send_ids_sorted, rowptr_rev, num_rows, eb, block_rows):
+        ctx.save_for_backward(coef, recv_ids, rev_perm, send_ids_sorted,
+                              rowptr_rev)
+        ctx.meta = (num_rows, eb, block_rows)
+        msg = h[senders.long()] * coef[:, None]
+        return _SegmentSumSortedCSR.apply(msg, recv_ids, rowptr, num_rows,
+                                          block_rows, eb).to(h.dtype)
+
+    @staticmethod
+    def backward(ctx, ct):
+        coef, recv_ids, rev_perm, send_ids_sorted, rowptr_rev = \
+            ctx.saved_tensors
+        num_rows, eb, block_rows = ctx.meta
+        recv = recv_ids.long()
+        d_msg = ct[torch.clamp(recv, min=0)] * coef[:, None].to(ct.dtype)
+        d_msg = torch.where((recv >= 0)[:, None], d_msg, 0)
+        d_h = _SegmentSumSortedCSR.apply(d_msg[rev_perm.long()],
+                                         send_ids_sorted, rowptr_rev,
+                                         num_rows, block_rows, eb)
+        return (d_h.to(ct.dtype),) + (None,) * 10
+
+
+def spmm_bidir_csr(h: torch.Tensor, coef: torch.Tensor,
+                   senders: torch.Tensor, recv_ids: torch.Tensor,
+                   rowptr: torch.Tensor, rev_perm: torch.Tensor,
+                   send_ids_sorted: torch.Tensor, rowptr_rev: torch.Tensor,
+                   num_rows: int, max_edges_per_block: int = 1024,
+                   block_rows: int = 32) -> torch.Tensor:
+    """Normalized-adjacency SpMM through the sorted-CSR sum in both
+    directions: ``out[r] = sum_e coef[e] * h[senders[e]]``, the edges
+    receiver-sorted (``recv_ids`` -1 on padding, ``rowptr [num_rows +
+    1]``). The caller gives the reverse tables: ``rev_perm`` sorts the
+    edges by sender (padding last), ``send_ids_sorted = senders[rev_perm]``
+    (-1 on padding), ``rowptr_rev`` the sender row pointer. ``coef`` is a
+    constant (GCN degree norms): no gradient reaches it. On a CUDA tensor
+    both directions launch the kernel or raise (``max_edges_per_block`` as
+    in :func:`segment_sum_sorted`)."""
+    return _SpmmBidirCSR.apply(h, coef.detach(), senders, recv_ids, rowptr,
+                               rev_perm, send_ids_sorted, rowptr_rev,
+                               num_rows, max_edges_per_block, block_rows)

@@ -221,6 +221,15 @@ def nk_gather_nodes(x: torch.Tensor, trip: Triplets) -> torch.Tensor:
                             trip.in_mask).reshape(N * K, -1)
 
 
+def nk_gather(x: torch.Tensor, nbr: torch.Tensor, rev: torch.Tensor,
+              in_mask: torch.Tensor) -> torch.Tensor:
+    """:func:`nk_gather_nodes` for callers holding an ``NKGraph``
+    (``nbr=nbr_idx``, ``rev=rev_edge``, ``in_mask=nbr_mask``): ``x [N, C]
+    -> [N*K, C]``."""
+    N, K = nbr.shape
+    return _NbrGather.apply(x, nbr, rev, in_mask).reshape(N * K, -1)
+
+
 def _expand_raw(x, nbr):
     N, K = nbr.shape
     return x.reshape(N, K, x.shape[-1])[nbr.long()].reshape(N * K * K, -1)

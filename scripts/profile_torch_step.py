@@ -1,6 +1,6 @@
 """Where the time of one of the port's train steps goes, on one card.
 
-    python scripts/profile_torch_step.py [schnet_dense|spherenet|spherenet_force|schnet_force|spherenet_flat|spherenet_nk_force|dimenetpp_nk|spherenet_pt_force] [--root DIR]
+    python scripts/profile_torch_step.py [schnet_dense|spherenet|spherenet_force|schnet_force|spherenet_flat|spherenet_nk_force|dimenetpp_nk|spherenet_pt_force|comenet_force|comenet_ocp_force|pronet] [--root DIR]
 
 ``--root`` names the checkout whose ``dig_tpu_torch`` runs (default: this
 one), e.g. the parent unpacked with ``git archive``, so that two versions
@@ -29,7 +29,12 @@ batches of 96, Adam(5e-4), p = 100); ``dimenetpp_nk`` runs main path
 batches, fused_angle_product without basis gradients, energy through
 make_step_fns, Adam(5e-4)); ``spherenet_pt_force`` runs main path 6a (the same model, batches and step with ``pallas_fuse_basis``: the
 packed basis table built once per forward and fused_triplet_pt in every
-layer).
+layer); ``comenet_force``, ``comenet_ocp_force`` and ``pronet`` run main
+paths 8a-8c (ComENet 4 x 256 energy+force on the NK-blocked table, K = 28,
+32 molecules in slots of 29; ComENet-OCP at the same widths, cutoff 6, on
+8 synthetic crystals of 20-80 atoms, max_edges from pbc_overflow; ProNet
+all-atom 4 x 128, K = 32, 16 proteins of 64-192 residues in slots of 192,
+energy; all f32, Adam(5e-4), p = 100).
 Traces a few steady
 steps with torch.profiler and prints the
 step's host time, the device's busy and idle share, device time by
@@ -185,6 +190,56 @@ def spherenet_flat(dev, steps):
     return step, batches
 
 
+def comenet_force(dev, steps):
+    from dig_tpu_torch.datasets import MoleculeLoader, synthetic_molecules
+    from dig_tpu_torch.models import ComENet
+    from dig_tpu_torch.train import make_step_fns
+
+    mols = synthetic_molecules(32 * steps, seed=0, min_atoms=12,
+                               max_atoms=29, box=6.0, with_forces=True)
+    mols = [dict(m, y=m["y"][:1]) for m in mols]
+    batches = list(MoleculeLoader(mols, 32, slot_size=29, device=dev))
+    model = ComENet(nk_degree=28, block_size=29,
+                    generator=torch.Generator().manual_seed(0), device=dev)
+    opt = torch.optim.Adam(model.parameters(), lr=5e-4)
+    step, _ = make_step_fns(model, opt, energy_and_force=True, p=100.0)
+    return step, batches
+
+
+def comenet_ocp_force(dev, steps):
+    from dig_tpu_torch.datasets import (MoleculeLoader, morse_energy,
+                                        synthetic_crystals)
+    from dig_tpu_torch.models import ComENetOCP
+    from dig_tpu_torch.ops.pbc import pbc_overflow
+    from dig_tpu_torch.train import make_step_fns
+
+    cr = synthetic_crystals(8 * steps, seed=0, min_atoms=20, max_atoms=80)
+    cr = [dict(c, force=morse_energy(c["z"], c["pos"])[1]) for c in cr]
+    batches = list(MoleculeLoader(cr, 8, n_node_pad=640, device=dev))
+    edges = max(int(pbc_overflow(b.nodes["pos"], b.globals["cell"],
+                                 b.node_graph, b.node_mask, 6.0, 0))
+                for b in batches)
+    model = ComENetOCP(cutoff=6.0, max_edges=-(-edges // 1024) * 1024,
+                       generator=torch.Generator().manual_seed(0), device=dev)
+    opt = torch.optim.Adam(model.parameters(), lr=5e-4)
+    step, _ = make_step_fns(model, opt, energy_and_force=True, p=100.0)
+    return step, batches
+
+
+def pronet(dev, steps):
+    from dig_tpu_torch.datasets import ProteinLoader, synthetic_proteins
+    from dig_tpu_torch.models import ProNet
+    from dig_tpu_torch.train import make_step_fns
+
+    prots = synthetic_proteins(16 * steps, min_res=64, max_res=192, seed=0)
+    batches = list(ProteinLoader(prots, 16, slot_size=192, device=dev))
+    model = ProNet(level="allatom", nk_degree=32, block_size=192,
+                   generator=torch.Generator().manual_seed(0), device=dev)
+    opt = torch.optim.Adam(model.parameters(), lr=5e-4)
+    step, _ = make_step_fns(model, opt, loss="l1")
+    return step, batches
+
+
 def segment_report(calls, kernels, steps, busy_ms):
     """Device ms a step of each segment-sum kernel by call shape, from the
     calls chip_smoke.SegmentCalls noted."""
@@ -280,7 +335,9 @@ def main():
              "spherenet_flat": spherenet_flat,
              "spherenet_nk_force": spherenet_nk_force,
              "dimenetpp_nk": dimenetpp_nk,
-             "spherenet_pt_force": spherenet_pt_force}
+             "spherenet_pt_force": spherenet_pt_force,
+             "comenet_force": comenet_force,
+             "comenet_ocp_force": comenet_ocp_force, "pronet": pronet}
     if which not in paths:
         sys.exit(f"unknown path {which!r}; one of {sorted(paths)}")
     if not torch.cuda.is_available():

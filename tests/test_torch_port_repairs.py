@@ -5,8 +5,8 @@
   basis_grads=True)``), so JAX's positional call form means the same in
   both packages (float32, 1e-5 of the largest value: sums in another
   order);
-* the package namespaces mirror the JAX package's, less a named list of
-  names still to port;
+* the package namespaces mirror the JAX package's (the top level, ``ops``
+  and ``models``), less a named list of names still to port, now empty;
 * the per-graph readout and the row gathers are sums a card repeats bit
   for bit: ``readout_sum`` builds its row pointer from the running maximum
   of the masked graph ids, so a slot-aligned batch with padding rows
@@ -21,8 +21,10 @@ import pytest
 import torch
 
 import dig_tpu
+import dig_tpu.models
 import dig_tpu.ops
 import dig_tpu_torch
+import dig_tpu_torch.models
 import dig_tpu_torch.ops
 from dig_tpu.ops.pallas_triplet import fused_angle_product as j_angle
 from dig_tpu.ops.pallas_triplet import fused_triplet_product as j_product
@@ -33,19 +35,17 @@ from dig_tpu_torch.ops.segment_csr import csr_block_overflow, full_window
 from dig_tpu_torch.ops.triplet_product import (fused_angle_product,
                                                fused_triplet_product)
 
-# JAX names the port has not ported yet (ROADMAP queue 1 items 1 and 7,
-# and the periodic radius graph of queue 1 item 10; every TPU kernel is
-# ported); the port's own names beside the reference's
-TO_PORT = {"dig_tpu": {"Config"},
-           "dig_tpu.ops": {"segment_mean", "segment_max", "segment_min",
-                           "segment_softmax", "segment_normalize",
-                           "segment_argmin", "spmm_bidir_csr", "gather",
-                           "scatter_sum_edges", "coalesce_mean",
-                           "radius_graph_pbc_flat", "pbc_overflow"}}
+# JAX names the port has not ported yet (none is left in these three
+# namespaces); the port's own names beside the reference's
+TO_PORT = {"dig_tpu": set(), "dig_tpu.ops": set(), "dig_tpu.models": set()}
 PORT_ONLY = {"dig_tpu": {"resolve_device"},
              "dig_tpu.ops": {"fused_triplet_pt", "basis_pt", "pt_rows",
                              "cosine_cutoff", "gaussian_rbf", "MASK_DIST",
-                             "cfconv_fused", "cfconv_reference"}}
+                             "cfconv_fused", "cfconv_reference"},
+             "dig_tpu.models": set()}
+REF = {"dig_tpu": (dig_tpu, dig_tpu_torch),
+       "dig_tpu.ops": (dig_tpu.ops, dig_tpu_torch.ops),
+       "dig_tpu.models": (dig_tpu.models, dig_tpu_torch.models)}
 
 
 def _rel(a, b):
@@ -83,10 +83,9 @@ def test_product_ops_take_jax_positional_tile_e():
                 assert _rel(a.numpy(), b) < 1e-5, name
 
 
-@pytest.mark.parametrize("name", ["dig_tpu", "dig_tpu.ops"])
+@pytest.mark.parametrize("name", list(REF))
 def test_namespaces_mirror_the_reference(name):
-    ref = {"dig_tpu": dig_tpu, "dig_tpu.ops": dig_tpu.ops}[name]
-    port = {"dig_tpu": dig_tpu_torch, "dig_tpu.ops": dig_tpu_torch.ops}[name]
+    ref, port = REF[name]
     assert TO_PORT[name] <= set(ref.__all__)
     assert set(port.__all__) - PORT_ONLY[name] == \
         set(ref.__all__) - TO_PORT[name]

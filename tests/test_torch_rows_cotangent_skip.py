@@ -19,8 +19,10 @@ SphereNet at 2 layers x 32 (int_emb 16, n = 2, k = 4, K = 8) on seeded
 synthetic molecules of 5-10 atoms: the packed basis on the unblocked
 [N, K] table (``fused_triplet_pt``), the triplet product on the same table
 without the packed basis (``fused_triplet_product``), the slot layout (``fused_triplet_slot``,
-also bucketed through ``make_bucketed_step_fns``), and two layers of the
-geometry op on the slot layout's geometry with seeded leaves.
+also bucketed through ``make_bucketed_step_fns``, and with ``remat=True``:
+each layer's ``UpdateE`` recomputed in the backward, which must not change
+what the engine is asked), and two layers of the geometry op on the slot
+layout's geometry with seeded leaves.
 """
 import inspect
 
@@ -45,6 +47,9 @@ FLAGS = {"pt": dict(pallas_triplet=True, pallas_fuse_basis=True),
          "slot": dict(pallas_triplet=True, pallas_fuse_basis=True,
                       pallas_slot=True, block_size=A),
          "geom": dict(block_size=A)}
+# the slot model with remat: the recomputed UpdateE must not change what
+# _grad_wanted decides
+FLAGS["slot_remat"] = dict(FLAGS["slot"], remat=True)
 # the plain first-order VJP each op's backward runs on the CPU, and the
 # keyword of its rows' flag
 PLAIN = {"pt": (tpt, "fused_triplet_pt_bwd_ref", "need_dpt"),
@@ -52,6 +57,7 @@ PLAIN = {"pt": (tpt, "fused_triplet_pt_bwd_ref", "need_dpt"),
                      "basis_grads"),
          "slot": (ts, "fused_triplet_slot_bwd_reference", "need_dpt"),
          "geom": (ts, "fused_triplet_slot_geom_bwd_reference", "need_dgeo")}
+PLAIN["slot_remat"] = PLAIN["slot"]
 
 
 def _mols(n=8, seed=5):
@@ -159,7 +165,8 @@ def _step_grads(op, bucketed=False):
 
 @pytest.mark.parametrize("op,bucketed", [("pt", False), ("product", False),
                                          ("slot", False), ("slot", True),
-                                         ("geom", False)])
+                                         ("geom", False),
+                                         ("slot_remat", False)])
 def test_force_step_outer_pass_skips_rows_cotangent(monkeypatch, op,
                                                     bucketed):
     flags = _count_flags(monkeypatch, op)
@@ -180,7 +187,8 @@ def test_force_step_outer_pass_skips_rows_cotangent(monkeypatch, op,
             assert torch.equal(g, g_on)
 
 
-@pytest.mark.parametrize("op", ["pt", "product", "slot", "geom"])
+@pytest.mark.parametrize("op", ["pt", "product", "slot", "geom",
+                                "slot_remat"])
 def test_position_gradient_still_gets_rows_cotangent(monkeypatch, op):
     batch = _batch(op)
     model = _model(op, batch)

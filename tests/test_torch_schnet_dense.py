@@ -140,3 +140,36 @@ def test_bucketed_train_step_matches_bench_step():
         e_j = np.asarray(jm.apply(params, jb[k]))
         np.testing.assert_allclose(out[k]["y_pred"].numpy(), e_j, rtol=2e-4,
                                    atol=2e-4)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True],
+                         ids=["einsum", "cfconv"])
+def test_forces_match_jax(use_kernel):
+    """The counterpart of ``tests/test_dense_parity.py``'s
+    ``test_dense_force_gradients``: F = -d(sum E)/dpos of a transplanted
+    model (cutoff 3, 2 layers x 16, 8 Gaussians) against the JAX einsum
+    model's, through the port's einsum branch and through the cfconv op
+    with ``pos_grads=True`` (its plain version here; the backward with the
+    distance gradient), 1e-5 of the largest force (float32 sums in another
+    order); finite, and 0 on the padding slots."""
+    mols = synthetic_molecules(4, seed=1, max_atoms=10)
+    jb = next(iter(JDenseLoader(mols, 4, n_max=10)))
+    tb = next(iter(TDenseLoader(mols, 4, n_max=10, device="cpu")))
+    kw = dict(cutoff=3.0, num_layers=2, hidden_channels=16, num_filters=16,
+              num_gaussians=8)
+    jm = JSchNetDense(**kw)
+    params = jax.jit(jm.init)(jax.random.PRNGKey(0), jb)
+    f_j = -np.asarray(jax.grad(lambda pos: jnp.sum(
+        jm.apply(params, jb.replace(pos=pos))))(jb.pos))
+    tm = schnet_dense_from_flax(
+        _flat(params["params"]),
+        TSchNetDense(use_kernel=use_kernel, pos_grads=True, device="cpu",
+                     **kw))
+    pos = tb.pos.clone().requires_grad_()
+    (g,) = torch.autograd.grad(tm(tb.replace(pos=pos)).sum(), pos)
+    f_t = -g.numpy()
+    nm = tb.node_mask.numpy()
+    assert np.all(np.isfinite(f_t)) and np.abs(f_t).max() > 0
+    assert np.all(f_t[~nm] == 0.0)
+    np.testing.assert_allclose(f_t, f_j, rtol=0,
+                               atol=1e-5 * np.abs(f_j).max())

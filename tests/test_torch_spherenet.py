@@ -170,8 +170,14 @@ def test_energy_and_force_raises(basis_grads, err):
     (dict(remat=True), "remat"),
 ])
 def test_unported_layouts_raise(flags, item):
-    with pytest.raises(NotImplementedError, match=item):
-        TSphereNet(device="cpu", **{**KW, **flags})
+    """The options that raised while they were not ported (``remat``) now
+    build, and the model gives the energies of the same model without the
+    option, bit for bit; the parity with the JAX remat model is in
+    tests/test_torch_spherenet_nk.py."""
+    model = TSphereNet(device="cpu", **{**KW, **flags})
+    assert getattr(model, item)
+    _, (tb, _) = _batches()
+    assert torch.equal(model(tb), TSphereNet(device="cpu", **KW)(tb))
 
 
 def test_fused_basis_without_pallas_slot_matches_jax():

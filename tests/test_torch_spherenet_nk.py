@@ -10,6 +10,9 @@ versions. Inputs: ``MoleculeLoader`` batches of seeded synthetic molecules
 (5-10 atoms in a 6 A box, forces included; flat batches for the unblocked
 table, slots of 10 atoms for the blocked one), 2 layers x 32, K = 8.
 
+``remat=True`` (``UpdateE`` recomputed in the backward) is held against
+the JAX remat model in energy and in force training.
+
 Tolerances: float32 energies 1e-4 (sums in another order through 2
 layers); Adam steps 1e-3 for loss and parameters and for the gradients
 relative to each parameter's largest gradient entry (as
@@ -30,8 +33,7 @@ from dig_tpu.datasets import MoleculeLoader as JLoader
 from dig_tpu.datasets import synthetic_molecules
 from dig_tpu.models import DimeNetPP as JDimeNetPP
 from dig_tpu.models import SphereNet as JSphereNet
-from dig_tpu.train import make_step_fns as j_make_step_fns
-from dig_tpu.train.trainer import TrainState, _masked_mean
+from dig_tpu.train.trainer import _masked_mean
 from dig_tpu_torch.convert import spherenet_from_flax
 from dig_tpu_torch.datasets import MoleculeLoader as TLoader
 from dig_tpu_torch.models import DimeNetPP as TDimeNetPP
@@ -110,55 +112,59 @@ def test_branches_share_parameters():
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_trajectory(name, force, steps, basis_grads):
-    """``steps`` Adam steps of the JAX make_step_fns on the unblocked fused
-    model from ``_params(name)``: per step the aux dict, the gradients
-    (the JAX trainer's compute_loss) and the updated parameters (flat flax
-    trees)."""
+def _jax_trajectory(name, force, steps, basis_grads, remat=False):
+    """``steps`` Adam steps (optax) on the unblocked fused model from
+    ``_params(name)``, the loss of the JAX trainer's ``compute_loss``: per
+    step the aux dict, the gradients and the updated parameters (flat flax
+    trees). One jitted value-and-gradient gives all three."""
     JM = MODELS[name][0]
     jbs, _ = _batches("unblocked", seed=5)
-    jm = JM(**KW, **FUSED, pallas_basis_grads=basis_grads)
+    jm = JM(**KW, **FUSED, pallas_basis_grads=basis_grads, remat=remat)
     opt = optax.adam(5e-4)
     params = _params(name)
-    state = TrainState(params=params, opt_state=opt.init(params),
-                       step=jnp.zeros((), jnp.int32))
-    step_j, _ = j_make_step_fns(jm, opt, energy_and_force=force, p=P,
-                                loss="l1", donate=False)
+    opt_state = opt.init(params)
 
     def loss(p, g):
         if not force:
-            return _masked_mean(jnp.abs(jm.apply(p, g) - g.globals["y"]),
-                                g.graph_mask)
+            total = _masked_mean(jnp.abs(jm.apply(p, g) - g.globals["y"]),
+                                 g.graph_mask)
+            return total, {"loss": total}
 
         def esum(pos):
             e = jm.apply(p, g.replace(nodes={**g.nodes, "pos": pos}))
             return jnp.sum(jnp.where(g.graph_mask[:, None], e, 0.0)), e
         (_, e), gpos = jax.value_and_grad(esum, has_aux=True)(g.nodes["pos"])
-        return (_masked_mean(jnp.abs(e - g.globals["y"]), g.graph_mask)
-                + P * _masked_mean(jnp.abs(-gpos - g.nodes["force"]),
-                                   g.node_mask))
-    grad_j = jax.jit(jax.grad(loss))
+        e_loss = _masked_mean(jnp.abs(e - g.globals["y"]), g.graph_mask)
+        f_loss = _masked_mean(jnp.abs(-gpos - g.nodes["force"]), g.node_mask)
+        total = e_loss + P * f_loss
+        return total, {"loss": total, "e_loss": e_loss, "f_loss": f_loss}
+    grad_j = jax.jit(jax.value_and_grad(loss, has_aux=True))
     out = []
     for jb in jbs[:steps]:
-        grads = _flat(grad_j(state.params, jb)["params"])
-        state, aux = step_j(state, jb)
-        out.append(({k: float(v) for k, v in aux.items()}, grads,
-                    _flat(state.params["params"])))
+        (_, aux), grads = grad_j(params, jb)
+        updates, opt_state = opt.update(grads, opt_state, params)
+        params = optax.apply_updates(params, updates)
+        out.append(({k: float(v) for k, v in aux.items()},
+                    _flat(grads["params"]), _flat(params["params"])))
     return out
 
 
-@pytest.mark.parametrize("name, force, basis_grads", [
-    ("SphereNet", True, True), ("DimeNetPP", False, False)],
-    ids=["spherenet_force", "dimenetpp_energy_no_basis_grads"])
-def test_two_adam_steps_match_jax(name, force, basis_grads):
+@pytest.mark.parametrize("name, force, basis_grads, remat, steps", [
+    ("SphereNet", True, True, False, 2), ("DimeNetPP", False, False, False, 2),
+    ("SphereNet", True, True, True, 1)],
+    ids=["spherenet_force", "dimenetpp_energy_no_basis_grads",
+         "spherenet_force_remat"])
+def test_two_adam_steps_match_jax(name, force, basis_grads, remat, steps):
     """SphereNet energy+force (the second-order tower) and DimeNet++
     energy training without basis cotangents, on the unblocked fused
-    model: loss, gradients and parameters of two steps."""
-    traj = _jax_trajectory(name, force, 2, basis_grads)
+    model: loss, gradients and parameters of two steps; and one force step
+    of both packages' ``remat=True`` models (``UpdateE`` recomputed in the
+    backward, the double backward through the recomputation)."""
+    traj = _jax_trajectory(name, force, steps, basis_grads, remat)
     TM = MODELS[name][1]
     _, tbs = _batches("unblocked", seed=5)
     tm = _port(TM, _flat(_params(name)["params"]), **FUSED,
-               pallas_basis_grads=basis_grads)
+               pallas_basis_grads=basis_grads, remat=remat)
     step_t, eval_t = make_step_fns(
         tm, torch.optim.Adam(tm.parameters(), lr=5e-4),
         energy_and_force=force, p=P, loss="l1")
@@ -181,6 +187,36 @@ def test_two_adam_steps_match_jax(name, force, basis_grads):
         out = eval_t(tbs[0])
         assert torch.isfinite(out["force_pred"]).all()
         assert float(out["force_pred"].abs().max()) > 0
+
+
+def test_remat_matches_jax_remat():
+    """The counterpart of ``tests/test_nk_blocked.py``'s
+    ``test_spherenet_remat_matches``: the sum of the energies and its
+    parameter gradients of the blocked, unfused ``remat=True`` model
+    against the JAX remat model's (1e-4; gradients relative to each
+    parameter's largest entry), and the port's remat model against its
+    model without remat, bit for bit (the recomputation runs the same
+    operations on the same inputs)."""
+    (jb, _), (tb, _) = _batches("blocked")
+    lay = LAYOUTS["blocked"]
+    params = _params("SphereNet")
+    jm = JSphereNet(**KW, **lay, remat=True)
+    loss_j, grads_j = jax.jit(jax.value_and_grad(lambda p: jnp.sum(
+        jnp.where(jb.graph_mask[:, None], jm.apply(p, jb), 0.0))))(params)
+    res = []
+    for remat in (True, False):
+        tm = _port(TSphereNet, _flat(params["params"]), **lay, remat=remat)
+        loss = torch.where(tb.graph_mask[:, None], tm(tb), 0.0).sum()
+        loss.backward()
+        res.append((loss.detach(), [p.grad for p in tm.parameters()]))
+    _close(float(res[0][0]), float(loss_j), 1e-4)
+    g_ref = _port(TSphereNet, _flat(grads_j["params"]), **lay)
+    for p_grad, g in zip(res[0][1], g_ref.parameters()):
+        g = g.detach().numpy()
+        np.testing.assert_allclose(p_grad.numpy(), g, rtol=1e-4,
+                                   atol=1e-4 * max(np.abs(g).max(), 1e-6))
+    assert torch.equal(res[0][0], res[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(res[0][1], res[1][1]))
 
 
 def test_force_training_refused_without_basis_grads():
