@@ -201,6 +201,26 @@ Phases, each printed as it runs; any failure exits non-zero:
      (within 1e-5), the gradients (f32 within 1e-5 per parameter; bf16
      against f32 by direction and size) and the parameters after Adam
      (whether the bits are the same is printed), and both peak memories
+ 35. main path 9: bench.py bench_lsgraph's partitioned GCN training
+     (synthetic_large_graph(60000, avg_deg=16), generated once for paths
+     7b and 9 and timed; 16 parts through the native partitioner, built
+     with g++ at first use, which must be available; SubgraphLoader with
+     4 parts a subgraph; ScalableGNN("gcn", N, 16, 128, 8, 3) with
+     segment_eb sized from both row pointers, block_rows 64; cross-entropy
+     over the in-batch rows, Adam(1e-3), the histories threaded through):
+     the first step held against the same step on the CPU (loss 1e-5,
+     every gradient and pushed history 1e-4); one warm and three timed
+     epochs through spmm_bidir_csr (the sorted-CSR kernel forward by
+     receiver and in the adjoint by sender: 24 launches an epoch, counted),
+     ms an epoch, edges/s over the real edges, peak memory; the same
+     epochs with SELL forced (no launch), timed beside them
+ 36. the segment sum at every call shape of a path-9 epoch (each
+     subgraph's forward and adjoint tables, F = 128 and 8): kernel against
+     plain (1e-5), then times as phase 15's, with the epoch's sums in all
+ 37. lsgraph at examples/lsgraph/run_graphfm.py's size (2,000 nodes, 16
+     parts): mini_inference on the card (the kernel) against the CPU, and
+     one GraphFM-IB step (sizes [3, 3], batch 64, hidden 64) against the
+     CPU's
 The card's name and power limit (nvidia-smi), then the kernels as JSON,
 are the two lines before the last; the last line is
 {"ok": true, "device": {...}}.
@@ -423,9 +443,29 @@ REMAT_TOL = 1e-5
 # value on the bench graph (at most 38 edges a row), SEG_TOL (phase 12's bound)
 # on the skewed CSR, whose largest row sums 5,000 edges.
 CS_N, CS_F, CS_TOL = 60000, 128, 1e-6
+_T0 = time.perf_counter()
+# Path 9: bench.py bench_lsgraph's partitioned GCN training epoch
+# (:372-443): the same graph in 16 parts through the native partitioner, 4
+# parts a subgraph (4 subgraphs of about 15,000 in-batch nodes and 240,000
+# edges), ScalableGNN("gcn", N, 16, 128, 8, 3) with segment_eb sized from
+# both row pointers (block_rows 64), cross-entropy over the in-batch rows,
+# Adam(1e-3), the histories threaded through; the features and labels in
+# the loader's node order (bench.py gathers them by the permuted ids from
+# the original order). The first step on the card against the same step
+# on the CPU (every op its plain version; f32, TF32 off): the loss within
+# 1e-5 (relative), every gradient and pushed history within 1e-4 (relative
+# norm): the same values summed in other orders through three layers,
+# forward and adjoint.
+LS_PARTS, LS_BATCH_PARTS, LS_BR = 16, 4, 64
+LS_HIDDEN, LS_OUT, LS_LAYERS, LS_LR, LS_EPOCHS = 128, 8, 3, 1e-3, 3
+LS_STEP_TOL = (1e-5, 1e-4)
+# examples/lsgraph/run_graphfm.py's graph for mini_inference and GraphFM-IB
+LS_SMALL_N = 2000
 
 
 def log(*a):
+    if a and str(a[0]).startswith("== "):       # a phase: the seconds so far
+        a = (f"{a[0]} [{time.perf_counter() - _T0:.0f} s]",) + a[1:]
     print(*a, flush=True)
 
 
@@ -3378,14 +3418,25 @@ def phase_ga_times(torch, ts, inp, splits):
 # Path 7b: the chunked sorted-CSR segment sum and spmm_csr
 # ---------------------------------------------------------------------------
 
-def cs_graph(torch, dev):
-    """bench.py bench_spmm_roofline's graph (:560-571):
-    synthetic_large_graph(60000, seed=0, avg_deg=16), receivers sorted into
-    seg and rowptr, data [E, 128] f32 from default_rng(0); the senders in
-    the same order as spmm_csr's columns."""
-    import numpy as np
+def large_graph():
+    """synthetic_large_graph(60000, seed=0, avg_deg=16), the graph of paths
+    7b and 9 (bench.py bench_spmm_roofline and bench_lsgraph), built once;
+    its generator draws about 960,000 edge ends in a Python loop, timed."""
     from dig_tpu_torch.lsgraph import synthetic_large_graph
+    t = time.perf_counter()
     g = synthetic_large_graph(CS_N, seed=0, avg_deg=16)
+    log(f"  synthetic_large_graph({CS_N}, avg_deg=16): "
+        f"{len(g['senders'])} directed edges in "
+        f"{time.perf_counter() - t:.1f} s (host)")
+    return g
+
+
+def cs_graph(torch, dev, g):
+    """bench.py bench_spmm_roofline's graph (:560-571), ``g`` of
+    large_graph(): receivers sorted into seg and rowptr, data [E, 128] f32
+    from default_rng(0); the senders in the same order as spmm_csr's
+    columns."""
+    import numpy as np
     order = np.argsort(g["receivers"], kind="stable")
     seg = g["receivers"][order].astype(np.int32)
     E = len(seg)
@@ -4028,6 +4079,285 @@ def phase_remat(torch):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Path 9: lsgraph, bench_lsgraph's partitioned GCN training epoch
+# ---------------------------------------------------------------------------
+
+def ls_setup(g):
+    """Path 9's host side, bench.py bench_lsgraph's (:378-400): the graph
+    ``g`` of large_graph() in LS_PARTS parts through the native partitioner
+    (which must be available, so the card path never partitions another
+    way), LS_BATCH_PARTS a batch, segment_eb from both row pointers of every
+    subgraph (block_rows LS_BR); the features and labels in the loader's
+    node order."""
+    import numpy as np
+    from dig_tpu_torch import native
+    from dig_tpu_torch.lsgraph import SubgraphLoader, metis_permute
+    from dig_tpu_torch.ops.segment_csr import csr_window
+    if not native.available():
+        fail("path 9: the native partitioner is not available")
+    s, r, N = g["senders"], g["receivers"], len(g["y"])
+    t = time.perf_counter()
+    perm, ptr, part = metis_permute(s, r, N, LS_PARTS, seed=0)
+    t_part = time.perf_counter() - t
+    t = time.perf_counter()
+    subs = list(SubgraphLoader(s, r, N, ptr, perm,
+                               batch_parts=LS_BATCH_PARTS))
+    t_load = time.perf_counter() - t
+    eb = csr_window([rp for b in subs for rp in (b.rowptr, b.rowptr_rev)],
+                    LS_BR)
+    edges = [int(b.edge_mask.sum()) for b in subs]
+    log(f"  native partition into {LS_PARTS} parts {t_part:.1f} s (edge "
+        f"cut {int((part[s] != part[r]).sum())} of {len(s)}), loader "
+        f"{t_load:.1f} s; segment_eb {eb} (block_rows {LS_BR})")
+    for b, e in zip(subs, edges):
+        deg = np.diff(b.rowptr)
+        log(f"  subgraph: {b.batch_size} in-batch + "
+            f"{int(b.node_mask.sum()) - b.batch_size} halo of "
+            f"{len(b.n_id)} rows, {e} of {len(b.senders)} edges, "
+            f"longest row {int(deg.max())} (senders "
+            f"{int(np.diff(b.rowptr_rev).max())}), "
+            f"{int((deg == 0).sum())} rows of degree 0")
+    return {"N": N, "subs": subs, "eb": eb, "edges": edges,
+            "x": g["x"][perm], "y": g["y"][perm]}
+
+
+def ls_model(torch, dev, N, eb, sell=None):
+    from dig_tpu_torch.lsgraph import ScalableGNN
+    return ScalableGNN("gcn", N, 16, LS_HIDDEN, LS_OUT, LS_LAYERS,
+                       segment_eb=eb, segment_br=LS_BR, sell=sell,
+                       generator=torch.Generator().manual_seed(0), device=dev)
+
+
+def ls_loss(torch, model, hist, x, y, sub):
+    """bench_lsgraph's loss: cross-entropy over the real in-batch rows;
+    returns it and the new histories."""
+    out, new_h = model(hist, x, sub)
+    t, B = sub.tensors(x.device), sub.batch_size
+    ce = torch.nn.functional.cross_entropy(out[:B], y[t.n_id[:B]],
+                                           reduction="none")
+    m = t.node_mask[:B]
+    return torch.where(m, ce, 0.0).sum() / m.sum().clamp(min=1), new_h
+
+
+def ls_train_step(torch, model, x, y):
+    """One subgraph step (loss, backward, Adam) with the histories threaded
+    through the calls; returns the step and its state."""
+    opt = torch.optim.Adam(model.parameters(), lr=LS_LR)
+    state = {"hist": model.histories}
+
+    def step(sub):
+        opt.zero_grad(set_to_none=True)
+        loss, state["hist"] = ls_loss(torch, model, state["hist"], x, y, sub)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+    return step, state
+
+
+def ls_first_step(torch, ls, dev):
+    """Loss, gradients and pushed histories of one step on the first
+    subgraph, on the card (the kernel in both directions) and on the CPU
+    (sell=False: every op its plain version), the same seeded weights and
+    non-zero histories."""
+    res = []
+    for d, sell in ((dev, None), (torch.device("cpu"), False)):
+        m = ls_model(torch, d, ls["N"], ls["eb"], sell)
+        x, y = torch.tensor(ls["x"]).to(d), torch.tensor(ls["y"]).to(d)
+        gen = torch.Generator().manual_seed(3)
+        hist = [type(h)(torch.rand(h.emb.shape, generator=gen).to(d))
+                for h in m.histories]
+        t = time.perf_counter()
+        loss, new_h = ls_loss(torch, m, hist, x, y, ls["subs"][0])
+        loss.backward()
+        res.append((float(loss.detach()),
+                    [p.grad.detach().cpu() for p in m.parameters()],
+                    [h.emb.cpu() for h in new_h],
+                    [n for n, _ in m.named_parameters()],
+                    time.perf_counter() - t))
+        del m
+    (lk, gk, hk, names, _), (lp, gp, hp, _, cpu_s) = res
+    loss_err = abs(lk - lp) / abs(lp)
+    per = sorted(((rel_norm(torch, [a], [b]), n)
+                  for a, b, n in zip(gk, gp, names)), reverse=True)
+    hist_err = max(rel_norm(torch, [a], [b]) for a, b in zip(hk, hp))
+    log(f"  first step, card against CPU: loss {lk:.7f} / {lp:.7f} (rel "
+        f"{loss_err:.3e}, held to {LS_STEP_TOL[0]}); gradients worst "
+        + ", ".join(f"{n} {e:.3e}" for e, n in per[:2])
+        + f"; pushed histories {hist_err:.3e} (each held to "
+        f"{LS_STEP_TOL[1]}); the CPU step took {cpu_s:.1f} s")
+    if not math.isfinite(lk) or loss_err >= LS_STEP_TOL[0]:
+        fail(f"path 9: first-step loss card {lk} vs CPU {lp}")
+    if not per[0][0] < LS_STEP_TOL[1] or not hist_err < LS_STEP_TOL[1]:
+        fail(f"path 9: first step differs from the CPU's: {per[:2]}, "
+             f"histories {hist_err}")
+    return {"loss_rel_err": loss_err, "worst_param": per[0],
+            "hist_rel_err": hist_err}
+
+
+def ls_epochs(torch, sc, step, subs, edges):
+    """One warm epoch, then LS_EPOCHS timed ones (host clock, synchronised);
+    the median epoch's ms, edges/s over the real edges, the segment-sum
+    launches an epoch (the same every epoch) and the losses."""
+    for b in subs:
+        step(b)
+    torch.cuda.synchronize()
+    times, launches, losses = [], [], []
+    for _ in range(LS_EPOCHS):
+        before = sc.launches
+        t = time.perf_counter()
+        total = torch.stack([step(b) for b in subs]).sum()
+        torch.cuda.synchronize()
+        losses.append(float(total))
+        times.append(time.perf_counter() - t)
+        launches.append(sc.launches - before)
+    dt = sorted(times)[len(times) // 2]
+    return {"epoch_ms": dt * 1e3, "epoch_ms_all": [t * 1e3 for t in times],
+            "edges_per_s": sum(edges) / dt, "launches": launches,
+            "losses": losses}
+
+
+def phase_ls_main_path(torch, cf, ts, sc, dev, g):
+    """Path 9: the first step against the CPU's, then the epochs through
+    the kernel (twice LS_LAYERS launches a subgraph step: each layer's
+    forward by receiver and adjoint by sender) and the same epochs with
+    SELL forced (no launch)."""
+    ls = ls_setup(g)
+    first = ls_first_step(torch, ls, dev)
+    torch.cuda.empty_cache()
+    model = ls_model(torch, dev, ls["N"], ls["eb"])
+    x, y = torch.tensor(ls["x"]).to(dev), torch.tensor(ls["y"]).to(dev)
+    step, _ = ls_train_step(torch, model, x, y)
+    reset_all(cf, ts, sc)
+    torch.cuda.reset_peak_memory_stats()
+    res = ls_epochs(torch, sc, step, ls["subs"], ls["edges"])
+    others_idle(cf, ts, "path 9")
+    want = 2 * LS_LAYERS * len(ls["subs"])
+    if any(n != want for n in res["launches"]):
+        fail(f"path 9: segment-sum launches an epoch {res['launches']}, "
+             f"expected {want}")
+    if not all(math.isfinite(v) for v in res["losses"]):
+        fail(f"path 9: non-finite loss {res['losses']}")
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    res["kernel_launches"] = sum(res["launches"])
+    log(f"  kernel route: epoch {res['epoch_ms']:.3f} ms (median of "
+        f"{LS_EPOCHS}: {[round(v, 3) for v in res['epoch_ms_all']]}), "
+        f"{res['epoch_ms'] / len(ls['subs']):.3f} ms a subgraph step, "
+        f"{res['edges_per_s']:.6g} edges/s over {sum(ls['edges'])} real "
+        f"edges; segment-sum launches an epoch {res['launches']}; epoch "
+        f"losses {[round(v, 5) for v in res['losses']]}; peak "
+        f"{res['peak_gib']:.2f} GiB")
+    model.sell = True
+    before = sc.launches
+    res["sell"] = ls_epochs(torch, sc, step, ls["subs"], ls["edges"])
+    model.sell = None
+    if sc.launches != before:
+        fail(f"path 9: the SELL epochs launched {sc.launches - before} "
+             f"segment sums")
+    r = res["sell"]
+    log(f"  SELL forced: epoch {r['epoch_ms']:.3f} ms (median of "
+        f"{LS_EPOCHS}: {[round(v, 3) for v in r['epoch_ms_all']]}), "
+        f"{r['edges_per_s']:.6g} edges/s")
+    res.update(first_step=first, ls=ls)
+    return res
+
+
+def phase_ls_seg(torch, sc, dev, ls):
+    """The segment sum at every call shape of a path-9 epoch: each
+    subgraph's forward (receiver ids, rowptr) and adjoint (sender ids in
+    rev_perm order, rowptr_rev) at F = LS_HIDDEN (layers 1-2) and LS_OUT
+    (layer 3), seeded rows: the kernel against its plain version
+    (SEG_TOL), then timed as phase 15's (seg_time_row). Returns the rows
+    and the largest absolute error."""
+    gen = torch.Generator(device="cpu").manual_seed(9)
+    rows, err = [], 0.0
+    for i, b in enumerate(ls["subs"]):
+        t = b.tensors(dev)
+        for way, seg, rp in (("fwd", t.recv_ids, t.rowptr),
+                             ("adj", t.send_ids_sorted, t.rowptr_rev)):
+            for F in (LS_HIDDEN, LS_OUT):
+                data = torch.randn(len(b.senders), F, generator=gen).to(dev)
+                N = len(b.n_id)
+                got = sc.segment_sum_sorted_csr(data, seg, rp, N, LS_BR,
+                                                ls["eb"])
+                want = sc.segment_sum_sorted_csr_reference(data, seg, rp, N)
+                e = rel_err(got, want)
+                err = max(err, float((got - want).abs().max()))
+                if e >= SEG_TOL:
+                    fail(f"path 9 sum {i} {way} F={F}: rel err {e}")
+                c = {"name": f"9_{way}_sub{i}", "seg": seg, "rowptr": rp,
+                     "N": N, "data": data, "eb": ls["eb"]}
+                r = seg_time_row(torch, sc, c)
+                r.update(path="9", way=way, sub=i, rel_err=e,
+                         per_step=LS_LAYERS - 1 if F == LS_HIDDEN else 1)
+                seg_log_row(r)
+                rows.append(r)
+    return rows, err
+
+
+def phase_ls_small(torch, sc, dev):
+    """examples/lsgraph/run_graphfm.py's size (2,000 nodes, 16 parts):
+    mini_inference of ScalableGCN(64, 2 layers, momentum) on the card
+    (the kernel, segment_eb from the evaluation subgraphs) against the
+    CPU (its default route, SELL), and one GraphFM-IB step (sizes [3, 3],
+    batch 64, hidden 64) on the card against the CPU: loss, gradients and
+    histories."""
+    from dig_tpu_torch.lsgraph import (EvalSubgraphLoader, GraphFMIB,
+                                       NeighborSampledLoader, ScalableGCN,
+                                       metis_permute, synthetic_large_graph)
+    from dig_tpu_torch.ops.segment_csr import csr_window
+    g = synthetic_large_graph(LS_SMALL_N, seed=0)
+    s, r, N = g["senders"], g["receivers"], LS_SMALL_N
+    perm, ptr, _ = metis_permute(s, r, N, 16)
+    ev = EvalSubgraphLoader(s, r, N, ptr, perm)
+    eb = csr_window([rp for b in ev for rp in (b.rowptr, b.rowptr_rev)],
+                    LS_BR)
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        m = ScalableGCN(N, 16, 64, 4, 2, use_momentum=True, segment_eb=eb,
+                        generator=torch.Generator().manual_seed(0), device=d)
+        before = sc.launches
+        outs.append((m.mini_inference(torch.tensor(g["x"][perm]).to(d), ev),
+                     sc.launches - before))
+    e_inf = rel_err(outs[0][0].cpu(), outs[1][0])
+    log(f"  mini_inference (2,000 nodes, 16 parts): card against CPU rel "
+        f"err {e_inf:.2e} (held to {SEG_TOL}); {outs[0][1]} segment-sum "
+        f"launches")
+    if e_inf >= SEG_TOL or outs[0][1] != 2 * 2 * len(ev):
+        fail(f"path 9 mini_inference: rel err {e_inf}, {outs[0][1]} launches")
+    ld = NeighborSampledLoader(s, r, N, g["train_mask"], sizes=[3, 3],
+                               batch_size=64, seed=0)
+    batch = next(iter(ld))
+    res = []
+    for d in (dev, torch.device("cpu")):
+        m = GraphFMIB(N, 16, 64, 4, 2, alpha=0.1,
+                      generator=torch.Generator().manual_seed(1),
+                      device=d).bind(ld)
+        gen = torch.Generator().manual_seed(2)
+        hists = tuple(torch.rand(h.shape, generator=gen).to(d)
+                      for h in m.histories)
+        out, new_h = m(hists, torch.tensor(g["x"]).to(d), batch)
+        y = torch.tensor(g["y"][batch.n_id[:64]]).to(d)
+        loss = torch.nn.functional.nll_loss(out, y)
+        loss.backward()
+        res.append((float(loss.detach()),
+                    [p.grad.cpu() for p in m.parameters()],
+                    [h.cpu() for h in new_h]))
+    (lk, gk, hk), (lp, gp, hp) = res
+    loss_err = abs(lk - lp) / abs(lp)
+    g_err = max(rel_norm(torch, [a], [b]) for a, b in zip(gk, gp))
+    h_err = max(rel_norm(torch, [a], [b]) for a, b in zip(hk, hp))
+    log(f"  GraphFM-IB step (sizes [3, 3], batch 64, hidden 64): card "
+        f"against CPU loss {lk:.7f} / {lp:.7f} (rel {loss_err:.2e}), "
+        f"gradients {g_err:.2e}, histories {h_err:.2e} (held to "
+        f"{LS_STEP_TOL})")
+    if (loss_err >= LS_STEP_TOL[0] or g_err >= LS_STEP_TOL[1]
+            or h_err >= LS_STEP_TOL[1]):
+        fail("path 9: the GraphFM-IB step differs from the CPU's")
+    return {"mini_inference_rel_err": e_inf, "fm_ib": (loss_err, g_err,
+                                                       h_err)}
+
+
 def build_all(_build, builds):
     """Build every CUDA source at once (one nvcc each): ``builds`` maps a
     label to (source name, generated headers or None); the seconds each
@@ -4251,7 +4581,8 @@ def main():
     log("== 27. main path 7b: the chunked sorted-CSR segment sum on "
         "bench_spmm_roofline's graph (N=60000, avg_deg 16, F=128); "
         "spmm_csr; kernel vs plain")
-    cs_g = cs_graph(torch, dev)
+    g60k = large_graph()
+    cs_g = cs_graph(torch, dev, g60k)
     log(f"  E={cs_g['E']} edges, largest in-degree {cs_g['max_degree']}")
     sc.reset_launch_counts()
     cs_errs = phase_cs_path(torch, sc, cs_g, cs_skewed(torch, dev))
@@ -4319,10 +4650,38 @@ def main():
         " and on, each in a fresh process from the same seeded state")
     phase_remat(torch)
     torch.cuda.empty_cache()
+
+    log("== 35. main path 9: lsgraph, bench_lsgraph's partitioned GCN "
+        "training (60,000 nodes, 16 parts, 4 a subgraph, GCN 128 x 3, f32, "
+        "Adam(1e-3)) through the sorted-CSR kernel in both directions; "
+        "then SELL forced")
+    ls_res = phase_ls_main_path(torch, cf, ts, sc, dev, g60k)
+    torch.cuda.empty_cache()
+
+    log("== 36. the segment sum at path 9's shapes: kernel vs plain, times")
+    ls_rows, ls_err = phase_ls_seg(torch, sc, dev, ls_res.pop("ls"))
+    tot = {f: sum(r["per_step"] * r[f] for r in ls_rows)
+           for f in ("ms", "bound_ms", "plain_ms", "library_ms")}
+    log(f"  path 9 epoch, every segment sum ({ls_res['launches'][0]} "
+        f"calls): kernel {tot['ms']:.4f} ms, bound {tot['bound_ms']:.4f} "
+        f"ms, plain {tot['plain_ms']:.4f} ms, library "
+        f"{tot['library_ms']:.4f} ms; largest abs err {ls_err:.3e}")
+    del g60k
+    torch.cuda.empty_cache()
+
+    log("== 37. lsgraph at examples/lsgraph/run_graphfm.py's size: "
+        "mini_inference and a GraphFM-IB step, card against CPU")
+    phase_ls_small(torch, sc, dev)
+    torch.cuda.empty_cache()
     for path, r in new_res.items():
         log(f"  path {path}: step {r['step_ms']:.3f} ms, "
             f"{r['edges_per_s']:.6g} edges/s, peak {r['peak_gib']:.2f} GiB "
             f"({card})")
+    log(f"  path 9: epoch {ls_res['epoch_ms']:.3f} ms, "
+        f"{ls_res['edges_per_s']:.6g} edges/s through the kernel; SELL "
+        f"{ls_res['sell']['epoch_ms']:.3f} ms, "
+        f"{ls_res['sell']['edges_per_s']:.6g} edges/s; peak "
+        f"{ls_res['peak_gib']:.2f} GiB ({card})")
 
     def total(kernel, key):
         return sum(r[key] for r in rows if r["kernel"] == kernel
@@ -4377,7 +4736,8 @@ def main():
         "name": "segment_sum_sorted_csr", "route": "cuda",
         "source": "dig_tpu_torch/csrc/segment_csr.cu",
         "replaces": "dig_tpu/ops/pallas_segment.py:156",
-        "launches": fs_res["launches"], "max_abs_err": seg_err,
+        "launches": fs_res["launches"] + ls_res["kernel_launches"],
+        "max_abs_err": max(seg_err, ls_err),
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     for kind, i in (("fwd", 0), ("bwd", 1), ("bwd2", 2)):
@@ -4449,7 +4809,8 @@ def main():
         "(its calls a step by shape from phase 13, each shape's bare launch "
         "timed in phase 15, f32), device time with the host ahead, as are "
         "plain_ms and library_ms (per shape the faster of index_add_ and "
-        "segment_reduce); launches from path 4a's timed steps)")
+        "segment_reduce); launches from path 4a's timed steps and path 9's "
+        "timed epochs; max_abs_err the larger of phases 12 and 36)")
     log("  (cfconv ms, plain_ms and bound_ms: one call per bucket, summed "
         "over the 3 buckets = one layer of one step; triplet_slot fwd/bwd: "
         "one call = one layer of one energy step (main path 2), no "

@@ -12,6 +12,8 @@ from typing import Dict
 import numpy as np
 import torch
 
+from .lsgraph.fm_ib import GraphFMIB
+from .lsgraph.models import ScalableGNN
 from .models.comenet import ComENet
 from .models.pronet import ProNet
 from .models.schnet import SchNet
@@ -181,4 +183,39 @@ def pronet_from_flax(params: Dict[str, np.ndarray], model: ProNet) -> ProNet:
             _tll(t, f"{pre}TwoLayerLinear_{c}/", tll)
             _denses(t, f"{pre}EdgeGraphConv_{c}/", conv.flax_denses())
     _denses(t, "", model.flax_denses())
+    return t.finish(model)
+
+
+@torch.no_grad()
+def scalable_gnn_from_flax(params: Dict[str, np.ndarray],
+                           model: ScalableGNN) -> ScalableGNN:
+    """Copy a flax ``_ScalableBody`` tree (``ScalableGNN.init``'s) into
+    ``model``'s body, any arch: ``_GCNLayer_i/Dense_0``; ``Dense_0`` (input),
+    ``_GCN2Layer_i/Dense_0``, ``Dense_1`` (readout); ``_PNALayer_i/Dense_0``
+    and the readout ``Dense_0`` (``pna``, ``pna_jk``). Every entry must be
+    used and every parameter of ``model`` set."""
+    t = _Tree(params)
+    body = model.body
+    names = {"gcn": "_GCNLayer", "gcn2": "_GCN2Layer"}.get(body.arch,
+                                                           "_PNALayer")
+    for i, layer in enumerate(body.layers):
+        t.dense(layer.lin, f"{names}_{i}/Dense_0")
+    if body.arch == "gcn2":
+        t.dense(body.lin_in, "Dense_0")
+        t.dense(body.lin_out, "Dense_1")
+    elif body.arch != "gcn":
+        t.dense(body.lin_out, "Dense_0")
+    return t.finish(model)
+
+
+@torch.no_grad()
+def graphfm_ib_from_flax(params: Dict[str, np.ndarray],
+                         model: GraphFMIB) -> GraphFMIB:
+    """Copy a flax GraphFM-IB ``_Net`` tree into ``model``: ``lin_l_{i}``
+    (with bias) and ``lin_r_{i}`` (without). Every entry must be used and
+    every parameter of ``model`` set."""
+    t = _Tree(params)
+    for i in range(model.L):
+        t.dense(model.lin_l[i], f"lin_l_{i}")
+        t.dense(model.lin_r[i], f"lin_r_{i}")
     return t.finish(model)

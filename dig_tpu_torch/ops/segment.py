@@ -1,6 +1,5 @@
-"""Segment reductions. Port of ``dig_tpu/ops/segment.py`` (all but
-``spmm_bidir_sell``, which waits for ``ops/sell.py``), with the port's
-repeatable readout and row gather.
+"""Segment reductions. Port of ``dig_tpu/ops/segment.py``, with the
+port's repeatable readout and row gather.
 
 Static output sizes; an optional ``mask`` over the data rows makes
 masked rows contribute the identity. Indices must be in range (padding
@@ -16,7 +15,9 @@ with ``segment_eb > 0``), :func:`readout_sum` (the per-graph readout) and
 :func:`gather_rows` (row gathers whose adjoint is such a sum). The NK
 layout aggregates edges by a reshape-sum
 (``ops.triplets.edges_to_nodes_nk``). :func:`spmm_bidir_csr` runs both of
-its directions through the same kernel.
+its directions through the same kernel; :func:`spmm_bidir_sell` both of
+its directions through SELL plans (``ops.sell``, plain PyTorch, as the JAX
+one is plain XLA).
 
 The other reductions (mean, max, min, softmax, normalize, argmin) are
 plain PyTorch (``index_add_`` and ``scatter_reduce``), as the JAX ones are
@@ -34,6 +35,7 @@ import torch
 
 from .segment_csr import (_RowGather, _SegmentSumSortedCSR, full_window,
                           segment_sum_sorted_csr)
+from .sell import SellPlan, sell_sum
 
 _NEG_INF = -1e30
 _POS_INF = 1e30
@@ -313,3 +315,83 @@ def spmm_bidir_csr(h: torch.Tensor, coef: torch.Tensor,
     return _SpmmBidirCSR.apply(h, coef.detach(), senders, recv_ids, rowptr,
                                rev_perm, send_ids_sorted, rowptr_rev,
                                num_rows, max_edges_per_block, block_rows)
+
+
+def _check_sell_layout(coef, senders, recv_ids, plan_fwd, rev_perm,
+                       plan_rev) -> None:
+    """Raise unless the edges are what :func:`spmm_bidir_sell` assumes (the
+    JAX function assumes it silently): the first ``plan_fwd.num_edges``
+    edges in the receiver-sorted CSR order of ``plan_fwd`` and the rest
+    padding (``recv_ids`` -1) with zero ``coef``; ``rev_perm`` puts the
+    real edges in the sender-sorted order of ``plan_rev``. One host
+    synchronisation."""
+    n = plan_fwd.num_edges
+    if (plan_rev.num_edges != n or recv_ids.shape[0] < n
+            or rev_perm.shape != recv_ids.shape):
+        raise ValueError(f"spmm_bidir_sell: {recv_ids.shape[0]} edges, plans "
+                         f"of {n} and {plan_rev.num_edges}")
+    recv = recv_ids.long()
+    rows = plan_fwd.row_order[plan_fwd.edge_row_out]
+    send_rows = plan_rev.row_order[plan_rev.edge_row_out]
+    pad = recv < 0
+    ok = torch.stack([
+        (recv[:n] == rows).all(),
+        pad[n:].all(),
+        (torch.where(pad, coef, 0.0) == 0).all(),
+        (senders.long()[rev_perm[:n].long()] == send_rows).all()])
+    if not bool(ok.all()):
+        names = ("real edges in the receiver-sorted order of plan_fwd",
+                 "recv_ids -1 past plan_fwd.num_edges",
+                 "zero coef on padding edges",
+                 "rev_perm into the sender-sorted order of plan_rev")
+        bad = [m for m, v in zip(names, ok.tolist()) if not v]
+        raise ValueError(f"spmm_bidir_sell: the edges break its layout: "
+                         f"{bad}")
+
+
+class _SpmmBidirSell(torch.autograd.Function):
+    """``out[r] = sum_e coef[e] * h[senders[e]]`` through ``plan_fwd``, float32
+    summed, in ``h``'s dtype. Adjoint: the cotangent rows ``ct[recv] * coef``
+    (zeros on padding), permuted into sender order by ``rev_perm`` and
+    summed through ``plan_rev``. ``coef`` is a constant."""
+
+    @staticmethod
+    def forward(ctx, h, coef, senders, recv_ids, plan_fwd, rev_perm,
+                plan_rev):
+        ctx.save_for_backward(coef, recv_ids, rev_perm)
+        ctx.plan_rev = plan_rev
+        msg = h[senders.long()] * coef[:, None]
+        return plan_fwd.unpermute(sell_sum(msg, plan_fwd)).to(h.dtype)
+
+    @staticmethod
+    def backward(ctx, ct):
+        coef, recv_ids, rev_perm = ctx.saved_tensors
+        plan_rev = ctx.plan_rev
+        recv = recv_ids.long()
+        d_msg = ct[torch.clamp(recv, min=0)] * coef[:, None].to(ct.dtype)
+        d_msg = torch.where((recv >= 0)[:, None], d_msg, 0)
+        d_h = plan_rev.unpermute(sell_sum(d_msg[rev_perm.long()], plan_rev))
+        return (d_h.to(ct.dtype),) + (None,) * 6
+
+
+def spmm_bidir_sell(h: torch.Tensor, coef: torch.Tensor,
+                    senders: torch.Tensor, recv_ids: torch.Tensor,
+                    plan_fwd: SellPlan, rev_perm: torch.Tensor,
+                    plan_rev: SellPlan) -> torch.Tensor:
+    """Normalized-adjacency SpMM through SELL plans in both directions:
+    ``out[r] = sum_e coef[e] * h[senders[e]]``.
+
+    The forward aggregates by receiver through ``plan_fwd``
+    (:func:`~dig_tpu_torch.ops.sell.build_sell_plan` of the receiver
+    rowptr); the adjoint wrt ``h`` rides ``plan_rev`` (of the sender
+    rowptr) on the ``rev_perm``-sorted cotangent rows: no scatter in
+    either direction. ``coef`` is a constant (GCN degree norms). Plain
+    PyTorch on every device. Raises unless the edges are laid out as it
+    assumes: the real edges first, in receiver-sorted CSR order, the
+    padding edges after them with ``recv_ids`` -1 and zero ``coef``, and
+    ``rev_perm`` sorting the real edges by sender.
+    """
+    coef = coef.detach()
+    _check_sell_layout(coef, senders, recv_ids, plan_fwd, rev_perm, plan_rev)
+    return _SpmmBidirSell.apply(h, coef, senders, recv_ids, plan_fwd,
+                                rev_perm, plan_rev)

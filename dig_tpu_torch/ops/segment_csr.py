@@ -85,6 +85,21 @@ def full_window(num_edges: int) -> int:
     return num_edges + 127
 
 
+def csr_window(rowptrs, block_rows: int) -> int:
+    """A ``max_edges_per_block`` sized from the data, as ``bench.py``
+    ``bench_lsgraph`` sizes it: the most edges any block of ``block_rows``
+    rows holds over the row pointers ``rowptrs`` (numpy), plus 128 of
+    alignment slack, rounded up to 128; :func:`csr_block_overflow` is then
+    0 for each."""
+    need = 0
+    for rp in rowptrs:
+        rp = np.asarray(rp, np.int64)
+        starts = np.arange(0, rp.shape[0] - 1, block_rows)
+        ends = np.minimum(starts + block_rows, rp.shape[0] - 1)
+        need = max(need, int((rp[ends] - rp[starts]).max(initial=0)))
+    return _round_up(need + 128, 128)
+
+
 def csr_block_overflow(rowptr: torch.Tensor, num_rows: int, block_rows: int,
                        max_edges_per_block: int) -> torch.Tensor:
     """Edges the TPU kernel would drop (0 == safe): per block of

@@ -1,6 +1,6 @@
 """Where the time of one of the port's train steps goes, on one card.
 
-    python scripts/profile_torch_step.py [schnet_dense|spherenet|spherenet_force|schnet_force|spherenet_flat|spherenet_nk_force|dimenetpp_nk|spherenet_pt_force|comenet_force|comenet_ocp_force|pronet] [--root DIR]
+    python scripts/profile_torch_step.py [schnet_dense|spherenet|spherenet_force|schnet_force|spherenet_flat|spherenet_nk_force|dimenetpp_nk|spherenet_pt_force|comenet_force|comenet_ocp_force|pronet|lsgraph] [--root DIR]
 
 ``--root`` names the checkout whose ``dig_tpu_torch`` runs (default: this
 one), e.g. the parent unpacked with ``git archive``, so that two versions
@@ -34,7 +34,11 @@ paths 8a-8c (ComENet 4 x 256 energy+force on the NK-blocked table, K = 28,
 32 molecules in slots of 29; ComENet-OCP at the same widths, cutoff 6, on
 8 synthetic crystals of 20-80 atoms, max_edges from pbc_overflow; ProNet
 all-atom 4 x 128, K = 32, 16 proteins of 64-192 residues in slots of 192,
-energy; all f32, Adam(5e-4), p = 100).
+energy; all f32, Adam(5e-4), p = 100); ``lsgraph`` runs main path 9
+(bench.py bench_lsgraph: ScalableGNN GCN 128 x 3 on
+synthetic_large_graph(60000, avg_deg=16) in 16 parts, 4 a subgraph, f32,
+Adam(1e-3); a step is one subgraph's, the sorted-CSR kernel forward and in
+the adjoint in every layer).
 Traces a few steady
 steps with torch.profiler and prints the
 step's host time, the device's busy and idle share, device time by
@@ -240,6 +244,31 @@ def pronet(dev, steps):
     return step, batches
 
 
+def _chip_smoke():
+    """chip_smoke.py of this checkout, as a module (its path helpers)."""
+    spec = importlib.util.spec_from_file_location("smoke", os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def lsgraph(dev, steps):
+    """Path 9: one subgraph step of bench_lsgraph's epoch a step, the
+    subgraphs in turn, the histories threaded through."""
+    smoke = _chip_smoke()
+    ls = smoke.ls_setup(smoke.large_graph())
+    model = smoke.ls_model(torch, dev, ls["N"], ls["eb"])
+    x = torch.tensor(ls["x"]).to(dev)
+    y = torch.tensor(ls["y"]).to(dev)
+    step, _ = smoke.ls_train_step(torch, model, x, y)
+    subs = ls["subs"]
+    for b in subs:              # the index tables on the card before timing
+        b.tensors(dev)
+    return step, [subs[i % len(subs)] for i in range(steps)]
+
+
 def segment_report(calls, kernels, steps, busy_ms):
     """Device ms a step of each segment-sum kernel by call shape, from the
     calls chip_smoke.SegmentCalls noted."""
@@ -337,7 +366,8 @@ def main():
              "dimenetpp_nk": dimenetpp_nk,
              "spherenet_pt_force": spherenet_pt_force,
              "comenet_force": comenet_force,
-             "comenet_ocp_force": comenet_ocp_force, "pronet": pronet}
+             "comenet_ocp_force": comenet_ocp_force, "pronet": pronet,
+             "lsgraph": lsgraph}
     if which not in paths:
         sys.exit(f"unknown path {which!r}; one of {sorted(paths)}")
     if not torch.cuda.is_available():
@@ -347,11 +377,7 @@ def main():
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     from dig_tpu_torch.ops import segment_csr as sc
-    spec = importlib.util.spec_from_file_location("smoke", os.path.join(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        "chip_smoke.py"))
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+    smoke = _chip_smoke()
     train_step, batches = paths[which](dev, WARMUP + TRACED)
     for b in batches[:WARMUP]:
         train_step(b)
