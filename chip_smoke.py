@@ -221,6 +221,26 @@ Phases, each printed as it runs; any failure exits non-zero:
      parts): mini_inference on the card (the kernel) against the CPU, and
      one GraphFM-IB step (sizes [3, 3], batch 64, hidden 64) against the
      CPU's
+ 38. main path 10: bench.py bench_ssl's GraphCL pretraining
+     (synthetic_graph_dataset(512, seed=0), shuffled batches of 64: 1,024
+     node rows, 11,008 edge slots; Encoder GIN 128 x 3, GraphCL dim 384,
+     dropN / maskN at 0.2, f32, Adam(1e-3)): the first step on the card
+     against the same step on the CPU (the same weights and batch, the
+     views' noise drawn on the host; loss 1e-5, every gradient 1e-4) and
+     repeated bit for bit; GraphCL.train for 1 + 3 epochs (graphs/s of the
+     median warm epoch, the segment-sum launches a step: the neighbour
+     sums by receiver, their adjoints by sender and the readouts, the
+     same every epoch; peak memory); _embed_dataset on the card against
+     the CPU's (1e-5)
+ 39. the segment sum at path 10's call shapes (the first batch's tables):
+     kernel against plain, then times as phase 15's, with the calls a step
+ 40. path 10b, at the JAX tests' widths: one step each of InfoGraph (JSE
+     local-global, GIN), MVGRL (GCN and DenseDiffusionEncoder over the PPR
+     diffusion), GRACE and pGRACE (node level, one full batch) and
+     GraphSemisupervised's finetune step (ResGCN), card against CPU
+ 41. path 11: auggraph: the first step of SMixup, RunnerRewardGen,
+     RunnerGenerator and RunnerAugCls against the CPU's, then SMixup.train
+     (1 epoch) and evaluate, and each runner for one epoch on the card
 The card's name and power limit (nvidia-smi), then the kernels as JSON,
 are the two lines before the last; the last line is
 {"ok": true, "device": {...}}.
@@ -461,6 +481,23 @@ LS_HIDDEN, LS_OUT, LS_LAYERS, LS_LR, LS_EPOCHS = 128, 8, 3, 1e-3, 3
 LS_STEP_TOL = (1e-5, 1e-4)
 # examples/lsgraph/run_graphfm.py's graph for mini_inference and GraphFM-IB
 LS_SMALL_N = 2000
+# Path 10: bench.py bench_ssl (:611-641), uncut: GraphCL (dim 384, dropN and
+# maskN views at 0.2, NT-Xent) over a 3-layer GIN of width 128 on
+# synthetic_graph_dataset(512, seed=0) in shuffled batches of 64 (1,024
+# node rows, 11,008 edge slots), Adam(1e-3), 1 warm + 3 timed epochs. The
+# first step on the card against the same step on the CPU (the same
+# weights, batch and view noise drawn on the host; f32, TF32 off): the
+# loss within 1e-5 (relative), every gradient within 1e-4 (relative
+# norm): the same values summed in other orders through three layers,
+# forward and adjoint. _embed_dataset on the card against the CPU's 1e-5.
+SSL_N, SSL_BS, SSL_EPOCHS, SSL_LR = 512, 64, 3, 1e-3
+SSL_ENC = dict(feat_dim=8, hidden_dim=128, n_layers=3, gnn="gin")
+SSL_GCL = dict(dim=384, aug_1="dropN", aug_2="maskN", aug_ratio=0.2)
+SSL_STEP_TOL, SSL_EMBED_TOL = (1e-5, 1e-4), 1e-5
+# Paths 10b and 11 at the JAX tests' widths (tests/test_ssl.py,
+# tests/test_modules_misc.py): hidden 16; auggraph on 32 graphs in batches
+# of 8; the same first-step bounds
+AUG_N, AUG_BS, AUG_H = 32, 8, 16
 
 
 def log(*a):
@@ -3602,39 +3639,76 @@ def phase_cs_times(torch, sc, g):
 # Paths 8a-8c: ComENet, ComENet-OCP, ProNet; SchNetDense forces; remat
 # ---------------------------------------------------------------------------
 
-def first_step_vs_cpu(torch, what, make_model, make_step, batch_dev,
-                      batch_cpu, tol=CPU_STEP_TOL):
-    """Loss and gradients of one step at lr 0, on the card (the kernels)
-    and on the CPU (every op its plain version), the same seeded weights
-    and batch: the loss within tol[0] and every parameter's gradient
-    within tol[1] (||a-b|| / ||b||). Returns the errors and the CPU
-    step's seconds."""
-    res = []
-    for b in (batch_dev, batch_cpu):
-        m = make_model(b.node_mask.device)
-        step = make_step(m, torch.optim.SGD(m.parameters(), lr=0.0))
+def first_step_vs_cpu(torch, what, build, dev, tol=CPU_STEP_TOL,
+                      repeat=False):
+    """One step's loss and gradients on the card (the kernels) and on the
+    CPU (every op its plain version), from the same seeded weights, batch
+    and noise. ``build(d) -> (loss, modules)`` makes the step on device
+    ``d``; a loss that still carries its graph is backpropagated here (a
+    trainer's step runs its own backward and returns it detached). The
+    loss within tol[0] (relative), every parameter's gradient within
+    tol[1] (||a-b|| / ||b||; zeros where none reaches it). ``repeat``: the
+    card step again must give the same bits. Returns the errors."""
+    def grads(d):
         t = time.perf_counter()
-        loss = float(step(b)["loss"])
-        res.append((loss,
-                    [p.grad.detach().float().cpu() for p in m.parameters()],
-                    [n for n, _ in m.named_parameters()],
-                    time.perf_counter() - t))
-        del m, step
-    (lk, gk, names, _), (lp, gp, _, cpu_s) = res
-    loss_err = abs(lk - lp) / abs(lp)
+        loss, mods = build(d)
+        if loss.requires_grad:
+            loss.backward()
+        ps = _params(torch, mods)
+        return (loss.detach().float().cpu(), [n for n, _ in ps],
+                [torch.zeros(p.shape) if p.grad is None
+                 else p.grad.detach().float().cpu() for _, p in ps],
+                time.perf_counter() - t)
+    runs = [grads(d) for d in [dev] * (2 if repeat else 1)
+            + [torch.device("cpu")]]
+    (lk, names, gk, card_s), (lp, _, gp, cpu_s) = runs[0], runs[-1]
+    loss_err = float((lk - lp).abs() / lp.abs().clamp_min(1e-12))
     per = sorted(((rel_norm(torch, [a], [b]), n)
                   for a, b, n in zip(gk, gp, names)), reverse=True)
-    log(f"  first step, card against CPU: loss {lk:.7f} / {lp:.7f} (rel "
-        f"{loss_err:.3e}, held to {tol[0]}); gradient rel-norm err "
-        f"{rel_norm(torch, gk, gp):.3e} over all parameters, worst "
+    same = None
+    if repeat:
+        l2, _, g2, _ = runs[1]
+        same = bool(torch.equal(lk, l2)) and all(
+            torch.equal(a, b) for a, b in zip(gk, g2))
+    log(f"  {what}: first step, card against CPU: loss {float(lk):.7f} / "
+        f"{float(lp):.7f} (rel {loss_err:.3e}, held to {tol[0]}); "
+        f"{len(names)} gradients, rel-norm err {rel_norm(torch, gk, gp):.3e}"
+        " over all, worst "
         + ", ".join(f"{n} {e:.3e}" for e, n in per[:3])
-        + f" (each held to {tol[1]}); the CPU step took {cpu_s:.1f} s")
-    if not math.isfinite(lk) or loss_err >= tol[0]:
-        fail(f"{what}: first-step loss card {lk} vs CPU {lp}")
+        + f" (each held to {tol[1]})"
+        + ("" if same is None else
+           f"; the card step repeated: the same bits {same}")
+        + f"; card {card_s:.2f} s, CPU {cpu_s:.1f} s")
+    if not math.isfinite(float(lk)) or loss_err >= tol[0]:
+        fail(f"{what}: first-step loss card {float(lk)} vs CPU {float(lp)}")
     if not per[0][0] < tol[1]:
-        fail(f"{what}: first-step gradients differ from the CPU's: "
-             f"{per[:3]}")
-    return {"loss_rel_err": loss_err, "worst_param": per[0]}
+        fail(f"{what}: first-step gradients differ from the CPU's: {per[:3]}")
+    if same is False:
+        fail(f"{what}: the repeated card step gave other bits")
+    return {"loss_rel_err": loss_err, "worst_param": per[0],
+            "same_bits": same}
+
+
+def trainer_build(torch, make_model, make_step, batch_dev, batch_cpu):
+    """``first_step_vs_cpu``'s build for a ``make_step_fns`` trainer: its
+    train step at lr 0 on the batch of the device."""
+    def build(d):
+        m = make_model(d)
+        b = batch_cpu if d.type == "cpu" else batch_dev
+        return make_step(m, torch.optim.SGD(m.parameters(), lr=0.0))(b)[
+            "loss"], [m]
+    return build
+
+
+def _params(torch, mods):
+    """(name, parameter) of the modules, each parameter once."""
+    seen, out = set(), []
+    for i, m in enumerate(mods):
+        for n, p in m.named_parameters():
+            if id(p) not in seen:
+                seen.add(id(p))
+                out.append((f"{i}.{n}", p))
+    return out
 
 
 def uncapped_pairs(torch, b, cutoff):
@@ -3723,9 +3797,9 @@ def phase_ce_main_path(torch, cf, ts, sc, dev):
         fail("path 8a: the NK table drops pairs")
     make_step = lambda m, opt: make_step_fns(m, opt, energy_and_force=True,
                                              p=CE_P, loss="l1")[0]
-    first = first_step_vs_cpu(torch, "path 8a",
-                              lambda d: ce_model(torch, d), make_step,
-                              batches[0], next(iter(loader("cpu"))))
+    first = first_step_vs_cpu(torch, "path 8a", trainer_build(
+        torch, lambda d: ce_model(torch, d), make_step, batches[0],
+        next(iter(loader("cpu")))), dev)
     model = ce_model(torch, dev)
     opt = torch.optim.Adam(model.parameters(), lr=CE_LR)
     train_step, eval_step = make_step_fns(model, opt, energy_and_force=True,
@@ -3799,8 +3873,8 @@ def phase_ocp_main_path(torch, cf, ts, sc, dev):
         **kw, generator=torch.Generator().manual_seed(0), device=d)
     make_step = lambda m, opt: make_step_fns(m, opt, energy_and_force=True,
                                              p=CE_P, loss="l1")[0]
-    first = first_step_vs_cpu(torch, "path 8b", make_model, make_step, b0,
-                              cpu_b)
+    first = first_step_vs_cpu(torch, "path 8b", trainer_build(
+        torch, make_model, make_step, b0, cpu_b), dev)
     model = make_model(dev)
     opt = torch.optim.Adam(model.parameters(), lr=CE_LR)
     train_step, eval_step = make_step_fns(model, opt, energy_and_force=True,
@@ -3853,8 +3927,8 @@ def phase_pn_main_path(torch, cf, ts, sc, dev):
     make_model = lambda d: ProNet(
         **PN_KW, generator=torch.Generator().manual_seed(0), device=d)
     make_step = lambda m, opt: make_step_fns(m, opt, loss="l1")[0]
-    first = first_step_vs_cpu(torch, "path 8c", make_model, make_step,
-                              batches[0], cpu_b)
+    first = first_step_vs_cpu(torch, "path 8c", trainer_build(
+        torch, make_model, make_step, batches[0], cpu_b), dev)
     model = make_model(dev)
     opt = torch.optim.Adam(model.parameters(), lr=PN_LR)
     train_step, eval_step = make_step_fns(model, opt, loss="l1")
@@ -3977,11 +4051,13 @@ def phase_dense_forces(torch, cf, dev, batches):
             "launches_bwd": LAYERS * len(batches)}
 
 
-def remat_step(flag, prec, out):
+def remat_step(flag, prec, out, trace=None):
     """``chip_smoke.py --remat-step 0|1 bf16|f32 OUT``: one path-3 force
     step on its 29-atom bucket from the seeded state, ``remat`` off or on;
     the loss, the gradients, the parameters after Adam and the step's peak
-    device memory go to OUT."""
+    device memory go to OUT. ``trace(torch, model)``: an object set on the
+    model before the step, whose ``result()`` goes to OUT too
+    (scripts/remat_bits.py)."""
     import torch
     from dig_tpu_torch.models import SphereNet
     from dig_tpu_torch.train import make_bucketed_step_fns
@@ -3994,6 +4070,7 @@ def remat_step(flag, prec, out):
     batch = {29: sf_batches(torch, dev, 1)[0][29]}
     step = make_bucketed_step_fns(
         model, torch.optim.Adam(model.parameters(), lr=5e-4), p=SF_P)[0]
+    tracer = trace(torch, model) if trace is not None else None
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -4007,6 +4084,7 @@ def remat_step(flag, prec, out):
                 "launches": (ts.launches_fwd, ts.launches_bwd,
                              ts.launches_bwd_dpt, ts.launches_bwd2,
                              sc.launches),
+                "trace": tracer.result() if tracer is not None else None,
                 "grad": {n: p.grad.detach().float().cpu() for n, p in named},
                 "param": {n: p.detach().cpu() for n, p in named}}, out)
 
@@ -4358,6 +4436,315 @@ def phase_ls_small(torch, sc, dev):
                                                        h_err)}
 
 
+# ---------------------------------------------------------------------------
+# Paths 10, 10b and 11: ssl (GraphCL, InfoGraph, MVGRL, GRACE, pGRACE, the
+# finetune step) and auggraph (SMixup, the GraphAug runners)
+# ---------------------------------------------------------------------------
+
+def ssl_data(n, seed=0):
+    from dig_tpu_torch.datasets import synthetic_graph_dataset
+    return synthetic_graph_dataset(n, seed=seed)
+
+
+def ssl_batch_shape(torch, g):
+    """The batch's pads, real nodes and edges, and largest in-degree."""
+    rcv = g.receivers.long()[g.edge_mask]
+    deg = torch.bincount(rcv, minlength=g.num_nodes)
+    return {"N": g.num_nodes, "E": g.num_edges,
+            "nodes": int(g.node_mask.sum()), "edges": int(g.edge_mask.sum()),
+            "max_in_degree": int(deg.max())}
+
+
+def contrastive_build(torch, m, make_encoders, g, noise):
+    """``first_step_vs_cpu``'s build for a Contrastive method: the encoders of
+    ``make_encoders(d)`` (one per view), the heads from the engine's seed,
+    the batch and the host-drawn noise."""
+    def build(d):
+        encs = make_encoders(d)
+        heads = m.make_heads(torch.Generator().manual_seed(m.seed), d)
+        loss = m.loss_of(encs, heads, g.to(d), noise)
+        return loss, encs + [h for h in heads.values() if h is not None]
+    return build
+
+
+def phase_ssl_main_path(torch, cf, ts, sc, dev):
+    """Path 10: bench.py bench_ssl (:611-641) on the card. The first step
+    against the CPU's (the same weights, batch and host-drawn view noise)
+    and repeated; then ``GraphCL.train`` for 1 + SSL_EPOCHS epochs with
+    per_epoch_out: graphs/s of each warm epoch (host clock; each epoch
+    ends reading its loss), the segment-sum launches a step, the peak
+    memory; ``_embed_dataset`` on the card against the CPU's."""
+    from dig_tpu_torch.datasets import GraphClsLoader
+    from dig_tpu_torch.ssl import Encoder, GraphCL
+    from dig_tpu_torch.ssl.evaluation import _embed_dataset
+    data = ssl_data(SSL_N)
+    g0 = next(iter(GraphClsLoader(data, SSL_BS, shuffle=True)))
+    shapes = [ssl_batch_shape(torch, b)
+              for b in GraphClsLoader(data, SSL_BS, shuffle=True)]
+    log(f"  batches of {SSL_BS}: {shapes[0]['N']} node rows, "
+        f"{shapes[0]['E']} edge slots; real nodes "
+        f"{min(s['nodes'] for s in shapes)}-{max(s['nodes'] for s in shapes)}"
+        f", real edges {min(s['edges'] for s in shapes)}-"
+        f"{max(s['edges'] for s in shapes)}, in-degree at most "
+        f"{max(s['max_in_degree'] for s in shapes)}")
+    m = GraphCL(**SSL_GCL)
+    noise = m.draw(torch.Generator().manual_seed(1), g0)
+    make = lambda d: [Encoder(**SSL_ENC, generator=torch.Generator()
+                              .manual_seed(0), device=d)] * 2
+    first = first_step_vs_cpu(torch, "path 10 GraphCL",
+                              contrastive_build(torch, m, make, g0, noise),
+                              dev, SSL_STEP_TOL, repeat=True)
+    torch.cuda.empty_cache()
+
+    enc = make(dev)[0]
+    loader = GraphClsLoader(data, SSL_BS, shuffle=True)
+    steps = len(loader)
+    reset_all(cf, ts, sc)
+    torch.cuda.reset_peak_memory_stats()
+    it = m.train(enc, loader, lr=SSL_LR, epochs=1 + SSL_EPOCHS,
+                 per_epoch_out=True, device=dev)
+    with SegmentCalls(sc) as calls:
+        t = time.perf_counter()
+        warm = next(it)
+        warm_s = time.perf_counter() - t
+        times, launches, losses = [], [], [warm["loss"]]
+        for _ in range(SSL_EPOCHS):
+            before = sc.launches
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = next(it)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            launches.append(sc.launches - before)
+            losses.append(res["loss"])
+    others_idle(cf, ts, "path 10")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    graphs = (SSL_N // SSL_BS) * SSL_BS
+    dt = sorted(times)[len(times) // 2]
+    per_step = [n / steps for n in launches]
+    log(f"  GraphCL.train: warm epoch {warm_s:.3f} s; {SSL_EPOCHS} timed "
+        f"epochs {[round(x * 1e3, 3) for x in times]} ms, "
+        f"{[round(graphs / x, 2) for x in times]} graphs/s: "
+        f"{graphs / dt:.6g} graphs/s (median epoch, {graphs} graphs); "
+        f"epoch losses {[round(x, 5) for x in losses]}; segment-sum "
+        f"launches a step {per_step}; peak {peak:.3f} GiB")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"path 10: non-finite loss {losses}")
+    if len(set(launches)) != 1 or launches[0] % steps or launches[0] == 0:
+        fail(f"path 10: segment-sum launches an epoch {launches}")
+    eval_loader = GraphClsLoader(data, SSL_BS)
+    z = _embed_dataset(enc, res["encoder_params"][0], eval_loader, dev)[0]
+    enc_cpu = Encoder(**SSL_ENC, device="cpu")
+    enc_cpu.load_state_dict({k: v.cpu()
+                             for k, v in res["encoder_params"][0].items()})
+    zc = _embed_dataset(enc_cpu, None, eval_loader, "cpu")[0]
+    e_emb = rel_err(torch.from_numpy(z), torch.from_numpy(zc))
+    log(f"  _embed_dataset ({z.shape[0]} graphs x {z.shape[1]}): card "
+        f"against CPU rel err {e_emb:.3e} (held to {SSL_EMBED_TOL})")
+    if e_emb >= SSL_EMBED_TOL or z.shape != (SSL_N, enc.z_dim):
+        fail(f"path 10: _embed_dataset differs from the CPU's: {e_emb}")
+    return {"first_step": first, "graphs_per_s": graphs / dt,
+            "epoch_ms_all": [x * 1e3 for x in times], "losses": losses,
+            "per_step": per_step[0], "launches": sum(launches),
+            "steps": steps * SSL_EPOCHS, "peak_gib": peak, "calls": calls,
+            "embed_rel_err": e_emb}
+
+
+def phase_ssl_seg(torch, sc, res, dev):
+    """The segment sum at path 10's call shapes, on the first batch's
+    tables (its EdgePlan by receiver and by sender, its readout ids) and
+    seeded rows: the kernel against its plain version (SEG_TOL), then
+    timed as phase 15's, each with its calls a step. The calls a step by
+    shape come from the timed epochs: a GraphCL step sums, per view, the
+    neighbours of its three GIN layers by receiver (F = 8, then 128), the
+    adjoints of layers 2 and 3 by sender (the features of layer 1 carry no
+    gradient) and three readouts. Returns the rows and the largest
+    absolute error."""
+    from dig_tpu_torch.datasets import GraphClsLoader
+    from dig_tpu_torch.ssl.encoders import edge_plan
+    g = next(iter(GraphClsLoader(ssl_data(SSL_N), SSL_BS,
+                                 shuffle=True))).to(dev)
+    plan = edge_plan(g)
+    E, N, G = g.num_edges, g.num_nodes, g.num_graphs
+    by = res["calls"].per_step(res["steps"] + res["steps"] // SSL_EPOCHS)
+    H = SSL_ENC["hidden_dim"]
+    want = {(E, 8, N, "float32", True): 2, (E, H, N, "float32", True): 8,
+            (N, H, G, "float32", True): 6}
+    if {k: round(v, 6) for k, v in by.items()} != want:
+        fail(f"path 10: segment sums a step by shape {by}, expected {want}")
+    ids = torch.where(g.node_mask, g.node_graph.long(), -1)
+    rp_g = torch.searchsorted(torch.cummax(ids, 0).values,
+                              torch.arange(G + 1, device=dev), out_int32=True)
+    cases = (("10_fwd_F8", plan.recv_ids, plan.rowptr, N, 8, 2),
+             ("10_fwd_F128", plan.recv_ids, plan.rowptr, N, H, 4),
+             ("10_adj_F128", plan.send_ids_sorted, plan.rowptr_rev, N, H, 4),
+             ("10_readout_F128", ids.to(torch.int32), rp_g, G, H, 6))
+    gen = torch.Generator(device="cpu").manual_seed(10)
+    rows, err = [], 0.0
+    for name, seg, rp, n_rows, F, per_step in cases:
+        data = torch.randn(seg.shape[0], F, generator=gen).to(dev)
+        eb = sc.full_window(seg.shape[0])
+        got = sc.segment_sum_sorted_csr(data, seg, rp, n_rows, 32, eb)
+        ref = sc.segment_sum_sorted_csr_reference(data, seg, rp, n_rows)
+        e = rel_err(got, ref)
+        err = max(err, float((got - ref).abs().max()))
+        if e >= SEG_TOL:
+            fail(f"path 10 sum {name}: rel err {e}")
+        r = seg_time_row(torch, sc, {"name": name, "seg": seg, "rowptr": rp,
+                                     "N": n_rows, "data": data, "eb": eb})
+        r.update(path="10", per_step=per_step, rel_err=e)
+        seg_log_row(r)
+        rows.append(r)
+    return rows, err
+
+
+def phase_ssl_small(torch, sc, dev):
+    """Path 10b: one step each on the card against the CPU, at the JAX
+    tests' widths (tests/test_ssl.py): InfoGraph (JSE local-global, GIN),
+    MVGRL (a GCN and DenseDiffusionEncoder over the PPR diffusion), GRACE
+    and pGRACE (node level, one full batch), and GraphSemisupervised's
+    finetune step (ResGCN, a linear head, on a split made with numpy);
+    then GraphSemisupervised._finetune's loop on the card for two epochs
+    over that split."""
+    from dig_tpu_torch.datasets import GraphClsLoader
+    from dig_tpu_torch.ssl import (GRACE, MVGRL, Encoder, GraphSemisupervised,
+                                   InfoGraph, pGRACE)
+    from dig_tpu_torch.ssl.evaluation import _lecun_normal_linear, finetune_loss
+    data = ssl_data(24, seed=1)
+    g = next(iter(GraphClsLoader(data, 12, shuffle=True)))
+    host = torch.Generator().manual_seed(2)
+    enc = lambda d, **kw: Encoder(8, 16, 2, generator=torch.Generator()
+                                  .manual_seed(0), device=d, **kw)
+    both = dict(node_level=True, graph_level=True)
+    res = {}
+    m = InfoGraph(g_dim=32, n_dim=16)
+    res["InfoGraph"] = first_step_vs_cpu(
+        torch, "InfoGraph", contrastive_build(
+            torch, m, lambda d: [enc(d, gnn="gin", **both)], g,
+            m.draw(host, g)), dev, SSL_STEP_TOL)
+    m = MVGRL(g_dim=32, n_dim=16)
+    res["MVGRL"] = first_step_vs_cpu(torch, "MVGRL", contrastive_build(
+        torch, m, lambda d: [enc(d, gnn="gcn", **both),
+                             m.make_diffusion_encoder(
+                                 8, 16, 2, torch.Generator().manual_seed(1),
+                                 d)], g, m.draw(host, g)), dev,
+        SSL_STEP_TOL)
+    full = next(iter(GraphClsLoader(data, 24)))
+    nodes = dict(node_level=True, graph_level=False)
+    for name, m in (("GRACE", GRACE(16, 0.2, 0.2, 0.2, 0.2)),
+                    ("pGRACE", pGRACE(16, "pr"))):
+        res[name] = first_step_vs_cpu(torch, name, contrastive_build(
+            torch, m, lambda d: [enc(d, gnn="gcn", **nodes)] * 2, full,
+            m.draw(host, full)), dev, SSL_STEP_TOL)
+    import numpy as np
+    idx = np.random.default_rng(3).permutation(len(data))
+    train_set = [data[i] for i in idx[:20]]
+    ft = next(iter(GraphClsLoader(train_set, 20, shuffle=True,
+                                  seed=GraphSemisupervised(data).seed,
+                                  drop_last=False)))
+
+    def finetune(d):
+        e = enc(d, gnn="resgcn")
+        head = _lecun_normal_linear(e.z_dim, 2, torch.Generator()
+                                    .manual_seed(0)).to(d)
+        return finetune_loss(e, head, ft.to(d)), [e, head]
+    res["finetune"] = first_step_vs_cpu(
+        torch, "GraphSemisupervised finetune (ResGCN)", finetune, dev,
+        SSL_STEP_TOL)
+    semi = GraphSemisupervised(data, batch_size=8, device=dev)
+    semi.f_epoch = 2
+    e = enc(dev, gnn="resgcn")
+    acc = semi._finetune(e, {k: v.clone() for k, v in e.state_dict().items()},
+                         train_set, [data[i] for i in idx[20:]], 2)
+    log(f"  GraphSemisupervised._finetune, 2 epochs on the card: test "
+        f"accuracy {acc:.3f}")
+    if not 0.0 <= acc <= 1.0:
+        fail(f"path 10b: finetune accuracy {acc}")
+    res["finetune"]["accuracy"] = acc
+    return res
+
+
+def phase_aug_path(torch, cf, ts, sc, dev):
+    """Path 11: auggraph at the JAX tests' widths (tests/test_modules_misc.py:
+    hidden 16, batches of 8): the first step of SMixup and of each GraphAug
+    runner on the card against the CPU's (the same seeded weights, batches
+    and host-drawn noise), then SMixup.train for one epoch and evaluate,
+    and RunnerRewardGen, RunnerGenerator and RunnerAugCls for one epoch
+    each on the card; the segment-sum launches of those epochs."""
+    from dig_tpu_torch.auggraph import (RunnerAugCls, RunnerGenerator,
+                                        RunnerRewardGen, SMixup)
+    from dig_tpu_torch.auggraph.graphaug import (Augmenter, RewardGMNet, _Cls,
+                                                 _made, classifier_loss,
+                                                 generator_loss, reward_loss)
+    from dig_tpu_torch.datasets import GraphClsLoader
+    data = ssl_data(AUG_N, seed=4)
+    g1 = next(iter(GraphClsLoader(data, AUG_BS, shuffle=True, seed=0)))
+    g2 = next(iter(GraphClsLoader(data, AUG_BS, shuffle=True, seed=99)))
+    gen = lambda s: torch.Generator().manual_seed(s)
+    res = {}
+
+    def smixup(d):
+        sm = SMixup(2, AUG_H)
+        sm.build(8, gen(0), d)
+        return sm.loss(g1.to(d), g2.to(d), 0.3), [sm.matcher, sm.cls]
+    res["SMixup"] = first_step_vs_cpu(torch, "SMixup", smixup, dev,
+                                      SSL_STEP_TOL)
+    y = torch.tensor([1.0, 0.0] * (AUG_BS // 2))
+
+    def reward(d):
+        m = RewardGMNet(8, AUG_H, gen(0), d)
+        return reward_loss(m, g1.to(d), g2.to(d), y.to(d)), [m]
+    res["RewardGMNet"] = first_step_vs_cpu(torch, "RunnerRewardGen step",
+                                           reward, dev, SSL_STEP_TOL)
+    noise = Augmenter(8, AUG_H, 1, device="cpu").draw(gen(5), g1)
+
+    def generator(d):
+        a = Augmenter(8, AUG_H, 1, generator=gen(1), device=d)
+        r = RewardGMNet(8, AUG_H, gen(0), d)
+        return generator_loss(a, r, None, g1.to(d), noise), [a]
+    res["Augmenter"] = first_step_vs_cpu(torch, "RunnerGenerator step",
+                                         generator, dev, SSL_STEP_TOL)
+
+    def aug_cls(d):
+        a = Augmenter(8, AUG_H, 1, generator=gen(1), device=d)
+        m = _made(_Cls(8, AUG_H, 2), gen(2), d)
+        gd = g1.to(d)
+        with torch.no_grad():
+            g_aug, _ = a(gd, noise)
+        return classifier_loss(m, g_aug, gd.globals["y"], gd.graph_mask), [m]
+    res["AugCls"] = first_step_vs_cpu(torch, "RunnerAugCls step", aug_cls,
+                                      dev, SSL_STEP_TOL)
+
+    reset_all(cf, ts, sc)
+    t = time.perf_counter()
+    sm = SMixup(2, AUG_H)
+    sm.train(data, AUG_BS, epochs=1, device=dev)
+    acc_sm = sm.evaluate(data, AUG_BS)
+    rr = RunnerRewardGen(hidden=AUG_H)
+    rparams = rr.train(data, batch_size=AUG_BS, epochs=1, device=dev)
+    rg = RunnerGenerator(hidden=AUG_H, max_steps=1)
+    aparams = rg.train(data, rr.model, rparams, batch_size=AUG_BS, epochs=1,
+                       device=dev)
+    acc_cls = RunnerAugCls(2, AUG_H).train(data, rg.augmenter, aparams,
+                                           batch_size=AUG_BS, epochs=1,
+                                           device=dev)
+    torch.cuda.synchronize()
+    others_idle(cf, ts, "path 11")
+    log(f"  SMixup 1 epoch + evaluate (accuracy {acc_sm:.3f}), "
+        f"RunnerRewardGen, RunnerGenerator, RunnerAugCls 1 epoch each "
+        f"(accuracy {acc_cls:.3f}): {time.perf_counter() - t:.2f} s, "
+        f"{sc.launches} segment-sum launches")
+    for p in (rparams, aparams, *sm.params.values()):
+        if not all(torch.isfinite(v).all() for v in p.values()):
+            fail("path 11: non-finite weights after training")
+    if not (0.0 <= acc_sm <= 1.0 and 0.0 <= acc_cls <= 1.0) or \
+            sc.launches == 0:
+        fail(f"path 11: accuracies {acc_sm}, {acc_cls}; {sc.launches} "
+             f"segment-sum launches")
+    res["launches"] = sc.launches
+    return res
+
+
 def build_all(_build, builds):
     """Build every CUDA source at once (one nvcc each): ``builds`` maps a
     label to (source name, generated headers or None); the seconds each
@@ -4673,6 +5060,37 @@ def main():
         "mini_inference and a GraphFM-IB step, card against CPU")
     phase_ls_small(torch, sc, dev)
     torch.cuda.empty_cache()
+
+    log("== 38. main path 10: ssl, bench_ssl's GraphCL pretraining (GIN 128 "
+        "x 3, dim 384, dropN / maskN, 512 graphs in batches of 64, f32, "
+        "Adam(1e-3)) through the sorted-CSR kernel")
+    ssl_res = phase_ssl_main_path(torch, cf, ts, sc, dev)
+    torch.cuda.empty_cache()
+
+    log("== 39. the segment sum at path 10's shapes: kernel vs plain, times")
+    ssl_rows, ssl_err = phase_ssl_seg(torch, sc, ssl_res, dev)
+    ssl_res.pop("calls")
+    tot = {f: sum(r["per_step"] * r[f] for r in ssl_rows)
+           for f in ("ms", "bound_ms", "plain_ms", "library_ms")}
+    log(f"  path 10 step, every segment sum ({ssl_res['per_step']:g} "
+        f"calls): kernel {tot['ms']:.4f} ms, bound {tot['bound_ms']:.4f} "
+        f"ms, plain {tot['plain_ms']:.4f} ms, library "
+        f"{tot['library_ms']:.4f} ms; largest abs err {ssl_err:.3e}")
+    torch.cuda.empty_cache()
+
+    log("== 40. path 10b: InfoGraph, MVGRL, GRACE, pGRACE and the "
+        "GraphSemisupervised finetune step, one step each, card against CPU")
+    phase_ssl_small(torch, sc, dev)
+    torch.cuda.empty_cache()
+
+    log("== 41. path 11: auggraph (SMixup, RunnerRewardGen, RunnerGenerator, "
+        "RunnerAugCls): first steps against the CPU, one epoch each")
+    phase_aug_path(torch, cf, ts, sc, dev)
+    torch.cuda.empty_cache()
+    log(f"  path 10: {ssl_res['graphs_per_s']:.6g} graphs/s (median of "
+        f"{SSL_EPOCHS} epochs: {[round(v, 3) for v in ssl_res['epoch_ms_all']]}"
+        f" ms), {ssl_res['per_step']:g} segment-sum launches a step, peak "
+        f"{ssl_res['peak_gib']:.3f} GiB ({card})")
     for path, r in new_res.items():
         log(f"  path {path}: step {r['step_ms']:.3f} ms, "
             f"{r['edges_per_s']:.6g} edges/s, peak {r['peak_gib']:.2f} GiB "
@@ -4736,8 +5154,9 @@ def main():
         "name": "segment_sum_sorted_csr", "route": "cuda",
         "source": "dig_tpu_torch/csrc/segment_csr.cu",
         "replaces": "dig_tpu/ops/pallas_segment.py:156",
-        "launches": fs_res["launches"] + ls_res["kernel_launches"],
-        "max_abs_err": max(seg_err, ls_err),
+        "launches": (fs_res["launches"] + ls_res["kernel_launches"]
+                     + ssl_res["launches"]),
+        "max_abs_err": max(seg_err, ls_err, ssl_err),
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     for kind, i in (("fwd", 0), ("bwd", 1), ("bwd2", 2)):
@@ -4809,8 +5228,9 @@ def main():
         "(its calls a step by shape from phase 13, each shape's bare launch "
         "timed in phase 15, f32), device time with the host ahead, as are "
         "plain_ms and library_ms (per shape the faster of index_add_ and "
-        "segment_reduce); launches from path 4a's timed steps and path 9's "
-        "timed epochs; max_abs_err the larger of phases 12 and 36)")
+        "segment_reduce); launches from path 4a's timed steps and the timed "
+        "epochs of paths 9 and 10; max_abs_err the largest of phases 12, 36 "
+        "and 39)")
     log("  (cfconv ms, plain_ms and bound_ms: one call per bucket, summed "
         "over the 3 buckets = one layer of one step; triplet_slot fwd/bwd: "
         "one call = one layer of one energy step (main path 2), no "

@@ -21,7 +21,11 @@ Layering (mirrors ``dig_tpu``):
                 checkpoints, metrics
   threed        evaluator, Run3D / run
   datasets      QM93D, MD17, synthetic molecules and crystals, the flat,
-                bucketed and dense loaders, the protein data and loader
+                bucketed and dense loaders, the protein data and loader,
+                the graph-classification data and loader
+  ssl           contrastive pretraining (GraphCL, InfoGraph, MVGRL,
+                GRACE, pGRACE): encoders, views, objectives, probes
+  auggraph      GraphAug (augmenter, reward model, runners) and SMixup
   config        the configuration tree
   convert       flax parameter trees -> torch modules
 """

@@ -12,6 +12,8 @@ from typing import Dict
 import numpy as np
 import torch
 
+from .auggraph.graphaug import _GIN, Augmenter, RewardGMNet
+from .auggraph.smixup import MatchNet
 from .lsgraph.fm_ib import GraphFMIB
 from .lsgraph.models import ScalableGNN
 from .models.comenet import ComENet
@@ -19,6 +21,9 @@ from .models.pronet import ProNet
 from .models.schnet import SchNet
 from .models.schnet_dense import SchNetDense
 from .models.spherenet import _SphericalMPNN
+from .ssl.contrastive import ProjHead
+from .ssl.encoders import GIN, PReLU, ResGCN
+from .ssl.methods import DenseDiffusionEncoder
 
 
 class _Tree:
@@ -218,4 +223,117 @@ def graphfm_ib_from_flax(params: Dict[str, np.ndarray],
     for i in range(model.L):
         t.dense(model.lin_l[i], f"lin_l_{i}")
         t.dense(model.lin_r[i], f"lin_r_{i}")
+    return t.finish(model)
+
+
+def _gin_convs(t: _Tree, prefix: str, convs) -> None:
+    for i, conv in enumerate(convs):
+        t.dense(conv.lin1, f"{prefix}GINConv_{i}/Dense_0")
+        t.dense(conv.lin2, f"{prefix}GINConv_{i}/Dense_1")
+        if conv.eps is not None:
+            t.put(conv.eps, t.take(f"{prefix}GINConv_{i}/eps"))
+
+
+def _gcn_conv(t: _Tree, name: str, conv) -> None:
+    t.put(conv.lin.weight, t.take(f"{name}/Dense_0/kernel").T)
+    if conv.bias is not None:
+        t.put(conv.bias, t.take(f"{name}/bias"))
+
+
+def _bn(t: _Tree, name: str, bn) -> None:
+    t.put(bn.scale, t.take(f"{name}/scale"))
+    t.put(bn.bias, t.take(f"{name}/bias"))
+
+
+def _ssl_stack(t: _Tree, p: str, enc) -> None:
+    """The GIN / GCN / ResGCN stack ``enc`` from the entries under ``p``."""
+    if isinstance(enc, ResGCN):
+        nf = len(enc.feats)
+        for j, lin in enumerate(list(enc.feats) + list(enc.fcs)):
+            t.dense(lin, f"{p}Dense_{j}")
+        for i, (bn, conv) in enumerate(zip(enc.bns, enc.convs)):
+            _bn(t, f"{p}MaskedBatchNorm_{i}", bn)
+            _gcn_conv(t, f"{p}GCNConv_{i}", conv)
+        return
+    if isinstance(enc, GIN):
+        _gin_convs(t, p, enc.convs)
+    else:
+        for i, conv in enumerate(enc.convs):
+            _gcn_conv(t, f"{p}GCNConv_{i}", conv)
+    if isinstance(enc.act, PReLU):
+        t.put(enc.act.alpha, t.take(f"{p}PReLU_0/alpha"))
+    for i, bn in enumerate(enc.bns or ()):
+        _bn(t, f"{p}MaskedBatchNorm_{i}", bn)
+
+
+@torch.no_grad()
+def ssl_encoder_from_flax(params: Dict[str, np.ndarray], model):
+    """Copy a flax ssl ``Encoder`` tree (GIN / GCN / ResGCN under
+    ``encoder/``: ``GINConv_i/Dense_{0,1}``, ``GCNConv_i/Dense_0`` and
+    ``bias``, ``MaskedBatchNorm_i``, the shared ``PReLU_0``; ResGCN's
+    ``Dense_j``, feature layers then fc layers) or a
+    ``DenseDiffusionEncoder`` tree (``Dense_i``) into ``model``. Every
+    entry must be used and every parameter of ``model`` set."""
+    t = _Tree(params)
+    if isinstance(model, DenseDiffusionEncoder):
+        for i, lin in enumerate(model.lins):
+            t.dense(lin, f"Dense_{i}")
+    else:
+        _ssl_stack(t, "encoder/", model.encoder)
+    return t.finish(model)
+
+
+@torch.no_grad()
+def proj_head_from_flax(params: Dict[str, np.ndarray], head: ProjHead):
+    """A flax ``ProjHead`` tree (``Dense_0``, and ``Dense_1`` for MLP)."""
+    t = _Tree(params)
+    t.dense(head.lin1, "Dense_0")
+    if head.lin2 is not None:
+        t.dense(head.lin2, "Dense_1")
+    return t.finish(head)
+
+
+def contrastive_from_flax(params, encoders, heads):
+    """A JAX ``Contrastive`` parameter tree ``{"enc": [encoder trees],
+    "pg": tree or None, "pn": tree or None}`` (each a flat flax dict) into
+    the unique ``encoders`` (one per entry of ``enc``) and the ``heads``
+    of ``Contrastive.make_heads``."""
+    if len(params["enc"]) != len(encoders):
+        raise ValueError(f"{len(params['enc'])} encoder trees for "
+                         f"{len(encoders)} encoders")
+    for p, e in zip(params["enc"], encoders):
+        ssl_encoder_from_flax(p, e)
+    for k in ("pg", "pn"):
+        if (params.get(k) is None) != (heads.get(k) is None):
+            raise ValueError(f"head {k}: the tree and the heads disagree")
+        if heads.get(k) is not None:
+            proj_head_from_flax(params[k], heads[k])
+    return encoders, heads
+
+
+@torch.no_grad()
+def auggraph_from_flax(params: Dict[str, np.ndarray], model):
+    """Copy a flax auggraph tree into ``model``: an ``Augmenter``
+    (``_GIN_s`` and ``Dense_{3s, 3s+1, 3s+2}`` a step: category, node and
+    edge heads), a ``RewardGMNet`` (``_GIN_0``, ``Dense_0``, ``Dense_1``),
+    a ``MatchNet`` (``_GIN_0``), a ``_GIN`` (``GINConv_i``) or a runner's / SMixup's classifier
+    (``_GIN_0``, ``Dense_0``)."""
+    t = _Tree(params)
+    if isinstance(model, Augmenter):
+        for s in range(model.max_steps):
+            _gin_convs(t, f"_GIN_{s}/", model.gins[s].convs)
+            for j, lin in enumerate((model.cat[s], model.node[s],
+                                     model.edge[s])):
+                t.dense(lin, f"Dense_{3 * s + j}")
+    elif isinstance(model, RewardGMNet):
+        _gin_convs(t, "_GIN_0/", model.enc.convs)
+        t.dense(model.lin1, "Dense_0")
+        t.dense(model.lin2, "Dense_1")
+    elif isinstance(model, MatchNet):
+        _gin_convs(t, "_GIN_0/", model.enc.convs)
+    elif isinstance(model, _GIN):
+        _gin_convs(t, "", model.convs)
+    else:
+        _gin_convs(t, "_GIN_0/", model.gin.convs)
+        t.dense(model.out, "Dense_0")
     return t.finish(model)

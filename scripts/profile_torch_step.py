@@ -1,6 +1,6 @@
 """Where the time of one of the port's train steps goes, on one card.
 
-    python scripts/profile_torch_step.py [schnet_dense|spherenet|spherenet_force|schnet_force|spherenet_flat|spherenet_nk_force|dimenetpp_nk|spherenet_pt_force|comenet_force|comenet_ocp_force|pronet|lsgraph] [--root DIR]
+    python scripts/profile_torch_step.py [schnet_dense|spherenet|spherenet_force|schnet_force|spherenet_flat|spherenet_nk_force|dimenetpp_nk|spherenet_pt_force|comenet_force|comenet_ocp_force|pronet|lsgraph|ssl] [--root DIR]
 
 ``--root`` names the checkout whose ``dig_tpu_torch`` runs (default: this
 one), e.g. the parent unpacked with ``git archive``, so that two versions
@@ -38,7 +38,11 @@ energy; all f32, Adam(5e-4), p = 100); ``lsgraph`` runs main path 9
 (bench.py bench_lsgraph: ScalableGNN GCN 128 x 3 on
 synthetic_large_graph(60000, avg_deg=16) in 16 parts, 4 a subgraph, f32,
 Adam(1e-3); a step is one subgraph's, the sorted-CSR kernel forward and in
-the adjoint in every layer).
+the adjoint in every layer); ``ssl`` runs main path 10 (bench.py bench_ssl:
+GraphCL, dim 384, dropN / maskN views, over a GIN 128 x 3 on
+synthetic_graph_dataset(512, seed=0) in shuffled batches of 64, f32,
+Adam(1e-3); a step is one batch's, the views drawn on the card, the
+sorted-CSR kernel in every neighbour sum, adjoint and readout).
 Traces a few steady
 steps with torch.profiler and prints the
 step's host time, the device's busy and idle share, device time by
@@ -269,6 +273,29 @@ def lsgraph(dev, steps):
     return step, [subs[i % len(subs)] for i in range(steps)]
 
 
+def ssl(dev, steps):
+    """Path 10: GraphCL's training step (Contrastive.make_step, as
+    Contrastive.train runs it) on the epoch's batches in turn, moved to the
+    card before timing."""
+    smoke = _chip_smoke()
+    from dig_tpu_torch.datasets import GraphClsLoader
+    from dig_tpu_torch.ssl import Encoder, GraphCL
+    loader = GraphClsLoader(smoke.ssl_data(smoke.SSL_N), smoke.SSL_BS,
+                            shuffle=True)
+    batches = []
+    while len(batches) < steps:
+        batches += [b.to(dev) for b in loader]
+    enc = Encoder(**smoke.SSL_ENC, generator=torch.Generator().manual_seed(0),
+                  device=dev)
+    m = GraphCL(**smoke.SSL_GCL)
+    heads = m.make_heads(torch.Generator().manual_seed(m.seed), dev)
+    params = list(enc.parameters()) + list(heads["pg"].parameters())
+    step = m.make_step([enc, enc], heads,
+                       torch.optim.Adam(params, lr=smoke.SSL_LR),
+                       torch.Generator(device=dev).manual_seed(m.seed))
+    return step, batches[:steps]
+
+
 def segment_report(calls, kernels, steps, busy_ms):
     """Device ms a step of each segment-sum kernel by call shape, from the
     calls chip_smoke.SegmentCalls noted."""
@@ -367,7 +394,7 @@ def main():
              "spherenet_pt_force": spherenet_pt_force,
              "comenet_force": comenet_force,
              "comenet_ocp_force": comenet_ocp_force, "pronet": pronet,
-             "lsgraph": lsgraph}
+             "lsgraph": lsgraph, "ssl": ssl}
     if which not in paths:
         sys.exit(f"unknown path {which!r}; one of {sorted(paths)}")
     if not torch.cuda.is_available():

@@ -6,8 +6,8 @@
   both packages (float32, 1e-5 of the largest value: sums in another
   order);
 * the package namespaces mirror the JAX package's (the top level, ``ops``,
-  ``models`` and ``lsgraph``), less a named list of names still to port,
-  now empty;
+  ``models``, ``lsgraph``, ``ssl``, ``datasets`` and ``auggraph``), less a
+  named list of names still to port, now empty;
 * the per-graph readout and the row gathers are sums a card repeats bit
   for bit: ``readout_sum`` builds its row pointer from the running maximum
   of the masked graph ids, so a slot-aligned batch with padding rows
@@ -22,13 +22,19 @@ import pytest
 import torch
 
 import dig_tpu
+import dig_tpu.auggraph
+import dig_tpu.datasets
 import dig_tpu.lsgraph
 import dig_tpu.models
 import dig_tpu.ops
+import dig_tpu.ssl
 import dig_tpu_torch
+import dig_tpu_torch.auggraph
+import dig_tpu_torch.datasets
 import dig_tpu_torch.lsgraph
 import dig_tpu_torch.models
 import dig_tpu_torch.ops
+import dig_tpu_torch.ssl
 from dig_tpu.ops.pallas_triplet import fused_angle_product as j_angle
 from dig_tpu.ops.pallas_triplet import fused_triplet_product as j_product
 from dig_tpu_torch.datasets import MoleculeLoader, synthetic_molecules
@@ -38,21 +44,27 @@ from dig_tpu_torch.ops.segment_csr import csr_block_overflow, full_window
 from dig_tpu_torch.ops.triplet_product import (fused_angle_product,
                                                fused_triplet_product)
 
-# JAX names the port has not ported yet (none is left in these four
+# JAX names the port has not ported yet (none is left in these seven
 # namespaces); the port's own names beside the reference's (the JAX
 # package keeps spmm_bidir_sell in dig_tpu.ops.segment only)
 TO_PORT = {"dig_tpu": set(), "dig_tpu.ops": set(), "dig_tpu.models": set(),
-           "dig_tpu.lsgraph": set()}
+           "dig_tpu.lsgraph": set(), "dig_tpu.ssl": set(),
+           "dig_tpu.datasets": set(), "dig_tpu.auggraph": set()}
 PORT_ONLY = {"dig_tpu": {"resolve_device"},
              "dig_tpu.ops": {"fused_triplet_pt", "basis_pt", "pt_rows",
                              "cosine_cutoff", "gaussian_rbf", "MASK_DIST",
                              "cfconv_fused", "cfconv_reference",
                              "spmm_bidir_sell"},
-             "dig_tpu.models": set(), "dig_tpu.lsgraph": set()}
+             "dig_tpu.models": set(), "dig_tpu.lsgraph": set(),
+             "dig_tpu.ssl": set(), "dig_tpu.datasets": set(),
+             "dig_tpu.auggraph": set()}
 REF = {"dig_tpu": (dig_tpu, dig_tpu_torch),
        "dig_tpu.ops": (dig_tpu.ops, dig_tpu_torch.ops),
        "dig_tpu.models": (dig_tpu.models, dig_tpu_torch.models),
-       "dig_tpu.lsgraph": (dig_tpu.lsgraph, dig_tpu_torch.lsgraph)}
+       "dig_tpu.lsgraph": (dig_tpu.lsgraph, dig_tpu_torch.lsgraph),
+       "dig_tpu.ssl": (dig_tpu.ssl, dig_tpu_torch.ssl),
+       "dig_tpu.datasets": (dig_tpu.datasets, dig_tpu_torch.datasets),
+       "dig_tpu.auggraph": (dig_tpu.auggraph, dig_tpu_torch.auggraph)}
 
 
 def _rel(a, b):
