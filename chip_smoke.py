@@ -241,6 +241,39 @@ Phases, each printed as it runs; any failure exits non-zero:
  41. path 11: auggraph: the first step of SMixup, RunnerRewardGen,
      RunnerGenerator and RunnerAugCls against the CPU's, then SMixup.train
      (1 epoch) and evaluate, and each runner for one epoch on the card
+ 42. main path 12: GraphDF at the published QM9 width (BASELINE.md row 13:
+     max_size 20, edge_unroll 12: 162 edge steps, 182 masked views a
+     molecule; 12 flow layers, 3 RGCN layers, nhid / nout 128, batch 32,
+     Adam(1e-3), f32) on synthetic_smiles_dataset(max_size=20, repeat=8)
+     (320 molecules, 10 steps an epoch): the first step on the card
+     against the same step on the CPU from the same seeded weights: the
+     discrete latents z exactly (a flipped straight-through argmax is
+     reported with its logit margin), the loss 1e-6, every gradient 1e-4
+     (relative norm), the batch norm's running statistics 1e-5; no kernel
+     of the port's runs on this path (dense einsums)
+ 43. GraphDF.train_rand_gen on the card: a warm epoch, then 150 epochs
+     (bench.py bench_ggraph_gen's count) timed: ms a step, peak memory
+ 44. run_rand_gen(n_mols=48, temperature=(0.35, 0.23), seed=1) from the
+     trained weights on the card and on the CPU: the same canonical hashes
+     in order and the same first-try flags (on a mismatch the two are run
+     again in lockstep to name the flipped step and its margin); mols/s
+     of the card's run after a warm run, validity and
+     validity_no_resample as bench.py bench_ggraph_gen reports them, and
+     the generated molecules' mean size beside the training molecules'
+     (2-6 atoms: the synthetic set bounds them, not QM9's ~9)
+ 45. GraphAF at the same widths: the first step on the card against the
+     CPU's from the same seeded weights and dequantisation noise (loss
+     1e-5, gradients 1e-4), and run_rand_gen(8 molecules) from those
+     weights on both: the same canonical hashes and first-try flags
+ 46. path 12b, at tests/test_ggraph.py's widths (hidden 24), card against
+     CPU: a GraphAF step given its dequantization noise and its Gaussian
+     generation of 8 molecules; a GraphEBM step given its noise and a
+     30-step Langevin run (each step from the CPU's state, held in
+     float64; float32's step error and the free runs' divergence printed);
+     one PPOFineTuner step on GraphDF (the collated
+     rollouts bit for bit, the PPO loss and gradients); a JTVAE step given
+     its reparameterisation noise; a JTMPN assembly-scorer step, then
+     train_assembler for one epoch on the card
 The card's name and power limit (nvidia-smi), then the kernels as JSON,
 are the two lines before the last; the last line is
 {"ok": true, "device": {...}}.
@@ -498,6 +531,35 @@ SSL_STEP_TOL, SSL_EMBED_TOL = (1e-5, 1e-4), 1e-5
 # tests/test_modules_misc.py): hidden 16; auggraph on 32 graphs in batches
 # of 8; the same first-step bounds
 AUG_N, AUG_BS, AUG_H = 32, 8, 16
+# Path 12: GraphDF at the published QM9 config (BASELINE.md row 13,
+# examples/ggraph/GraphDF/config/rand_gen_qm9_config_dict.json:9-29) on
+# synthetic_smiles_dataset(max_size=20, repeat=8), the real QM9 CSV not
+# being in the repository; bench.py bench_ggraph_gen's 48 molecules. The
+# first step's z are one-hot argmaxes and must agree exactly; the loss
+# then differs only in the order of its sums (1e-6, relative); the
+# gradients pass the straight-through softmax at temperature 0.1 through
+# 12 flow layers (1e-4, relative norm); the running statistics 1e-5.
+GG_CONF = dict(max_size=20, edge_unroll=12, node_dim=4, bond_dim=4,
+               num_flow_layer=12, num_rgcn_layer=3, nhid=128, nout=128)
+# The generation weights are trained as long as bench_ggraph_gen trains
+# (150 epochs); the synthetic molecules have 2-6 atoms (4.0 on average),
+# which bounds the generated ones. GraphAF at the same widths: its first
+# step (continuous flow, no argmax) 1e-5 loss and 1e-4 gradients, as
+# path 12b, and 8 molecules from its seeded weights.
+GG_BS, GG_LR, GG_EPOCHS, GG_REPEAT = 32, 1e-3, 150, 8
+GG_GEN = dict(n_mols=48, temperature=(0.35, 0.23), seed=1)
+GG_LOSS_TOL, GG_GRAD_TOL, GG_STATS_TOL = 1e-6, 1e-4, 1e-5
+GG_AF_TOL, GG_AF_GEN = (1e-5, 1e-4), dict(n_mols=8, temperature=0.75, seed=2)
+# Path 12b at tests/test_ggraph.py's widths (:58-61): first-step bounds
+# as path 10b's; each Langevin step from the same state in float64 1e-9
+# of its largest value (float32's rounding, which the step size of 30
+# magnifies, is printed beside it)
+GG_TINY = dict(max_size=9, edge_unroll=4, node_dim=4, bond_dim=4,
+               num_flow_layer=2, num_rgcn_layer=2, nhid=24, nout=24)
+GG_SMALL_TOL, GG_LANGEVIN_TOL = (1e-5, 1e-4), 1e-9
+GG_SMILES = ["CCO", "CCN", "CCC", "CC=O", "C1CC1", "c1ccccc1", "CC(C)O",
+             "CC(N)=O", "CCOC", "CNC", "c1ccccc1C", "c1ccccc1O",
+             "CC(C)(C)O", "c1ccncc1C"]
 
 
 def log(*a):
@@ -2757,6 +2819,34 @@ def repeat_step(path, out):
                out)
 
 
+def run_fresh(jobs):
+    """Run ``chip_smoke.py <args>`` for each job in a fresh process, all at
+    once (each builds its own state from the seed; the card serves them
+    in turn), and fail on any that does not exit 0."""
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {}
+        try:
+            for k, (what, args) in enumerate(jobs.items()):
+                err = open(os.path.join(tmp, f"{k}.err"), "w+")
+                procs[what] = (subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), *args],
+                    stdout=subprocess.DEVNULL, stderr=err), err)
+            errs = {}
+            for what, (p, err) in procs.items():
+                p.wait(timeout=900)
+                if p.returncode != 0:
+                    err.seek(0)
+                    errs[what] = err.read()[-2000:]
+        finally:
+            for p, err in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+                err.close()
+    if errs:
+        fail(f"fresh processes failed: {errs}")
+
+
 def phase_repeat(torch):
     """Per path, two fresh processes each take one step from the same
     seeded state on the same batch: the loss and every parameter after
@@ -2765,18 +2855,12 @@ def phase_repeat(torch):
     backward by sequence numbers that the double backward's nodes draw
     from the device thread's counter, which runs on across steps.)"""
     with tempfile.TemporaryDirectory() as tmp:
+        outs = {(path, i): os.path.join(tmp, f"{path}_{i}.pt")
+                for path in REPEAT_PATHS for i in range(2)}
+        run_fresh({f"path {p} step process {i}": ["--repeat-step", p, out]
+                   for (p, i), out in outs.items()})
         for path in REPEAT_PATHS:
-            runs = []
-            for i in range(2):
-                out = os.path.join(tmp, f"{path}_{i}.pt")
-                res = subprocess.run(
-                    [sys.executable, os.path.abspath(__file__),
-                     "--repeat-step", path, out], capture_output=True,
-                    text=True, timeout=900)
-                if res.returncode != 0:
-                    fail(f"path {path} step process: {res.stderr[-2000:]}")
-                runs.append(torch.load(out))
-            a, b = runs
+            a, b = (torch.load(outs[path, i]) for i in range(2))
             same = [torch.equal(a[k], b[k]) for k in a if k != "loss"]
             log(f"  path {path}: loss {float(a['loss']):.7f} and "
                 f"{float(b['loss']):.7f}, the same bits: "
@@ -3640,7 +3724,7 @@ def phase_cs_times(torch, sc, g):
 # ---------------------------------------------------------------------------
 
 def first_step_vs_cpu(torch, what, build, dev, tol=CPU_STEP_TOL,
-                      repeat=False):
+                      repeat=False, noise_floor=None):
     """One step's loss and gradients on the card (the kernels) and on the
     CPU (every op its plain version), from the same seeded weights, batch
     and noise. ``build(d) -> (loss, modules)`` makes the step on device
@@ -3648,7 +3732,11 @@ def first_step_vs_cpu(torch, what, build, dev, tol=CPU_STEP_TOL,
     trainer's step runs its own backward and returns it detached). The
     loss within tol[0] (relative), every parameter's gradient within
     tol[1] (||a-b|| / ||b||; zeros where none reaches it). ``repeat``: the
-    card step again must give the same bits. Returns the errors."""
+    card step again must give the same bits. ``noise_floor``: a parameter
+    whose CPU gradient lies below noise_floor x the model's largest
+    gradient entry (a direction the loss does not see, its gradient
+    rounding noise) must have the card's below it too, and is left out of
+    the relative check. Returns the errors."""
     def grads(d):
         t = time.perf_counter()
         loss, mods = build(d)
@@ -3663,19 +3751,35 @@ def first_step_vs_cpu(torch, what, build, dev, tol=CPU_STEP_TOL,
             + [torch.device("cpu")]]
     (lk, names, gk, card_s), (lp, _, gp, cpu_s) = runs[0], runs[-1]
     loss_err = float((lk - lp).abs() / lp.abs().clamp_min(1e-12))
+    floor = (0.0 if noise_floor is None else
+             noise_floor * max(float(g.abs().max()) for g in gp))
+    quiet = [n for a, b, n in zip(gk, gp, names)
+             if float(b.abs().max()) < floor]
+    loud_card = [n for a, b, n in zip(gk, gp, names)
+                 if n in quiet and float(a.abs().max()) >= floor]
+    if loud_card:
+        fail(f"{what}: gradients at rounding level on the CPU but not on "
+             f"the card: {loud_card}")
     per = sorted(((rel_norm(torch, [a], [b]), n)
-                  for a, b, n in zip(gk, gp, names)), reverse=True)
+                  for a, b, n in zip(gk, gp, names) if n not in quiet),
+                 reverse=True)
     same = None
     if repeat:
         l2, _, g2, _ = runs[1]
         same = bool(torch.equal(lk, l2)) and all(
             torch.equal(a, b) for a, b in zip(gk, g2))
+    if quiet:
+        log(f"  {what}: rounding-level gradients (largest |entry|, card / "
+            f"CPU): " + ", ".join(
+                f"{n} {float(a.abs().max()):.2e} / {float(b.abs().max()):.2e}"
+                for a, b, n in zip(gk, gp, names) if n in quiet))
     log(f"  {what}: first step, card against CPU: loss {float(lk):.7f} / "
         f"{float(lp):.7f} (rel {loss_err:.3e}, held to {tol[0]}); "
         f"{len(names)} gradients, rel-norm err {rel_norm(torch, gk, gp):.3e}"
         " over all, worst "
         + ", ".join(f"{n} {e:.3e}" for e, n in per[:3])
         + f" (each held to {tol[1]})"
+        + (f"; rounding-level gradients on both: {quiet}" if quiet else "")
         + ("" if same is None else
            f"; the card step repeated: the same bits {same}")
         + f"; card {card_s:.2f} s, CPU {cpu_s:.1f} s")
@@ -4097,19 +4201,13 @@ def phase_remat(torch):
     Adam, and the peak memory of each. Held: the loss within REMAT_TOL,
     the f32 gradients within REMAT_TOL per parameter, the bf16 gradient to
     the f32 one by direction and size (path 3's bf16 gate)."""
-    runs = {}
     with tempfile.TemporaryDirectory() as tmp:
-        for prec in ("bf16", "f32"):
-            for flag in ("0", "1"):
-                out = os.path.join(tmp, f"remat_{prec}_{flag}.pt")
-                r = subprocess.run(
-                    [sys.executable, os.path.abspath(__file__),
-                     "--remat-step", flag, prec, out], capture_output=True,
-                    text=True, timeout=900)
-                if r.returncode != 0:
-                    fail(f"remat {flag} {prec} step process: "
-                         f"{r.stderr[-2000:]}")
-                runs[prec, flag] = torch.load(out)
+        outs = {(prec, flag): os.path.join(tmp, f"remat_{prec}_{flag}.pt")
+                for prec in ("bf16", "f32") for flag in ("0", "1")}
+        run_fresh({f"remat {flag} {prec} step process":
+                   ["--remat-step", flag, prec, out]
+                   for (prec, flag), out in outs.items()})
+        runs = {k: torch.load(out) for k, out in outs.items()}
     res = {}
     for prec in ("bf16", "f32"):
         a, b = runs[prec, "0"], runs[prec, "1"]
@@ -4745,6 +4843,400 @@ def phase_aug_path(torch, cf, ts, sc, dev):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Path 12: ggraph (GraphDF at the published QM9 width); 12b: GraphAF,
+# GraphEBM, PPO, JTVAE and JTMPN at the JAX tests' widths
+# ---------------------------------------------------------------------------
+
+def gg_loader():
+    from dig_tpu_torch.ggraph import DenseMolLoader, synthetic_smiles_dataset
+    ds = synthetic_smiles_dataset(max_size=GG_CONF["max_size"],
+                                  repeat=GG_REPEAT)
+    return ds, DenseMolLoader(ds, GG_BS, shuffle=True)
+
+
+def st_logit_hooks(model, outs):
+    """Forward hooks that append each ST net's logits, in call order."""
+    core = model.flow_core
+    return [st.lin2.register_forward_hook(
+        lambda m, i, o: outs.append(o.detach().float().cpu()))
+        for st in list(core.node_st) + list(core.edge_st)]
+
+
+def flipped_margins(torch, card_logits, cpu_logits):
+    """The first ST call whose argmaxes part on the card and the CPU: its
+    index, the flipped entries and the smallest top-two logit margin among
+    them on the CPU."""
+    for k, (a, b) in enumerate(zip(card_logits, cpu_logits)):
+        diff = a.argmax(-1) != b.argmax(-1)
+        if bool(diff.any()):
+            top2 = b[diff].topk(2, dim=-1).values
+            return k, int(diff.sum()), float((top2[:, 0] - top2[:, 1]).min())
+    return None
+
+
+def phase_gg_first_step(torch, dev, batch):
+    """Path 12's first step on the card and the CPU from the same seeded
+    weights: z, loss, gradients, running statistics."""
+    from dig_tpu_torch.ggraph.models import GraphFlowModelDF
+    runs = {}
+    for key, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        m = GraphFlowModelDF(**GG_CONF, generator=torch.Generator()
+                             .manual_seed(0)).to(d).train()
+        logits = []
+        hooks = st_logit_hooks(m, logits)
+        x = torch.from_numpy(batch["x"]).to(d)
+        adj = torch.from_numpy(batch["adj"]).to(d)
+        t = time.perf_counter()
+        z = m(x, adj)
+        loss = m.dis_log_prob(z)
+        loss.backward()
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+        for h in hooks:
+            h.remove()
+        runs[key] = dict(
+            z=[a.detach().cpu() for a in z], loss=loss.detach().cpu(),
+            names=[n for n, _ in m.named_parameters()],
+            grads=[p.grad.detach().cpu() for _, p in m.named_parameters()],
+            stats=[m.flow_core.bn.mean.cpu(), m.flow_core.bn.var.cpu()],
+            logits=logits, s=time.perf_counter() - t)
+    k, c = runs["card"], runs["cpu"]
+    same_z = all(torch.equal(a, b) for a, b in zip(k["z"], c["z"]))
+    flip = None if same_z else flipped_margins(torch, k["logits"],
+                                               c["logits"])
+    loss_err = float((k["loss"] - c["loss"]).abs() / c["loss"].abs())
+    per = sorted(((rel_norm(torch, [a], [b]), n) for a, b, n in
+                  zip(k["grads"], c["grads"], k["names"])), reverse=True)
+    stats_err = max(rel_err(a, b) for a, b in zip(k["stats"],
+                                                         c["stats"]))
+    n_z = sum(a.numel() // a.shape[-1] for a in k["z"])
+    log(f"  first step, card against CPU: {n_z} latents a layer, the same "
+        f"z on both: {same_z}"
+        + ("" if flip is None else f" (ST call {flip[0]}: {flip[1]} "
+           f"argmaxes flipped, smallest CPU logit margin {flip[2]:.3e})")
+        + f"; loss {float(k['loss']):.8f} / {float(c['loss']):.8f} (rel "
+        f"{loss_err:.3e}, held to {GG_LOSS_TOL}); {len(per)} gradients, "
+        f"worst rel-norm " + ", ".join(f"{n} {e:.3e}" for e, n in per[:3])
+        + f" (held to {GG_GRAD_TOL}); running statistics {stats_err:.3e} "
+        f"(held to {GG_STATS_TOL}); card {k['s']:.2f} s, CPU {c['s']:.1f} s")
+    if not same_z:
+        fail(f"path 12: the card's latents differ from the CPU's: {flip}")
+    if not loss_err < GG_LOSS_TOL or not per[0][0] < GG_GRAD_TOL or \
+            not stats_err < GG_STATS_TOL:
+        fail(f"path 12: first step: loss {loss_err}, gradients {per[:3]}, "
+             f"running statistics {stats_err}")
+    return {"loss_rel_err": loss_err, "worst_grad": per[0],
+            "stats_rel_err": stats_err}
+
+
+def phase_gg_train(torch, dev, loader):
+    """Path 12's epochs through GraphDF.train_rand_gen on the card: one
+    warm epoch (a fresh model and optimiser), then the timed epochs, whose
+    weights the generation phase samples from."""
+    from dig_tpu_torch.ggraph import GraphDF
+    gdf = GraphDF()
+    t = time.perf_counter()
+    gdf.train_rand_gen(loader, lr=GG_LR, wd=0, max_epochs=1,
+                       model_conf_dict=GG_CONF, verbose=False, device=dev)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    hist = gdf.train_rand_gen(loader, lr=GG_LR, wd=0, max_epochs=GG_EPOCHS,
+                              model_conf_dict=GG_CONF, verbose=False,
+                              device=dev)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    steps = GG_EPOCHS * len(loader)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    views = len(gdf.model.masks.node_masks)
+    log(f"  a warm epoch {warm:.2f} s; then {GG_EPOCHS} epochs ({steps} "
+        f"steps of {GG_BS} molecules, {GG_BS * views} masked views a step):"
+        f" losses {[round(h, 5) for h in hist[:3]]} ... "
+        f"{[round(h, 5) for h in hist[-3:]]}; {dt:.2f} s, "
+        f"{dt / steps * 1e3:.3f} ms a step (the losses read once an epoch), "
+        f"peak {peak:.3f} GiB")
+    if not all(math.isfinite(h) for h in hist) or hist[-1] >= hist[0]:
+        fail(f"path 12: epoch losses {hist[:3]} ... {hist[-3:]}")
+    return gdf, {"step_ms": dt / steps * 1e3, "peak_gib": peak,
+                 "losses": [hist[0], hist[-1]], "warm_epoch_s": warm}
+
+
+class DualSteps:
+    """Reverse steps run on the card and on the CPU at once, the card's
+    output going on; each step whose argmaxes part is noted with the
+    smallest CPU logit margin of the ST calls it made (path 12's
+    diagnosis of a generation mismatch)."""
+
+    def __init__(self, torch, card, cpu, st_margin=True):
+        from dig_tpu_torch.ggraph.methods import ReverseSteps
+        self.torch, self.card, self.cpu = torch, ReverseSteps(card), \
+            ReverseSteps(cpu)
+        self.st_margin = st_margin
+        self.flips, self.n = [], 0
+
+    def _both(self, name, *args):
+        logits = []
+        hooks = st_logit_hooks(self.cpu.model, logits)
+        b = getattr(self.cpu, name)(*args)
+        for h in hooks:
+            h.remove()
+        a = getattr(self.card, name)(*args)
+        diff = a.argmax(1) != b.argmax(1)
+        if diff.any():
+            # GraphDF's outputs are one-hot: the margin is its ST nets'
+            # logits'; GraphAF's are continuous: the output's own
+            top2 = [self.torch.from_numpy(b[diff]).topk(2, -1).values]
+            if self.st_margin:
+                top2 = [t.topk(2, -1).values for t in logits]
+            marg = min(float((t[:, 0] - t[:, 1]).min()) for t in top2)
+            self.flips.append((name, self.n, int(diff.sum()), marg))
+        self.n += 1
+        return a
+
+    def node(self, *a):
+        return self._both("node", *a)
+
+    def edge(self, *a):
+        return self._both("edge", *a)
+
+
+def gen_vs_cpu(torch, what, gen, cls, conf, kw, st_margin):
+    """``gen`` (a trained or loaded generator on the card) and a CPU copy
+    of its weights run ``run_rand_gen(**kw)``: the same canonical hashes
+    in order and the same first-try flags, or a failure naming the first
+    molecule that parts and the steps whose argmaxes part with their
+    smallest CPU margin (the lockstep loop rerun through DualSteps).
+    Returns (mols, first-try flags, seconds on the card)."""
+    import numpy as np
+    from dig_tpu_torch.chem import canonical_hash
+    from dig_tpu_torch.ggraph.methods import lockstep_generate
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    mols, pure = gen.run_rand_gen(**kw)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    cpu = cls()
+    cpu.get_model("rand_gen", conf, {k: v.cpu() for k, v in
+                                     gen.model.state_dict().items()},
+                  device="cpu")
+    t = time.perf_counter()
+    mols_c, pure_c = cpu.run_rand_gen(**kw)
+    cpu_s = time.perf_counter() - t
+    hk = [canonical_hash(m) for m in mols]
+    hc = [canonical_hash(m) for m in mols_c]
+    log(f"  {what}: run_rand_gen({kw}) on the CPU {cpu_s:.2f} s; the same "
+        f"canonical hashes in order: {hk == hc}, the same first-try flags: "
+        f"{pure == pure_c}")
+    if hk != hc or pure != pure_c:
+        first = next((i for i, (a, b) in enumerate(zip(hk, hc)) if a != b),
+                     None)
+        dual = DualSteps(torch, gen.model, cpu.model, st_margin)
+        m = gen.model
+        temp = kw["temperature"]
+        temp = tuple(temp) if isinstance(temp, (tuple, list)) else (temp,
+                                                                    temp)
+        lockstep_generate(dual.node, dual.edge, gen._latents(m, temp),
+                          np.random.default_rng(kw["seed"]), kw["n_mols"],
+                          m.max_size, m.edge_unroll, m.node_dim, m.bond_dim,
+                          [6, 7, 8, 9])
+        fail(f"{what}: generation differs from the CPU's from molecule "
+             f"{first}; steps whose argmaxes part (step, index, lanes, "
+             f"smallest CPU margin): {dual.flips[:5]}")
+    return mols, pure, dt
+
+
+def phase_gg_generate(torch, dev, gdf, data_atoms):
+    """Path 12's generation from the trained weights, card and CPU."""
+    import numpy as np
+    from dig_tpu_torch.ggraph import GraphDF
+    from dig_tpu_torch.ggraph.environment import check_chemical_validity
+    gdf.run_rand_gen(**dict(GG_GEN, seed=0))          # warm, as bench.py
+    mols, pure, dt = gen_vs_cpu(torch, "path 12", gdf, GraphDF, GG_CONF,
+                                GG_GEN, st_margin=True)
+    n = GG_GEN["n_mols"]
+    valid = sum(1 for m in mols if m is not None
+                and check_chemical_validity(m)) / n
+    res = {"mols_per_s": n / dt, "validity": valid,
+           "validity_no_resample": sum(pure) / n,
+           "atoms_mean": float(np.mean([m.num_atoms for m in mols]))}
+    log(f"  run_rand_gen({GG_GEN}) on the card: {dt:.3f} s, "
+        f"{res['mols_per_s']:.6g} mols/s, validity {valid:.3f}, "
+        f"validity_no_resample {res['validity_no_resample']:.3f}, "
+        f"{res['atoms_mean']:.2f} atoms a molecule (the training "
+        f"molecules {data_atoms:.2f})")
+    if not valid > 0.0:
+        fail("path 12: no valid molecule generated")
+    return res
+
+
+def phase_gg_af(torch, dev, batch):
+    """GraphAF at path 12's widths: the first step on the card against the
+    CPU's from the same seeded weights and dequantisation noise, then
+    generation from those weights on both."""
+    from dig_tpu_torch.ggraph import GraphAF
+    from dig_tpu_torch.ggraph.models import GraphFlowModelAF
+    gen = lambda s: torch.Generator().manual_seed(s)
+    x, adj = torch.from_numpy(batch["x"]), torch.from_numpy(batch["adj"])
+    noise = GraphFlowModelAF(**GG_CONF).draw(gen(3), x)
+
+    def af(d):
+        m = GraphFlowModelAF(**GG_CONF, generator=gen(0)).to(d).train()
+        return m.loss(x.to(d), adj.to(d), tuple(n.to(d) for n in noise)), [m]
+    res = first_step_vs_cpu(torch, "path 12, GraphAF step", af, dev,
+                            GG_AF_TOL)
+    g = GraphAF()
+    g.get_model("rand_gen", GG_CONF, GraphFlowModelAF(
+        **GG_CONF, generator=gen(0)).state_dict(), device=dev)
+    g.run_rand_gen(**dict(GG_AF_GEN, seed=0))          # warm
+    mols, _, dt = gen_vs_cpu(torch, "path 12, GraphAF", g, GraphAF, GG_CONF,
+                             GG_AF_GEN, st_margin=False)
+    res["atoms_mean"] = sum(m.num_atoms for m in mols) / len(mols)
+    log(f"  GraphAF run_rand_gen({GG_AF_GEN}) on the card from its seeded "
+        f"weights: {dt:.3f} s, {res['atoms_mean']:.2f} atoms a molecule")
+    return res
+
+
+def phase_gg_small(torch, dev):
+    """Path 12b: one step each on the card against the CPU at the JAX
+    tests' widths, and the generations and runs around them."""
+    import numpy as np
+    from dig_tpu_torch.chem import canonical_hash, mol_from_smiles
+    from dig_tpu_torch.ggraph import (DenseMolLoader, GraphAF, GraphEBM,
+                                      synthetic_smiles_dataset)
+    from dig_tpu_torch.ggraph import jtmpn, jtvae, rl
+    from dig_tpu_torch.ggraph.models import (EnergyFunc, GraphFlowModelAF,
+                                             GraphFlowModelDF, langevin_sample)
+    gen = lambda s: torch.Generator().manual_seed(s)
+    b = next(iter(DenseMolLoader(synthetic_smiles_dataset(repeat=2), 16,
+                                 shuffle=True)))
+    x, adj = torch.from_numpy(b["x"]), torch.from_numpy(b["adj"])
+    res = {}
+
+    af_noise = GraphFlowModelAF(**GG_TINY).draw(gen(3), x)
+
+    def af(d):
+        m = GraphFlowModelAF(**GG_TINY, generator=gen(0)).to(d).train()
+        return m.loss(x.to(d), adj.to(d), tuple(n.to(d) for n in af_noise)), [m]
+    res["GraphAF"] = first_step_vs_cpu(torch, "GraphAF step", af, dev,
+                                       GG_SMALL_TOL)
+    state = GraphFlowModelAF(**GG_TINY, generator=gen(0)).state_dict()
+    hashes = []
+    for d in (dev, "cpu"):
+        g = GraphAF()
+        g.get_model("rand_gen", GG_TINY, state, device=d)
+        mols, pure = g.run_rand_gen(n_mols=8, temperature=0.75, seed=2)
+        hashes.append(([canonical_hash(m) for m in mols], pure))
+    log(f"  GraphAF run_rand_gen(8) card against CPU: the same hashes and "
+        f"first-try flags: {hashes[0] == hashes[1]}")
+    if hashes[0] != hashes[1]:
+        fail("path 12b: GraphAF generation differs from the CPU's")
+
+    ebm_noise = GraphEBM.draw(gen(4), x.shape, adj.shape, 30)
+
+    def ebm(d):
+        e = GraphEBM(4, hidden=24, depth=1)
+        e.model = EnergyFunc(4, hidden=24, depth=1, generator=gen(0)).to(d)
+        u_x, u_adj, ld = ebm_noise
+        noise = (u_x.to(d), u_adj.to(d), type(ld)(*(t.to(d) for t in ld)))
+        return e.loss_of(x.to(d), adj.to(d), noise, c=0.2), [e.model]
+    res["GraphEBM"] = first_step_vs_cpu(torch, "GraphEBM step (30 Langevin "
+                                        "steps)", ebm, dev, GG_SMALL_TOL)
+    # Langevin dynamics at step size 30 amplify rounding: a step moves x by
+    # 30 x a gradient that is a sum with cancellation, so one float32 step
+    # from the same state parts by about 5e-5 and a free run of 30 steps
+    # by about 2e-3 (printed). The step is held in float64 on both, where
+    # only the function can part them, and in float32 its error printed.
+    ld = ebm_noise[2]
+    LN = type(ld)
+    errs = {}
+    for dt in (torch.float64, torch.float32):
+        ek, ec = (EnergyFunc(4, hidden=24, depth=1, generator=gen(0))
+                  .to(d, dt) for d in (dev, torch.device("cpu")))
+        state, worst = (ld.x0.to(dt), ld.adj0.to(dt)), 0.0
+        for k in range(len(ld.x_steps)):
+            one = LN(*state, ld.x_steps[k:k + 1].to(dt),
+                     ld.adj_steps[k:k + 1].to(dt))
+            want = langevin_sample(ec, one)
+            got = langevin_sample(ek, LN(*(t.to(dev) for t in one)))
+            worst = max([worst] + [rel_err(a.cpu(), b)
+                                   for a, b in zip(got, want)])
+            state = want
+        errs[dt] = worst
+    free = [[t.cpu() for t in langevin_sample(e, LN(*(t.to(d) for t in ld)))]
+            for e, d in ((ek, dev), (ec, torch.device("cpu")))]
+    drift = max(rel_err(a, b) for a, b in zip(*free))
+    log(f"  Langevin, 30 steps, each from the CPU's state, card against CPU:"
+        f" float64 {errs[torch.float64]:.3e} at worst (held to "
+        f"{GG_LANGEVIN_TOL}), float32 {errs[torch.float32]:.3e}; the float32"
+        f" free runs part by {drift:.3e} after 30 steps")
+    if not errs[torch.float64] < GG_LANGEVIN_TOL:
+        fail(f"path 12b: a Langevin step in float64 {errs}")
+
+    batches = []
+
+    def ppo(d):
+        m = GraphFlowModelDF(**GG_TINY, generator=gen(0)).to(d)
+        tuner = rl.PPOFineTuner(m, rl.RLConfig(batch_size=4,
+                                               temperature=(0.8, 0.8)),
+                                lr=1e-3)
+        batch = tuner.collect(0, np.random.default_rng(4))[0]
+        batches.append((tuner, batch))
+        t = {k: torch.from_numpy(v).to(d) for k, v in batch.items()}
+        with torch.no_grad():
+            old = rl.rl_lls(tuner.old_model, t)
+        return rl.ppo_loss(m, t, *old, 0.2), [m]
+    res["PPO"] = first_step_vs_cpu(torch, "PPOFineTuner step (GraphDF)", ppo,
+                                   dev, GG_SMALL_TOL)
+    same = all(np.array_equal(batches[0][1][k], batches[1][1][k])
+               for k in batches[1][1])
+    tuner, batch = batches[0]
+    loss = tuner.update(batch)
+    log(f"  PPO rollouts' collated batch, card against CPU, bit for bit: "
+        f"{same} ({len(batch['nx'])} node and {len(batch['ex'])} edge "
+        f"records); the card's update: loss "
+        f"{loss:.6f}")
+    if not same or not math.isfinite(loss):
+        fail(f"path 12b: PPO batches the same {same}, loss {loss}")
+
+    mols = [mol_from_smiles(s) for s in GG_SMILES]
+    vocab = jtvae.Vocab.build(mols)
+    tb = jtvae.batch_trees([jtvae.tree_decomp(m) for m in mols[:8]], vocab)
+    jt_noise = jtvae.JTVAEModel(len(vocab), 24, 12).draw(gen(5), 8)
+
+    def jt(d):
+        m = jtvae.JTVAEModel(len(vocab), 24, 12, generator=gen(0)).to(d)
+        return m({k: v.to(d) for k, v in tb.items()},
+                 tuple(n.to(d) for n in jt_noise))[0], [m]
+    res["JTVAE"] = first_step_vs_cpu(torch, "JTVAE step", jt, dev,
+                                     GG_SMALL_TOL)
+    fixtures = jtmpn.build_assembly_fixtures(mols)
+    f = max(fixtures, key=lambda f: len(f["cands"]))
+    feats = jtmpn.featurize(f["cands"])
+
+    def scorer(d):
+        m = jtmpn.JTMPNScorer(generator=gen(0)).to(d)
+        return jtmpn.scorer_loss(m, *(t.to(d) for t in feats),
+                                 f["label"]), [m]
+    # the assembly loss is a softmax over the candidates: the output bias
+    # gets a gradient of rounding noise (the candidates' probabilities
+    # summed less one: 6e-8 on the CPU, 0 on the card, above 1e-6 of the
+    # largest gradient entry)
+    res["JTMPN"] = first_step_vs_cpu(torch, "JTMPN assembly-scorer step",
+                                     scorer, dev, GG_SMALL_TOL,
+                                     noise_floor=1e-4)
+    t = time.perf_counter()
+    sc_ = jtmpn.train_assembler(fixtures, epochs=1, device=dev)
+    acc = jtmpn.assembly_accuracy(sc_, fixtures)
+    log(f"  train_assembler on the card, 1 epoch over {len(fixtures)} "
+        f"junctions: {time.perf_counter() - t:.2f} s, assembly accuracy "
+        f"{acc:.3f} (greedy {jtmpn.greedy_accuracy(fixtures):.3f})")
+    if not all(torch.isfinite(p).all() for p in sc_.parameters()):
+        fail("path 12b: non-finite assembler weights")
+    return res
+
+
 def build_all(_build, builds):
     """Build every CUDA source at once (one nvcc each): ``builds`` maps a
     label to (source name, generated headers or None); the seconds each
@@ -5087,6 +5579,43 @@ def main():
         "RunnerAugCls): first steps against the CPU, one epoch each")
     phase_aug_path(torch, cf, ts, sc, dev)
     torch.cuda.empty_cache()
+
+    gg_ds, gg_ld = gg_loader()
+    reset_all(cf, ts, sc)
+    log("== 42. main path 12: GraphDF at the published QM9 width (max_size "
+        "20, edge_unroll 12, 12 flow layers, RGCN 128 x 3, batch 32, f32, "
+        f"Adam(1e-3)) on {len(gg_ds)} synthetic molecules: the first step, "
+        "card against CPU")
+    gg_res = phase_gg_first_step(torch, dev, next(iter(gg_ld)))
+    log(f"== 43. path 12: GraphDF.train_rand_gen, {GG_EPOCHS} epochs on the "
+        "card")
+    gg_model, gg_train = phase_gg_train(torch, dev, gg_ld)
+    gg_res.update(gg_train)
+    log("== 44. path 12: run_rand_gen(48 molecules) on the card and the CPU")
+    gg_atoms = sum(float(a.sum()) for a in gg_ds.x) / len(gg_ds.x)
+    gg_res.update(phase_gg_generate(torch, dev, gg_model, gg_atoms))
+    del gg_model
+    torch.cuda.empty_cache()
+    log("== 45. path 12: GraphAF at the same widths: the first step, card "
+        "against CPU, and run_rand_gen(8 molecules) from its seeded weights")
+    af_res = phase_gg_af(torch, dev, next(iter(gg_ld)))
+    others_idle(cf, ts, "path 12")
+    if sc.launches:
+        fail(f"path 12: {sc.launches} segment-sum launches (none expected)")
+    torch.cuda.empty_cache()
+    log("== 46. path 12b: GraphAF, GraphEBM, PPO, JTVAE and JTMPN at the JAX "
+        "tests' widths, card against CPU")
+    phase_gg_small(torch, dev)
+    torch.cuda.empty_cache()
+    log(f"  path 12: step {gg_res['step_ms']:.3f} ms, peak "
+        f"{gg_res['peak_gib']:.3f} GiB; generation "
+        f"{gg_res['mols_per_s']:.6g} mols/s, validity "
+        f"{gg_res['validity']:.3f}, validity_no_resample "
+        f"{gg_res['validity_no_resample']:.3f}, "
+        f"{gg_res['atoms_mean']:.2f} atoms a molecule (training molecules "
+        f"{gg_atoms:.2f}); GraphAF first step loss rel "
+        f"{af_res['loss_rel_err']:.3e}, worst gradient "
+        f"{af_res['worst_param'][0]:.3e} ({card})")
     log(f"  path 10: {ssl_res['graphs_per_s']:.6g} graphs/s (median of "
         f"{SSL_EPOCHS} epochs: {[round(v, 3) for v in ssl_res['epoch_ms_all']]}"
         f" ms), {ssl_res['per_step']:g} segment-sum launches a step, peak "

@@ -26,6 +26,12 @@ Layering (mirrors ``dig_tpu``):
   ssl           contrastive pretraining (GraphCL, InfoGraph, MVGRL,
                 GRACE, pGRACE): encoders, views, objectives, probes
   auggraph      GraphAug (augmenter, reward model, runners) and SMixup
+  chem          the RDKit-free chemistry kernel (molecules, SMILES,
+                valency, canonical hashes, descriptors), numpy
+  ggraph        molecule generation: GraphDF, GraphAF, GraphEBM (dense
+                einsums, no kernel), the lockstep generation loop with
+                host valency feedback, the PPO fine-tune, JTVAE and its
+                JTMPN assembly scorer, datasets and evaluators
   config        the configuration tree
   convert       flax parameter trees -> torch modules
 """

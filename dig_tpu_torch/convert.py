@@ -7,13 +7,18 @@ kernels are ``[in, out]`` and are transposed into ``nn.Linear.weight``.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
 
 from .auggraph.graphaug import _GIN, Augmenter, RewardGMNet
 from .auggraph.smixup import MatchNet
+from .ggraph.jtmpn import JTMPNScorer
+from .ggraph.jtvae import JTVAEModel
+from .ggraph.models.graphaf import GraphFlowModelAF
+from .ggraph.models.graphdf import GraphFlowModelDF
+from .ggraph.models.graphebm import EnergyFunc
 from .lsgraph.fm_ib import GraphFMIB
 from .lsgraph.models import ScalableGNN
 from .models.comenet import ComENet
@@ -336,4 +341,125 @@ def auggraph_from_flax(params: Dict[str, np.ndarray], model):
     else:
         _gin_convs(t, "_GIN_0/", model.gin.convs)
         t.dense(model.out, "Dense_0")
+    return t.finish(model)
+
+
+# ---------------------------------------------------------------------------
+# ggraph: the converters take the flax variables ({"params": tree,
+# "batch_stats": tree}, nested dicts of arrays, as jax.device_get gives them)
+# ---------------------------------------------------------------------------
+
+def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+def _vars(variables: Mapping):
+    extra = set(variables) - {"params", "batch_stats"}
+    if extra:
+        raise KeyError(f"unknown flax collections: {sorted(extra)}")
+    return (_Tree(_flatten(variables["params"])),
+            _flatten(variables.get("batch_stats", {})))
+
+
+def _gru(t: _Tree, name: str, gru) -> None:
+    for g in ("ir", "iz", "in", "hr", "hz", "hn"):
+        t.dense(getattr(gru, g), f"{name}/{g}")
+
+
+def _flow_core(t: _Tree, stats: Dict[str, np.ndarray], core,
+               rescales: bool) -> None:
+    t.dense(core.rgcn.emb, "flow_core/rgcn/Dense_0")
+    for k, conv in enumerate(core.rgcn.convs):
+        t.put(conv.weight, t.take(f"flow_core/rgcn/RelGraphConv_{k}/weight"))
+    t.put(core.bn.scale, t.take("flow_core/bn/scale"))
+    t.put(core.bn.bias, t.take("flow_core/bn/bias"))
+    left = dict(stats)
+    for name in ("mean", "var"):
+        key = f"flow_core/bn/{name}"
+        if key not in left:
+            raise KeyError(f"flax batch_stats lack {key!r}")
+        getattr(core.bn, name).copy_(torch.tensor(left.pop(key)))
+    if left:
+        raise KeyError(f"unused flax batch_stats: {sorted(left)}")
+    for kind in ("node_st", "edge_st"):
+        for i, st in enumerate(getattr(core, kind)):
+            p = f"flow_core/{kind}_{i}/"
+            t.dense(st.lin1, p + "Dense_0")
+            t.dense(st.lin2, p + "Dense_1")
+            if rescales:
+                t.put(st.rescale1.weight, t.take(p + "Rescale_0/weight"))
+                t.put(st.rescale2.weight, t.take(p + "Rescale_1/weight"))
+
+
+@torch.no_grad()
+def graphdf_from_flax(variables: Mapping,
+                      model: GraphFlowModelDF) -> GraphFlowModelDF:
+    """A flax ``GraphFlowModelDF``'s variables (params and the batch
+    norm's running statistics) into ``model``."""
+    t, stats = _vars(variables)
+    t.put(model.node_base_log_probs, t.take("node_base_log_probs"))
+    t.put(model.edge_base_log_probs, t.take("edge_base_log_probs"))
+    _flow_core(t, stats, model.flow_core, rescales=False)
+    return t.finish(model)
+
+
+@torch.no_grad()
+def graphaf_from_flax(variables: Mapping,
+                      model: GraphFlowModelAF) -> GraphFlowModelAF:
+    """A flax ``GraphFlowModelAF``'s variables into ``model``."""
+    t, stats = _vars(variables)
+    _flow_core(t, stats, model.flow_core, rescales=True)
+    return t.finish(model)
+
+
+@torch.no_grad()
+def graphebm_from_flax(variables: Mapping, model: EnergyFunc) -> EnergyFunc:
+    """A flax ``EnergyFunc``'s variables (``EBMGraphConv_k``, ``Dense_0``)
+    into ``model``."""
+    t, _ = _vars(variables)
+    for k, conv in enumerate(model.convs):
+        t.put(conv.weight, t.take(f"EBMGraphConv_{k}/weight"))
+        t.put(conv.bias, t.take(f"EBMGraphConv_{k}/bias"))
+        if conv.self_lin is not None:
+            t.dense(conv.self_lin, f"EBMGraphConv_{k}/Dense_0")
+    t.dense(model.out, "Dense_0")
+    return t.finish(model)
+
+
+@torch.no_grad()
+def jtvae_from_flax(variables: Mapping, model: JTVAEModel) -> JTVAEModel:
+    """A flax ``JTVAEModel``'s variables into ``model`` (the property
+    head too when ``model.predict_prop``)."""
+    t, _ = _vars(variables)
+    t.put(model.tree_enc.emb.weight, t.take("tree_enc/Embed_0/embedding"))
+    _gru(t, "tree_enc/GRUCell_0", model.tree_enc.gru)
+    g = model.graph_enc
+    t.put(g.emb.weight, t.take("graph_enc/Embed_0/embedding"))
+    t.dense(g.lin0, "graph_enc/Dense_0")
+    for k, lin in enumerate(g.lins):
+        t.dense(lin, f"graph_enc/Dense_{k + 1}")
+    for name in ("t_mean", "t_logvar", "g_mean", "g_logvar", "dec_label",
+                 "dec_topo", "dec_init") + (
+                     ("prop_nn1", "prop_nn2") if model.predict_prop else ()):
+        t.dense(getattr(model, name), name)
+    t.put(model.dec_emb.weight, t.take("dec_emb/embedding"))
+    _gru(t, "dec_gru", model.dec_gru)
+    return t.finish(model)
+
+
+@torch.no_grad()
+def jtmpn_from_flax(variables: Mapping, model: JTMPNScorer) -> JTMPNScorer:
+    """A flax ``JTMPNScorer``'s variables (``Dense_0`` the input layer,
+    ``Dense_1..depth`` the messages, then the pooled and output layers)
+    into ``model``."""
+    t, _ = _vars(variables)
+    lins = [model.lin0, *model.msgs, model.pool, model.out]
+    for k, lin in enumerate(lins):
+        t.dense(lin, f"Dense_{k}")
     return t.finish(model)

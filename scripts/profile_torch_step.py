@@ -1,6 +1,6 @@
 """Where the time of one of the port's train steps goes, on one card.
 
-    python scripts/profile_torch_step.py [schnet_dense|spherenet|spherenet_force|schnet_force|spherenet_flat|spherenet_nk_force|dimenetpp_nk|spherenet_pt_force|comenet_force|comenet_ocp_force|pronet|lsgraph|ssl] [--root DIR]
+    python scripts/profile_torch_step.py [schnet_dense|spherenet|spherenet_force|schnet_force|spherenet_flat|spherenet_nk_force|dimenetpp_nk|spherenet_pt_force|comenet_force|comenet_ocp_force|pronet|lsgraph|ssl|ggraph|ggraph_gen] [--root DIR]
 
 ``--root`` names the checkout whose ``dig_tpu_torch`` runs (default: this
 one), e.g. the parent unpacked with ``git archive``, so that two versions
@@ -42,7 +42,15 @@ the adjoint in every layer); ``ssl`` runs main path 10 (bench.py bench_ssl:
 GraphCL, dim 384, dropN / maskN views, over a GIN 128 x 3 on
 synthetic_graph_dataset(512, seed=0) in shuffled batches of 64, f32,
 Adam(1e-3); a step is one batch's, the views drawn on the card, the
-sorted-CSR kernel in every neighbour sum, adjoint and readout).
+sorted-CSR kernel in every neighbour sum, adjoint and readout);
+``ggraph`` runs main path 12 (GraphDF at the published QM9 width:
+max_size 20, edge_unroll 12, 12 flow layers, RGCN 128 x 3, batches of 32
+of synthetic_smiles_dataset(max_size=20, repeat=8), f32, Adam(1e-3); a
+step is one NLL step over the 182 masked views of each molecule);
+``ggraph_gen`` runs path 12's generation (a step is one lockstep batch of
+48 molecules, run_rand_gen(n_mols=48, temperature=(0.35, 0.23)) from the
+seeded weights: one reverse step on the card a node or edge decision,
+its output read on the host).
 Traces a few steady
 steps with torch.profiler and prints the
 step's host time, the device's busy and idle share, device time by
@@ -296,6 +304,38 @@ def ssl(dev, steps):
     return step, batches[:steps]
 
 
+def ggraph(dev, steps):
+    """Path 12: GraphDF's NLL step (methods.flow_train_step, as
+    train_rand_gen runs it) on the epoch's batches in turn, moved to the
+    card before timing."""
+    smoke = _chip_smoke()
+    from dig_tpu_torch.ggraph.methods import flow_train_step
+    from dig_tpu_torch.ggraph.models import GraphFlowModelDF
+    _, loader = smoke.gg_loader()
+    batches = []
+    while len(batches) < steps:
+        batches += [(torch.from_numpy(b["x"]).to(dev),
+                     torch.from_numpy(b["adj"]).to(dev)) for b in loader]
+    model = GraphFlowModelDF(**smoke.GG_CONF, generator=torch.Generator()
+                             .manual_seed(0)).to(dev)
+    step = flow_train_step(model, torch.optim.Adam(model.parameters(),
+                                                   smoke.GG_LR))
+    return (lambda b: step(*b)), batches[:steps]
+
+
+def ggraph_gen(dev, steps):
+    """Path 12's generation: one lockstep batch of 48 molecules a step,
+    from the seeded weights, a seed a step."""
+    smoke = _chip_smoke()
+    from dig_tpu_torch.ggraph import GraphDF
+    gdf = GraphDF()
+    gdf.get_model("rand_gen", smoke.GG_CONF, device=dev)
+    gdf.params = gdf.model.state_dict()
+    gen = dict(smoke.GG_GEN)
+    return (lambda seed: gdf.run_rand_gen(**dict(gen, seed=seed))), \
+        list(range(steps))
+
+
 def segment_report(calls, kernels, steps, busy_ms):
     """Device ms a step of each segment-sum kernel by call shape, from the
     calls chip_smoke.SegmentCalls noted."""
@@ -394,7 +434,8 @@ def main():
              "spherenet_pt_force": spherenet_pt_force,
              "comenet_force": comenet_force,
              "comenet_ocp_force": comenet_ocp_force, "pronet": pronet,
-             "lsgraph": lsgraph, "ssl": ssl}
+             "lsgraph": lsgraph, "ssl": ssl, "ggraph": ggraph,
+             "ggraph_gen": ggraph_gen}
     if which not in paths:
         sys.exit(f"unknown path {which!r}; one of {sorted(paths)}")
     if not torch.cuda.is_available():

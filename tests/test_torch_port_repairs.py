@@ -6,8 +6,12 @@
   both packages (float32, 1e-5 of the largest value: sums in another
   order);
 * the package namespaces mirror the JAX package's (the top level, ``ops``,
-  ``models``, ``lsgraph``, ``ssl``, ``datasets`` and ``auggraph``), less a
-  named list of names still to port, now empty;
+  ``models``, ``lsgraph``, ``ssl``, ``datasets``, ``auggraph``, ``chem``,
+  ``ggraph`` and ``ggraph.models``), less a named list of names still to
+  port, now empty;
+* no module of the port, and not ``chip_smoke.py``, imports ``jax``,
+  ``flax``, ``optax`` or ``dig_tpu`` (their import statements, read with
+  ``ast``);
 * the per-graph readout and the row gathers are sums a card repeats bit
   for bit: ``readout_sum`` builds its row pointer from the running maximum
   of the masked graph ids, so a slot-aligned batch with padding rows
@@ -23,14 +27,20 @@ import torch
 
 import dig_tpu
 import dig_tpu.auggraph
+import dig_tpu.chem
 import dig_tpu.datasets
+import dig_tpu.ggraph
+import dig_tpu.ggraph.models
 import dig_tpu.lsgraph
 import dig_tpu.models
 import dig_tpu.ops
 import dig_tpu.ssl
 import dig_tpu_torch
 import dig_tpu_torch.auggraph
+import dig_tpu_torch.chem
 import dig_tpu_torch.datasets
+import dig_tpu_torch.ggraph
+import dig_tpu_torch.ggraph.models
 import dig_tpu_torch.lsgraph
 import dig_tpu_torch.models
 import dig_tpu_torch.ops
@@ -44,12 +54,14 @@ from dig_tpu_torch.ops.segment_csr import csr_block_overflow, full_window
 from dig_tpu_torch.ops.triplet_product import (fused_angle_product,
                                                fused_triplet_product)
 
-# JAX names the port has not ported yet (none is left in these seven
+# JAX names the port has not ported yet (none is left in these ten
 # namespaces); the port's own names beside the reference's (the JAX
 # package keeps spmm_bidir_sell in dig_tpu.ops.segment only)
 TO_PORT = {"dig_tpu": set(), "dig_tpu.ops": set(), "dig_tpu.models": set(),
            "dig_tpu.lsgraph": set(), "dig_tpu.ssl": set(),
-           "dig_tpu.datasets": set(), "dig_tpu.auggraph": set()}
+           "dig_tpu.datasets": set(), "dig_tpu.auggraph": set(),
+           "dig_tpu.chem": set(), "dig_tpu.ggraph": set(),
+           "dig_tpu.ggraph.models": set()}
 PORT_ONLY = {"dig_tpu": {"resolve_device"},
              "dig_tpu.ops": {"fused_triplet_pt", "basis_pt", "pt_rows",
                              "cosine_cutoff", "gaussian_rbf", "MASK_DIST",
@@ -57,14 +69,19 @@ PORT_ONLY = {"dig_tpu": {"resolve_device"},
                              "spmm_bidir_sell"},
              "dig_tpu.models": set(), "dig_tpu.lsgraph": set(),
              "dig_tpu.ssl": set(), "dig_tpu.datasets": set(),
-             "dig_tpu.auggraph": set()}
+             "dig_tpu.auggraph": set(), "dig_tpu.chem": set(),
+             "dig_tpu.ggraph": set(), "dig_tpu.ggraph.models": set()}
 REF = {"dig_tpu": (dig_tpu, dig_tpu_torch),
        "dig_tpu.ops": (dig_tpu.ops, dig_tpu_torch.ops),
        "dig_tpu.models": (dig_tpu.models, dig_tpu_torch.models),
        "dig_tpu.lsgraph": (dig_tpu.lsgraph, dig_tpu_torch.lsgraph),
        "dig_tpu.ssl": (dig_tpu.ssl, dig_tpu_torch.ssl),
        "dig_tpu.datasets": (dig_tpu.datasets, dig_tpu_torch.datasets),
-       "dig_tpu.auggraph": (dig_tpu.auggraph, dig_tpu_torch.auggraph)}
+       "dig_tpu.auggraph": (dig_tpu.auggraph, dig_tpu_torch.auggraph),
+       "dig_tpu.chem": (dig_tpu.chem, dig_tpu_torch.chem),
+       "dig_tpu.ggraph": (dig_tpu.ggraph, dig_tpu_torch.ggraph),
+       "dig_tpu.ggraph.models": (dig_tpu.ggraph.models,
+                                 dig_tpu_torch.ggraph.models)}
 
 
 def _rel(a, b):
@@ -109,6 +126,26 @@ def test_namespaces_mirror_the_reference(name):
     assert set(port.__all__) - PORT_ONLY[name] == \
         set(ref.__all__) - TO_PORT[name]
     assert all(hasattr(port, n) for n in port.__all__)
+
+
+def test_port_imports_no_jax():
+    import ast
+    import pathlib
+    root = pathlib.Path(dig_tpu_torch.__file__).parent
+    files = sorted(root.rglob("*.py")) + [root.parent / "chip_smoke.py"]
+    banned = {"jax", "flax", "optax", "dig_tpu"}
+    found = []
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            found += [(f.name, n) for n in names
+                      if n.split(".")[0] in banned]
+    assert len(files) > 60 and not found, found
 
 
 def test_readout_of_a_slot_aligned_batch():
