@@ -274,6 +274,39 @@ Phases, each printed as it runs; any failure exits non-zero:
      rollouts bit for bit, the PPO loss and gradients); a JTVAE step given
      its reparameterisation noise; a JTMPN assembly-scorer step, then
      train_assembler for one epoch on the card
+ 47. main path 13: xgraph at bench.py bench_xgraph's config
+     (ba_2motifs(120, base_n=20), GCN_2l hidden 32): the first train step
+     on the card against the CPU's (loss 1e-5, gradients 1e-4) and
+     repeated bit for bit, and the same for run_benchmark.py's GIN_3l
+     (hidden 64, sum readout); train_gnn(epochs=25) on the card (seconds,
+     accuracy) and 1 + 20 timed train steps (ms a step, segment-sum
+     launches a step); GNNExplainer(epochs=60, lr=0.05).explain_batch over
+     graphs 1-32 after warm runs (explanations/s, the launches an epoch:
+     every neighbour sum, readout and gather adjoint through the kernel),
+     its 32 final edge and feature masks against the CPU's from the same
+     weights and initial masks
+ 48. path 13b, from path 13's weights on one ba_2motifs graph, card
+     against CPU: GradCAM, GNN-GI, DeepLIFT, FlowX and GNN-LRP scores, one
+     PGExplainer step (its loss, weights and edge logits) and
+     SubgraphX(rollout=5, min_atoms=3, sample_num=8)'s coalition
+ 49. main path 14: G-SphereNet at bench.py bench_ggraph3d_gen's config
+     (QM93DGEN(num_steps_per_batch=16) on its synthetic molecules,
+     GSphereNet(4, hidden=64, num_flow_layers=4), Adam(1e-3)): no radius
+     edge dropped in any batch; the first step on the card against the
+     CPU's from the same weights and dequantisation noise (loss 1e-5,
+     gradients 1e-4), repeated bit for bit; GSphereNet.train for 4 epochs
+     (ms a step, the loss history, 7 segment-sum launches a step: 3 edge
+     sums, 3 sender-gather adjoints, the type embedding's gather adjoint);
+     one encoder pass (3 launches); generate(256 molecules, max_atoms=9,
+     seed=1) after a warm run (mols/s, atoms a molecule,
+     RandGenEvaluator3D validity); a batch of 32 from the trained weights
+     and the same draws on the card and the CPU: the types and atom
+     counts exactly, positions 1e-4 of the largest coordinate, no radius
+     edge dropped; then scripts/profile_torch_step.py's traces of its
+     gspherenet and gspherenet_gen cases (busy ms, idle share, launches of
+     a step and of a generation batch), one after the other
+ 50. the segment sum at the call shapes of paths 13 and 14: kernel
+     against plain (1e-5), then times as phase 15's, with the calls a step
 The card's name and power limit (nvidia-smi), then the kernels as JSON,
 are the two lines before the last; the last line is
 {"ok": true, "device": {...}}.
@@ -560,6 +593,46 @@ GG_SMALL_TOL, GG_LANGEVIN_TOL = (1e-5, 1e-4), 1e-9
 GG_SMILES = ["CCO", "CCN", "CCC", "CC=O", "C1CC1", "c1ccccc1", "CC(C)O",
              "CC(N)=O", "CCOC", "CNC", "c1ccccc1C", "c1ccccc1O",
              "CC(C)(C)O", "c1ccncc1C"]
+# Path 13: bench.py bench_xgraph (:717-741), uncut: ba_2motifs(120,
+# base_n=20, seed=0), GCN_2l(dim_hidden=32) trained by train_gnn(epochs=25)
+# (batches of 32, Adam(5e-3) on the cosine schedule, up to 3 restarts below
+# 0.95 accuracy), then run_benchmark.make_explainer's GNNExplainer(epochs=60,
+# lr=0.05) over graphs 1-32 in one explain_batch at seed=1; beside it one
+# step of run_benchmark.py's GRAPH_MODEL, GIN_3l(dim_hidden=64, readout=
+# "sum"). First steps against the CPU's as paths 9-11. The 32 graphs' final
+# mask logits against the CPU's from the same weights and initial masks:
+# 60 Adam steps of 0.05 move a logit by up to 3, each step's gradient
+# differing from the CPU's in the order of its float32 sums (~1e-6
+# relative), which Adam's normalised steps pass on: 1e-3 absolute.
+XG_DATA = dict(num_graphs=120, base_n=20, seed=0)
+XG_MODEL = dict(dim_hidden=32, num_classes=2)
+XG_TRAIN = dict(epochs=25, batch_size=32, lr=5e-3)
+XG_EXPLAIN = dict(epochs=60, lr=0.05)
+XG_GIN = dict(dim_hidden=64, readout="sum", num_classes=2)
+XG_STEP_TOL, XG_MASK_TOL, XG_TIMED_STEPS = (1e-5, 1e-4), 1e-3, 20
+# segment sums of a train step: two neighbour sums by receiver, the
+# readout, the two sender gathers' adjoints (the features carry none)
+XG_STEP_LAUNCHES = 5
+# Path 13b: the other explainers as run_benchmark.make_explainer builds
+# them, card against CPU on one graph: scores 1e-4 of their largest value
+# (FlowX's are means of differences of probabilities: 1e-5 absolute); one
+# PGExplainer step: loss 1e-5, weights within 5% of a step (lr 3e-3), the
+# edge logits 1e-4; SubgraphX's coalition the same, its payoff 1e-5
+XG_SCORE_TOL, XG_PROB_TOL, XG_PG_EPOCHS = 1e-4, 1e-5, 10
+XG_SUBGRAPHX = dict(num_classes=2, rollout=5, min_atoms=3, sample_num=8)
+# Path 14: bench.py bench_ggraph3d_gen (:698-714), uncut:
+# QM93DGEN(num_steps_per_batch=16) on its synthetic molecules (64 of 4-9
+# atoms; the gdb9 cache is not in the repository), GSphereNet(4, hidden=64,
+# num_flow_layers=4), Adam(1e-3) for 4 epochs, then generate([6, 7, 8, 9],
+# num_gen=256, max_atoms=9, seed=1) after a warm run. The first step as
+# paths 9-11; a generation batch of 32 from the trained weights and the same
+# draws: every discrete decision the CPU's (types, atom counts), positions
+# 1e-4 of the largest coordinate (float32 flows and frames through 8
+# placements).
+GS_CONF = dict(num_node_types=4, hidden=64, num_flow_layers=4)
+GS_STEPS, GS_LR, GS_EPOCHS, GS_TYPES = 16, 1e-3, 4, [6, 7, 8, 9]
+GS_GEN = dict(num_gen=256, max_atoms=9)
+GS_STEP_TOL, GS_POS_TOL, GS_LAUNCHES = (1e-5, 1e-4), 1e-4, 7
 
 
 def log(*a):
@@ -5237,6 +5310,453 @@ def phase_gg_small(torch, dev):
     return res
 
 
+def xg_loss(torch, model, g):
+    """train_gnn's loss: cross-entropy over the real graphs."""
+    from torch.nn import functional as F
+    y = g.globals["y"].long().reshape(-1)
+    ls = F.cross_entropy(model(g), y, reduction="none")
+    return torch.sum(torch.where(g.graph_mask, ls, 0.0)) / torch.clamp(
+        torch.sum(g.graph_mask), min=1)
+
+
+def xg_first_step(torch, dev, name, kw, g0, what):
+    """A zoo model's first train step from seed 0 on ``g0``, card against
+    CPU, repeated on the card."""
+    from dig_tpu_torch.xgraph.model_manager import load_model
+
+    def build(d):
+        m = load_model(name, **kw).init(g0.to(d), 0)
+        return xg_loss(torch, m, g0.to(d)), [m]
+    return first_step_vs_cpu(torch, what, build, dev, XG_STEP_TOL,
+                             repeat=True)
+
+
+def xg_cpu_model(torch, params, g):
+    """Path 13's GCN on the CPU with the weights ``params``."""
+    from dig_tpu_torch.xgraph.model_manager import load_model
+    m = load_model("GCN_2l", **XG_MODEL).init(g.to("cpu"), 0)
+    m.load_state_dict({k: v.cpu() for k, v in params.items()})
+    return m
+
+
+def xg_train_steps(torch, sc, params, data, dev):
+    """ms a step and segment-sum launches a step of train_gnn's step
+    (constant lr, from the trained weights), 1 warm + XG_TIMED_STEPS
+    timed, on the shuffled batches moved to the card first."""
+    from dig_tpu_torch.datasets import GraphClsLoader
+    from dig_tpu_torch.xgraph.model_manager import load_model
+    loader = GraphClsLoader(data, XG_TRAIN["batch_size"], shuffle=True)
+    batches = []
+    while len(batches) < XG_TIMED_STEPS + 1:
+        batches += [b.to(dev) for b in loader]
+    m = load_model("GCN_2l", **XG_MODEL).init(batches[0], 0)
+    m.load_state_dict(params)
+    opt = torch.optim.Adam(m.parameters(), XG_TRAIN["lr"])
+    per_step = []
+    for k, b in enumerate(batches[:XG_TIMED_STEPS + 1]):
+        if k == 1:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+        before = sc.launches
+        opt.zero_grad(set_to_none=True)
+        xg_loss(torch, m, b).backward()
+        opt.step()
+        per_step.append(sc.launches - before)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) / XG_TIMED_STEPS * 1e3
+    if set(per_step) != {XG_STEP_LAUNCHES}:
+        fail(f"path 13: segment-sum launches a train step {per_step}, "
+             f"expected {XG_STEP_LAUNCHES}")
+    return step_ms, per_step[0]
+
+
+def phase_xg_main_path(torch, cf, ts, sc, dev):
+    """Path 13 (phase 47): the first steps, train_gnn, the timed steps,
+    then GNNExplainer.explain_batch over graphs 1-32 (two warm runs, one
+    timed) against the CPU's."""
+    from dig_tpu_torch.datasets import GraphClsLoader
+    import numpy as np
+    from dig_tpu_torch.xgraph import GNNExplainer
+
+    from dig_tpu_torch.xgraph.datasets import ba_2motifs
+    from dig_tpu_torch.xgraph.model_manager import load_model, train_gnn
+    data = ba_2motifs(**XG_DATA)
+    bs = XG_TRAIN["batch_size"]
+    g0 = next(iter(GraphClsLoader(data, bs, shuffle=True, seed=0)))
+    log(f"  {len(data)} graphs of {data[0]['num_nodes']} nodes, "
+        f"{min(len(d['senders']) for d in data)}-"
+        f"{max(len(d['senders']) for d in data)} directed edges; batches "
+        f"of {bs}: {g0.num_nodes} node rows, {g0.num_edges} edge slots")
+    res = {"first": xg_first_step(torch, dev, "GCN_2l", XG_MODEL, g0,
+                                  "path 13 GCN_2l"),
+           "gin": xg_first_step(torch, dev, "GIN_3l", XG_GIN, g0,
+                                "path 13 GIN_3l")}
+    reset_all(cf, ts, sc)
+    model = load_model("GCN_2l", **XG_MODEL)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    params, acc = train_gnn(model, data, **XG_TRAIN, device=dev)
+    torch.cuda.synchronize()
+    res.update(train_s=time.perf_counter() - t, acc=acc,
+               train_launches=sc.launches)
+    res["step_ms"], res["per_step"] = xg_train_steps(torch, sc, params, data,
+                                                     dev)
+    log(f"  train_gnn(epochs={XG_TRAIN['epochs']}): {res['train_s']:.3f} s "
+        f"(restarts included), training accuracy {acc:.4f}, "
+        f"{res['train_launches']} segment-sum launches; a train step "
+        f"{res['step_ms']:.3f} ms (mean of {XG_TIMED_STEPS}), "
+        f"{res['per_step']} launches a step")
+    gs = [g.to(dev) for g in GraphClsLoader(data[:33], 1)]
+    labels = [int(d["y"]) for d in data[:33]]
+    ex = GNNExplainer(model, **XG_EXPLAIN)
+    ex.explain_batch(gs[:1], labels[:1])
+    ex.explain_batch(gs[1:], labels[1:])
+    reset_all(cf, ts, sc)
+    with SegmentCalls(sc) as calls:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = ex.explain_batch(gs[1:], labels[1:], seed=1)
+        dt = time.perf_counter() - t          # the masks read: synchronised
+    others_idle(cf, ts, "path 13")
+    E, launches = XG_EXPLAIN["epochs"], sc.launches
+    if launches == 0 or launches % E:
+        fail(f"path 13: {launches} segment-sum launches in {E} epochs")
+    mc = xg_cpu_model(torch, params, gs[0])
+    t = time.perf_counter()
+    ref = GNNExplainer(mc, **XG_EXPLAIN).explain_batch(
+        [g.to("cpu") for g in gs[1:]], labels[1:], seed=1)
+    cpu_s = time.perf_counter() - t
+    e_err = f_err = 0.0
+    for (ec, fc), (ep, fp) in zip(out, ref):
+        fin = np.isfinite(ep)
+        if not np.array_equal(np.isfinite(ec), fin):
+            fail("path 13: the masks' padding edges differ from the CPU's")
+        e_err = max(e_err, float(np.abs(ec[fin] - ep[fin]).max()))
+        f_err = max(f_err, float(np.abs(fc - fp).max()))
+    log(f"  explain_batch of 32 graphs ({E} epochs): {dt * 1e3:.3f} ms, "
+        f"{32 / dt:.6g} explanations/s (host clock; CPU {cpu_s:.3f} s); "
+        f"{launches // E} segment-sum launches an epoch; final mask "
+        f"logits against the CPU's: edges {e_err:.3e}, features "
+        f"{f_err:.3e} (held to {XG_MASK_TOL})")
+    if max(e_err, f_err) >= XG_MASK_TOL:
+        fail(f"path 13: masks differ from the CPU's: {e_err}, {f_err}")
+    res.update(explain_s=dt, explanations_per_s=32 / dt,
+               launches=launches, per_epoch=launches // E,
+               calls=calls, mask_err=(e_err, f_err), model=model,
+               cpu_model=mc, gs=gs, labels=labels, g0=g0)
+    return res
+
+
+def xg_score_err(name, a, b):
+    import numpy as np
+    fin = np.isfinite(b)
+    if not np.array_equal(np.isfinite(a), fin):
+        fail(f"path 13b {name}: the padding edges differ from the CPU's")
+    d = float(np.abs(a[fin] - b[fin]).max())
+    if name == "FlowX":
+        return d, d < XG_PROB_TOL, XG_PROB_TOL
+    rel = d / max(float(np.abs(b[fin]).max()), 1e-12)
+    return rel, rel < XG_SCORE_TOL, XG_SCORE_TOL
+
+
+def phase_xg_others(torch, sc, dev, res):
+    """Path 13b (phase 48): each other explainer on graph 1 from path
+    13's weights, card against CPU."""
+    from dig_tpu_torch.xgraph import (DeepLIFT, FlowX, GNN_GI, GNN_LRP,
+                                      GradCAM, PGExplainer, SubgraphX)
+    g, label, mc = res["gs"][1], res["labels"][1], res["cpu_model"]
+    gc = g.to("cpu")
+    for cls in (GradCAM, GNN_GI, DeepLIFT, FlowX, GNN_LRP):
+        before = sc.launches
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        a = cls(res["model"]).explain(g, label)
+        dt = time.perf_counter() - t
+        n = sc.launches - before
+        b = cls(mc).explain(gc, label)
+        err, ok, tol = xg_score_err(cls.__name__, a, b)
+        log(f"  {cls.__name__}: {dt * 1e3:.3f} ms on the card, {n} "
+            f"segment-sum launches; scores against the CPU's {err:.3e} "
+            f"(held to {tol})")
+        if not ok or n == 0:
+            fail(f"path 13b {cls.__name__}: err {err}, {n} launches")
+    u = PGExplainer.draw(torch.Generator().manual_seed(0), g.num_edges)
+    runs = []
+    for m, gg in ((res["model"], g), (mc, gc)):
+        pg = PGExplainer(m, epochs=XG_PG_EPOCHS)
+        feats = pg._edge_feats(gg)
+        pg.mlp = pg.init_mlp(feats.shape[-1], 0)
+        opt = torch.optim.Adam(pg.mlp.parameters(), lr=pg.lr)
+        before = sc.launches
+        loss = float(pg.step(opt, gg, feats, pg.t0, u))
+        runs.append((loss, dict(pg.mlp.named_parameters()), pg.explain(gg),
+                     sc.launches - before, pg.lr))
+    (lc, wc, sc_, n, lr), (lp, wp, sp, _, _) = runs
+    l_err = abs(lc - lp) / max(abs(lp), 1e-12)
+    w_err = max(float((wc[k].detach().cpu() - wp[k].detach()).abs().max())
+                for k in wp) / lr
+    s_err, s_ok, _ = xg_score_err("PGExplainer", sc_, sp)
+    log(f"  PGExplainer step: {n} segment-sum launches; loss {lc:.7f} / "
+        f"{lp:.7f} (rel {l_err:.3e}, held to {XG_PROB_TOL}); weights "
+        f"{w_err:.3e} of a step (held to 0.05); edge logits {s_err:.3e} "
+        f"(held to {XG_SCORE_TOL})")
+    if l_err >= XG_PROB_TOL or w_err >= 0.05 or not s_ok or n == 0:
+        fail(f"path 13b PGExplainer: {l_err}, {w_err}, {s_err}, {n}")
+    before = sc.launches
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    bc, rc = SubgraphX(res["model"], **XG_SUBGRAPHX).explain(g, label=label,
+                                                             max_nodes=5)
+    dt = time.perf_counter() - t
+    n = sc.launches - before
+    bp, rp = SubgraphX(mc, **XG_SUBGRAPHX).explain(gc, label=label,
+                                                   max_nodes=5)
+    p_err = abs(bc.P - bp.P)
+    log(f"  SubgraphX: {dt:.3f} s on the card, {n} segment-sum launches; "
+        f"coalition {list(bc.coalition)} (CPU {list(bp.coalition)}), "
+        f"payoff {bc.P:.6f} / {bp.P:.6f}; fidelity items "
+        + ", ".join(f"{k} {rc[k]:.5f}" for k in ("origin", "masked",
+                                                  "maskout", "sparsity")))
+    if bc.coalition != bp.coalition or p_err >= XG_PROB_TOL or n == 0:
+        fail(f"path 13b SubgraphX: {bc.coalition} vs {bp.coalition}, "
+             f"payoff err {p_err}, {n} launches")
+
+
+def gs_batch_overflow(torch, dev, pos, ng, nm):
+    """Real in-cutoff pairs of a batch of partial molecules (positions,
+    graph ids, mask) and those the encoder's 2,048-edge cap drops."""
+    from dig_tpu_torch.ops.radius import _pairwise_same_graph, radius_overflow
+    pos, ng, nm = pos.to(dev), ng.to(dev), nm.to(dev)
+    d2, valid = _pairwise_same_graph(pos, ng, nm)
+    pairs = int((valid & (d2 < 25.0)).sum())
+    return pairs, int(radius_overflow(pos, ng, nm, 5.0, 2048))
+
+
+def phase_gs_main_path(torch, cf, ts, sc, dev):
+    """Path 14 (phase 49): the radius check, the first step, training,
+    generation and a generation batch against the CPU's."""
+    import numpy as np
+    from dig_tpu_torch.ggraph3d import (GSphereNet, QM93DGEN,
+                                        RandGenEvaluator3D, SphGenModel)
+    ds = QM93DGEN(num_steps_per_batch=GS_STEPS)
+    checks = [gs_batch_overflow(torch, dev, g.nodes["pos"], g.node_graph,
+                                g.node_mask)
+              for g, _ in ds.loader(shuffle=False)]
+    log(f"  {len(ds.steps)} placement steps in batches of {GS_STEPS} "
+        f"({ds.n_node_pad} node rows): in-cutoff pairs a batch "
+        f"{min(c[0] for c in checks)}-{max(c[0] for c in checks)} of the "
+        f"2,048 edge slots, dropped {sum(c[1] for c in checks)}")
+    if any(c[1] for c in checks):
+        fail("path 14: radius edges dropped")
+    g0, st0 = next(iter(ds.loader()))
+    gs = GSphereNet(**GS_CONF)
+    noise = torch.rand((GS_STEPS, GS_CONF["num_node_types"]),
+                       generator=torch.Generator().manual_seed(0))
+
+    def build(d):
+        m = gs.init_model(0, d)
+        st = {k: torch.as_tensor(v).to(d) for k, v in st0.items()}
+        return m.loss(g0.to(d), st, noise.to(d))[0], [m]
+    res = {"first": first_step_vs_cpu(torch, "path 14 G-SphereNet", build,
+                                      dev, GS_STEP_TOL, repeat=True)}
+    loader = ds.loader()
+    steps = GS_EPOCHS * len(loader)
+    reset_all(cf, ts, sc)
+    torch.cuda.reset_peak_memory_stats()
+    with SegmentCalls(sc) as calls:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        hist = gs.train(loader, lr=GS_LR, max_epochs=GS_EPOCHS,
+                        verbose=False, device=dev)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+    others_idle(cf, ts, "path 14")
+    train_launches = sc.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  GSphereNet.train: {GS_EPOCHS} epochs of {len(loader)} steps in "
+        f"{dt:.3f} s: {dt / steps * 1e3:.3f} ms a step (the host's collate "
+        f"and the loss read once an epoch included); losses "
+        f"{[round(x, 5) for x in hist]}; {train_launches / steps:g} "
+        f"segment-sum launches a step; peak {peak:.3f} GiB")
+    if train_launches != GS_LAUNCHES * steps:
+        fail(f"path 14: {train_launches} segment-sum launches in {steps} "
+             f"steps, expected {GS_LAUNCHES} a step")
+    if not all(math.isfinite(x) for x in hist):
+        fail(f"path 14: non-finite loss {hist}")
+    before = sc.launches
+    with torch.no_grad():
+        gs.model.encoder(g0.to(dev))
+    enc = sc.launches - before
+    if enc != 3:
+        fail(f"path 14: {enc} segment-sum launches an encoder pass")
+    gs.generate(GS_TYPES, **GS_GEN, seed=0)
+    reset_all(cf, ts, sc)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    samples = gs.generate(GS_TYPES, **GS_GEN, seed=1)
+    gen_s = time.perf_counter() - t       # each batch read: synchronised
+    gen_launches = sc.launches
+    n = GS_GEN["num_gen"]
+    atoms = float(np.mean([len(s["z"]) for s in samples]))
+    valid = RandGenEvaluator3D().eval_validity({"mol_dicts": samples})[
+        "valid_ratio"]
+    log(f"  generate({n}, max_atoms={GS_GEN['max_atoms']}): {gen_s:.3f} s, "
+        f"{n / gen_s:.6g} mols/s (host clock), {atoms:.3f} atoms a "
+        f"molecule, validity {valid:.2f}%; {gen_launches} segment-sum "
+        f"launches ({enc} an encoder pass, one pass a step)")
+    L = GS_GEN["max_atoms"]
+    draws = gs.draw_batch(torch.Generator().manual_seed(1), 32,
+                          len(GS_TYPES), L, L)
+    zc, pc, nc = (t.cpu() for t in gs.run_batch(draws, L, L))
+    cpu = GSphereNet(**GS_CONF)
+    cpu.model = SphGenModel(**GS_CONF, device="cpu")
+    cpu.model.load_state_dict({k: v.cpu() for k, v in
+                               gs.model.state_dict().items()})
+    zp, pp, np_ = cpu.run_batch(draws, L, L)
+    real = torch.arange(L)[None, :] < np_[:, None]
+    same = torch.equal(nc, np_) and torch.equal(torch.where(real, zc, -1),
+                                                torch.where(real, zp, -1))
+    scale = float(pp[real].abs().max())
+    p_err = float((pc - pp)[real].abs().max()) / scale
+    seen = torch.clamp(nc, max=L - 1)         # the last step's partial graphs
+    pairs, dropped = gs_batch_overflow(
+        torch, dev, pc.reshape(-1, 3),
+        torch.repeat_interleave(torch.arange(nc.shape[0]), L).int(),
+        (torch.arange(L)[None, :] < seen[:, None]).reshape(-1))
+    log(f"  a batch of 32 from the trained weights and the same draws, "
+        f"card against CPU: the same types and atom counts {same} "
+        f"(counts {np.bincount(np_.numpy(), minlength=L + 1)[1:].tolist()} "
+        f"for 1-{L} atoms); positions {p_err:.3e} of the largest coordinate"
+        f" {scale:.3f} (held to {GS_POS_TOL}); the last step's graph "
+        f"{pairs} in-cutoff pairs, dropped {dropped}")
+    if not same or p_err >= GS_POS_TOL or dropped:
+        fail(f"path 14: generation batch differs from the CPU's "
+             f"(same {same}, pos {p_err}) or dropped {dropped} edges")
+    res.update(step_ms=dt / steps * 1e3, losses=hist, peak_gib=peak,
+               launches=train_launches, per_step=train_launches / steps,
+               steps=steps, calls=calls, mols_per_s=n / gen_s, atoms=atoms,
+               validity=valid, gen_launches=gen_launches, enc_launches=enc,
+               pos_err=p_err, g0=g0)
+    return res
+
+
+def gs_profiles(torch, dev):
+    """Busy ms, idle share and launches of one path-14 train step and of
+    one generation batch: scripts/profile_torch_step.py's trace of its
+    gspherenet and gspherenet_gen cases, in this process, one after the
+    other."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "profile_torch_step", os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "scripts",
+            "profile_torch_step.py"))
+    prof = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(prof)
+    out = {}
+    for case in ("gspherenet", "gspherenet_gen"):
+        wall_ms, busy_ms, kernels, _, _ = prof.trace(case, dev)
+        log(f"  profile_torch_step.py "
+            f"{prof.summary_line(case, wall_ms, busy_ms, kernels)}")
+        out[case] = {"busy_ms": busy_ms / prof.TRACED,
+                     "idle": 1 - busy_ms / wall_ms,
+                     "launches": len(kernels) / prof.TRACED}
+    return out
+
+
+def phase_new_seg(torch, sc, dev, cases):
+    """The segment sum at each case's tables (name, ids, row pointer, rows,
+    F, calls a step) with seeded rows: the kernel against its plain
+    version (SEG_TOL), then timed as phase 15's. Returns the rows and the
+    largest absolute error."""
+    gen = torch.Generator(device="cpu").manual_seed(13)
+    rows, err = [], 0.0
+    for name, seg, rp, n_rows, F, per_step in cases:
+        seg, rp = seg.to(dev).to(torch.int32), rp.to(dev).to(torch.int32)
+        data = torch.randn(seg.shape[0], F, generator=gen).to(dev)
+        eb = sc.full_window(seg.shape[0])
+        got = sc.segment_sum_sorted_csr(data, seg, rp, n_rows, 32, eb)
+        ref = sc.segment_sum_sorted_csr_reference(data, seg, rp, n_rows)
+        e = rel_err(got, ref)
+        err = max(err, float((got - ref).abs().max()))
+        if e >= SEG_TOL:
+            fail(f"segment sum {name}: rel err {e}")
+        r = seg_time_row(torch, sc, {"name": name, "seg": seg, "rowptr": rp,
+                                     "N": n_rows, "data": data, "eb": eb})
+        r.update(path=name.split("_")[0], per_step=per_step, rel_err=e)
+        seg_log_row(r)
+        rows.append(r)
+    return rows, err
+
+
+def xg_gs_seg_cases(torch, sc, dev, xg, gs):
+    """Phase 50's cases: path 13's explanation epoch on the union of the
+    32 graphs (the neighbour sums by receiver and the sender gathers'
+    adjoints at F = 32, the mean readout, the feature mask's gather
+    adjoint), its GIN step (F = 64) and path 14's train step (the edge
+    sums and sender adjoints at F = 64, the type embedding's adjoint),
+    each checked against the calls counted on the path."""
+    from dig_tpu_torch.ops.radius import radius_graph_flat
+    from dig_tpu_torch.ops.segment import gather_plan
+    from dig_tpu_torch.xgraph.base import disjoint_union
+    from dig_tpu_torch.xgraph.models import xplan
+
+    def readout_tables(g):
+        ids = torch.where(g.node_mask, g.node_graph.long(), -1)
+        rp = torch.searchsorted(torch.cummax(ids, 0).values,
+                                torch.arange(g.num_graphs + 1,
+                                             device=ids.device),
+                                out_int32=True)
+        return ids, rp
+
+    u = disjoint_union(xg["gs"][1:])
+    p = xplan(u)
+    N, E, B = u.num_nodes, u.num_edges, len(xg["gs"]) - 1
+    H, Fx = XG_MODEL["dim_hidden"], u.nodes["x"].shape[1]
+    want = {(E, H, N, "float32", True): 4, (N, H, B, "float32", True): 1,
+            (N, Fx, B, "float32", True): 1}
+    by = {k: round(v, 6) for k, v in xg["calls"].per_step(
+        XG_EXPLAIN["epochs"]).items()}
+    if by != want:
+        fail(f"path 13: segment sums an epoch by shape {by}, expected {want}")
+    node_b = gather_plan(torch.repeat_interleave(
+        torch.arange(B, device=dev), N // B), B)
+    ids_u, rp_u = readout_tables(u)
+    g0 = xg["g0"].to(dev)
+    p0 = xplan(g0)
+    ids_0, rp_0 = readout_tables(g0)
+    G_in = XG_GIN["dim_hidden"]
+    e, e0 = p.edges, p0.edges
+    cases = [("13_fwd_F32", e.recv_ids, e.rowptr, N, H, 2),
+             ("13_adj_F32", p.send_plan.ids, p.send_plan.rowptr, N, H, 2),
+             ("13_readout_F32", ids_u, rp_u, B, H, 1),
+             ("13_featmask_F10", node_b.ids, node_b.rowptr, B, Fx, 1),
+             ("13gin_fwd_F64", e0.recv_ids, e0.rowptr, g0.num_nodes, G_in,
+              2),
+             ("13gin_adj_F64", p0.send_plan.ids, p0.send_plan.rowptr,
+              g0.num_nodes, G_in, 2),
+             ("13gin_readout_F64", ids_0, rp_0, g0.num_graphs, G_in, 1)]
+    g = gs["g0"].to(dev)
+    snd, rcv, em = radius_graph_flat(g.nodes["pos"], g.node_graph,
+                                     g.node_mask, 5.0, 2048)
+    Ng, H3 = g.num_nodes, GS_CONF["hidden"]
+    recv = torch.where(em, rcv.long(), -1).to(torch.int32)
+    rp_r = torch.searchsorted(torch.where(em, rcv.long(), Ng),
+                              torch.arange(Ng + 1, device=dev),
+                              out_int32=True)
+    sp = gather_plan(snd, Ng)
+    tp = gather_plan(g.node_graph, g.num_graphs)
+    want = {(2048, H3, Ng, "float32", True): 6,
+            (Ng, H3, g.num_graphs, "float32", True): 1}
+    by = {k: round(v, 6) for k, v in gs["calls"].per_step(gs["steps"])
+          .items()}
+    if by != want:
+        fail(f"path 14: segment sums a step by shape {by}, expected {want}")
+    cases += [("14_fwd_F64", recv, rp_r, Ng, H3, 3),
+              ("14_adj_F64", sp.ids, sp.rowptr, Ng, H3, 3),
+              ("14_temb_adj_F64", tp.ids, tp.rowptr, g.num_graphs, H3, 1)]
+    return cases
+
+
 def build_all(_build, builds):
     """Build every CUDA source at once (one nvcc each): ``builds`` maps a
     label to (source name, generated headers or None); the seconds each
@@ -5607,6 +6127,39 @@ def main():
         "tests' widths, card against CPU")
     phase_gg_small(torch, dev)
     torch.cuda.empty_cache()
+    log("== 47. main path 13: xgraph, bench_xgraph's GCN_2l (hidden 32) on "
+        "ba_2motifs(120), train_gnn(epochs=25), GNNExplainer(epochs=60) "
+        "explain_batch over 32 graphs; GIN_3l (hidden 64) step")
+    xg_res = phase_xg_main_path(torch, cf, ts, sc, dev)
+    torch.cuda.empty_cache()
+    log("== 48. path 13b: GradCAM, GNN-GI, DeepLIFT, FlowX, GNN-LRP, a "
+        "PGExplainer step and SubgraphX from path 13's weights, card "
+        "against CPU")
+    phase_xg_others(torch, sc, dev, xg_res)
+    torch.cuda.empty_cache()
+    log("== 49. main path 14: G-SphereNet (hidden 64, 4 flow layers) on "
+        "QM93DGEN(16 steps a batch), 4 epochs, generate(256, max_atoms=9)")
+    gs_res = phase_gs_main_path(torch, cf, ts, sc, dev)
+    torch.cuda.empty_cache()
+    gs_res["profiles"] = gs_profiles(torch, dev)
+    log("== 50. the segment sum at the call shapes of paths 13 and 14: "
+        "kernel vs plain, times")
+    xs_rows, xs_err = phase_new_seg(
+        torch, sc, dev, xg_gs_seg_cases(torch, sc, dev, xg_res, gs_res))
+    for path, per in (("13", "an explanation epoch"), ("14", "a train step")):
+        tot = {f: sum(r["per_step"] * r[f] for r in xs_rows
+                      if r["path"] == path)
+               for f in ("ms", "bound_ms", "plain_ms", "library_ms")}
+        log(f"  path {path}, {per}, every segment sum: kernel "
+            f"{tot['ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms, plain "
+            f"{tot['plain_ms']:.4f} ms, library {tot['library_ms']:.4f} ms")
+    torch.cuda.empty_cache()
+    log(f"  path 13: train step {xg_res['step_ms']:.3f} ms, training "
+        f"accuracy {xg_res['acc']:.4f}; {xg_res['explanations_per_s']:.6g} "
+        f"explanations/s, {xg_res['per_epoch']} launches an epoch; path 14: "
+        f"step {gs_res['step_ms']:.3f} ms, {gs_res['mols_per_s']:.6g} "
+        f"mols/s, {gs_res['atoms']:.3f} atoms a molecule, validity "
+        f"{gs_res['validity']:.2f}% ({card})")
     log(f"  path 12: step {gg_res['step_ms']:.3f} ms, peak "
         f"{gg_res['peak_gib']:.3f} GiB; generation "
         f"{gg_res['mols_per_s']:.6g} mols/s, validity "
@@ -5684,8 +6237,9 @@ def main():
         "source": "dig_tpu_torch/csrc/segment_csr.cu",
         "replaces": "dig_tpu/ops/pallas_segment.py:156",
         "launches": (fs_res["launches"] + ls_res["kernel_launches"]
-                     + ssl_res["launches"]),
-        "max_abs_err": max(seg_err, ls_err, ssl_err),
+                     + ssl_res["launches"] + xg_res["launches"]
+                     + gs_res["launches"]),
+        "max_abs_err": max(seg_err, ls_err, ssl_err, xs_err),
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     for kind, i in (("fwd", 0), ("bwd", 1), ("bwd2", 2)):
@@ -5757,9 +6311,10 @@ def main():
         "(its calls a step by shape from phase 13, each shape's bare launch "
         "timed in phase 15, f32), device time with the host ahead, as are "
         "plain_ms and library_ms (per shape the faster of index_add_ and "
-        "segment_reduce); launches from path 4a's timed steps and the timed "
-        "epochs of paths 9 and 10; max_abs_err the largest of phases 12, 36 "
-        "and 39)")
+        "segment_reduce); launches from path 4a's timed steps, the timed "
+        "epochs of paths 9 and 10, path 13's timed explain_batch and path "
+        "14's training; max_abs_err the largest of phases 12, 36, 39 and "
+        "50)")
     log("  (cfconv ms, plain_ms and bound_ms: one call per bucket, summed "
         "over the 3 buckets = one layer of one step; triplet_slot fwd/bwd: "
         "one call = one layer of one energy step (main path 2), no "

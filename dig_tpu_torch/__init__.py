@@ -32,6 +32,15 @@ Layering (mirrors ``dig_tpu``):
                 einsums, no kernel), the lockstep generation loop with
                 host valency feedback, the PPO fine-tune, JTVAE and its
                 JTMPN assembly scorer, datasets and evaluators
+  ggraph3d      3D molecule generation: G-SphereNet (its encoder's edge
+                sums through the sorted-CSR kernel), the placement-step
+                dataset and the 3D evaluators
+  xgraph        explainability: the GCN / GIN zoo whose neighbour sums
+                and readouts run through the sorted-CSR kernel,
+                differentiable in per-edge weights to any order;
+                GNNExplainer, PGExplainer, SubgraphX and the Shapley
+                family, GradCAM, GNN-GI, DeepLIFT, FlowX, GNN-LRP; the
+                fidelity metrics and the synthetic benchmark data
   config        the configuration tree
   convert       flax parameter trees -> torch modules
 """

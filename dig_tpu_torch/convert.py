@@ -19,6 +19,7 @@ from .ggraph.jtvae import JTVAEModel
 from .ggraph.models.graphaf import GraphFlowModelAF
 from .ggraph.models.graphdf import GraphFlowModelDF
 from .ggraph.models.graphebm import EnergyFunc
+from .ggraph3d.gspherenet import SphGenModel
 from .lsgraph.fm_ib import GraphFMIB
 from .lsgraph.models import ScalableGNN
 from .models.comenet import ComENet
@@ -29,6 +30,8 @@ from .models.spherenet import _SphericalMPNN
 from .ssl.contrastive import ProjHead
 from .ssl.encoders import GIN, PReLU, ResGCN
 from .ssl.methods import DenseDiffusionEncoder
+from .xgraph.models import GNNModel
+from .xgraph.pgexplainer import _EdgeMLP
 
 
 class _Tree:
@@ -463,3 +466,69 @@ def jtmpn_from_flax(variables: Mapping, model: JTMPNScorer) -> JTMPNScorer:
     for k, lin in enumerate(lins):
         t.dense(lin, f"Dense_{k}")
     return t.finish(model)
+
+
+# ---------------------------------------------------------------------------
+# ggraph3d and xgraph (flax variables as above)
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def gspherenet_from_flax(variables: Mapping,
+                         model: SphGenModel) -> SphGenModel:
+    """A flax ``SphGenModel``'s variables into ``model``: the encoder
+    (``Embed_0``; per layer ``l`` the filter ``Dense_{3l}``, the update's
+    outer ``Dense_{3l+1}`` and inner ``Dense_{3l+2}``, flax's order of
+    construction), the type embedding, the focus MLP, the four attentions
+    (``Dense_0..3``: query, key, value, output) and the four flows."""
+    t, _ = _vars(variables)
+    enc = model.encoder
+    t.put(enc.emb.weight, t.take("encoder/Embed_0/embedding"))
+    for l, (w, u1, u2) in enumerate(zip(enc.filters, enc.upd1, enc.upd2)):
+        t.dense(w, f"encoder/Dense_{3 * l}")
+        t.dense(u2, f"encoder/Dense_{3 * l + 1}")
+        t.dense(u1, f"encoder/Dense_{3 * l + 2}")
+    t.put(model.type_emb.weight, t.take("type_emb/embedding"))
+    for i, lin in enumerate(model.focus_mlp):
+        t.dense(lin, f"focus_mlp_{i}")
+    for kind in ("node", "dist", "angle", "torsion"):
+        att = getattr(model, f"{kind}_att")
+        for i, lin in enumerate((att.q, att.k, att.v, att.out)):
+            t.dense(lin, f"{kind}_att/Dense_{i}")
+        for i, st in enumerate(getattr(model, f"{kind}_flow")):
+            t.dense(st.lin1, f"{kind}_flow_{i}/Dense_0")
+            t.dense(st.lin2, f"{kind}_flow_{i}/Dense_1")
+    return t.finish(model)
+
+
+@torch.no_grad()
+def xgraph_from_flax(variables: Mapping, model: GNNModel) -> GNNModel:
+    """A flax ``GNNModel``'s variables (``XGCNConv_i`` / ``XGINConv_i``,
+    the head's ``Dense_0``, ``Dense_1``) into ``model``, built first for
+    the tree's input width (on the CPU when it had no layers)."""
+    t, _ = _vars(variables)
+    conv = "XGCNConv" if model.gnn == "gcn" else "XGINConv"
+    in_dim = int(np.shape(t.todo[f"{conv}_0/Dense_0/kernel"])[0])
+    if model.in_dim != in_dim:
+        dev = (next(model.parameters()).device if model.in_dim is not None
+               else "cpu")
+        model.build(in_dim, device=dev)
+    for i, c in enumerate(model.convs):
+        if model.gnn == "gcn":
+            t.dense(c.lin, f"{conv}_{i}/Dense_0")
+            t.put(c.bias, t.take(f"{conv}_{i}/bias"))
+        else:
+            t.dense(c.lin1, f"{conv}_{i}/Dense_0")
+            t.dense(c.lin2, f"{conv}_{i}/Dense_1")
+    for i, lin in enumerate(model.head):
+        t.dense(lin, f"Dense_{i}")
+    return t.finish(model)
+
+
+@torch.no_grad()
+def pgexplainer_from_flax(variables: Mapping, mlp: _EdgeMLP) -> _EdgeMLP:
+    """A flax ``_EdgeMLP``'s variables (``Dense_0``, ``Dense_1``) into
+    ``mlp``."""
+    t, _ = _vars(variables)
+    t.dense(mlp.lin1, "Dense_0")
+    t.dense(mlp.lin2, "Dense_1")
+    return t.finish(mlp)

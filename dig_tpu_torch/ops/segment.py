@@ -29,7 +29,7 @@ theirs.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -65,27 +65,57 @@ class _Permute(torch.autograd.Function):
         return _Permute.apply(ct, inv, perm), None, None
 
 
-def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def permute_rows(x: torch.Tensor, perm: torch.Tensor,
+                 inv: torch.Tensor) -> torch.Tensor:
+    """``x[perm]`` for a permutation ``perm`` of ``x``'s rows with inverse
+    ``inv``, differentiable to any order through gathers alone."""
+    return _Permute.apply(x, perm, inv)
+
+
+class GatherPlan(NamedTuple):
+    """The tables of :func:`gather_rows` for one index tensor: ``order``
+    sorts the flat indices stably, ``inv`` is its inverse, ``ids`` the
+    sorted indices (int32) and ``rowptr`` their row pointer over
+    ``num_rows`` rows."""
+
+    order: torch.Tensor
+    inv: torch.Tensor
+    ids: torch.Tensor
+    rowptr: torch.Tensor
+
+
+@torch.no_grad()
+def gather_plan(idx: torch.Tensor, num_rows: int) -> GatherPlan:
+    """The :class:`GatherPlan` of ``idx`` (any shape, every index in
+    ``[0, num_rows)``): one stable sort and one search, on the device."""
+    flat = idx.reshape(-1).long()
+    order = torch.argsort(flat, stable=True)
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(order.shape[0], device=order.device)
+    ids = flat[order].to(torch.int32)
+    rowptr = torch.searchsorted(
+        ids, torch.arange(num_rows + 1, dtype=torch.int32, device=ids.device),
+        out_int32=True)
+    return GatherPlan(order, inv, ids, rowptr)
+
+
+def gather_rows(x: torch.Tensor, idx: torch.Tensor,
+                plan: Optional[GatherPlan] = None) -> torch.Tensor:
     """``x[idx]`` for an index tensor of any shape (every index in
     ``[0, x.shape[0])``), differentiable to any order with a bitwise
     repeatable adjoint: the indices are stably sorted, the rows gathered in
     that order (``_RowGather``, whose adjoint is the sorted-CSR sum: the
     kernel on the card) and put back in the index order by a permutation
     (:class:`_Permute`). (The adjoint of ``index_select`` is
-    ``index_add_``, which adds with atomics on the card.)"""
+    ``index_add_``, which adds with atomics on the card.) ``plan``: the
+    :func:`gather_plan` of ``idx`` over ``x``'s rows, built once where the
+    same indices gather again (else built here)."""
     N = x.shape[0]
-    flat = idx.reshape(-1).long()
-    with torch.no_grad():
-        order = torch.argsort(flat, stable=True)
-        inv = torch.empty_like(order)
-        inv[order] = torch.arange(order.shape[0], device=order.device)
-        ids = flat[order].to(torch.int32)
-        rowptr = torch.searchsorted(
-            ids, torch.arange(N + 1, dtype=torch.int32, device=ids.device),
-            out_int32=True)
-    rows = _RowGather.apply(x.reshape(N, -1), ids, rowptr, N, 32,
-                            full_window(ids.shape[0]), x.dtype)
-    out = _Permute.apply(rows, inv, order)
+    if plan is None:
+        plan = gather_plan(idx, N)
+    rows = _RowGather.apply(x.reshape(N, -1), plan.ids, plan.rowptr, N, 32,
+                            full_window(plan.ids.shape[0]), x.dtype)
+    out = _Permute.apply(rows, plan.inv, plan.order)
     return out.reshape(tuple(idx.shape) + tuple(x.shape[1:]))
 
 

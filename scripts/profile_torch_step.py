@@ -1,6 +1,6 @@
 """Where the time of one of the port's train steps goes, on one card.
 
-    python scripts/profile_torch_step.py [schnet_dense|spherenet|spherenet_force|schnet_force|spherenet_flat|spherenet_nk_force|dimenetpp_nk|spherenet_pt_force|comenet_force|comenet_ocp_force|pronet|lsgraph|ssl|ggraph|ggraph_gen] [--root DIR]
+    python scripts/profile_torch_step.py [schnet_dense|spherenet|spherenet_force|schnet_force|spherenet_flat|spherenet_nk_force|dimenetpp_nk|spherenet_pt_force|comenet_force|comenet_ocp_force|pronet|lsgraph|ssl|ggraph|ggraph_gen|gspherenet|gspherenet_gen] [--root DIR]
 
 ``--root`` names the checkout whose ``dig_tpu_torch`` runs (default: this
 one), e.g. the parent unpacked with ``git archive``, so that two versions
@@ -50,7 +50,14 @@ step is one NLL step over the 182 masked views of each molecule);
 ``ggraph_gen`` runs path 12's generation (a step is one lockstep batch of
 48 molecules, run_rand_gen(n_mols=48, temperature=(0.35, 0.23)) from the
 seeded weights: one reverse step on the card a node or edge decision,
-its output read on the host).
+its output read on the host); ``gspherenet`` runs main path 14
+(G-SphereNet at bench.py bench_ggraph3d_gen's config: QM93DGEN(16 steps a
+batch) on its synthetic molecules, hidden 64, 4 flow layers, f32,
+Adam(1e-3); a step is one NLL step over a batch of 16 placement steps, the
+batches collated and moved to the card before timing, the dequantisation
+noise drawn on the host) and ``gspherenet_gen`` its generation (a step is
+one lockstep batch of 32 molecules, max_atoms 9, from the seeded weights:
+eight atom steps on the card, read once at the end).
 Traces a few steady
 steps with torch.profiler and prints the
 step's host time, the device's busy and idle share, device time by
@@ -336,6 +343,46 @@ def ggraph_gen(dev, steps):
         list(range(steps))
 
 
+def gspherenet(dev, steps):
+    """Path 14: G-SphereNet's training step (model.loss, backward, Adam, as
+    GSphereNet.train runs it) on the loader's batches in turn."""
+    smoke = _chip_smoke()
+    from dig_tpu_torch.ggraph3d import GSphereNet, QM93DGEN
+    ds = QM93DGEN(num_steps_per_batch=smoke.GS_STEPS)
+    batches = []
+    while len(batches) < steps:
+        batches += [(g.to(dev), {k: torch.as_tensor(v).to(dev)
+                                 for k, v in st.items()})
+                    for g, st in ds.loader()]
+    model = GSphereNet(**smoke.GS_CONF).init_model(0, dev)
+    opt = torch.optim.Adam(model.parameters(), smoke.GS_LR)
+    gen = torch.Generator().manual_seed(0)
+
+    def step(b):
+        opt.zero_grad(set_to_none=True)
+        loss, _ = model.loss(*b, model.draw(gen, smoke.GS_STEPS))
+        loss.backward()
+        opt.step()
+    return step, batches[:steps]
+
+
+def gspherenet_gen(dev, steps):
+    """Path 14's generation: one lockstep batch of 32 molecules a step
+    (max_atoms 9) from the seeded weights, a seed a step."""
+    smoke = _chip_smoke()
+    from dig_tpu_torch.ggraph3d import GSphereNet
+    gs = GSphereNet(**smoke.GS_CONF)
+    gs.model = gs.init_model(0, dev)
+    L = smoke.GS_GEN["max_atoms"]
+
+    def step(seed):
+        draws = gs.draw_batch(torch.Generator().manual_seed(seed), 32,
+                              len(smoke.GS_TYPES), L, L)
+        z, _, n = gs.run_batch(draws, L, L)
+        n.cpu()                                 # the batch read once
+    return step, list(range(steps))
+
+
 def segment_report(calls, kernels, steps, busy_ms):
     """Device ms a step of each segment-sum kernel by call shape, from the
     calls chip_smoke.SegmentCalls noted."""
@@ -415,38 +462,15 @@ def spherenet_pt_force(dev, steps):
     return spherenet_nk_force(dev, steps, pallas_fuse_basis=True)
 
 
-def main():
+def trace(which, dev):
+    """Warm up, then trace ``TRACED`` steps of path ``which`` on ``dev``:
+    ``(wall_ms, busy_ms, kernels, prof, seg_calls)`` over the traced
+    window (the profiler on)."""
     from torch.profiler import DeviceType, ProfilerActivity, profile
 
-    ap = argparse.ArgumentParser()
-    ap.add_argument("path", nargs="?", default="schnet_dense")
-    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    a = ap.parse_args()
-    sys.path.insert(0, os.path.abspath(a.root))
-    which = a.path
-    paths = {"schnet_dense": schnet_dense, "spherenet": spherenet,
-             "spherenet_force": spherenet_force,
-             "schnet_force": schnet_force,
-             "spherenet_flat": spherenet_flat,
-             "spherenet_nk_force": spherenet_nk_force,
-             "dimenetpp_nk": dimenetpp_nk,
-             "spherenet_pt_force": spherenet_pt_force,
-             "comenet_force": comenet_force,
-             "comenet_ocp_force": comenet_ocp_force, "pronet": pronet,
-             "lsgraph": lsgraph, "ssl": ssl, "ggraph": ggraph,
-             "ggraph_gen": ggraph_gen}
-    if which not in paths:
-        sys.exit(f"unknown path {which!r}; one of {sorted(paths)}")
-    if not torch.cuda.is_available():
-        sys.exit("needs a CUDA card")
-    dev = torch.device("cuda")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip()
     from dig_tpu_torch.ops import segment_csr as sc
     smoke = _chip_smoke()
-    train_step, batches = paths[which](dev, WARMUP + TRACED)
+    train_step, batches = PATHS[which](dev, WARMUP + TRACED)
     for b in batches[:WARMUP]:
         train_step(b)
     torch.cuda.synchronize()
@@ -463,7 +487,47 @@ def main():
     kernels = [e for e in prof.events()
                if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
-    busy_ms = _busy_us(kernels) / 1e3
+    return wall_ms, _busy_us(kernels) / 1e3, kernels, prof, seg_calls
+
+
+def summary_line(which, wall_ms, busy_ms, kernels):
+    return (f"{which}: {TRACED} traced steps: host {wall_ms / TRACED:.3f} "
+            f"ms/step (profiler on), device busy {busy_ms / TRACED:.3f} "
+            f"ms/step = {busy_ms / wall_ms:.3f} of the window, idle "
+            f"{1 - busy_ms / wall_ms:.3f}; {len(kernels) / TRACED:.0f} "
+            f"kernel launches/step")
+
+
+PATHS = {"schnet_dense": schnet_dense, "spherenet": spherenet,
+         "spherenet_force": spherenet_force, "schnet_force": schnet_force,
+         "spherenet_flat": spherenet_flat,
+         "spherenet_nk_force": spherenet_nk_force,
+         "dimenetpp_nk": dimenetpp_nk,
+         "spherenet_pt_force": spherenet_pt_force,
+         "comenet_force": comenet_force,
+         "comenet_ocp_force": comenet_ocp_force, "pronet": pronet,
+         "lsgraph": lsgraph, "ssl": ssl, "ggraph": ggraph,
+         "ggraph_gen": ggraph_gen, "gspherenet": gspherenet,
+         "gspherenet_gen": gspherenet_gen}
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("path", nargs="?", default="schnet_dense")
+    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    a = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(a.root))
+    which = a.path
+    if which not in PATHS:
+        sys.exit(f"unknown path {which!r}; one of {sorted(PATHS)}")
+    if not torch.cuda.is_available():
+        sys.exit("needs a CUDA card")
+    dev = torch.device("cuda")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    wall_ms, busy_ms, kernels, prof, seg_calls = trace(which, dev)
     by_name = {}
     for e in kernels:
         t, c = by_name.get(e.name, (0.0, 0))
@@ -471,11 +535,7 @@ def main():
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     total_kernel_ms = sum(t for t, _ in by_name.values())
     print(f"card: {card}")
-    print(f"{which}: {TRACED} traced steps: host {wall_ms / TRACED:.3f} "
-          f"ms/step (profiler on), device busy {busy_ms / TRACED:.3f} "
-          f"ms/step = {busy_ms / wall_ms:.3f} of the window, idle "
-          f"{1 - busy_ms / wall_ms:.3f}; {len(kernels) / TRACED:.0f} kernel "
-          f"launches/step")
+    print(summary_line(which, wall_ms, busy_ms, kernels))
     print("device time by kernel:")
     for name, (t, c) in top[:25]:
         print(f"  {t / TRACED:8.3f} ms/step {t / total_kernel_ms:6.3f} "

@@ -7,11 +7,11 @@
   order);
 * the package namespaces mirror the JAX package's (the top level, ``ops``,
   ``models``, ``lsgraph``, ``ssl``, ``datasets``, ``auggraph``, ``chem``,
-  ``ggraph`` and ``ggraph.models``), less a named list of names still to
-  port, now empty;
-* no module of the port, and not ``chip_smoke.py``, imports ``jax``,
-  ``flax``, ``optax`` or ``dig_tpu`` (their import statements, read with
-  ``ast``);
+  ``ggraph``, ``ggraph.models``, ``ggraph3d`` and ``xgraph``), less a
+  named list of names still to port, now empty;
+* no module of the port (the ``ggraph3d`` and ``xgraph`` ones among them),
+  and not ``chip_smoke.py``, imports ``jax``, ``flax``, ``optax`` or
+  ``dig_tpu`` (their import statements, read with ``ast``);
 * the per-graph readout and the row gathers are sums a card repeats bit
   for bit: ``readout_sum`` builds its row pointer from the running maximum
   of the masked graph ids, so a slot-aligned batch with padding rows
@@ -31,20 +31,24 @@ import dig_tpu.chem
 import dig_tpu.datasets
 import dig_tpu.ggraph
 import dig_tpu.ggraph.models
+import dig_tpu.ggraph3d
 import dig_tpu.lsgraph
 import dig_tpu.models
 import dig_tpu.ops
 import dig_tpu.ssl
+import dig_tpu.xgraph
 import dig_tpu_torch
 import dig_tpu_torch.auggraph
 import dig_tpu_torch.chem
 import dig_tpu_torch.datasets
 import dig_tpu_torch.ggraph
 import dig_tpu_torch.ggraph.models
+import dig_tpu_torch.ggraph3d
 import dig_tpu_torch.lsgraph
 import dig_tpu_torch.models
 import dig_tpu_torch.ops
 import dig_tpu_torch.ssl
+import dig_tpu_torch.xgraph
 from dig_tpu.ops.pallas_triplet import fused_angle_product as j_angle
 from dig_tpu.ops.pallas_triplet import fused_triplet_product as j_product
 from dig_tpu_torch.datasets import MoleculeLoader, synthetic_molecules
@@ -54,14 +58,15 @@ from dig_tpu_torch.ops.segment_csr import csr_block_overflow, full_window
 from dig_tpu_torch.ops.triplet_product import (fused_angle_product,
                                                fused_triplet_product)
 
-# JAX names the port has not ported yet (none is left in these ten
+# JAX names the port has not ported yet (none is left in these twelve
 # namespaces); the port's own names beside the reference's (the JAX
 # package keeps spmm_bidir_sell in dig_tpu.ops.segment only)
 TO_PORT = {"dig_tpu": set(), "dig_tpu.ops": set(), "dig_tpu.models": set(),
            "dig_tpu.lsgraph": set(), "dig_tpu.ssl": set(),
            "dig_tpu.datasets": set(), "dig_tpu.auggraph": set(),
            "dig_tpu.chem": set(), "dig_tpu.ggraph": set(),
-           "dig_tpu.ggraph.models": set()}
+           "dig_tpu.ggraph.models": set(), "dig_tpu.ggraph3d": set(),
+           "dig_tpu.xgraph": set()}
 PORT_ONLY = {"dig_tpu": {"resolve_device"},
              "dig_tpu.ops": {"fused_triplet_pt", "basis_pt", "pt_rows",
                              "cosine_cutoff", "gaussian_rbf", "MASK_DIST",
@@ -70,7 +75,8 @@ PORT_ONLY = {"dig_tpu": {"resolve_device"},
              "dig_tpu.models": set(), "dig_tpu.lsgraph": set(),
              "dig_tpu.ssl": set(), "dig_tpu.datasets": set(),
              "dig_tpu.auggraph": set(), "dig_tpu.chem": set(),
-             "dig_tpu.ggraph": set(), "dig_tpu.ggraph.models": set()}
+             "dig_tpu.ggraph": set(), "dig_tpu.ggraph.models": set(),
+             "dig_tpu.ggraph3d": set(), "dig_tpu.xgraph": set()}
 REF = {"dig_tpu": (dig_tpu, dig_tpu_torch),
        "dig_tpu.ops": (dig_tpu.ops, dig_tpu_torch.ops),
        "dig_tpu.models": (dig_tpu.models, dig_tpu_torch.models),
@@ -81,7 +87,9 @@ REF = {"dig_tpu": (dig_tpu, dig_tpu_torch),
        "dig_tpu.chem": (dig_tpu.chem, dig_tpu_torch.chem),
        "dig_tpu.ggraph": (dig_tpu.ggraph, dig_tpu_torch.ggraph),
        "dig_tpu.ggraph.models": (dig_tpu.ggraph.models,
-                                 dig_tpu_torch.ggraph.models)}
+                                 dig_tpu_torch.ggraph.models),
+       "dig_tpu.ggraph3d": (dig_tpu.ggraph3d, dig_tpu_torch.ggraph3d),
+       "dig_tpu.xgraph": (dig_tpu.xgraph, dig_tpu_torch.xgraph)}
 
 
 def _rel(a, b):
@@ -145,6 +153,9 @@ def test_port_imports_no_jax():
                 continue
             found += [(f.name, n) for n in names
                       if n.split(".")[0] in banned]
+    names = {str(f.relative_to(root.parent)) for f in files}
+    for pkg in ("ggraph3d", "xgraph"):
+        assert any(n.startswith(f"dig_tpu_torch/{pkg}/") for n in names), pkg
     assert len(files) > 60 and not found, found
 
 
