@@ -307,6 +307,33 @@ Phases, each printed as it runs; any failure exits non-zero:
      a step and of a generation batch), one after the other
  50. the segment sum at the call shapes of paths 13 and 14: kernel
      against plain (1e-5), then times as phase 15's, with the calls a step
+ 51. main path 15: fairgraph's Graphair at run()'s widths (hidden 64,
+     alpha 20, beta 0.9, gamma 0.7, lam 1) on synthetic_fair_graph(8192,
+     avg_deg=16, seed=0) (POKEC's graphs do not fit the dense [N, N]
+     layout): the first warm, adversary and main steps against the same
+     steps on the CPU from the same weights and host-drawn uniforms (loss
+     1e-4, gradients 1e-3; the edge samples' flips counted); fit_whole for
+     about 25 s of epochs (ms an epoch, peak memory) and test() (accuracy,
+     DP, EO); no kernel of the port's (dense products)
+ 52. main path 16: the parallel package at world size 1 in an NCCL group on
+     a local file store: collective_selfcheck on a (1, 1) mesh; a DP step
+     of the flat SchNet at tests/test_parallel.py's widths against
+     make_step_fns on the CPU; the GP engine with GPGCN2 and GPPNA (hidden
+     128, 3 layers) on synthetic_large_graph(60000, avg_deg=16) in one part
+     and GPSchNet (3 x 64, 25 Gaussians) on 8,192 atoms, each first step
+     against the CPU's (loss 1e-4, gradients 1e-3), then 8 Adam steps (ms
+     a step, segment-sum launches a step: 2 a layer for GPGCN2 and
+     GPSchNet, 3 a layer less one for GPPNA); TP on a (1, 1) mesh, PP with
+     one stage and EP with all 16 experts on the rank against their plain
+     results (1e-5); scripts/profile_torch_step.py's gp and graphair traces
+ 53. path 17: the train utilities on the card: StepProfiler over flat
+     SchNet steps (the trace names segment_csr_row_kernel; busy and idle
+     inside its train spans), debug_mode raising on a NaN in the segment
+     sum's input at the first read of the kernel's output and silent on a
+     clean step, assert_donation_discipline, Run3D(debug=True,
+     profile_dir=...) for one epoch
+ 54. the segment sum at the call shapes of path 16's GP steps: kernel
+     against plain (1e-5), then times as phase 15's, with the calls a step
 The card's name and power limit (nvidia-smi), then the kernels as JSON,
 are the two lines before the last; the last line is
 {"ok": true, "device": {...}}.
@@ -633,6 +660,45 @@ GS_CONF = dict(num_node_types=4, hidden=64, num_flow_layers=4)
 GS_STEPS, GS_LR, GS_EPOCHS, GS_TYPES = 16, 1e-3, 4, [6, 7, 8, 9]
 GS_GEN = dict(num_gen=256, max_atoms=9)
 GS_STEP_TOL, GS_POS_TOL, GS_LAUNCHES = (1e-5, 1e-4), 1e-4, 7
+# Path 15: fairgraph.run()'s widths (num_hidden 64, alpha 20, beta 0.9,
+# gamma 0.7, lam 1; optax AdamW(1e-4, 1e-5) written out) on the port's
+# synthetic_fair_graph(8192, avg_deg=16, seed=0). POKEC's graphs (tens of
+# thousands of nodes) do not fit the dense [N, N] layout of the JAX
+# package (one f32 [N, N] at 67,000 nodes is 18 GB and a step keeps
+# dozens): cut to 8,192 nodes (256 MB a matrix). The products stay
+# torch.matmul, as the JAX package computes them outside Pallas. The first
+# warm, adversary and main steps against the same steps on the CPU, from
+# the same weights and host-drawn uniforms (CPU_STEP_TOL: the edge sample
+# of a step thresholds 67M relaxed-Bernoulli values at 0.5, so the card
+# and the CPU, whose z z^T differ in the order of their sums, may flip a
+# few of the ~17M sampled edges; the flips are counted); then fit_whole for
+# about FG_SECONDS of epochs and test() with its 500 classifier epochs.
+FG_N, FG_DEG, FG_SECONDS, FG_CAL = 8192, 16, 25.0, 4
+FG_KW = dict(num_hidden=64, alpha=20.0, beta=0.9, gamma=0.7, lam=1.0)
+# Path 16: the parallel engines at world size 1 through an NCCL group on a
+# local file store (the card machine has one card: NCCL refuses two ranks
+# on one device). DP: one step of the flat SchNet at
+# tests/test_parallel.py's widths (cutoff 3, 2 x 32, 16 Gaussians, 256
+# edges, 2 molecules of at most 12 atoms in 32 rows), segment_eb 1024;
+# the GP engine with GPGCN2 and GPPNA (hidden 128, 3 layers, Adam(1e-3),
+# node_class_loss on the train mask) on bench_lsgraph's graph
+# (synthetic_large_graph(60000, seed=0, avg_deg=16)) in one part, and
+# GPSchNet at its defaults (cutoff 5, 3 x 64, 25 Gaussians,
+# node_reg_loss) on 8,192 atoms of H, C, N, O uniform in a cube at 0.1
+# atoms per cubic Angstrom (liquid-water density; ~50 neighbours within
+# 5 A). Each first step against the CPU's (the module's forward and
+# backward on the same part with an empty halo, the engine's math at one
+# rank: CPU_STEP_TOL), then GP_STEPS Adam steps timed after GP_WARMUP.
+# TP on a (1, 1) mesh, PP with one stage, EP with all 16 experts on the
+# rank, each against its plain single-process result (1e-5).
+PAR_DP_KW = dict(cutoff=3.0, num_layers=2, hidden_channels=32,
+                 num_filters=32, num_gaussians=16, max_edges=256,
+                 segment_eb=1024)
+GP_HIDDEN, GP_LAYERS, GP_STEPS, GP_WARMUP = 128, 3, 8, 2
+GPS_ATOMS, GPS_DENSITY = 8192, 0.1
+GPS_KW = dict(cutoff=5.0, num_layers=3, hidden_channels=64, num_filters=64,
+              num_gaussians=25)
+PAR_TOL = 1e-5
 
 
 def log(*a):
@@ -3612,16 +3678,23 @@ def phase_ga_times(torch, ts, inp, splits):
 # Path 7b: the chunked sorted-CSR segment sum and spmm_csr
 # ---------------------------------------------------------------------------
 
+_MEMO = {}
+
+
 def large_graph():
     """synthetic_large_graph(60000, seed=0, avg_deg=16), the graph of paths
-    7b and 9 (bench.py bench_spmm_roofline and bench_lsgraph), built once;
-    its generator draws about 960,000 edge ends in a Python loop, timed."""
+    7b, 9 and 16 (bench.py bench_spmm_roofline and bench_lsgraph), built
+    once a process; its generator draws about 960,000 edge ends in a
+    Python loop, timed."""
     from dig_tpu_torch.lsgraph import synthetic_large_graph
+    if "g60k" in _MEMO:
+        return _MEMO["g60k"]
     t = time.perf_counter()
     g = synthetic_large_graph(CS_N, seed=0, avg_deg=16)
     log(f"  synthetic_large_graph({CS_N}, avg_deg=16): "
         f"{len(g['senders'])} directed edges in "
         f"{time.perf_counter() - t:.1f} s (host)")
+    _MEMO["g60k"] = g
     return g
 
 
@@ -5757,6 +5830,526 @@ def xg_gs_seg_cases(torch, sc, dev, xg, gs):
     return cases
 
 
+# ---------------------------------------------------------------------------
+# Paths 15-17: fairgraph, the parallel engines, the train utilities
+# ---------------------------------------------------------------------------
+
+def fg_data():
+    """Path 15's graph (host numpy, its generator's edge loop timed), built
+    once a process."""
+    from dig_tpu_torch.fairgraph import synthetic_fair_graph
+    if "fg" in _MEMO:
+        return _MEMO["fg"]
+    t = time.perf_counter()
+    data = synthetic_fair_graph(FG_N, avg_deg=FG_DEG, seed=0)
+    log(f"  synthetic_fair_graph({FG_N}, avg_deg={FG_DEG}): "
+        f"{int(data['adj'].sum())} directed edges, {data['x'].shape[1]} "
+        f"features, in {time.perf_counter() - t:.1f} s (host)")
+    _MEMO["fg"] = data
+    return data
+
+
+def fg_model(torch, data, d):
+    """A Graphair at run()'s widths on device ``d``, weights from seed 0,
+    the graph moved there."""
+    from dig_tpu_torch.fairgraph import Graphair
+    m = Graphair(data["x"].shape[1], device=d, **FG_KW)
+    m.init(0)
+    m.prepare(data["adj"], data["x"], data["sens"], data["idx_sens_train"])
+    return m
+
+
+def fg_first_steps(torch, dev, data):
+    """The first warm, adversary and main steps (in fit_whole's order) on
+    the card against the CPU, from the same weights and the same uniforms
+    drawn on the host: each step's loss and its gradients (CPU_STEP_TOL,
+    per parameter); the edge samples' flips at 0.5 counted."""
+    from dig_tpu_torch.fairgraph import Graphair
+    n, f = data["x"].shape
+    gen = torch.Generator().manual_seed(0)
+    noise = [Graphair.draw(gen, n, f) for _ in range(3)]
+    kinds = (("warm", "aug"), ("adv", "adv"), ("main", "aug enc proj"))
+
+    def run(d):
+        t = time.perf_counter()
+        m = fg_model(torch, data, d)
+        with torch.no_grad():
+            a, _, _ = m.aug(m.adj_norm, m.x, tuple(u.to(d) for u in noise[0]),
+                            adj_orig=m.adj)
+            sample = (a > 0).cpu()
+        out = []
+        for (kind, parts), nz in zip(kinds, noise):
+            loss = getattr(m, f"{kind}_step")(tuple(u.to(d) for u in nz))
+            loss = loss[0] if isinstance(loss, tuple) else loss
+            grads = [(f"{p}.{k}", q.grad.detach().cpu().clone())
+                     for p in parts.split()
+                     for k, q in getattr(m, p).named_parameters()]
+            out.append((loss.detach().cpu(), grads))
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+        return out, sample, time.perf_counter() - t
+
+    card, s_card, card_s = run(dev)
+    cpu, s_cpu, cpu_s = run(torch.device("cpu"))
+    flips = int((s_card != s_cpu).sum())
+    res = {"flips": flips, "edges": int(s_cpu.sum())}
+    for (kind, _), (lk, gk), (lp, gp) in zip(kinds, card, cpu):
+        le = float((lk - lp).abs() / lp.abs().clamp_min(1e-12))
+        per = sorted(((rel_norm(torch, [a], [b]), name)
+                      for (name, a), (_, b) in zip(gk, gp)), reverse=True)
+        log(f"  path 15 {kind} step, card against CPU: loss {float(lk):.7f} "
+            f"/ {float(lp):.7f} (rel {le:.3e}, held to {CPU_STEP_TOL[0]}); "
+            f"{len(gk)} gradients, worst {per[0][1]} {per[0][0]:.3e} (held "
+            f"to {CPU_STEP_TOL[1]})")
+        if not math.isfinite(float(lk)) or le >= CPU_STEP_TOL[0]:
+            fail(f"path 15 {kind} step: loss {float(lk)} vs {float(lp)}")
+        if not per[0][0] < CPU_STEP_TOL[1]:
+            fail(f"path 15 {kind} step: gradients differ {per[:3]}")
+        res[kind] = {"loss_rel_err": le, "worst_param": per[0]}
+    log(f"  the first step's edge sample: {res['edges']} edges on the CPU, "
+        f"{flips} of {s_cpu.numel()} entries flipped on the card; card "
+        f"{card_s:.2f} s, CPU {cpu_s:.1f} s for the three steps")
+    return res
+
+
+def phase_fg_path(torch, cf, ts, sc, dev):
+    """Path 15 (phase 51): the first steps against the CPU, then fit_whole
+    for about FG_SECONDS and test(); ms an epoch, peak memory, accuracy,
+    DP, EO; no kernel of the port's launched (dense products)."""
+    data = fg_data()
+    res = {"first": fg_first_steps(torch, dev, data)}
+    from dig_tpu_torch.fairgraph import Graphair
+    m = Graphair(data["x"].shape[1], device=dev, **FG_KW)
+    args = (data["adj"], data["x"], data["sens"], data["idx_sens_train"])
+    reset_all(cf, ts, sc)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    m.fit_whole(FG_CAL, *args, seed=0)
+    torch.cuda.synchronize()
+    cal = (time.perf_counter() - t) / FG_CAL
+    epochs = int(max(FG_CAL, min(500, FG_SECONDS / cal)))
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    m.fit_whole(epochs, *args, seed=0)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    t = time.perf_counter()
+    m.embed()
+    embed_s = time.perf_counter() - t
+    t = time.perf_counter()
+    metrics = m.test(data["y"], data["sens"], data["idx_train"],
+                     data["idx_test"])
+    test_s = time.perf_counter() - t
+    others_idle(cf, ts, "path 15")
+    if sc.launches:
+        fail(f"path 15: {sc.launches} segment-sum launches (none expected)")
+    with torch.no_grad():
+        emb = m.enc(m.adj_norm, m.x)
+    log(f"  fit_whole({epochs} epochs, 10 adversary steps at epoch 0): "
+        f"{dt:.3f} s, {dt / epochs * 1e3:.3f} ms an epoch (one adversary "
+        f"and one main step, the uniforms drawn on the card; {FG_CAL} "
+        f"epochs of calibration took {cal * 1e3:.3f} ms each); peak "
+        f"{peak:.3f} GiB; test() (500 classifier epochs) {test_s:.2f} s "
+        f"(an embedding alone {embed_s:.3f} s): "
+        f"accuracy {metrics['accuracy']:.4f}, DP {metrics['dp']:.3f}, EO "
+        f"{metrics['eo']:.3f}")
+    if not (bool(torch.isfinite(emb).all()) and 0.0 <= metrics["accuracy"]
+            <= 1.0 and all(math.isfinite(v) for v in metrics.values())):
+        fail(f"path 15: embeddings or metrics not finite: {metrics}")
+    res.update(epochs=epochs, epoch_ms=dt / epochs * 1e3, peak_gib=peak,
+               metrics=metrics)
+    return res
+
+
+def gp_cloud(torch, dev):
+    """GPSchNet's atoms: [z, pos] rows and the directed pairs within the
+    cutoff (receivers, senders), found on the card."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    side = (GPS_ATOMS / GPS_DENSITY) ** (1 / 3)
+    pos = rng.uniform(0, side, (GPS_ATOMS, 3)).astype(np.float32)
+    z = rng.choice([1, 6, 7, 8], GPS_ATOMS).astype(np.float32)
+    p = torch.from_numpy(pos).to(dev)
+    adj = torch.cdist(p, p) < GPS_KW["cutoff"]
+    adj.fill_diagonal_(False)
+    r, s = (t.cpu().numpy() for t in torch.nonzero(adj, as_tuple=True))
+    x = np.concatenate([z[:, None], pos], axis=1)
+    return x, s, r, (0.1 * z).astype(np.float32)
+
+
+def gp_case(torch, name, s, r, x, y, mask, loss):
+    """One GP case on one part: the host tables and slabs."""
+    from dig_tpu_torch.parallel import prepare_gp_graph, slab_layout
+    t = time.perf_counter()
+    gp, perm, H, C = prepare_gp_graph(s, r, x.shape[0], 1)
+    log(f"  {name}: {x.shape[0]} nodes, {len(s)} edges, one part "
+        f"(prepare_gp_graph {time.perf_counter() - t:.1f} s, host)")
+    return {"name": name, "g": gp, "H": H, "C": C, "loss": loss,
+            "x": slab_layout(x, perm, 1, C), "y": slab_layout(y, perm, 1, C),
+            "mask": slab_layout(mask, perm, 1, C)}
+
+
+def gp_first_step(torch, dev, mesh, case, make_module):
+    """The engine's first step on the card (SGD at lr 0: the gradients
+    stay) against the module's forward and backward on the CPU with an
+    empty halo (one rank: the halo buffer's rows are all masked)."""
+    from dig_tpu_torch.parallel import make_gp_engine
+    from dig_tpu_torch.parallel.gp import local_graph
+
+    def build(d):
+        mod = make_module(d)
+        if d.type == "cuda":
+            _, step, _ = make_gp_engine(
+                mesh, mod, torch.optim.SGD(mod.parameters(), lr=0.0),
+                case["H"], case["C"], loss_fn=case["loss"], axis="data")
+            loss, _ = step(case["g"], case["x"], case["y"], case["mask"])
+            return loss, [mod]
+        gl = local_graph(case["g"], 0, case["C"], d)
+        H = case["H"]
+        halo = lambda h: torch.zeros((H,) + h.shape[1:], dtype=h.dtype)
+        out = mod(torch.as_tensor(case["x"][0]).float(), gl, halo)
+        loc, cnt = case["loss"](out, torch.as_tensor(case["y"][0]),
+                                torch.as_tensor(case["mask"][0])
+                                & gl.node_mask)
+        return loc / cnt.clamp(min=1), [mod]
+    return first_step_vs_cpu(torch, f"path 16 {case['name']}", build, dev)
+
+
+def gp_timed(torch, sc, dev, mesh, case, make_module, want):
+    """GP_STEPS Adam(1e-3) engine steps on the card, the last
+    GP_STEPS - GP_WARMUP timed: losses, ms a step, segment-sum launches a
+    step (``want``) and the calls by shape."""
+    from dig_tpu_torch.parallel import make_gp_engine
+    mod = make_module(dev)
+    init_fn, step, _ = make_gp_engine(
+        mesh, mod, torch.optim.Adam(mod.parameters(), lr=1e-3), case["H"],
+        case["C"], loss_fn=case["loss"], axis="data")
+    init_fn()
+    per, losses = [], []
+    with SegmentCalls(sc) as calls:
+        for i in range(GP_STEPS):
+            if i == GP_WARMUP:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+            before = sc.launches
+            losses.append(step(case["g"], case["x"], case["y"],
+                               case["mask"])[0])
+            per.append(sc.launches - before)
+        torch.cuda.synchronize()
+    dt = (time.perf_counter() - t) / (GP_STEPS - GP_WARMUP)
+    losses = [float(v) for v in losses]
+    log(f"  {case['name']}: {GP_STEPS} Adam steps, losses "
+        f"{[round(v, 5) for v in losses]}; {dt * 1e3:.3f} ms a step (mean "
+        f"of {GP_STEPS - GP_WARMUP}); segment-sum launches a step {per}")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"path 16 {case['name']}: non-finite loss")
+    if per != [want] * GP_STEPS:
+        fail(f"path 16 {case['name']}: segment-sum launches {per}, "
+             f"expected {want} a step")
+    return {"step_ms": dt * 1e3, "losses": losses, "per_step": want,
+            "launches": sum(per), "calls": calls, "steps": GP_STEPS}
+
+
+def par_plain_checks(torch, dev):
+    """TP on a (1, 1) mesh, PP with one stage, EP with every expert on the
+    rank, each against its plain single-process result on the card."""
+    from dig_tpu_torch.datasets import MoleculeLoader, synthetic_molecules
+    from dig_tpu_torch.models import SchNet
+    from dig_tpu_torch.parallel import (ep_shard_params, init_moe_params,
+                                        make_ep_moe, make_mesh,
+                                        make_pp_train_step,
+                                        make_tp_train_step,
+                                        moe_dense_reference, pipeline_apply,
+                                        pp_shard_params, tp_shard)
+    from dig_tpu_torch.train import make_step_fns
+    mols = synthetic_molecules(4, seed=0, max_atoms=10, with_forces=True)
+    g = next(iter(MoleculeLoader(mols, 4, n_node_pad=48, device=dev)))
+    build = lambda: SchNet(**PAR_DP_KW, generator=torch.Generator()
+                           .manual_seed(0), device=dev)
+    mesh = make_mesh((1, 1), ("data", "model"))
+    tp = tp_shard(build(), mesh)
+    step_tp = make_tp_train_step(tp, torch.optim.Adam(tp.parameters(), 1e-3),
+                                 mesh, energy_and_force=True, p=1.0)
+    plain = build()
+    step_pl, _ = make_step_fns(plain, torch.optim.Adam(plain.parameters(),
+                                                       1e-3),
+                               energy_and_force=True, p=1.0)
+    l_tp = [float(step_tp(g)["loss"]) for _ in range(2)]
+    l_pl = [float(step_pl(g)["loss"]) for _ in range(2)]
+    with torch.no_grad():
+        full = {**dict(tp.module.named_parameters()),
+                **tp.full_parameters()}
+        w_err = max(rel_err(full[k], v) for k, v in
+                    plain.named_parameters())
+    l_err = max(abs(a - b) / abs(b) for a, b in zip(l_tp, l_pl))
+    log(f"  TP (1 x 1 mesh, {len(tp.shards)} column-sharded parameters) "
+        f"against make_step_fns, two energy+force steps: losses {l_tp} / "
+        f"{l_pl} (rel {l_err:.3e}), weights {w_err:.3e} (held to {PAR_TOL})")
+    if l_err >= PAR_TOL or w_err >= PAR_TOL:
+        fail("path 16: TP step differs from the plain step")
+
+    mesh = make_mesh((1,), ("pipe",))
+    gen = torch.Generator().manual_seed(2)
+    stack = {"w": 0.1 * torch.randn(8, 16, 16, generator=gen),
+             "b": 0.01 * torch.randn(8, 16, generator=gen)}
+    x = torch.randn(6, 5, 16, generator=gen).to(dev)
+    y = torch.randn(6, 5, 16, generator=gen).to(dev)
+    layer = lambda pl, h: h + torch.tanh(h @ pl["w"] + pl["b"])
+    params = pp_shard_params({k: v.to(dev) for k, v in stack.items()}, mesh)
+    ref = {k: v.to(dev).clone().requires_grad_() for k, v in stack.items()}
+
+    def seq(p):
+        h = x
+        for l in range(8):
+            h = layer({k: v[l] for k, v in p.items()}, h)
+        return h
+    with torch.no_grad():
+        o_err = rel_err(pipeline_apply(layer, mesh)(params, x), seq(ref))
+    lossf = lambda o, t: torch.mean((o - t) ** 2)
+    step = make_pp_train_step(layer, torch.optim.SGD(list(params.values()),
+                                                     1e-2), mesh, lossf)
+    l_pp = float(step(params, x, y))
+    opt = torch.optim.SGD(list(ref.values()), 1e-2)
+    l_seq = lossf(seq(ref), y)
+    l_seq.backward()
+    opt.step()
+    p_err = max(rel_err(params[k], ref[k]) for k in ref)
+    log(f"  PP (1 stage, 6 microbatches, 8 layers) against the sequential "
+        f"stack: outputs {o_err:.3e}, loss {l_pp:.7f} / "
+        f"{float(l_seq.detach()):.7f},"
+        f" weights after an SGD step {p_err:.3e} (held to {PAR_TOL})")
+    l_seq = float(l_seq.detach())
+    if o_err >= PAR_TOL or p_err >= PAR_TOL or abs(
+            l_pp - l_seq) >= PAR_TOL * abs(l_seq):
+        fail("path 16: PP differs from the sequential stack")
+
+    mesh = make_mesh((1,), ("expert",))
+    ep = init_moe_params(2, 16, 12, 24, 8, device=dev)
+    xe = torch.randn(64, 12, generator=gen).to(dev)
+    dense = moe_dense_reference(ep, xe)
+    for cap in (64, 2):
+        local = ep_shard_params(ep, mesh)
+        yv, dropped = make_ep_moe(mesh, 16, cap)(local, xe)
+        kept = yv.abs().sum(1) > 0
+        e = rel_err(yv[kept], dense[kept])
+        grads = torch.autograd.grad(torch.sum(yv ** 2), list(local.values()))
+        finite = all(bool(torch.isfinite(q).all()) for q in grads)
+        log(f"  EP (16 experts on the rank, 64 tokens, capacity {cap}): "
+            f"{int(dropped)} dropped (rows 0: {int((~kept).sum())}), the "
+            f"others against moe_dense_reference {e:.3e}; gradients finite "
+            f"{finite}, the gate's largest {float(grads[-1].abs().max()):.3e}")
+        if (e >= PAR_TOL or int(dropped) != int((~kept).sum()) or not finite
+                or (cap == 64 and int(dropped))):
+            fail(f"path 16: EP at capacity {cap}")
+
+
+def phase_par_path(torch, cf, ts, sc, dev, g60k):
+    """Path 16 (phase 52), in a world-size-1 NCCL group: the mesh
+    self-check, a DP step, the GP engine with GPGCN2, GPPNA and GPSchNet
+    (first steps against the CPU, timed steps), TP / PP / EP, and
+    scripts/profile_torch_step.py's gp trace."""
+    import numpy as np
+    import torch.distributed as dist
+    from dig_tpu_torch.datasets import MoleculeLoader, synthetic_molecules
+    from dig_tpu_torch.models import SchNet
+    from dig_tpu_torch.parallel import (concat_local_shards, init_local,
+                                        make_dp_train_step, make_mesh,
+                                        shard_graph_batch)
+    from dig_tpu_torch.parallel import gp_models as gpm
+    from dig_tpu_torch.parallel.gp import node_class_loss, node_reg_loss
+    from dig_tpu_torch.train import collective_selfcheck, make_step_fns
+    init_local(0, 1, os.path.join(tempfile.mkdtemp(), "store"), "nccl")
+    res = {}
+    try:
+        sizes = collective_selfcheck(make_mesh((1, 1), ("data", "graph")))
+        log(f"  NCCL group of 1 ({dist.get_backend()}): "
+            f"collective_selfcheck on a (1, 1) mesh: {sizes}")
+        if sizes != {"data": 1, "graph": 1}:
+            fail(f"path 16: collective_selfcheck {sizes}")
+        mesh = make_mesh((1,), ("data",))
+        mols = synthetic_molecules(2, seed=0, max_atoms=12)
+        shard = next(iter(MoleculeLoader(mols, 2, n_node_pad=32,
+                                         device="cpu")))
+
+        def dp_build(d):
+            m = SchNet(**PAR_DP_KW, generator=torch.Generator()
+                       .manual_seed(0), device=d)
+            opt = torch.optim.SGD(m.parameters(), lr=0.0)
+            if d.type == "cuda":
+                g = shard_graph_batch(concat_local_shards([shard]), mesh)
+                return make_dp_train_step(m, opt, mesh)(g)["loss"], [m]
+            return make_step_fns(m, opt)[0](shard)["loss"], [m]
+        reset_all(cf, ts, sc)
+        res["dp"] = first_step_vs_cpu(torch, "path 16 DP step (flat SchNet "
+                                      "2 x 32) against make_step_fns",
+                                      dp_build, dev)
+        res["dp_launches"] = sc.launches
+        L, Hd, y = GP_LAYERS, GP_HIDDEN, g60k["y"]
+        big = gp_case(torch, "GPGCN2", g60k["senders"], g60k["receivers"],
+                      g60k["x"], y, g60k["train_mask"], node_class_loss)
+        x, s, r, yv = gp_cloud(torch, dev)
+        seed = lambda: torch.Generator().manual_seed(0)
+        dims = (g60k["x"].shape[1], Hd, int(y.max()) + 1, L)
+        cases = [
+            (big, lambda d: gpm.GPGCN2(*dims, generator=seed()).to(d),
+             2 * L),
+            (dict(big, name="GPPNA"),
+             lambda d: gpm.GPPNA(*dims, generator=seed()).to(d), 3 * L - 1),
+            (gp_case(torch, "GPSchNet", s, r, x, yv, np.ones(len(yv), bool),
+                     node_reg_loss),
+             lambda d: gpm.GPSchNet(**GPS_KW, generator=seed()).to(d),
+             2 * GPS_KW["num_layers"])]
+        res["gp"] = {}
+        for case, make, want in cases:
+            first = gp_first_step(torch, dev, mesh, case, make)
+            reset_all(cf, ts, sc)
+            timed = gp_timed(torch, sc, dev, mesh, case, make, want)
+            others_idle(cf, ts, f"path 16 {case['name']}")
+            timed["first"] = first
+            res["gp"][case["name"]] = timed
+        par_plain_checks(torch, dev)
+        res["profile"] = par_profile(torch, dev)
+    finally:
+        dist.destroy_process_group()
+    return res
+
+
+def par_profile(torch, dev):
+    """Busy ms, idle share and launches of one path-16 GPGCN2 step and of
+    one path-15 epoch: scripts/profile_torch_step.py's gp and graphair
+    traces, in this process."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "profile_torch_step", os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "scripts",
+            "profile_torch_step.py"))
+    prof = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(prof)
+    # this process's chip_smoke, whose graphs are built already
+    prof._chip_smoke = lambda: sys.modules[__name__]
+    out = {}
+    for case in ("gp", "graphair"):
+        wall_ms, busy_ms, kernels, _, _ = prof.trace(case, dev)
+        log(f"  profile_torch_step.py "
+            f"{prof.summary_line(case, wall_ms, busy_ms, kernels)}")
+        out[case] = {"busy_ms": busy_ms / prof.TRACED,
+                     "idle": 1 - busy_ms / wall_ms,
+                     "launches": len(kernels) / prof.TRACED}
+    return out
+
+
+def trace_idle(path):
+    """Device busy ms and idle share inside the ``train`` spans of a
+    StepProfiler Chrome trace (the union of its kernel events)."""
+    ev = json.load(open(path))["traceEvents"]
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in ev
+             if e.get("name") == "train" and e.get("cat") == "user_annotation"
+             and "dur" in e]
+    lo, hi = min(s for s, _ in spans), max(t for _, t in spans)
+    ks = sorted((max(e["ts"], lo), min(e["ts"] + e["dur"], hi)) for e in ev
+                if e.get("cat") == "kernel" and "dur" in e
+                and e["ts"] < hi and e["ts"] + e["dur"] > lo)
+    busy, cur = 0.0, None
+    for s, t in ks:
+        if cur is None or s > cur[1]:
+            busy += 0 if cur is None else cur[1] - cur[0]
+            cur = [s, t]
+        else:
+            cur[1] = max(cur[1], t)
+    busy += 0 if cur is None else cur[1] - cur[0]
+    names = {e["name"] for e in ev if e.get("cat") == "kernel"}
+    return busy / 1e3, 1 - busy / (hi - lo), (hi - lo) / 1e3, names, len(
+        spans)
+
+
+def phase_tu_path(torch, cf, ts, sc, dev):
+    """Path 17 (phase 53): the train utilities on the card with the flat
+    SchNet through the sorted-CSR kernel."""
+    from dig_tpu_torch.datasets import MoleculeLoader, synthetic_molecules
+    from dig_tpu_torch.models import SchNet
+    from dig_tpu_torch.threed import Run3D, ThreeDEvaluator
+    from dig_tpu_torch.train import (StepProfiler, TrainState,
+                                     assert_donation_discipline, debug_mode,
+                                     make_step_fns)
+    mols = synthetic_molecules(8, seed=0, max_atoms=12, num_targets=1)
+    g = next(iter(MoleculeLoader(mols, 8, n_node_pad=96, device=dev)))
+    model = SchNet(**PAR_DP_KW, generator=torch.Generator().manual_seed(0),
+                   device=dev)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    step, _ = make_step_fns(model, opt)
+    root = tempfile.mkdtemp()
+    reset_all(cf, ts, sc)
+    prof = StepProfiler(os.path.join(root, "prof"), start_step=1,
+                        num_steps=2)
+    for _ in range(3):
+        with prof.step():
+            step(g)
+    prof.stop()
+    launches = sc.launches          # the 3 steps', read before the checks
+    busy, idle, window, names, n_spans = trace_idle(prof.path)
+    row = "segment_csr_row_kernel" in " ".join(names)
+    log(f"  StepProfiler(start_step=1, num_steps=2) over 3 flat-SchNet "
+        f"steps: {os.path.basename(prof.path)}, {n_spans} train spans, "
+        f"{window / 2:.3f} ms a step inside them, device busy "
+        f"{busy / 2:.3f} ms a step, idle {idle:.3f}; kernels named "
+        f"segment_csr_row_kernel {row}; {launches / 3:g} segment-sum "
+        f"launches a step")
+    if n_spans != 2 or not row:
+        fail(f"path 17: the trace holds {n_spans} train spans, the row "
+             f"kernel named {row}")
+    seg = torch.arange(8, device=dev).repeat_interleave(4).int()
+    rp = torch.arange(0, 33, 4, device=dev).int()
+    bad = torch.randn(32, 16, device=dev)
+    bad[5, 3] = float("nan")
+    before = sc.launches
+    try:
+        with debug_mode():
+            sc.segment_sum_sorted_csr(bad, seg, rp, 8, 32, 1024).sum()
+        fail("path 17: debug_mode let a NaN through the segment-sum kernel")
+    except FloatingPointError as exc:
+        raised = str(exc)
+    launched = sc.launches - before
+    with debug_mode():
+        loss = float(step(g)["loss"])
+    log(f"  debug_mode: a NaN in the kernel's input raised at the first read "
+        f"of its output ({launched} launch): {raised!r}; a clean step under "
+        f"debug_mode: loss {loss:.6f}, silent")
+    if launched != 1 or not math.isfinite(loss):
+        fail("path 17: debug_mode")
+    assert_donation_discipline(step, TrainState(model, opt), g)
+    log("  assert_donation_discipline: the step updates every weight and "
+        "Adam moment in place")
+    pdir = os.path.join(root, "run3d")
+    r3 = Run3D().run(mols[:6], mols[6:7], mols[7:], SchNet(
+        **PAR_DP_KW, generator=torch.Generator().manual_seed(1), device=dev),
+        ThreeDEvaluator(), epochs=1, batch_size=3, vt_batch_size=1,
+        n_node_pad=36, quiet=True, debug=True, profile_dir=pdir, device=dev)
+    traces = [f for f in os.listdir(pdir) if f.endswith(".json")]
+    log(f"  Run3D(debug=True, profile_dir=...): one epoch, best valid "
+        f"{r3['best_valid']:.6f}, traces {traces}")
+    if not math.isfinite(r3["best_valid"]) or len(traces) != 1:
+        fail("path 17: Run3D with debug and profile_dir")
+    others_idle(cf, ts, "path 17")
+    return {"step_busy_ms": busy / 2, "idle": idle,
+            "step_ms": window / 2, "launches": launches}
+
+
+def par_seg_cases(res):
+    """Phase 54's cases: every segment-sum call shape of path 16's timed GP
+    steps, from the calls noted there (the first call's ids and row
+    pointer of each shape)."""
+    cases = []
+    for name, r in res["gp"].items():
+        calls = r["calls"]
+        for key, per in sorted(calls.per_step(r["steps"]).items()):
+            E, F, N = key[:3]
+            cases.append((f"16{name}_E{E}_F{F}_N{N}", calls.ids[key],
+                          calls.rowptr[key], N, F, per))
+    return cases
+
+
 def build_all(_build, builds):
     """Build every CUDA source at once (one nvcc each): ``builds`` maps a
     label to (source name, generated headers or None); the seconds each
@@ -5796,13 +6389,14 @@ def main():
     t0 = time.perf_counter()
 
     log("== 1. card")
-    name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
+    device_name = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
     card = smi("name,power.limit")
     clock_mhz = float(smi("clocks.max.sm").split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     sfu_rate = sms * SFU_PER_SM_CLK * clock_mhz * 1e6
-    log(f"  {name} x{count}; nvidia-smi: {card}; {sms} SMs, max SM clock "
-        f"{clock_mhz:.0f} MHz; torch {torch.__version__} CUDA "
+    log(f"  {device_name} x{count}; nvidia-smi: {card}; {sms} SMs, max SM "
+        f"clock {clock_mhz:.0f} MHz; torch {torch.__version__} CUDA "
         f"{torch.version.cuda}")
 
     log("== 2. build")
@@ -6065,7 +6659,6 @@ def main():
         f"calls): kernel {tot['ms']:.4f} ms, bound {tot['bound_ms']:.4f} "
         f"ms, plain {tot['plain_ms']:.4f} ms, library "
         f"{tot['library_ms']:.4f} ms; largest abs err {ls_err:.3e}")
-    del g60k
     torch.cuda.empty_cache()
 
     log("== 37. lsgraph at examples/lsgraph/run_graphfm.py's size: "
@@ -6154,6 +6747,54 @@ def main():
             f"{tot['ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms, plain "
             f"{tot['plain_ms']:.4f} ms, library {tot['library_ms']:.4f} ms")
     torch.cuda.empty_cache()
+    log("== 51. main path 15: fairgraph's Graphair at run()'s widths "
+        "(hidden 64, alpha 20, beta 0.9, gamma 0.7, lam 1) on "
+        f"synthetic_fair_graph({FG_N}, avg_deg={FG_DEG}): the first warm, "
+        "adversary and main steps against the CPU, fit_whole for about "
+        f"{FG_SECONDS:g} s, test()")
+    fg_res = phase_fg_path(torch, cf, ts, sc, dev)
+    torch.cuda.empty_cache()
+    log("== 52. main path 16: the parallel engines at world size 1 in an "
+        "NCCL group: collective_selfcheck, a DP step, the GP engine "
+        f"(GPGCN2 and GPPNA {GP_HIDDEN} x {GP_LAYERS} on the 60,000-node "
+        f"graph, GPSchNet 3 x 64 on {GPS_ATOMS} atoms) through the "
+        "sorted-CSR kernel, TP / PP / EP")
+    reset_all(cf, ts, sc)
+    par_res = phase_par_path(torch, cf, ts, sc, dev, g60k)
+    del g60k
+    torch.cuda.empty_cache()
+    log("== 53. path 17: the train utilities on the card (StepProfiler, "
+        "debug_mode, assert_donation_discipline, Run3D(debug=True, "
+        "profile_dir=...)) with the flat SchNet through the kernel")
+    tu_res = phase_tu_path(torch, cf, ts, sc, dev)
+    torch.cuda.empty_cache()
+    log("== 54. the segment sum at path 16's call shapes: kernel vs plain, "
+        "times")
+    par_rows, par_err = phase_new_seg(torch, sc, dev,
+                                      par_seg_cases(par_res))
+    for model_name, r in par_res["gp"].items():
+        tot = {f: sum(row["per_step"] * row[f] for row in par_rows
+                      if row["path"] == f"16{model_name}")
+               for f in ("ms", "bound_ms", "plain_ms", "library_ms")}
+        log(f"  path 16 {model_name} step, every segment sum "
+            f"({r['per_step']} "
+            f"calls): kernel {tot['ms']:.4f} ms, bound {tot['bound_ms']:.4f}"
+            f" ms, plain {tot['plain_ms']:.4f} ms, library "
+            f"{tot['library_ms']:.4f} ms")
+        r.pop("calls")
+    torch.cuda.empty_cache()
+    fgm = fg_res["metrics"]
+    log(f"  path 15: {fg_res['epoch_ms']:.3f} ms an epoch over "
+        f"{fg_res['epochs']} epochs, peak {fg_res['peak_gib']:.3f} GiB, "
+        f"accuracy {fgm['accuracy']:.4f}, DP {fgm['dp']:.3f}, EO "
+        f"{fgm['eo']:.3f}; idle {par_res['profile']['graphair']['idle']:.3f}"
+        f" ({card})")
+    log("  path 16: " + "; ".join(
+        f"{n} {r['step_ms']:.3f} ms a step, {r['per_step']} segment-sum "
+        f"launches" for n, r in par_res["gp"].items())
+        + f"; GPGCN2 idle {par_res['profile']['gp']['idle']:.3f}; path 17: "
+        f"a traced flat-SchNet step {tu_res['step_ms']:.3f} ms, idle "
+        f"{tu_res['idle']:.3f} ({card})")
     log(f"  path 13: train step {xg_res['step_ms']:.3f} ms, training "
         f"accuracy {xg_res['acc']:.4f}; {xg_res['explanations_per_s']:.6g} "
         f"explanations/s, {xg_res['per_epoch']} launches an epoch; path 14: "
@@ -6238,8 +6879,10 @@ def main():
         "replaces": "dig_tpu/ops/pallas_segment.py:156",
         "launches": (fs_res["launches"] + ls_res["kernel_launches"]
                      + ssl_res["launches"] + xg_res["launches"]
-                     + gs_res["launches"]),
-        "max_abs_err": max(seg_err, ls_err, ssl_err, xs_err),
+                     + gs_res["launches"] + par_res["dp_launches"]
+                     + sum(r["launches"] for r in par_res["gp"].values())
+                     + tu_res["launches"]),
+        "max_abs_err": max(seg_err, ls_err, ssl_err, xs_err, par_err),
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     for kind, i in (("fwd", 0), ("bwd", 1), ("bwd2", 2)):
@@ -6312,9 +6955,10 @@ def main():
         "timed in phase 15, f32), device time with the host ahead, as are "
         "plain_ms and library_ms (per shape the faster of index_add_ and "
         "segment_reduce); launches from path 4a's timed steps, the timed "
-        "epochs of paths 9 and 10, path 13's timed explain_batch and path "
-        "14's training; max_abs_err the largest of phases 12, 36, 39 and "
-        "50)")
+        "epochs of paths 9 and 10, path 13's timed explain_batch, path "
+        "14's training, path 16's DP step and timed GP steps and path 17's "
+        "3 profiled steps; max_abs_err the largest of phases 12, 36, 39, "
+        "50 and 54)")
     log("  (cfconv ms, plain_ms and bound_ms: one call per bucket, summed "
         "over the 3 buckets = one layer of one step; triplet_slot fwd/bwd: "
         "one call = one layer of one energy step (main path 2), no "
@@ -6330,8 +6974,9 @@ def main():
     log(f"  total {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
-                                             "count": count}}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
 
 
 if __name__ == "__main__":

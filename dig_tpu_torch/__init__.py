@@ -17,8 +17,9 @@ Layering (mirrors ``dig_tpu``):
   nn            shared blocks and initializers
   models        SchNet, SchNetDense, SphereNet, DimeNetPP, ComENet,
                 ComENetOCP, ProNet
-  train         train steps (energy, energy+force, bucketed), Run3D,
-                checkpoints, metrics
+  train         train state and steps (energy, energy+force, bucketed),
+                Run3D, checkpoints, metrics, the step profiler, NaN
+                checks, in-place update and collective self-checks
   threed        evaluator, Run3D / run
   datasets      QM93D, MD17, synthetic molecules and crystals, the flat,
                 bucketed and dense loaders, the protein data and loader,
@@ -41,6 +42,12 @@ Layering (mirrors ``dig_tpu``):
                 GNNExplainer, PGExplainer, SubgraphX and the Shapley
                 family, GradCAM, GNN-GI, DeepLIFT, FlowX, GNN-LRP; the
                 fidelity metrics and the synthetic benchmark data
+  oodgraph      GOOD datasets and OOD splits (numpy)
+  fairgraph     Graphair (dense products) and the fair-graph data
+  parallel      the partitioner and, on torch.distributed (one process
+                a rank), device meshes, data / graph / tensor / pipeline /
+                expert parallelism and the halo exchanges; the GP models'
+                neighbour sums through the sorted-CSR kernel
   config        the configuration tree
   convert       flax parameter trees -> torch modules
 """

@@ -532,3 +532,80 @@ def pgexplainer_from_flax(variables: Mapping, mlp: _EdgeMLP) -> _EdgeMLP:
     t.dense(mlp.lin1, "Dense_0")
     t.dense(mlp.lin2, "Dense_1")
     return t.finish(mlp)
+
+
+# ---------------------------------------------------------------------------
+# fairgraph
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def graphair_from_flax(params: Mapping, model):
+    """The four flax trees of a JAX ``Graphair`` (``fit_whole``'s
+    ``{"aug", "enc", "adv", "proj"}``, each the module's variables) into a
+    port ``Graphair``'s modules, for ``prepare`` and the step functions
+    (``fit_whole`` draws its own weights)."""
+    t, _ = _vars(params["aug"])
+    aug = model.aug
+    t.dense(aug.body.layers[0], "GCNBody_0/Dense_0")
+    t.dense(aug.edge_out, "Dense_0")
+    t.dense(aug.edge_in, "Dense_1")
+    t.dense(aug.mask_out, "Dense_2")
+    t.dense(aug.mask_in, "Dense_3")
+    t.finish(aug)
+    t, _ = _vars(params["enc"])
+    for i, lin in enumerate(model.enc.layers):
+        t.dense(lin, f"Dense_{i}")
+    t.finish(model.enc)
+    t, _ = _vars(params["adv"])
+    t.dense(model.adv.lin1, "Dense_0")
+    t.dense(model.adv.lin2, "Dense_1")
+    t.finish(model.adv)
+    t, _ = _vars(params["proj"])
+    t.dense(model.proj.lin_out, "Dense_0")
+    t.dense(model.proj.lin_in, "Dense_1")
+    t.finish(model.proj)
+    return model
+
+
+@torch.no_grad()
+def fair_classifier_from_flax(variables: Mapping, clf):
+    """A flax ``fairgraph`` ``Classifier``'s variables into ``clf``."""
+    t, _ = _vars(variables)
+    t.dense(clf.lin, "Dense_0")
+    return t.finish(clf)
+
+
+# ---------------------------------------------------------------------------
+# parallel: the graph-parallel models
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def gp_model_from_flax(variables: Mapping, model):
+    """A flax ``GPGCN`` / ``GPGCN2`` / ``GPPNA`` / ``GPSchNet``'s variables
+    into the port's module of the same class and sizes."""
+    from .parallel.gp_models import GPGCN, GPGCN2, GPPNA, GPSchNet
+    t, _ = _vars(variables)
+    if isinstance(model, GPGCN):
+        for i, lin in enumerate(model.lins):
+            t.dense(lin, f"Dense_{i}")
+    elif isinstance(model, GPGCN2):
+        lins = [model.lin_in, *model.convs, model.lin_out]
+        for i, lin in enumerate(lins):
+            t.dense(lin, f"Dense_{i}")
+    elif isinstance(model, GPPNA):
+        for i, lin in enumerate([*model.lins, model.lin_out]):
+            t.dense(lin, f"Dense_{i}")
+    elif isinstance(model, GPSchNet):
+        t.put(model.embedding.weight, t.take("Embed_0/embedding"))
+        for l, layer in enumerate(model.layers):
+            t.dense(layer.lin_vj, f"Dense_{3 * l}")
+            for k, lin in enumerate(layer.mlp.layers):
+                t.dense(lin, f"MLP_{l}/Dense_{k}")
+            t.dense(layer.lin1, f"Dense_{3 * l + 1}")
+            t.dense(layer.lin2, f"Dense_{3 * l + 2}")
+        L = len(model.layers)
+        t.dense(model.out1, f"Dense_{3 * L}")
+        t.dense(model.out2, f"Dense_{3 * L + 1}")
+    else:
+        raise TypeError(f"not a graph-parallel model: {type(model)}")
+    return t.finish(model)

@@ -10,15 +10,34 @@ it); only the module map differs (``_TORCH_MODULES``).
 from __future__ import annotations
 
 import functools
+import importlib
 import math
 import re
 from typing import Callable, List, Tuple
 
 import numpy as np
-import sympy as sym
 import torch
-from scipy import special as sp
-from scipy.optimize import brentq
+
+
+class _LazyModule:
+    """A module imported at its first attribute access: sympy and scipy
+    take seconds to import, and most importers of this module (every
+    process that imports the package) never build a closed form."""
+
+    def __init__(self, name: str):
+        self._name = name
+
+    def __getattr__(self, attr):
+        return getattr(importlib.import_module(self._name), attr)
+
+
+sym = _LazyModule("sympy")
+sp = _LazyModule("scipy.special")
+
+
+def brentq(*args, **kwargs):
+    from scipy.optimize import brentq as _brentq
+    return _brentq(*args, **kwargs)
 
 
 def _Jn(r: float, n: int) -> float:

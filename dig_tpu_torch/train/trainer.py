@@ -1,5 +1,6 @@
 """Training steps and the epoch driver. Port of ``dig_tpu/train/trainer.py``
-(``make_step_fns``, ``step_lr``, ``Run3D``, ``evaluate``), of the
+(``make_train_state``, ``make_step_fns``, ``step_lr``, ``Run3D``,
+``evaluate``), of the
 bucketed dense step of ``bench.py:787-800`` and of the bucketed SphereNet
 force step of ``bench.py:238-256``.
 
@@ -16,6 +17,9 @@ epoch loop (Adam or AdamW, StepLR, best-valid checkpoints).
 """
 from __future__ import annotations
 
+import contextlib
+import copy
+import dataclasses
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -29,8 +33,35 @@ from .metrics import MetricLogger, Throughput
 Batches = Dict[int, DenseGraphBatch]
 Buckets = Dict[int, GraphBatch]
 
-_UNPORTED = ("is not ported: train/profiling.py and train/debug.py are "
-             "ROADMAP queue 1 item 17")
+
+@dataclasses.dataclass
+class TrainState:
+    """The port's train state: the module (holding its weights), its
+    optimizer and the number of steps taken. The JAX ``TrainState`` holds
+    ``params``, ``opt_state`` and ``step`` as values; here the steps of
+    :func:`make_step_fns` update ``model`` and ``optimizer`` in place."""
+
+    model: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+    step: int = 0
+
+
+def make_train_state(model: Callable[[torch.Generator], torch.nn.Module],
+                     optimizer: Callable[..., torch.optim.Optimizer],
+                     example_batch, seed: int = 42) -> TrainState:
+    """The JAX ``make_train_state(model, optimizer, example_batch, seed)``
+    in PyTorch's idiom. ``model`` builds the module from a
+    ``torch.Generator`` seeded with ``seed`` (the JAX
+    ``model.init(PRNGKey(seed), ...)``); the module runs once on
+    ``example_batch`` without gradients, so that layers sized by their
+    first input exist. ``optimizer`` builds the optimizer from the
+    module's trainable parameters (the optax transformation's ``init``).
+    Returns ``TrainState(model, optimizer, step=0)``."""
+    model = model(torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        model(example_batch)
+    return TrainState(model=model, optimizer=optimizer(_trainable(model)),
+                      step=0)
 
 
 def _masked_mean(err: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -264,15 +295,16 @@ class Run3D:
         "best_test", "model", "optimizer"}``. ``device`` (default: the
         card) is where the batches and the model go. ``seed`` seeds the
         training loader's shuffle (the model's weights are set when it is
-        built). ``profile_dir`` and ``debug`` raise: the profiler and the
-        NaN/donation checks are not ported."""
+        built). ``profile_dir``: write a ``torch.profiler`` Chrome trace of
+        steps 10-14 of the run there (:class:`~dig_tpu_torch.train.
+        profiling.StepProfiler`). ``debug``: assert that a step updates the
+        weights and optimizer state in place (on a copy of the model), then
+        train under NaN checks (:mod:`dig_tpu_torch.train.debug`)."""
         from ..datasets.loader import MoleculeLoader
         from ..ops.radius import _pairwise_same_graph, radius_blocked_dropped
+        from .debug import assert_donation_discipline, debug_mode
+        from .profiling import StepProfiler
 
-        if profile_dir:
-            raise NotImplementedError(f"profile_dir {_UNPORTED}")
-        if debug:
-            raise NotImplementedError(f"debug {_UNPORTED}")
         dev = resolve_device(device)
         model.to(dev)
         # slot_size: slot-aligned batches (one molecule per fixed slot),
@@ -320,49 +352,70 @@ class Run3D:
             from .checkpoint import Checkpointer
             ckpt_mgr = Checkpointer(save_dir)
 
-        for epoch in range(1, epochs + 1):
-            tp.reset()
-            losses = []
-            for g in train_loader:
-                losses.append(train_step(g)["loss"])
-                scheduler.step()
-                if not cutoff:
-                    continue
-                n_edges = count_edges(g)
-                tp.update(n_edges)
-                # static caps silently drop edges: surface it once
-                if max_edges and n_edges > max_edges and not overflow_warned:
-                    print(f"WARNING: batch has {n_edges} radius edges > "
-                          f"model.max_edges={max_edges}; overflow is "
-                          "dropped — raise max_edges", flush=True)
-                    overflow_warned = True
-                # the blocked builder drops cross-block same-graph pairs
-                # when the batch is not slot-aligned
-                if block_size and not blocked_warned:
-                    n_drop = int(radius_blocked_dropped(
-                        g.nodes["pos"], g.node_graph, g.node_mask, cutoff,
-                        block_size))
-                    if n_drop:
-                        print(f"WARNING: {n_drop} radius pairs cross block "
-                              "boundaries and are DROPPED by the blocked "
-                              "builder — feed slot-aligned batches "
-                              f"(MoleculeLoader(slot_size={block_size}))",
-                              flush=True)
-                        blocked_warned = True
-            train_loss = float(np.mean([float(x) for x in losses]))
-            valid_mae = evaluate(eval_step, valid_loader, evaluator)
-            test_mae = evaluate(eval_step, test_loader, evaluator)
-            logger.log(epoch, {"train_loss": train_loss,
-                               "valid_mae": valid_mae, "test_mae": test_mae,
-                               **tp.rates()}, prefix="")
-            if valid_mae < best_valid:
-                best_valid, best_test = valid_mae, test_mae
-                if ckpt_mgr is not None:
-                    ckpt_mgr.save({"model": model.state_dict(),
-                                   "optimizer": optimizer.state_dict()},
-                                  step=epoch,
-                                  metrics={"valid_mae": valid_mae,
-                                           "test_mae": test_mae})
+        total_steps = epochs * len(train_loader)
+        prof = StepProfiler(profile_dir or None,
+                            start_step=min(10, max(total_steps - 5, 0)))
+        if debug:
+            # the check takes steps, so it runs on a copy
+            scratch = copy.deepcopy(model)
+            opt2 = type(optimizer)(_trainable(scratch),
+                                   **optimizer.defaults)
+            step2, _ = make_step_fns(scratch, opt2,
+                                     energy_and_force=energy_and_force, p=p,
+                                     loss=loss)
+            example = next(iter(valid_loader))
+            assert_donation_discipline(step2, TrainState(scratch, opt2),
+                                       example)
+        dbg_ctx = debug_mode() if debug else contextlib.nullcontext()
+
+        with dbg_ctx:
+            for epoch in range(1, epochs + 1):
+                tp.reset()
+                losses = []
+                for g in train_loader:
+                    with prof.step():
+                        losses.append(train_step(g)["loss"])
+                    scheduler.step()
+                    if not cutoff:
+                        continue
+                    n_edges = count_edges(g)
+                    tp.update(n_edges)
+                    # static caps silently drop edges: surface it once
+                    if (max_edges and n_edges > max_edges
+                            and not overflow_warned):
+                        print(f"WARNING: batch has {n_edges} radius edges > "
+                              f"model.max_edges={max_edges}; overflow is "
+                              "dropped — raise max_edges", flush=True)
+                        overflow_warned = True
+                    # the blocked radius graph drops cross-block same-graph
+                    # pairs when the batch is not slot-aligned
+                    if block_size and not blocked_warned:
+                        n_drop = int(radius_blocked_dropped(
+                            g.nodes["pos"], g.node_graph, g.node_mask,
+                            cutoff, block_size))
+                        if n_drop:
+                            print(f"WARNING: {n_drop} radius pairs cross "
+                                  "block boundaries and are DROPPED by the "
+                                  "blocked radius graph — feed slot-aligned "
+                                  "batches (MoleculeLoader(slot_size="
+                                  f"{block_size}))", flush=True)
+                            blocked_warned = True
+                train_loss = float(np.mean([float(x) for x in losses]))
+                valid_mae = evaluate(eval_step, valid_loader, evaluator)
+                test_mae = evaluate(eval_step, test_loader, evaluator)
+                logger.log(epoch, {"train_loss": train_loss,
+                                   "valid_mae": valid_mae,
+                                   "test_mae": test_mae, **tp.rates()},
+                           prefix="")
+                if valid_mae < best_valid:
+                    best_valid, best_test = valid_mae, test_mae
+                    if ckpt_mgr is not None:
+                        ckpt_mgr.save({"model": model.state_dict(),
+                                       "optimizer": optimizer.state_dict()},
+                                      step=epoch,
+                                      metrics={"valid_mae": valid_mae,
+                                               "test_mae": test_mae})
+        prof.stop()
         logger.close()
         return {"best_valid": best_valid, "best_test": best_test,
                 "model": model, "optimizer": optimizer}

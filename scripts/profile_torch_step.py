@@ -1,6 +1,6 @@
 """Where the time of one of the port's train steps goes, on one card.
 
-    python scripts/profile_torch_step.py [schnet_dense|spherenet|spherenet_force|schnet_force|spherenet_flat|spherenet_nk_force|dimenetpp_nk|spherenet_pt_force|comenet_force|comenet_ocp_force|pronet|lsgraph|ssl|ggraph|ggraph_gen|gspherenet|gspherenet_gen] [--root DIR]
+    python scripts/profile_torch_step.py [schnet_dense|spherenet|spherenet_force|schnet_force|spherenet_flat|spherenet_nk_force|dimenetpp_nk|spherenet_pt_force|comenet_force|comenet_ocp_force|pronet|lsgraph|ssl|ggraph|ggraph_gen|gspherenet|gspherenet_gen|graphair|gp] [--root DIR]
 
 ``--root`` names the checkout whose ``dig_tpu_torch`` runs (default: this
 one), e.g. the parent unpacked with ``git archive``, so that two versions
@@ -57,7 +57,15 @@ Adam(1e-3); a step is one NLL step over a batch of 16 placement steps, the
 batches collated and moved to the card before timing, the dequantisation
 noise drawn on the host) and ``gspherenet_gen`` its generation (a step is
 one lockstep batch of 32 molecules, max_atoms 9, from the seeded weights:
-eight atom steps on the card, read once at the end).
+eight atom steps on the card, read once at the end); ``graphair`` runs
+main path 15 (Graphair at fairgraph.run()'s widths on
+synthetic_fair_graph(8192, avg_deg=16): a step is one epoch after the
+first, one adversary and one main step, the uniforms drawn on the card);
+``gp`` runs main path 16's GPGCN2 (hidden 128, 3 layers, Adam(1e-3),
+node_class_loss) on bench_lsgraph's 60,000-node graph in one part through
+the GP engine, in a process group of one rank (NCCL, made here unless
+one exists), its neighbour sums and their adjoints through the sorted-CSR
+kernel.
 Traces a few steady
 steps with torch.profiler and prints the
 step's host time, the device's busy and idle share, device time by
@@ -383,6 +391,48 @@ def gspherenet_gen(dev, steps):
     return step, list(range(steps))
 
 
+def graphair(dev, steps):
+    """Path 15: one fit_whole epoch after the first a step (an adversary
+    and a main step, uniforms drawn on the card)."""
+    smoke = _chip_smoke()
+    from dig_tpu_torch.fairgraph import Graphair
+    data = smoke.fg_data()
+    m = smoke.fg_model(torch, data, dev)
+    n, f = data["x"].shape
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def step(_):
+        m.adv_step(Graphair.draw(gen, n, f))
+        m.main_step(Graphair.draw(gen, n, f))
+    return step, list(range(steps))
+
+
+def gp(dev, steps):
+    """Path 16: GPGCN2's GP engine step on the 60,000-node graph in one
+    part, in a one-rank process group."""
+    import tempfile
+
+    import torch.distributed as dist
+    smoke = _chip_smoke()
+    from dig_tpu_torch.parallel import init_local, make_gp_engine, make_mesh
+    from dig_tpu_torch.parallel.gp import node_class_loss
+    from dig_tpu_torch.parallel.gp_models import GPGCN2
+    if not dist.is_initialized():
+        init_local(0, 1, os.path.join(tempfile.mkdtemp(), "store"), "nccl")
+    g = smoke.large_graph()
+    case = smoke.gp_case(torch, "GPGCN2", g["senders"], g["receivers"],
+                         g["x"], g["y"], g["train_mask"], node_class_loss)
+    mod = GPGCN2(g["x"].shape[1], smoke.GP_HIDDEN, int(g["y"].max()) + 1,
+                 smoke.GP_LAYERS,
+                 generator=torch.Generator().manual_seed(0)).to(dev)
+    _, step, _ = make_gp_engine(make_mesh((1,), ("data",)), mod,
+                                torch.optim.Adam(mod.parameters(), 1e-3),
+                                case["H"], case["C"],
+                                loss_fn=node_class_loss, axis="data")
+    return (lambda _: step(case["g"], case["x"], case["y"],
+                           case["mask"])), list(range(steps))
+
+
 def segment_report(calls, kernels, steps, busy_ms):
     """Device ms a step of each segment-sum kernel by call shape, from the
     calls chip_smoke.SegmentCalls noted."""
@@ -508,7 +558,7 @@ PATHS = {"schnet_dense": schnet_dense, "spherenet": spherenet,
          "comenet_ocp_force": comenet_ocp_force, "pronet": pronet,
          "lsgraph": lsgraph, "ssl": ssl, "ggraph": ggraph,
          "ggraph_gen": ggraph_gen, "gspherenet": gspherenet,
-         "gspherenet_gen": gspherenet_gen}
+         "gspherenet_gen": gspherenet_gen, "graphair": graphair, "gp": gp}
 
 
 def main():

@@ -7,8 +7,9 @@
   order);
 * the package namespaces mirror the JAX package's (the top level, ``ops``,
   ``models``, ``lsgraph``, ``ssl``, ``datasets``, ``auggraph``, ``chem``,
-  ``ggraph``, ``ggraph.models``, ``ggraph3d`` and ``xgraph``), less a
-  named list of names still to port, now empty;
+  ``ggraph``, ``ggraph.models``, ``ggraph3d``, ``xgraph``, ``oodgraph``,
+  ``fairgraph``, ``parallel`` and ``train``), less a named list of names
+  still to port, now empty;
 * no module of the port (the ``ggraph3d`` and ``xgraph`` ones among them),
   and not ``chip_smoke.py``, imports ``jax``, ``flax``, ``optax`` or
   ``dig_tpu`` (their import statements, read with ``ast``);
@@ -29,25 +30,33 @@ import dig_tpu
 import dig_tpu.auggraph
 import dig_tpu.chem
 import dig_tpu.datasets
+import dig_tpu.fairgraph
 import dig_tpu.ggraph
 import dig_tpu.ggraph.models
 import dig_tpu.ggraph3d
 import dig_tpu.lsgraph
 import dig_tpu.models
+import dig_tpu.oodgraph
 import dig_tpu.ops
+import dig_tpu.parallel
 import dig_tpu.ssl
+import dig_tpu.train
 import dig_tpu.xgraph
 import dig_tpu_torch
 import dig_tpu_torch.auggraph
 import dig_tpu_torch.chem
 import dig_tpu_torch.datasets
+import dig_tpu_torch.fairgraph
 import dig_tpu_torch.ggraph
 import dig_tpu_torch.ggraph.models
 import dig_tpu_torch.ggraph3d
 import dig_tpu_torch.lsgraph
 import dig_tpu_torch.models
+import dig_tpu_torch.oodgraph
 import dig_tpu_torch.ops
+import dig_tpu_torch.parallel
 import dig_tpu_torch.ssl
+import dig_tpu_torch.train
 import dig_tpu_torch.xgraph
 from dig_tpu.ops.pallas_triplet import fused_angle_product as j_angle
 from dig_tpu.ops.pallas_triplet import fused_triplet_product as j_product
@@ -58,15 +67,20 @@ from dig_tpu_torch.ops.segment_csr import csr_block_overflow, full_window
 from dig_tpu_torch.ops.triplet_product import (fused_angle_product,
                                                fused_triplet_product)
 
-# JAX names the port has not ported yet (none is left in these twelve
+# JAX names the port has not ported yet (none is left in these sixteen
 # namespaces); the port's own names beside the reference's (the JAX
-# package keeps spmm_bidir_sell in dig_tpu.ops.segment only)
+# package keeps spmm_bidir_sell in dig_tpu.ops.segment only; its train
+# namespace exports only the trainer's entry points and the debug and
+# profiling names, its parallel namespace not the partitioner's
+# refinement and edge cut; the port adds its process-group helpers)
 TO_PORT = {"dig_tpu": set(), "dig_tpu.ops": set(), "dig_tpu.models": set(),
            "dig_tpu.lsgraph": set(), "dig_tpu.ssl": set(),
            "dig_tpu.datasets": set(), "dig_tpu.auggraph": set(),
            "dig_tpu.chem": set(), "dig_tpu.ggraph": set(),
            "dig_tpu.ggraph.models": set(), "dig_tpu.ggraph3d": set(),
-           "dig_tpu.xgraph": set()}
+           "dig_tpu.xgraph": set(), "dig_tpu.oodgraph": set(),
+           "dig_tpu.fairgraph": set(), "dig_tpu.parallel": set(),
+           "dig_tpu.train": set()}
 PORT_ONLY = {"dig_tpu": {"resolve_device"},
              "dig_tpu.ops": {"fused_triplet_pt", "basis_pt", "pt_rows",
                              "cosine_cutoff", "gaussian_rbf", "MASK_DIST",
@@ -76,7 +90,17 @@ PORT_ONLY = {"dig_tpu": {"resolve_device"},
              "dig_tpu.ssl": set(), "dig_tpu.datasets": set(),
              "dig_tpu.auggraph": set(), "dig_tpu.chem": set(),
              "dig_tpu.ggraph": set(), "dig_tpu.ggraph.models": set(),
-             "dig_tpu.ggraph3d": set(), "dig_tpu.xgraph": set()}
+             "dig_tpu.ggraph3d": set(), "dig_tpu.xgraph": set(),
+             "dig_tpu.oodgraph": set(), "dig_tpu.fairgraph": set(),
+             "dig_tpu.parallel": {"refine_partition", "edge_cut",
+                                  "initialize", "init_local",
+                                  "spawn_local"},
+             "dig_tpu.train": {"Checkpointer", "partial_restore",
+                               "Throughput", "TrainState",
+                               "bucketed_force_loss", "dense_loss",
+                               "energy_force", "evaluate",
+                               "make_bucketed_step_fns",
+                               "make_dense_step_fns", "step_lr"}}
 REF = {"dig_tpu": (dig_tpu, dig_tpu_torch),
        "dig_tpu.ops": (dig_tpu.ops, dig_tpu_torch.ops),
        "dig_tpu.models": (dig_tpu.models, dig_tpu_torch.models),
@@ -89,7 +113,11 @@ REF = {"dig_tpu": (dig_tpu, dig_tpu_torch),
        "dig_tpu.ggraph.models": (dig_tpu.ggraph.models,
                                  dig_tpu_torch.ggraph.models),
        "dig_tpu.ggraph3d": (dig_tpu.ggraph3d, dig_tpu_torch.ggraph3d),
-       "dig_tpu.xgraph": (dig_tpu.xgraph, dig_tpu_torch.xgraph)}
+       "dig_tpu.xgraph": (dig_tpu.xgraph, dig_tpu_torch.xgraph),
+       "dig_tpu.oodgraph": (dig_tpu.oodgraph, dig_tpu_torch.oodgraph),
+       "dig_tpu.fairgraph": (dig_tpu.fairgraph, dig_tpu_torch.fairgraph),
+       "dig_tpu.parallel": (dig_tpu.parallel, dig_tpu_torch.parallel),
+       "dig_tpu.train": (dig_tpu.train, dig_tpu_torch.train)}
 
 
 def _rel(a, b):

@@ -79,14 +79,19 @@ def test_run3d_energy_and_force_two_epochs(tmp_path):
     assert set(state["optimizer"]) == {"state", "param_groups"}
 
 
-def test_run_is_run3d_and_unported_options_raise():
+def test_run_is_run3d_with_debug_and_profile(tmp_path):
+    """``run`` is ``Run3D``; ``debug`` (the in-place update check, then NaN
+    checks) and ``profile_dir`` (a Chrome trace of the window) run one
+    epoch, as the JAX package's ``tests/test_debug_profile.py:79``."""
     assert run is Run3D
     model = TSphereNet(device="cpu", **KW, **SLOT)
-    for opt in (dict(profile_dir="prof"), dict(debug=True)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 17"):
-            Run3D().run(_data(0, 4), _data(1, 4), _data(2, 4), model,
-                        ThreeDEvaluator(), epochs=1, batch_size=4,
-                        slot_size=A, device="cpu", **opt)
+    res = Run3D().run(_data(0, 8), _data(1, 4), _data(2, 4), model,
+                      ThreeDEvaluator(), epochs=1, batch_size=4,
+                      vt_batch_size=2, slot_size=A, quiet=True,
+                      device="cpu", debug=True,
+                      profile_dir=str(tmp_path / "p"))
+    assert np.isfinite(res["best_valid"])
+    assert len(list((tmp_path / "p").glob("trace_*.json"))) == 1
 
 
 def test_evaluate_matches_jax():
